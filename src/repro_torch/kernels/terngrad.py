@@ -1,0 +1,78 @@
+"""Fused TernGrad ternarize+pack / unpack+dequantize: the wrappers of the
+CUDA kernels in csrc/terngrad.cu and their plain-torch versions — the
+2-bit mirror of kernels/qsgd.py (same routing, checks and counters)."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build, prng, ref
+from repro_torch.kernels.qsgd import (_check, _launch_args, _on_card,
+                                      unpack_codes_plain)
+from repro_torch.kernels.ref import words_per_unit
+
+TERN_WIDTH = 2
+
+
+def terngrad_pack_plain(x, k0, k1, scale) -> torch.Tensor:
+    n, d = x.shape
+    dp = -(-d // 32) * 32
+    pos = torch.arange(dp, device=x.device)
+    u = prng.uniform_at(ref.words_from_i32(k0)[:, None],
+                        ref.words_from_i32(k1)[:, None], pos[None, :], d)
+    codes = ref.terngrad_codes_ref(F.pad(x, (0, dp - d)), u, scale[:, None])
+    codes = torch.where(pos < d, codes, 0)           # zero word padding
+    words = ref.pack_fields_tile(codes, TERN_WIDTH)
+    return ref.words_to_i32(words[:, :words_per_unit(d, TERN_WIDTH)])
+
+
+def terngrad_pack(x, k0, k1, scale) -> torch.Tensor:
+    """x (n, d) f32 units, per-unit int32 key words k0/k1 (n,) and scales
+    (n,) f32 (max|x| + 1e-12) -> (n, words_per_unit(d, 2)) int32 words of
+    codes sign(x)*Bernoulli(|x|/scale) + 1."""
+    n, d = x.shape
+    if not _on_card(x, k0, k1, scale):
+        return terngrad_pack_plain(x, k0, k1, scale)
+    _check(x, "x", torch.float32, (n, d))
+    _check(scale, "scale", torch.float32, (n,))
+    _check(k0, "k0", torch.int32, (n,))
+    _check(k1, "k1", torch.int32, (n,))
+    wpu = words_per_unit(d, TERN_WIDTH)
+    out = torch.empty((n, wpu), dtype=torch.int32, device=x.device)
+    if out.numel() == 0:
+        return out
+    build.check(build.library("terngrad").terngrad_pack(
+        x.data_ptr(), k0.data_ptr(), k1.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), n, d, wpu, *_launch_args(x.device)), "terngrad_pack")
+    terngrad_pack.launches += 1
+    return out
+
+
+terngrad_pack.launches = 0
+
+
+def terngrad_unpack_plain(words, scale, d: int) -> torch.Tensor:
+    return ref.terngrad_decode_ref(unpack_codes_plain(words, d, TERN_WIDTH),
+                                   scale[:, None])
+
+
+def terngrad_unpack(words, scale, d: int) -> torch.Tensor:
+    """(n, wpu) int32 words + per-unit payload scales (n,) f32 -> (n, d)
+    f32 (code - 1) * scale."""
+    n = words.shape[0]
+    if not _on_card(words, scale):
+        return terngrad_unpack_plain(words, scale, d)
+    wpu = words_per_unit(d, TERN_WIDTH)
+    _check(words, "words", torch.int32, (n, wpu))
+    _check(scale, "scale", torch.float32, (n,))
+    out = torch.empty((n, d), dtype=torch.float32, device=words.device)
+    if out.numel() == 0:
+        return out
+    build.check(build.library("terngrad").terngrad_unpack(
+        words.data_ptr(), scale.data_ptr(), out.data_ptr(), n, d, wpu,
+        *_launch_args(words.device)), "terngrad_unpack")
+    terngrad_unpack.launches += 1
+    return out
+
+
+terngrad_unpack.launches = 0

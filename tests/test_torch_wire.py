@@ -1,0 +1,161 @@
+"""The port's wire codecs and fused message buffers against the reference
+(core/wire.py, core/schedule.py): buffers byte-identical and decoded
+trees bitwise equal for QSGD and TernGrad x {layerwise, entire_model} x
+fusion {per-bucket, 64 KiB, one message}, plus the deterministic resnet9
+counts of BENCH_wire.json / BENCH_schedule.json.
+
+QSGD runs on dyadic gradients (entries in {0, ±0.25, ±0.5, ±1, ±2}): the
+l2 norm is in the payload, and torch and jnp sum squares in different
+orders, so only inputs whose sum of squares is exact in any order give
+equal norms. TernGrad's statistic is max|x|, which does not depend on
+order, so it runs on random normal gradients.
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_ref import jkey, reference
+
+FUSIONS = {"per_bucket": 0.0, "fused_64kib": float(1 << 16),
+           "one_shot": math.inf}
+
+RESNET9_SHAPES = {"conv0_b": (16,), "conv0_w": (3, 3, 3, 16),
+                  "conv1_b": (32,), "conv1_w": (3, 3, 16, 32),
+                  "conv2_b": (64,), "conv2_w": (3, 3, 32, 64),
+                  "head_b": (10,), "head_w": (64, 10),
+                  "res0a_w": (3, 3, 16, 16), "res0b_w": (3, 3, 16, 16),
+                  "res1a_w": (3, 3, 32, 32), "res1b_w": (3, 3, 32, 32),
+                  "res2a_w": (3, 3, 64, 64), "res2b_w": (3, 3, 64, 64)}
+MIXED_SHAPES = {"blocks": {"w": (3, 16, 8), "b": (3, 8)}, "embed": (20, 4),
+                "head": (4, 2), "scalar_gain": ()}
+
+
+def _grads(shapes, seed, dyadic):
+    """Same numpy gradients as a nested dict of arrays."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(s):
+        if dyadic:
+            return rng.choice(np.float32([0, .25, -.25, .5, -.5, 1, -1, 2,
+                                          -2]), s).astype(np.float32)
+        return rng.standard_normal(s).astype(np.float32)
+    return {k: (_grads(v, seed + 1, dyadic) if isinstance(v, dict)
+                else leaf(v)) for k, v in shapes.items()}
+
+
+def _to_torch(t):
+    return {k: _to_torch(v) if isinstance(v, dict) else torch.from_numpy(v)
+            for k, v in t.items()}
+
+
+def _to_jax(t):
+    return {k: _to_jax(v) if isinstance(v, dict) else jnp.asarray(v)
+            for k, v in t.items()}
+
+
+def _port_schedule(tree, gran, fusion):
+    from repro_torch.core.granularity import Granularity, stacked_mask
+    from repro_torch.core.plan import build_plan
+    from repro_torch.core.schedule import build_schedule
+    plan = build_plan(tree, stacked_mask(tree), Granularity(gran))
+    return build_schedule(plan, fusion)
+
+
+def _assert_trees_bitwise(jt, tt):
+    jl = jax.tree_util.tree_leaves(jt)
+    from repro_torch.convert import tree_leaves
+    tl = tree_leaves(tt)
+    assert len(jl) == len(tl)
+    for a, b in zip(jl, tl):
+        a = np.asarray(a)
+        assert a.shape == tuple(b.shape)
+        assert np.array_equal(a.view(np.uint32), b.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("fusion", sorted(FUSIONS))
+@pytest.mark.parametrize("gran", ["layerwise", "entire_model"])
+@pytest.mark.parametrize("comp", ["qsgd", "terngrad"])
+@pytest.mark.parametrize("shapes", ["resnet9", "mixed"])
+def test_message_buffers_byte_identical(shapes, comp, gran, fusion):
+    from repro_torch import random as R
+    from repro_torch.core.compressors import make_compressor
+    from repro_torch.core.wire import execute_schedule_wire, wire_codec
+    g = _grads(RESNET9_SHAPES if shapes == "resnet9" else MIXED_SHAPES,
+               seed=len(gran) + len(comp), dyadic=comp == "qsgd")
+    tg = _to_torch(g)
+    sched = _port_schedule(tg, gran, FUSIONS[fusion])
+    codec = wire_codec(make_compressor(comp))
+    tree, bufs = execute_schedule_wire(sched, codec, tg, R.key(4))
+    with reference() as ref:
+        jg = _to_jax(g)
+        jplan = ref.core.build_plan(jg, ref.core.stacked_mask(jg),
+                                    ref.core.Granularity(gran))
+        jsched = ref.core.build_schedule(jplan, FUSIONS[fusion])
+        jcodec = ref.core.wire_codec(ref.core.make_compressor(comp))
+        jtree, jbufs = jax.jit(lambda g, k: jsched.execute(
+            None, g, k, wire=jcodec))(jg, jkey(4))
+        assert len(jbufs) == len(bufs) == sched.num_messages
+        for jb, tb in zip(jbufs, bufs):
+            assert np.array_equal(np.asarray(jb), tb.numpy())
+        _assert_trees_bitwise(jtree, tree)
+
+
+@pytest.mark.parametrize("comp,expect", [
+    ("qsgd", {"per_bucket": (11, 90_896), "fused_64kib": (4, 90_868),
+              "one_shot": (1, 90_856)}),
+    ("terngrad", {"per_bucket": (11, 30_396), "fused_64kib": (4, 30_368),
+                  "one_shot": (1, 30_356)}),
+])
+def test_resnet9_wire_counts(comp, expect):
+    """BENCH_wire.json's resnet9 layerwise numbers, measured on the port's
+    real buffers."""
+    from repro_torch import random as R
+    from repro_torch.core.compressors import make_compressor
+    from repro_torch.core.wire import (execute_schedule_wire,
+                                       message_layouts, wire_codec)
+    tg = _to_torch(_grads(RESNET9_SHAPES, seed=1, dyadic=False))
+    codec = wire_codec(make_compressor(comp))
+    measured = set()
+    for name, fusion in FUSIONS.items():
+        sched = _port_schedule(tg, "layerwise", fusion)
+        assert sched.plan.num_units == 14 and sched.plan.num_dispatches == 11
+        _, bufs = execute_schedule_wire(sched, codec, tg, R.key(0))
+        total = sum(b.numel() for b in bufs)
+        assert (len(bufs), total) == expect[name], name
+        layouts = message_layouts(sched, codec)
+        assert [l.total_nbytes for l in layouts] == [b.numel() for b in bufs]
+        header = sum(l.header_nbytes for l in layouts)
+        measured.add(8 * (total - header))
+    want = 726_464 if comp == "qsgd" else 242_464
+    assert measured == {want}
+
+
+def test_codec_accounting_matches_reference():
+    from repro_torch.core.compressors import QSGD, TernGrad
+    from repro_torch.core.wire import wire_codec
+    with reference() as ref:
+        for levels in (1, 4, 16, 64):
+            c, jc = (wire_codec(QSGD(levels=levels)),
+                     ref.core.wire_codec(ref.core.QSGD(levels=levels)))
+            for d in (1, 31, 32, 700, 121002):
+                assert c.nbytes(d) == jc.nbytes(d)
+                assert c.payload_bits(d) == jc.payload_bits(d)
+                assert c.padding_bits(d) == jc.padding_bits(d)
+            assert c.comp.omega(100) == jc.comp.omega(100)
+        c, jc = wire_codec(TernGrad()), ref.core.wire_codec(
+            ref.core.TernGrad())
+        for d in (1, 31, 32, 700, 121002):
+            assert (c.nbytes(d), c.payload_bits(d)) == (jc.nbytes(d),
+                                                        jc.payload_bits(d))
+
+
+def test_unported_compressors_name_the_queue():
+    from repro_torch.core.compressors import make_compressor
+    for name in ("topk", "randomk", "signsgd", "natural", "threshold_v",
+                 "adaptive_threshold"):
+        with pytest.raises(NotImplementedError, match="Queue 1"):
+            make_compressor(name)
