@@ -23,7 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.convert import tree_leaves, tree_map
-from repro_torch.core.compressors import Compressor, Identity
+from repro_torch.core.compressors import Compressor, Identity, RandomK
 from repro_torch.core.granularity import Granularity
 from repro_torch.core.plan import build_plan
 from repro_torch.core.schedule import build_schedule
@@ -54,6 +54,10 @@ class CompressionConfig:
     def __post_init__(self):
         if self.strategy not in STRATEGIES:
             raise ValueError(f"unknown strategy {self.strategy!r}")
+        if self.strategy == "shared_random" and not isinstance(self.qw,
+                                                               RandomK):
+            raise ValueError("shared_random requires a RandomK worker "
+                             "compressor")
         if self.error_feedback and self.strategy not in (
                 "simulated", "allgather", "ring", "rs_stream"):
             raise ValueError("error feedback supports simulated/allgather/"
@@ -61,6 +65,22 @@ class CompressionConfig:
         if self.fusion_bytes is not None and not float(self.fusion_bytes) >= 0:
             raise ValueError(
                 f"fusion_bytes must be >= 0 or None, got {self.fusion_bytes!r}")
+
+
+def _simulated_wire_codec(cfg: CompressionConfig):
+    """The wire codec of cfg.qw for the simulated-worker harness, refusing
+    one whose payload is not bit-exact against sim (capacity-bounded
+    threshold records, or the lossy bf16 value cast): the simulated
+    strategy promises the exact operator."""
+    codec = wire_codec(cfg.qw, wire_dtype=cfg.wire_dtype,
+                       integrity=cfg.integrity)
+    if not codec.exact_sim:
+        raise ValueError(
+            f"{cfg.qw.name}: this wire format is not bit-exact against "
+            f"sim (capacity-bounded records, or the lossy bfloat16 value "
+            f"cast) while strategy='simulated' promises the exact "
+            f"operator — drop wire=True")
+    return codec
 
 
 def worker_mean(g: torch.Tensor) -> torch.Tensor:
@@ -79,7 +99,8 @@ def aggregate_simulated_workers(worker_grads, stacked,
     cfg.fusion_bytes streams the worker pass through a CommSchedule
     (bit-identical). `wire=True` materializes each worker's compression
     pass as real bit-packed message buffers (per-bucket messages unless
-    cfg.fusion_bytes says otherwise); the master Q_M pass stays dense."""
+    cfg.fusion_bytes says otherwise); the master Q_M pass stays dense.
+    A codec that is not sim-exact raises ValueError under wire=True."""
     n = tree_leaves(worker_grads)[0].shape[0]
     per_worker = tree_map(lambda x: torch.empty(x.shape[1:], dtype=x.dtype,
                                                 device="meta"), worker_grads)
@@ -88,8 +109,7 @@ def aggregate_simulated_workers(worker_grads, stacked,
           else build_schedule(plan, cfg.fusion_bytes))
     wkeys = fold_in(key[None], torch.arange(n))        # (n, 2) worker keys
     if wire:
-        codec = wire_codec(cfg.qw, wire_dtype=cfg.wire_dtype,
-                           integrity=cfg.integrity)
+        codec = _simulated_wire_codec(cfg)
         sched = build_schedule(plan, cfg.fusion_bytes or 0.0)
 
     if cfg.error_feedback:

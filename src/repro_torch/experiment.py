@@ -6,10 +6,12 @@ Same signatures, seeds and key derivation as the reference: the data of
 step i comes from fold_in(key, i), its aggregation key is
 fold_in(key, 10_000 + i), and the test batch from fold_in(key, 999_999).
 Per-worker gradients come from a loop over the contiguous batch shards.
-Compressed aggregation always goes through real wire payloads
-(aggregate_simulated_workers(..., wire=True)), which the reference pins
-bit-identical to its sim path — so on the card every step runs the
-hand-written pack/unpack kernels.
+The reference's train_cnn aggregates on its sim path. Here compressed
+aggregation goes through real wire payloads
+(aggregate_simulated_workers(..., wire=True)) whenever the codec is
+bit-identical to sim — every compressor but the capacity-bounded
+thresholds — so the numerics are the reference's either way and on the
+card those steps run the hand-written pack/unpack kernels.
 
 Float32 convolutions and matmuls run in full precision: train_cnn turns
 TF32 off (cuDNN would otherwise convolve in TF32 on the card).
@@ -29,6 +31,7 @@ from repro_torch.core.aggregation import (CompressionConfig,
                                           worker_mean)
 from repro_torch.core.compressors import make_compressor
 from repro_torch.core.granularity import Granularity, stacked_mask
+from repro_torch.core.wire import wire_codec
 from repro_torch.data.synthetic import classification_batch
 from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn
 from repro_torch.optim.schedules import piecewise_linear
@@ -73,8 +76,9 @@ def train_step(cfg: CNNConfig, comp: Optional[CompressionConfig], params,
     if comp is None:
         g = tree_map(worker_mean, wg)
     else:
+        wire = wire_codec(comp.qw, wire_dtype=comp.wire_dtype).exact_sim
         g, _ = aggregate_simulated_workers(wg, stacked_mask(params), comp,
-                                           key, wire=True)
+                                           key, wire=wire)
     params, vel = _momentum_step(params, vel, g, lr, momentum, nesterov)
     return params, vel, losses.mean()
 

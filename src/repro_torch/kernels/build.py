@@ -23,7 +23,7 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("qsgd.cu", "terngrad.cu")
+SOURCES = ("qsgd.cu", "terngrad.cu", "sign.cu", "pack.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -36,6 +36,10 @@ SIGNATURES = {
     "qsgd_unpack": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "terngrad_pack": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "terngrad_unpack": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "sign_pack": [_P, _P, _I, _I, _I, _I, _P],
+    "sign_unpack": [_P, _P, _I, _I, _I, _I, _P],
+    "fields_pack": [_P, _P, _I, _I, _I, _I, _I, _P],
+    "fields_unpack": [_P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 #: nvcc output of the last build in this process, by source

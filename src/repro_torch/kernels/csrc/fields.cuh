@@ -25,15 +25,16 @@ __device__ __forceinline__ uint32_t assemble_word(const uint32_t* codes,
   return w;
 }
 
-// Field p of one unit's packed words (reads the one or two words it spans).
+// Field p of one unit's packed words (reads the one or two words it spans),
+// for any width 1..32: every shift count stays in 0..31.
 __device__ __forceinline__ uint32_t extract_field(const uint32_t* words,
                                                   long long p, int width) {
   const long long b = p * width;
   const long long w = b >> 5;
   const int s = static_cast<int>(b & 31);
   uint32_t f = words[w] >> s;
-  if (s + width > 32) f |= words[w + 1] << (32 - s);
-  return f & ((1u << width) - 1u);
+  if (s + width > 32) f |= words[w + 1] << (32 - s);  // s >= 1 here
+  return f & (0xFFFFFFFFu >> (32 - width));
 }
 
 }  // namespace repro

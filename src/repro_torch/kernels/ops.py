@@ -1,6 +1,6 @@
 """Bucket entry points of the fused compress+pack kernels: what the wire
 codecs (core/wire.py) call, one kernel launch per bucket and direction
-(the JAX package's kernels/ops.py:274-438).
+(the JAX package's kernels/ops.py:274-522).
 
 A bucket is an (n, d) f32 matrix whose rows are compression units. The
 caller-side pieces stay here, outside the kernels, exactly as in the
@@ -14,14 +14,18 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels.pack import fields_pack, fields_unpack
 from repro_torch.kernels.qsgd import qsgd_pack, qsgd_unpack
 from repro_torch.kernels.ref import words_per_unit, words_to_i32
+from repro_torch.kernels.sign import sign_pack, sign_unpack
 from repro_torch.kernels.terngrad import terngrad_pack, terngrad_unpack
 
 __all__ = ["words_per_unit", "qsgd_pack_units", "qsgd_unpack_units",
            "qsgd_unpack_ef_units", "terngrad_pack_units",
            "terngrad_unpack_units", "terngrad_unpack_ef_units",
-           "pack_bytes_moved", "unpack_bytes_moved"]
+           "sign_pack_units", "sign_unpack_units", "sign_unpack_ef_units",
+           "fields_pack_units", "fields_unpack_units", "pack_fields",
+           "unpack_fields", "pack_bytes_moved", "unpack_bytes_moved"]
 
 
 def _split_keys(keys: torch.Tensor, device):
@@ -76,17 +80,68 @@ def terngrad_unpack_ef_units(words, scales, e2d, d: int):
     return xhat, e2d.to(torch.float32) - xhat
 
 
+def sign_pack_units(x2d) -> torch.Tensor:
+    """Fused signSGD encode: (n, d) f32 -> (n, words_per_unit(d, 1)) int32
+    sign words (bit = x >= 0). No statistic, no randomness."""
+    return sign_pack(x2d.to(torch.float32).contiguous())
+
+
+def sign_unpack_units(words, d: int) -> torch.Tensor:
+    """Fused signSGD decode: sign words -> (n, d) f32 in {-1, +1}."""
+    return sign_unpack(words.contiguous(), d)
+
+
+def sign_unpack_ef_units(words, e2d, d: int):
+    """signSGD decode + EF residual (caller-side subtract) -> (xhat, m)."""
+    xhat = sign_unpack_units(words, d)
+    return xhat, e2d.to(torch.float32) - xhat
+
+
+def fields_pack_units(f2d, width: int) -> torch.Tensor:
+    """Word-wise field packing of a bucket: (n, k) int fields (values
+    < 2**width) -> (n, words_per_unit(k, width)) int32 words, each unit's
+    leg separately word-padded with zero bits (the wire padding rule)."""
+    return fields_pack(f2d.to(torch.int32).contiguous(), width)
+
+
+def fields_unpack_units(words, k: int, width: int) -> torch.Tensor:
+    """Inverse of fields_pack_units -> (n, k) int32."""
+    return fields_unpack(words.contiguous(), k, width)
+
+
+def pack_fields(vals, width: int) -> torch.Tensor:
+    """(k,) int fields -> (words_per_unit(k, width),) int32 words."""
+    return fields_pack_units(vals[None], width)[0]
+
+
+def unpack_fields(words, k: int, width: int) -> torch.Tensor:
+    """Inverse of pack_fields -> (k,) int32."""
+    return fields_unpack_units(words[None], k, width)[0]
+
+
 # ---- bytes moved: what each kernel must read and write for one bucket ------
 
-def pack_bytes_moved(n: int, d: int, width: int) -> Dict[str, int]:
-    """One pack launch over an (n, d) bucket: the f32 units and the per-unit
-    key words and statistic read once, the packed words written once."""
-    return {"read": 4 * n * d + 12 * n,
+# per-unit 4-byte words a kernel reads beside its data: QSGD / TernGrad pack
+# read two key words and the statistic, their unpack the factor; the sign
+# and field kernels read none
+_PACK_UNIT_WORDS = {"qsgd": 3, "terngrad": 3, "sign": 0, "fields": 0}
+_UNPACK_UNIT_WORDS = {"qsgd": 1, "terngrad": 1, "sign": 0, "fields": 0}
+
+
+def pack_bytes_moved(n: int, d: int, width: int,
+                     family: str = "qsgd") -> Dict[str, int]:
+    """One pack launch over an (n, d) bucket: the 4-byte units (f32 values
+    or int32 fields) and the per-unit words read once, the packed words
+    written once."""
+    return {"read": 4 * n * d + 4 * _PACK_UNIT_WORDS[family] * n,
             "write": 4 * n * words_per_unit(d, width)}
 
 
-def unpack_bytes_moved(n: int, d: int, width: int) -> Dict[str, int]:
-    """One unpack launch: the packed words and per-unit factor read once,
-    the f32 units written once (the EF subtract is a separate pass)."""
-    return {"read": 4 * n * words_per_unit(d, width) + 4 * n,
+def unpack_bytes_moved(n: int, d: int, width: int,
+                       family: str = "qsgd") -> Dict[str, int]:
+    """One unpack launch: the packed words and the per-unit words read
+    once, the 4-byte units written once (the EF subtract is a separate
+    pass)."""
+    return {"read": (4 * n * words_per_unit(d, width)
+                     + 4 * _UNPACK_UNIT_WORDS[family] * n),
             "write": 4 * n * d}

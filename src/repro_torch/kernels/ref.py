@@ -36,6 +36,11 @@ def terngrad_codes_ref(x, u, scale) -> torch.Tensor:
     return torch.sign(x).to(torch.int64) * b + 1
 
 
+def sign_codes_ref(x) -> torch.Tensor:
+    """signSGD 1-bit codes: x >= 0 (-0.0 gives 1, NaN gives 0)."""
+    return (x >= 0).to(torch.int64)
+
+
 def qsgd_decode_ref(codes, fac, levels: int) -> torch.Tensor:
     """(codes - levels) * fac, with fac = nrm / levels divided by the caller."""
     return (codes - levels).to(torch.float32) * fac
@@ -43,6 +48,11 @@ def qsgd_decode_ref(codes, fac, levels: int) -> torch.Tensor:
 
 def terngrad_decode_ref(codes, scale) -> torch.Tensor:
     return (codes - 1).to(torch.float32) * scale
+
+
+def sign_decode_ref(codes) -> torch.Tensor:
+    """1-bit codes -> f32 +1 / -1."""
+    return (2 * codes - 1).to(torch.float32)
 
 
 def pack_fields_tile(fields: torch.Tensor, width: int) -> torch.Tensor:

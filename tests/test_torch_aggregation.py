@@ -5,7 +5,8 @@ over 3 chained steps, on the sim path and the real-wire path.
 Input families (the l2 norm is in the QSGD payload, and torch and jnp sum
 squares in different orders, so QSGD is bitwise only where the norms are
 equal):
-  * TernGrad: random normal gradients (its max|x| is order-free).
+  * TernGrad, signSGD, top-k, random-k: random normal gradients (no
+    statistic, or an order-free max|x|).
   * QSGD: "norm-exact" gradients — every unit the compressor sees has
     entries in {0, ±1, ±2, ±w}·2^-3 with a sum of squares t² exactly
     representable, so both frameworks compute the same norm t·2^-3. Under
@@ -114,7 +115,8 @@ def _flat_mean(tree) -> np.ndarray:
 @pytest.mark.parametrize("wire", [False, True])
 @pytest.mark.parametrize("ef", [False, True])
 @pytest.mark.parametrize("gran", ["layerwise", "entire_model"])
-@pytest.mark.parametrize("comp", ["qsgd", "terngrad"])
+@pytest.mark.parametrize("comp", ["qsgd", "terngrad", "signsgd", "topk",
+                                  "randomk"])
 def test_aggregate_simulated_workers_bitwise(comp, gran, ef, wire):
     from repro_torch import random as R
     from repro_torch.core.aggregation import aggregate_simulated_workers
@@ -170,7 +172,8 @@ def test_master_compression_bitwise(gran):
     _bitwise(_flat_mean(jout), _flat_mean(out))
 
 
-@pytest.mark.parametrize("comp", ["qsgd", "terngrad"])
+@pytest.mark.parametrize("comp", ["qsgd", "terngrad", "signsgd", "natural",
+                                  "topk", "randomk"])
 @pytest.mark.parametrize("gran", ["layerwise", "entire_model"])
 @pytest.mark.parametrize("fusion", [None, 0.0, 256.0, math.inf])
 def test_port_wire_path_equals_sim_path(comp, gran, fusion):
@@ -193,6 +196,34 @@ def test_port_wire_path_equals_sim_path(comp, gran, fusion):
             for wire in (True, False)]
     _bitwise(_flat_mean(runs[0][0]), _flat_mean(runs[1][0]))
     _bitwise(_flatten(plan, runs[0][1]), _flatten(plan, runs[1][1]))
+
+
+@pytest.mark.parametrize("comp", ["threshold_v", "adaptive_threshold"])
+def test_thresholds_refuse_the_simulated_wire_path(comp):
+    """Capacity-bounded threshold records are not sim-exact, so wire=True
+    under strategy='simulated' raises the reference's ValueError; the sim
+    path runs."""
+    from repro_torch import random as R
+    from repro_torch.core.aggregation import aggregate_simulated_workers
+    from repro_torch.core.granularity import stacked_mask
+    plan = _port_plan("layerwise")
+    wg = _unflatten(plan, _normal_flat(plan, np.random.default_rng(1)))
+    tg = _to_torch(wg)
+    with reference() as ref:
+        cfg, jcfg = _configs(ref, comp, "layerwise", False)
+        jg = _to_jax(wg)
+        with pytest.raises(ValueError) as jerr:
+            ref.core.aggregate_simulated_workers(
+                jg, ref.core.stacked_mask(jg), jcfg, jkey(0), wire=True)
+        with pytest.raises(ValueError) as err:
+            aggregate_simulated_workers(tg, stacked_mask(tg), cfg, R.key(0),
+                                        wire=True)
+        assert str(err.value) == str(jerr.value)
+        jout, _ = ref.core.aggregate_simulated_workers(
+            jg, ref.core.stacked_mask(jg), jcfg, jkey(0))
+        out, _ = aggregate_simulated_workers(tg, stacked_mask(tg), cfg,
+                                             R.key(0))
+        _bitwise(_flat_mean(jout), _flat_mean(out))
 
 
 @pytest.mark.parametrize("d", [2304, 121002])

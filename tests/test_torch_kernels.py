@@ -164,3 +164,9 @@ def test_bytes_moved_counts():
         "read": 4 * 4 * 121002 + 48, "write": 4 * 4 * 22688}
     assert ops.unpack_bytes_moved(4, 121002, 2) == {
         "read": 4 * 4 * 7563 + 16, "write": 4 * 4 * 121002}
+    assert ops.pack_bytes_moved(4, 121002, 1, "sign") == {
+        "read": 4 * 4 * 121002, "write": 4 * 4 * 3782}
+    assert ops.unpack_bytes_moved(4, 121002, 9, "fields") == {
+        "read": 4 * 4 * 34032, "write": 4 * 4 * 121002}
+    assert ops.pack_bytes_moved(4, 1210, 17, "fields") == {
+        "read": 4 * 4 * 1210, "write": 4 * 4 * 643}

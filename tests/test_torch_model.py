@@ -4,9 +4,10 @@ batches fed to both sides.
 
 Tolerances: convolutions sum in another order in torch than in XLA, so
 logits, loss and gradients agree to rtol=1e-4, atol=1e-5. Over three
-Algorithm-1 steps the dense loss agrees to 1e-4 relative; with TernGrad or
-QSGD, gradient ulps move a few stochastic codes (a unit's statistic, and
-|x| near a rounding threshold), so those losses agree to 1e-2 relative.
+Algorithm-1 steps the dense loss agrees to 1e-4 relative; with a
+compressor, gradient ulps move a few codes or selections (a unit's
+statistic, |x| near a rounding threshold, a sign near zero, a near-tie at
+the top-k boundary), so those losses agree to 1e-2 relative.
 """
 import jax
 import jax.numpy as jnp
@@ -99,7 +100,11 @@ def _jax_step(ref, jcfg, comp):
 @pytest.mark.parametrize("comp,gran,rtol", [
     (None, None, 1e-4),
     ("terngrad", "layerwise", 1e-2), ("terngrad", "entire_model", 1e-2),
-    ("qsgd", "layerwise", 1e-2), ("qsgd", "entire_model", 1e-2)])
+    ("qsgd", "layerwise", 1e-2), ("qsgd", "entire_model", 1e-2),
+    ("signsgd", "layerwise", 1e-2), ("natural", "layerwise", 1e-2),
+    ("topk", "layerwise", 1e-2), ("topk", "entire_model", 1e-2),
+    ("randomk", "layerwise", 1e-2), ("threshold_v", "layerwise", 1e-2),
+    ("adaptive_threshold", "layerwise", 1e-2)])
 def test_three_train_steps(comp, gran, rtol):
     from repro_torch import random as R
     from repro_torch.convert import tree_map

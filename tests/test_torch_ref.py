@@ -27,8 +27,9 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 _REF_MODULES = ("repro.core", "repro.core.wire", "repro.core.plan",
-                "repro.kernels.ops", "repro.kernels.prng",
-                "repro.kernels.qsgd", "repro.kernels.terngrad",
+                "repro.core.compressors", "repro.kernels.ops",
+                "repro.kernels.prng", "repro.kernels.qsgd",
+                "repro.kernels.terngrad", "repro.kernels.sign",
                 "repro.kernels.pack", "repro.models.cnn",
                 "repro.configs.resnet9_cifar", "repro.data.synthetic")
 
@@ -114,17 +115,30 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
     assert ops.qsgd_unpack_units(w, nrm, 70, 16, 6).shape == (3, 70)
     w, s = ops.terngrad_pack_units(x, keys)
     assert ops.terngrad_unpack_units(w, s, 70).shape == (3, 70)
+    w = ops.sign_pack_units(x)
+    assert ops.sign_unpack_units(w, 70).shape == (3, 70)
+    w = ops.fields_pack_units(torch.arange(210).reshape(3, 70), 8)
+    assert ops.fields_unpack_units(w, 70, 8).shape == (3, 70)
     assert kernels.launch_counts() == {
         "qsgd_pack": 0, "qsgd_unpack": 0, "terngrad_pack": 0,
-        "terngrad_unpack": 0}
+        "terngrad_unpack": 0, "sign_pack": 0, "sign_unpack": 0,
+        "fields_pack": 0, "fields_unpack": 0}
 
 
 def test_wrapper_rejects_a_device_without_a_kernel():
+    from repro_torch.kernels.pack import fields_pack, fields_unpack
     from repro_torch.kernels.qsgd import qsgd_pack
+    from repro_torch.kernels.sign import sign_pack, sign_unpack
     x = torch.zeros((1, 4), device="meta")
     k = torch.zeros((1,), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        qsgd_pack(x, k, k, torch.ones((1,), device="meta"), 16, 6)
+    w = torch.zeros((1, 4), dtype=torch.int32, device="meta")
+    calls = [lambda: qsgd_pack(x, k, k, torch.ones((1,), device="meta"),
+                               16, 6),
+             lambda: sign_pack(x), lambda: sign_unpack(w, 4),
+             lambda: fields_pack(w, 9), lambda: fields_unpack(w, 4, 9)]
+    for call in calls:
+        with pytest.raises(ValueError, match="no kernel"):
+            call()
 
 
 # ---- PRNG against jax.random -------------------------------------------------

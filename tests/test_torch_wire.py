@@ -1,8 +1,10 @@
 """The port's wire codecs and fused message buffers against the reference
 (core/wire.py, core/schedule.py): buffers byte-identical and decoded
-trees bitwise equal for QSGD and TernGrad x {layerwise, entire_model} x
-fusion {per-bucket, 64 KiB, one message}, plus the deterministic resnet9
-counts of BENCH_wire.json / BENCH_schedule.json.
+trees bitwise equal for QSGD, TernGrad, signSGD, top-k and random-k x
+{layerwise, entire_model} x fusion {per-bucket, 64 KiB, one message}
+(natural compression to the tolerance stated in test_torch_codecs.py),
+plus the deterministic resnet9 counts of BENCH_wire.json /
+BENCH_schedule.json.
 
 QSGD runs on dyadic gradients (entries in {0, ±0.25, ±0.5, ±1, ±2}): the
 l2 norm is in the payload, and torch and jnp sum squares in different
@@ -78,7 +80,8 @@ def _assert_trees_bitwise(jt, tt):
 
 @pytest.mark.parametrize("fusion", sorted(FUSIONS))
 @pytest.mark.parametrize("gran", ["layerwise", "entire_model"])
-@pytest.mark.parametrize("comp", ["qsgd", "terngrad"])
+@pytest.mark.parametrize("comp", ["qsgd", "terngrad", "signsgd", "topk",
+                                  "randomk"])
 @pytest.mark.parametrize("shapes", ["resnet9", "mixed"])
 def test_message_buffers_byte_identical(shapes, comp, gran, fusion):
     from repro_torch import random as R
@@ -104,13 +107,23 @@ def test_message_buffers_byte_identical(shapes, comp, gran, fusion):
         _assert_trees_bitwise(jtree, tree)
 
 
-@pytest.mark.parametrize("comp,expect", [
+SPARSE_COUNTS = {"per_bucket": (11, 7_272), "fused_64kib": (4, 7_244),
+                 "one_shot": (1, 7_232)}
+
+
+@pytest.mark.parametrize("comp,expect,bits", [
     ("qsgd", {"per_bucket": (11, 90_896), "fused_64kib": (4, 90_868),
-              "one_shot": (1, 90_856)}),
+              "one_shot": (1, 90_856)}, 726_464),
     ("terngrad", {"per_bucket": (11, 30_396), "fused_64kib": (4, 30_368),
-                  "one_shot": (1, 30_356)}),
+                  "one_shot": (1, 30_356)}, 242_464),
+    ("signsgd", {"per_bucket": (11, 15_220), "fused_64kib": (4, 15_192),
+                 "one_shot": (1, 15_180)}, 121_056),
+    ("natural", {"per_bucket": (11, 136_220), "fused_64kib": (4, 136_192),
+                 "one_shot": (1, 136_180)}, 1_089_056),
+    ("topk", SPARSE_COUNTS, 57_472),
+    ("randomk", SPARSE_COUNTS, 57_472),
 ])
-def test_resnet9_wire_counts(comp, expect):
+def test_resnet9_wire_counts(comp, expect, bits):
     """BENCH_wire.json's resnet9 layerwise numbers, measured on the port's
     real buffers."""
     from repro_torch import random as R
@@ -130,8 +143,7 @@ def test_resnet9_wire_counts(comp, expect):
         assert [l.total_nbytes for l in layouts] == [b.numel() for b in bufs]
         header = sum(l.header_nbytes for l in layouts)
         measured.add(8 * (total - header))
-    want = 726_464 if comp == "qsgd" else 242_464
-    assert measured == {want}
+    assert measured == {bits}
 
 
 def test_codec_accounting_matches_reference():
@@ -153,9 +165,55 @@ def test_codec_accounting_matches_reference():
                                                         jc.payload_bits(d))
 
 
-def test_unported_compressors_name_the_queue():
+@pytest.mark.parametrize("gran", ["layerwise", "entire_model"])
+def test_natural_message_buffers_within_tolerance(gran):
+    """Natural compression's buffers: the same layout, headers and sizes
+    as the reference, and every 9-bit code within the stated tolerance."""
+    from repro_torch import random as R
     from repro_torch.core.compressors import make_compressor
-    for name in ("topk", "randomk", "signsgd", "natural", "threshold_v",
-                 "adaptive_threshold"):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            make_compressor(name)
+    from repro_torch.core.wire import (execute_schedule_wire,
+                                       message_layouts, wire_codec)
+    from repro_torch.kernels import ops
+    from test_torch_codecs import _natural_codes_close
+    rng = np.random.default_rng(7)
+    g = {k: (rng.standard_normal(s) * 10.0 ** rng.uniform(-8, 0, s))
+         .astype(np.float32) for k, s in RESNET9_SHAPES.items()}
+    tg = _to_torch(g)
+    sched = _port_schedule(tg, gran, 0.0)
+    codec = wire_codec(make_compressor("natural"))
+    _, bufs = execute_schedule_wire(sched, codec, tg, R.key(4))
+    with reference() as ref:
+        jg = _to_jax(g)
+        jplan = ref.core.build_plan(jg, ref.core.stacked_mask(jg),
+                                    ref.core.Granularity(gran))
+        jsched = ref.core.build_schedule(jplan, 0.0)
+        jcodec = ref.core.wire_codec(ref.core.make_compressor("natural"))
+        _, jbufs = jax.jit(lambda g, k: jsched.execute(
+            None, g, k, wire=jcodec))(jg, jkey(4))
+    for jb, tb, layout in zip(jbufs, bufs, message_layouts(sched, codec)):
+        jb = np.asarray(jb)
+        assert jb.shape == tuple(tb.shape)
+        h = layout.header_nbytes
+        assert np.array_equal(jb[:h], tb[:h].numpy())
+        for j, bi in enumerate(layout.bucket_ids):
+            b = sched.plan.buckets[bi]
+            off, nb = layout.offsets[j], layout.unit_nbytes[j]
+            rows = [torch.from_numpy(buf[off:off + b.n * nb].copy())
+                    .view(torch.int32).reshape(b.n, -1)
+                    for buf in (jb, tb.numpy())]
+            jc, tc = (ops.fields_unpack_units(r, b.dim, 9).numpy() - 255
+                      for r in rows)
+            _natural_codes_close(jc, tc)
+
+
+def test_unported_compressors_name_the_queue():
+    """What this slice leaves out names its queue: the signSGD majority
+    vote and the integrity words."""
+    from repro_torch.core.compressors import SignSGD, make_compressor
+    from repro_torch.core.wire import SignSGDCodec, wire_codec
+    with pytest.raises(NotImplementedError, match="Queue 2, item 6"):
+        SignSGDCodec(comp=SignSGD()).majority_vote(
+            torch.zeros((3, 4), dtype=torch.uint8), 32)
+    for name in ("identity", "qsgd", "topk"):
+        with pytest.raises(NotImplementedError, match="Queue 1, item b"):
+            wire_codec(make_compressor(name), integrity=True)
