@@ -2,10 +2,15 @@
 
 Module names follow the JAX package so each counterpart is easy to find:
 `kernels/` (threefry, the plain tile oracles, the hand-written Hopper
-pack/unpack kernels and their wrappers), `core/` (compressors,
-granularity, UnitPlan, CommSchedule, wire codecs, Algorithm-1
-aggregation), `models/cnn.py`, `data/synthetic.py`, `optim/schedules.py`
-and `experiment.py` (the paper's train_cnn experiment).
+pack/unpack and majority-vote kernels and their wrappers), `core/`
+(compressors with their payload records, granularity, UnitPlan,
+CommSchedule, the fused and per-unit wire codecs with Fletcher-32
+integrity and the signSGD majority vote, the collectives, Algorithm-1
+aggregation on simulated workers and across ranks in
+`compressed_allreduce`, and the bits accounting), `launch/mesh.py` (rank
+processes and their process group), `models/cnn.py`, `data/synthetic.py`,
+`optim/schedules.py` and `experiment.py` (the paper's train_cnn
+experiment, on simulated workers or across ranks).
 
 Every entry point takes `device=` and defaults to "cuda"; asking for the
 card on a machine without one raises instead of running on the CPU.

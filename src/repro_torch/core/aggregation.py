@@ -1,19 +1,41 @@
-"""Algorithm 1 on simulated workers (the JAX package's
-core/aggregation.py:63-127, 479-620).
+"""Bidirectional compressed gradient aggregation, the paper's Algorithm 1
+(the JAX package's core/aggregation.py):
 
   worker i:  g_i -> Q_W(g_i) -> send
   master  :  Q_M( (1/n) Σ_i Q_W(g_i) )
 
+`compressed_allreduce` runs it across the ranks of a torch.distributed
+process group, each rank holding its own gradient tree; every rank plays
+master with the same key, so all ranks return the same result. The
+reference's shard_map axis becomes the group: `_worker_key` folds the
+rank into each unit key, and every collective is an all_gather followed
+by rank-order arithmetic (core/collectives.py). Strategies:
+
+  dense          the plain mean (optionally renormalized over `alive`).
+  simulated      Q_W then the dense mean of the decoded units.
+  allgather      all_gather the encoded payloads; every rank decodes all
+                 n and averages. With wire=True the packed bytes of each
+                 bucket cross the collective and the receive leg decodes
+                 all n x n_units rows with the per-unit codec, one launch
+                 per bucket.
+  rs_compress_ag reduce-scatter the dense gradient, compress the owned
+                 shard, all_gather the compressed shards.
+  shared_random  Random-k with the shared unit key: only the k values move.
+
+The streaming collectives (ring / rs_stream), fault injection, the trace
+recorder and telemetry are later slices and raise NotImplementedError.
+
 `aggregate_simulated_workers` is the paper-repro harness: worker
 gradients carry a leading worker axis n on one device. The per-worker
 pass is ONE batched execution over all n workers (the reference vmaps
-it): worker i's unit keys derive from fold_in(key, i). With wire=True
-every worker's compressed units travel as real packed message buffers
-(core/wire.py), bit-identical to the sim path. The worker mean is summed
-in worker order, ((w0 + w1) + w2) + ... then divided by n, so it does
-not depend on a reduction kernel's order.
-
-compressed_allreduce across real processes is ROADMAP.md Queue 1 item 8.
+it): worker i's unit keys derive from fold_in(key, i), so for stochastic
+compressors it equals compressed_allreduce(strategy='simulated') in
+distribution, not bit for bit (as in the reference: there the rank is
+folded into each unit key instead). With wire=True every worker's
+compressed units travel as real packed message buffers (core/wire.py),
+bit-identical to the sim path. The worker mean is summed in worker order,
+((w0 + w1) + w2) + ... then divided by n, so it does not depend on a
+reduction kernel's order.
 """
 from __future__ import annotations
 
@@ -21,12 +43,16 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
 from repro_torch.convert import tree_leaves, tree_map
-from repro_torch.core.compressors import Compressor, Identity, RandomK
+from repro_torch.core.collectives import all_gather, rank_mean, rank_sum
+from repro_torch.core.compressors import (Compressor, Identity, RandomK,
+                                          _f32, _k_of)
 from repro_torch.core.granularity import Granularity
-from repro_torch.core.plan import build_plan
-from repro_torch.core.schedule import build_schedule
+from repro_torch.core.plan import UnitPlan, build_plan
+from repro_torch.core.schedule import CommSchedule, build_schedule
 from repro_torch.core.wire import (execute_schedule_wire,
                                    execute_schedule_wire_with_state,
                                    wire_codec)
@@ -34,6 +60,9 @@ from repro_torch.random import fold_in
 
 STRATEGIES = ("dense", "simulated", "allgather", "rs_compress_ag",
               "shared_random", "ring", "rs_stream")
+
+#: strategies executed by the streaming ring collective (a later slice)
+STREAM_STRATEGIES = ("ring", "rs_stream")
 
 _MASTER_FOLD = 0x5EED
 
@@ -67,28 +96,282 @@ class CompressionConfig:
                 f"fusion_bytes must be >= 0 or None, got {self.fusion_bytes!r}")
 
 
-def _simulated_wire_codec(cfg: CompressionConfig):
-    """The wire codec of cfg.qw for the simulated-worker harness, refusing
-    one whose payload is not bit-exact against sim (capacity-bounded
-    threshold records, or the lossy bf16 value cast): the simulated
-    strategy promises the exact operator."""
+def worker_mean(g: torch.Tensor) -> torch.Tensor:
+    """Mean over the leading worker axis, summed in worker order."""
+    return rank_sum(g) / g.shape[0]
+
+
+def _master(cfg: CompressionConfig):
+    """Q_M on bucket rows with the master key of each unit (identical on
+    every rank, so every rank computes the same output)."""
+    if type(cfg.qm) is Identity:
+        return lambda xm, ukeys: xm
+    return lambda xm, ukeys: cfg.qm.sim(xm, fold_in(ukeys, _MASTER_FOLD))
+
+
+def _wire_codec_for(cfg: CompressionConfig, allgather_available=True):
+    """The wire codec of cfg.qw, validated for the strategy (the
+    reference's errors): wire=True runs simulated and allgather only, and
+    strategy='simulated' refuses a codec whose payload is not bit-exact
+    against sim (capacity-bounded records, or the lossy bf16 value cast).
+    `allgather_available=False` is the simulated-worker harness, which
+    has no allgather wire path to point the caller at."""
+    if cfg.strategy not in ("simulated", "allgather") + STREAM_STRATEGIES:
+        raise ValueError(
+            f"wire=True supports the simulated/allgather/ring/rs_stream "
+            f"strategies, not {cfg.strategy!r}")
     codec = wire_codec(cfg.qw, wire_dtype=cfg.wire_dtype,
                        integrity=cfg.integrity)
-    if not codec.exact_sim:
+    if cfg.strategy == "simulated" and not codec.exact_sim:
+        hint = ("run it under strategy='allgather', whose collective "
+                "carries the real (capacity-bounded / bf16-cast) payload"
+                if allgather_available else "drop wire=True")
         raise ValueError(
             f"{cfg.qw.name}: this wire format is not bit-exact against "
             f"sim (capacity-bounded records, or the lossy bfloat16 value "
             f"cast) while strategy='simulated' promises the exact "
-            f"operator — drop wire=True")
+            f"operator — {hint}")
     return codec
 
 
-def worker_mean(g: torch.Tensor) -> torch.Tensor:
-    """Mean over the leading worker axis, summed in worker order."""
-    acc = g[0]
-    for i in range(1, g.shape[0]):
-        acc = acc + g[i]
-    return acc / g.shape[0]
+# ---- across ranks: compressed_allreduce ------------------------------------
+
+def _wire(x: torch.Tensor, cfg: CompressionConfig) -> torch.Tensor:
+    """The dense wire dtype of the simulated / rs / shared legs."""
+    return x.to(torch.bfloat16) if cfg.wire_dtype == "bfloat16" else x
+
+
+def _cast_payload(payload: dict, cfg: CompressionConfig) -> dict:
+    """bf16 wire for the float legs of the payload records (indices and
+    quantized ints untouched)."""
+    if cfg.wire_dtype != "bfloat16":
+        return payload
+    return {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+            for k, v in payload.items()}
+
+
+def _gather_records(payload: dict, group) -> dict:
+    """Every rank's (n_units, ...) records -> (n * n_units, ...), in rank
+    order."""
+    return {k: all_gather(v, group).reshape((-1,) + tuple(v.shape[1:]))
+            for k, v in payload.items()}
+
+
+def _decode_gathered(qw, payload: dict, d: int, cfg, dtype, group):
+    """all_gather the rows' records and decode all of them -> (n, n_units,
+    d) in rank order."""
+    n_units = next(iter(payload.values())).shape[0]
+    rec = _gather_records(_cast_payload(payload, cfg), group)
+    return qw.decode(rec, d, dtype).reshape(-1, n_units, d)
+
+
+def _unit_simulated(cfg, group, wkey):
+    master = _master(cfg)
+
+    def fn(x, ukeys):
+        xw = cfg.qw.sim(x, wkey(ukeys))
+        return master(rank_mean(_wire(xw, cfg), group).to(x.dtype), ukeys)
+    return fn
+
+
+def _unit_simulated_ef(cfg, group, wkey):
+    master = _master(cfg)
+
+    def fn(x, m, ukeys):
+        e = x + m
+        xw = cfg.qw.sim(e, wkey(ukeys))
+        xm = rank_mean(_wire(xw, cfg), group).to(x.dtype)
+        return master(xm, ukeys), e - xw
+    return fn
+
+
+def _unit_allgather(cfg, group, wkey):
+    master = _master(cfg)
+
+    def fn(x, ukeys):
+        payload = cfg.qw.encode(x, wkey(ukeys))
+        dec = _decode_gathered(cfg.qw, payload, x.shape[1], cfg, x.dtype,
+                               group)
+        return master(worker_mean(dec), ukeys)
+    return fn
+
+
+def _unit_allgather_ef(cfg, group, wkey):
+    master = _master(cfg)
+
+    def fn(x, m, ukeys):
+        d = x.shape[1]
+        e = x + m
+        payload = cfg.qw.encode(e, wkey(ukeys))
+        m_new = e - cfg.qw.decode(_cast_payload(payload, cfg), d, x.dtype)
+        dec = _decode_gathered(cfg.qw, payload, d, cfg, x.dtype, group)
+        return master(worker_mean(dec), ukeys), m_new
+    return fn
+
+
+def _unit_rs_compress_ag(cfg, group, wkey, rank: int, n: int):
+    master = _master(cfg)
+
+    def fn(x, ukeys):
+        d = x.shape[1]
+        xp = _wire(F.pad(x, (0, (-d) % n)), cfg)
+        ds = xp.shape[1] // n
+        # reduce-scatter: this rank owns the rank-order sum of its chunk
+        g = all_gather(xp, group)[:, :, rank * ds:(rank + 1) * ds]
+        shard = rank_sum(g).to(x.dtype) / n
+        # positions >= d are padding: pinned to zero before encode, and
+        # the decoded tail forced back to zero before the trim
+        own = (rank * ds + torch.arange(ds, device=x.device)) < d
+        shard = torch.where(own, shard, 0.0)
+        dec = _decode_gathered(cfg.qw, cfg.qw.encode(shard, wkey(ukeys)), ds,
+                               cfg, x.dtype, group)
+        gmask = (torch.arange(n * ds, device=x.device) < d).reshape(n, 1, ds)
+        dec = torch.where(gmask, dec, 0.0)
+        xm = dec.permute(1, 0, 2).reshape(x.shape[0], n * ds)[:, :d]
+        return master(xm, ukeys)
+    return fn
+
+
+def _unit_shared_random(cfg, group):
+    qw, master = cfg.qw, _master(cfg)
+
+    def fn(x, ukeys):
+        d = x.shape[1]
+        idx = qw._indices(d, ukeys.to(x.device))   # the SHARED unit keys
+        vals = x.gather(1, idx)
+        if qw.scale:
+            vals = vals * _f32(d / _k_of(qw.ratio, d), vals)
+        vals = rank_mean(_wire(vals, cfg), group).to(x.dtype)
+        return master(torch.zeros_like(x).scatter_(1, idx, vals), ukeys)
+    return fn
+
+
+def _wire_post(cfg, group, codec):
+    """The post-decode leg of the wire pipeline: the collective + master
+    compression of _unit_simulated / _unit_allgather with Q_W replaced by
+    the bit-exact payload round trip (simulated) or the packed bytes
+    through the collective (allgather)."""
+    master = _master(cfg)
+    if cfg.strategy == "simulated":
+        def post(payload, xhat, ukeys, d):
+            xm = rank_mean(_wire(xhat, cfg), group).to(xhat.dtype)
+            return master(xm, ukeys)
+    else:  # allgather: the packed uint8 payload rows cross the collective
+        def post(payload, xhat, ukeys, d):
+            g = all_gather(payload, group)
+            dec = codec.decode_rows(g.reshape(-1, g.shape[-1]), d)
+            return master(worker_mean(dec.reshape(g.shape[0], -1, d)),
+                          ukeys)
+    return post
+
+
+def _executor(plan: UnitPlan, cfg: CompressionConfig,
+              schedule: Optional[CommSchedule]):
+    """What execution runs through: an explicit CommSchedule, the schedule
+    compiled from cfg.fusion_bytes, or the bare plan (all bit-identical)."""
+    if schedule is not None:
+        return schedule
+    if cfg.fusion_bytes is not None:
+        return build_schedule(plan, cfg.fusion_bytes)
+    return plan
+
+
+def _not_ported(what: str, queue: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
+                               f"Queue 1, {queue})")
+
+
+def compressed_allreduce(grads, stacked, cfg: CompressionConfig, group,
+                         key: torch.Tensor, n_workers: int, ef_state=None,
+                         plan: Optional[UnitPlan] = None,
+                         schedule: Optional[CommSchedule] = None,
+                         telemetry_plan=None, wire: bool = False,
+                         recorder=None, faults=None, alive=None):
+    """Aggregate this rank's gradient tree with bidirectional compression
+    across the ranks of `group` (a torch.distributed process group, None
+    for the default one) -> (grads_hat, new_ef_state), identical on every
+    rank. `n_workers` must be the group's size; `key` (2,) is the same on
+    every rank. `wire=True` materializes Q_W as real packed message
+    buffers (per-bucket messages unless cfg.fusion_bytes or `schedule`
+    says otherwise); under allgather their bucket regions cross the
+    collective. `alive` (strategy='dense' only) renormalizes the mean over
+    the ranks whose flag is set. The reference's streaming strategies and
+    its telemetry / recorder / faults hooks are later slices."""
+    if cfg.strategy in STREAM_STRATEGIES:
+        raise _not_ported(f"the streaming collective {cfg.strategy!r}",
+                          "item 8 (execute_schedule_stream)")
+    if faults is not None:
+        raise _not_ported("fault injection (faults=)", "item 13 (resil/)")
+    if recorder is not None:
+        raise _not_ported("the trace recorder (recorder=)", "item 12 (obs/)")
+    if telemetry_plan is not None:
+        raise _not_ported("telemetry (telemetry_plan=)",
+                          "item 11 (control/)")
+    rank, n = dist.get_rank(group), dist.get_world_size(group)
+    if n != n_workers:
+        raise ValueError(f"n_workers={n_workers} but the group has {n} ranks")
+    if alive is not None and cfg.strategy != "dense":
+        raise ValueError(
+            "partial participation (alive=...) is implemented for the "
+            "dense strategy here; for compressed aggregation use the "
+            "simulated-worker harness (aggregate_simulated_workers)")
+    if plan is None and schedule is not None:
+        plan = schedule.plan
+
+    if cfg.strategy == "dense":
+        if wire:
+            raise ValueError(
+                "wire=True with strategy='dense': the dense allreduce "
+                "moves raw tensors — there is no compressed payload to "
+                "pack; use strategy='simulated' with an identity "
+                "compressor for a packed dense-f32 baseline")
+        if alive is None:
+            return tree_map(lambda g: rank_mean(_wire(g, cfg), group)
+                            .to(g.dtype), grads), ef_state
+        me = float(bool(alive[rank]))
+        denom = float(sum(1.0 for a in alive if a))
+        return tree_map(lambda g: (rank_sum(all_gather(
+            _wire(g, cfg) * me, group)) / denom).to(g.dtype),
+            grads), ef_state
+
+    if not tree_leaves(grads):                       # nothing to aggregate
+        return grads, ef_state
+    if cfg.error_feedback and ef_state is None:
+        raise ValueError("error_feedback=True requires ef_state")
+    if plan is None:
+        plan = build_plan(grads, stacked, cfg.granularity)
+    ex = _executor(plan, cfg, schedule)
+
+    def wkey(ukeys):
+        return fold_in(ukeys, rank)
+
+    if wire:
+        codec = _wire_codec_for(cfg)
+        sched = (ex if isinstance(ex, CommSchedule)
+                 else build_schedule(plan, 0.0))
+        post = _wire_post(cfg, group, codec)
+        if cfg.error_feedback:
+            agg, ef, _bufs = execute_schedule_wire_with_state(
+                sched, codec, grads, ef_state, key, post, wkey)
+            return agg, ef
+        agg, _bufs = execute_schedule_wire(
+            sched, codec, grads, key, post, wkey,
+            decode_local=cfg.strategy == "simulated")
+        return agg, ef_state
+
+    if cfg.error_feedback:
+        fn = (_unit_simulated_ef if cfg.strategy == "simulated"
+              else _unit_allgather_ef)(cfg, group, wkey)
+        return ex.execute_with_state(fn, grads, ef_state, key)
+    if cfg.strategy == "simulated":
+        fn = _unit_simulated(cfg, group, wkey)
+    elif cfg.strategy == "allgather":
+        fn = _unit_allgather(cfg, group, wkey)
+    elif cfg.strategy == "rs_compress_ag":
+        fn = _unit_rs_compress_ag(cfg, group, wkey, rank, n)
+    else:  # shared_random
+        fn = _unit_shared_random(cfg, group)
+    return ex.execute(fn, grads, key), ef_state
 
 
 def aggregate_simulated_workers(worker_grads, stacked,
@@ -109,7 +392,10 @@ def aggregate_simulated_workers(worker_grads, stacked,
           else build_schedule(plan, cfg.fusion_bytes))
     wkeys = fold_in(key[None], torch.arange(n))        # (n, 2) worker keys
     if wire:
-        codec = _simulated_wire_codec(cfg)
+        codec = _wire_codec_for(
+            cfg if cfg.strategy == "simulated"
+            else dataclasses.replace(cfg, strategy="simulated"),
+            allgather_available=False)
         sched = build_schedule(plan, cfg.fusion_bytes or 0.0)
 
     if cfg.error_feedback:
@@ -138,7 +424,4 @@ def aggregate_simulated_workers(worker_grads, stacked,
         # Q_M = identity: the master pass returns its input bit for bit,
         # so skip its dispatches (and the per-unit master-key folds)
         return mean, new_ef
-
-    def master_fn(x, ukeys):
-        return cfg.qm.sim(x, fold_in(ukeys, _MASTER_FOLD))
-    return ex.execute(master_fn, mean, key), new_ef
+    return ex.execute(_master(cfg), mean, key), new_ef

@@ -9,8 +9,20 @@ of the (n, d) matrix is one compression unit and keys[i] its PRNG key
 vmapped over a bucket, written out as a batch dimension; the per-unit
 statistics (max, l2 norm, threshold) are taken over each row. Draws are
 bit-exact jax.random.uniform / bernoulli streams (kernels/prng.py).
-The sparse operators' `encode(x2d, keys)` gives their per-row records
-{"idx": (n, k) int64, "val": (n, k) f32}, the reference's vmapped encode.
+
+`encode(x2d, keys)` gives the unpacked payload records of every row and
+`decode(records, d)` the (n, d) units back: the reference's per-unit
+encode / decode vmapped over a bucket, with its record names and dtypes
+(each record gains a leading row axis). These are what the non-wire
+allgather and rs_compress_ag strategies gather (core/aggregation.py):
+
+  identity   {"dense": f32 (n, d)}
+  randomk /  {"idx": int32 (n, k), "val": f32 (n, k)}
+  topk / thresholds
+  terngrad   {"tern": int8 (n, d), "scale": f32 (n, 1)}
+  qsgd       {"lev": int8 (n, d), "norm": f32 (n, 1)}
+  signsgd    {"bits": uint8 (n, ceil(d/8))}, bit i in byte i//8 at i%8
+  natural    {"code": int16 (n, d)}
 
 Selection order is part of the wire (records travel in selection order):
 lax.top_k puts equal values in index order, so every top-k here is a
@@ -23,6 +35,7 @@ import math
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.prng import uniform_rows
 
@@ -50,6 +63,36 @@ def _keep(x2d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(x2d).scatter_(1, idx, x2d.gather(1, idx))
 
 
+def _records(idx: torch.Tensor, vals: torch.Tensor) -> dict:
+    """The sparse operators' wire records (int32 indices, as the
+    reference's encode gives them)."""
+    return {"idx": idx.to(torch.int32), "val": vals}
+
+
+def _scatter_records(payload: dict, d: int, dtype) -> torch.Tensor:
+    """Sparse records -> (n, d) zeros with the values at their (unique)
+    indices."""
+    val = payload["val"].to(dtype)
+    out = torch.zeros((val.shape[0], d), dtype=dtype, device=val.device)
+    return out.scatter_(1, payload["idx"].to(torch.int64), val)
+
+
+def pack_signs(bits: torch.Tensor) -> torch.Tensor:
+    """(n, d) {0,1} ints -> (n, ceil(d/8)) uint8, bit i in byte i//8 at
+    position i%8 (the reference's compressors.pack_signs per row)."""
+    n, d = bits.shape
+    b = F.pad(bits.to(torch.int64), (0, (-d) % 8)).reshape(n, -1, 8)
+    weights = 1 << torch.arange(8, dtype=torch.int64, device=bits.device)
+    return (b * weights).sum(dim=-1).to(torch.uint8)
+
+
+def unpack_signs(packed: torch.Tensor, d: int) -> torch.Tensor:
+    """Inverse of pack_signs -> (n, d) int32 {0, 1}."""
+    sh = torch.arange(8, dtype=torch.int64, device=packed.device)
+    bits = (packed.to(torch.int64)[..., None] >> sh) & 1
+    return bits.reshape(packed.shape[0], -1)[:, :d].to(torch.int32)
+
+
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
     """A Python scalar as an f32 tensor: the reference's weakly typed
     scalar rounds to f32 before it meets an f32 array."""
@@ -71,6 +114,15 @@ class Compressor:
 
     def sim(self, x2d: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
         return x2d
+
+    def encode(self, x2d: torch.Tensor, keys: torch.Tensor) -> dict:
+        """(n, d) units + (n, 2) keys -> the rows' payload records."""
+        return {"dense": x2d}
+
+    def decode(self, payload: dict, d: int,
+               dtype=torch.float32) -> torch.Tensor:
+        """Payload records of n rows -> (n, d) decoded units."""
+        return payload["dense"].to(dtype)
 
     def payload_bits(self, d: int) -> int:
         """Wire bits for one encoded unit of dimension d."""
@@ -118,7 +170,10 @@ class RandomK(Compressor):
         vals = x2d.gather(1, idx)
         if self.scale:
             vals = vals * _f32(d / _k_of(self.ratio, d), vals)
-        return {"idx": idx, "val": vals}
+        return _records(idx, vals)
+
+    def decode(self, payload, d, dtype=torch.float32):
+        return _scatter_records(payload, d, dtype)
 
     def payload_bits(self, d: int) -> int:
         return _k_of(self.ratio, d) * (32 + index_bits(d))
@@ -136,12 +191,18 @@ class TopK(Compressor):
     ratio: float = 0.01
     unbiased: bool = False
 
+    def _indices(self, x2d) -> torch.Tensor:
+        return _top_idx(x2d.abs(), _k_of(self.ratio, x2d.shape[1]))
+
     def encode(self, x2d, keys):
-        idx = _top_idx(x2d.abs(), _k_of(self.ratio, x2d.shape[1]))
-        return {"idx": idx, "val": x2d.gather(1, idx)}
+        idx = self._indices(x2d)
+        return _records(idx, x2d.gather(1, idx))
+
+    def decode(self, payload, d, dtype=torch.float32):
+        return _scatter_records(payload, d, dtype)
 
     def sim(self, x2d, keys):
-        return _keep(x2d, self.encode(x2d, keys)["idx"])
+        return _keep(x2d, self._indices(x2d))
 
     def payload_bits(self, d: int) -> int:
         return _k_of(self.ratio, d) * (32 + index_bits(d))
@@ -171,7 +232,10 @@ class _Threshold(Compressor):
         mag = torch.where(a >= self._thr(x2d), a, -1.0)
         idx = _top_idx(mag, _k_of(self.cap_ratio, x2d.shape[1]))
         vals = torch.where(mag.gather(1, idx) >= 0.0, x2d.gather(1, idx), 0.0)
-        return {"idx": idx, "val": vals}
+        return _records(idx, vals)
+
+    def decode(self, payload, d, dtype=torch.float32):
+        return _scatter_records(payload, d, dtype)
 
     def payload_bits(self, d: int) -> int:
         return _k_of(self.cap_ratio, d) * (32 + index_bits(d))
@@ -226,6 +290,14 @@ class TernGrad(Compressor):
         t, s = self._quantize(x2d.to(torch.float32), keys)
         return t.to(torch.float32) * s[:, None]
 
+    def encode(self, x2d, keys):
+        t, s = self._quantize(x2d.to(torch.float32), keys)
+        return {"tern": t, "scale": s[:, None]}
+
+    def decode(self, payload, d, dtype=torch.float32):
+        return (payload["tern"].to(torch.float32)
+                * payload["scale"]).to(dtype)
+
     def payload_bits(self, d: int) -> int:
         return 2 * d + 32  # 2-bit ternary + one f32 scale
 
@@ -261,6 +333,14 @@ class QSGD(Compressor):
         q, nrm = self._quantize(x2d.to(torch.float32), keys)
         return q.to(torch.float32) * (nrm / self.levels)[:, None]
 
+    def encode(self, x2d, keys):
+        q, nrm = self._quantize(x2d.to(torch.float32), keys)
+        return {"lev": q, "norm": nrm[:, None]}
+
+    def decode(self, payload, d, dtype=torch.float32):
+        return (payload["lev"].to(torch.float32)
+                * (payload["norm"] / self.levels)).to(dtype)
+
     def payload_bits(self, d: int) -> int:
         return self.entry_bits * d + 32
 
@@ -279,6 +359,12 @@ class SignSGD(Compressor):
 
     def sim(self, x2d, keys):
         return torch.where(x2d >= 0, 1.0, -1.0).to(x2d.dtype)
+
+    def encode(self, x2d, keys):
+        return {"bits": pack_signs(x2d >= 0)}
+
+    def decode(self, payload, d, dtype=torch.float32):
+        return (2.0 * unpack_signs(payload["bits"], d) - 1.0).to(dtype)
 
     def payload_bits(self, d: int) -> int:
         return d
@@ -319,6 +405,17 @@ class NaturalCompression(Compressor):
         xf = x2d.to(torch.float32)
         e, sgn, zero = self._exponents(xf, keys)
         return torch.where(zero, 0.0, sgn * pow2(e))
+
+    def encode(self, x2d, keys):
+        e, sgn, zero = self._exponents(x2d.to(torch.float32), keys)
+        code = sgn.to(torch.int32) * (e + self._BIAS + 1)
+        return {"code": torch.where(zero, 0, code).to(torch.int16)}
+
+    def decode(self, payload, d, dtype=torch.float32):
+        code = payload["code"].to(torch.int32)
+        val = torch.sign(code).to(torch.float32) * pow2(
+            code.abs() - (self._BIAS + 1))
+        return torch.where(code == 0, 0.0, val).to(dtype)
 
     def payload_bits(self, d: int) -> int:
         return 9 * d

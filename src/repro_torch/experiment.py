@@ -13,6 +13,11 @@ bit-identical to sim — every compressor but the capacity-bounded
 thresholds — so the numerics are the reference's either way and on the
 card those steps run the hand-written pack/unpack kernels.
 
+`train_cnn_ranks` is the same experiment across the real ranks of a
+process group (launch/mesh.py starts them): rank r takes shard r of every
+global batch, and the ranks aggregate with compressed_allreduce, so every
+rank applies the same update.
+
 Float32 convolutions and matmuls run in full precision: train_cnn turns
 TF32 off (cuDNN would otherwise convolve in TF32 on the card).
 """
@@ -21,6 +26,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs.resnet9_cifar import ALEXNET, MLP, RESNET9, CNNConfig
@@ -28,7 +34,7 @@ from repro_torch.convert import (tree_leaves, tree_map, tree_paths,
                                  tree_unflatten)
 from repro_torch.core.aggregation import (CompressionConfig,
                                           aggregate_simulated_workers,
-                                          worker_mean)
+                                          compressed_allreduce, worker_mean)
 from repro_torch.core.compressors import make_compressor
 from repro_torch.core.granularity import Granularity, stacked_mask
 from repro_torch.core.wire import wire_codec
@@ -108,6 +114,54 @@ def train_cnn(model: str, comp: Optional[CompressionConfig], *,
     with torch.no_grad():
         return (float(cnn_accuracy(cfg, params, test)),
                 float(cnn_loss(cfg, params, test)))
+
+
+def train_cnn_ranks(model: str, comp: CompressionConfig, *, group=None,
+                    steps: int = 120, batch: int = 64,
+                    lr_peak: Optional[float] = None, momentum: float = 0.9,
+                    nesterov: bool = False, seed: int = 0, device="cuda"):
+    """train_cnn on this rank of `group` (None: the default group), the
+    global batch of `batch` split over the ranks; aggregation is
+    compressed_allreduce(comp), with error feedback when comp asks for
+    it, through real wire payloads wherever the strategy carries them
+    (allgather, and simulated with a sim-exact codec). Returns
+    (final_test_accuracy, final_test_loss, params), the same on every
+    rank."""
+    dev = resolve_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, n = dist.get_rank(group), dist.get_world_size(group)
+    if batch % n:
+        raise ValueError(f"batch {batch} does not split over {n} ranks")
+    cfg = MODELS[model]
+    lr_peak = LR[model] if lr_peak is None else lr_peak
+    key = make_key(seed)
+    params = init_cnn(cfg, key, device=dev)
+    vel = tree_map(torch.zeros_like, params)
+    ef = (tree_map(torch.zeros_like, params) if comp.error_feedback
+          else None)
+    stacked = stacked_mask(params)
+    wire = comp.strategy == "allgather" or (
+        comp.strategy == "simulated"
+        and wire_codec(comp.qw, wire_dtype=comp.wire_dtype).exact_sim)
+    sched = piecewise_linear(lr_peak, steps, max(1, steps // 8))
+    per = batch // n
+    for i in range(steps):
+        b = classification_batch(fold_in(key, i), batch, device=dev)
+        shard = {k: v[rank * per:(rank + 1) * per] for k, v in b.items()}
+        p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss = cnn_loss(cfg, p, shard)
+        g = tree_unflatten(tree_paths(params),
+                           torch.autograd.grad(loss, tree_leaves(p)))
+        g, ef = compressed_allreduce(g, stacked, comp, group,
+                                     fold_in(key, 10_000 + i), n,
+                                     ef_state=ef, wire=wire)
+        params, vel = _momentum_step(params, vel, g, sched(i).to(dev),
+                                     momentum, nesterov)
+    test = classification_batch(fold_in(key, 999_999), 256, device=dev)
+    with torch.no_grad():
+        return (float(cnn_accuracy(cfg, params, test)),
+                float(cnn_loss(cfg, params, test)), params)
 
 
 def compare_granularities(model: str, qname: str, *, steps=120, seed=0,

@@ -23,7 +23,7 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("qsgd.cu", "terngrad.cu", "sign.cu", "pack.cu")
+SOURCES = ("qsgd.cu", "terngrad.cu", "sign.cu", "pack.cu", "bits.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -40,6 +40,9 @@ SIGNATURES = {
     "sign_unpack": [_P, _P, _I, _I, _I, _I, _P],
     "fields_pack": [_P, _P, _I, _I, _I, _I, _I, _P],
     "fields_unpack": [_P, _P, _I, _I, _I, _I, _I, _P],
+    "bits_pack": [_P, _P, _I, _I, _I, _I, _P],
+    "bits_unpack": [_P, _P, _I, _I, _I, _I, _P],
+    "majority": [_P, _P, _I, _I, _I, _P],
 }
 
 #: nvcc output of the last build in this process, by source

@@ -14,10 +14,11 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels.pack import fields_pack, fields_unpack
+from repro_torch.kernels.pack import (bits_pack, bits_unpack, fields_pack,
+                                      fields_unpack)
 from repro_torch.kernels.qsgd import qsgd_pack, qsgd_unpack
 from repro_torch.kernels.ref import words_per_unit, words_to_i32
-from repro_torch.kernels.sign import sign_pack, sign_unpack
+from repro_torch.kernels.sign import majority, sign_pack, sign_unpack
 from repro_torch.kernels.terngrad import terngrad_pack, terngrad_unpack
 
 __all__ = ["words_per_unit", "qsgd_pack_units", "qsgd_unpack_units",
@@ -25,7 +26,8 @@ __all__ = ["words_per_unit", "qsgd_pack_units", "qsgd_unpack_units",
            "terngrad_unpack_units", "terngrad_unpack_ef_units",
            "sign_pack_units", "sign_unpack_units", "sign_unpack_ef_units",
            "fields_pack_units", "fields_unpack_units", "pack_fields",
-           "unpack_fields", "pack_bytes_moved", "unpack_bytes_moved"]
+           "unpack_fields", "pack_words", "unpack_words", "majority_words",
+           "pack_bytes_moved", "unpack_bytes_moved", "majority_bytes_moved"]
 
 
 def _split_keys(keys: torch.Tensor, device):
@@ -119,13 +121,35 @@ def unpack_fields(words, k: int, width: int) -> torch.Tensor:
     return fields_unpack_units(words[None], k, width)[0]
 
 
+def pack_words(bits) -> torch.Tensor:
+    """(n, d) {0,1} int bits -> (n, words_per_unit(d, 1)) int32 words, bit p
+    in word p // 32 at position p % 32 (the reference's ops.pack_words,
+    ops.py:211, with a leading batch of rows: one launch per bucket)."""
+    return bits_pack(bits.to(torch.int32).contiguous())
+
+
+def unpack_words(words, d: int) -> torch.Tensor:
+    """Inverse of pack_words: (n, words_per_unit(d, 1)) int32 words -> the
+    first d bits of each row as (n, d) int32 {0, 1} (ops.py:239)."""
+    return bits_unpack(words.contiguous(), d)
+
+
+def majority_words(words) -> torch.Tensor:
+    """(n_workers, W) int32 packed sign words -> (W,) majority-vote words
+    (ties -> +1), counted on the packed words: the {0,1} bit tensor never
+    exists (ops.py:525)."""
+    return majority(words.contiguous())
+
+
 # ---- bytes moved: what each kernel must read and write for one bucket ------
 
 # per-unit 4-byte words a kernel reads beside its data: QSGD / TernGrad pack
-# read two key words and the statistic, their unpack the factor; the sign
-# and field kernels read none
-_PACK_UNIT_WORDS = {"qsgd": 3, "terngrad": 3, "sign": 0, "fields": 0}
-_UNPACK_UNIT_WORDS = {"qsgd": 1, "terngrad": 1, "sign": 0, "fields": 0}
+# read two key words and the statistic, their unpack the factor; the sign,
+# field and bit kernels read none
+_PACK_UNIT_WORDS = {"qsgd": 3, "terngrad": 3, "sign": 0, "fields": 0,
+                    "bits": 0}
+_UNPACK_UNIT_WORDS = {"qsgd": 1, "terngrad": 1, "sign": 0, "fields": 0,
+                      "bits": 0}
 
 
 def pack_bytes_moved(n: int, d: int, width: int,
@@ -145,3 +169,8 @@ def unpack_bytes_moved(n: int, d: int, width: int,
     return {"read": (4 * n * words_per_unit(d, width)
                      + 4 * _UNPACK_UNIT_WORDS[family] * n),
             "write": 4 * n * d}
+
+
+def majority_bytes_moved(n: int, W: int) -> Dict[str, int]:
+    """One majority launch: n workers' W words read once, W words written."""
+    return {"read": 4 * n * W, "write": 4 * W}

@@ -1,6 +1,6 @@
 """Plain-torch oracles of the compression kernels: the arithmetic the CUDA
 kernels in csrc/ perform, written as tensor ops (the JAX package's
-kernels/ref.py, lines 68-153).
+kernels/ref.py, lines 68-216).
 
 Integer codes and uint32 words are carried in int64 tensors (values
 < 2**32) because torch on the CPU has no uint32 arithmetic. At buffer
@@ -93,6 +93,46 @@ def unpack_fields_tile(words: torch.Tensor, width: int) -> torch.Tensor:
             f = f | (v[:, :, t0 + 1] << (32 - s))
         fields.append(f & mask)
     return torch.stack(fields, dim=2).reshape(R, nc * 32)
+
+
+def pack_bits_ref(bits: torch.Tensor) -> torch.Tensor:
+    """(R, C) {0,1} int64 bits with C % 32 == 0 -> (R, C//32) int64 words:
+    bit i of a row lands in word i//32 at position i%32 (little-endian;
+    the JAX package's ref.pack_bits_ref)."""
+    R, C = bits.shape
+    w = bits.reshape(R, C // 32, 32)
+    weights = 1 << torch.arange(32, dtype=torch.int64, device=bits.device)
+    return (w * weights).sum(dim=-1)
+
+
+def unpack_bits_ref(words: torch.Tensor) -> torch.Tensor:
+    """(R, W) int64 words -> (R, 32*W) {0,1} int64 bits. Inverse of
+    pack_bits_ref."""
+    R, W = words.shape
+    sh = torch.arange(32, dtype=torch.int64, device=words.device)
+    return ((words[..., None] >> sh) & 1).reshape(R, W * 32)
+
+
+def majority_words_ref(words: torch.Tensor) -> torch.Tensor:
+    """(n_workers, W) int64 packed sign words -> (W,) majority words (the
+    JAX package's ref.py:177-192, word for word). Per bit position the
+    vote count lives in bit_length(n) word-wide bit planes, added with a
+    ripple carry per worker; a borrow chain then compares it with
+    thr = ceil(n/2), so a bit is set where 2*count >= n (ties -> +1).
+    All-zero (padding) columns vote 0."""
+    n = words.shape[0]
+    planes = [torch.zeros_like(words[0])
+              for _ in range(max(1, n.bit_length()))]
+    for i in range(n):
+        c = words[i]
+        for pi in range(len(planes)):                # ripple-carry add 1 bit
+            planes[pi], c = planes[pi] ^ c, planes[pi] & c
+    thr = (n + 1) // 2
+    borrow = torch.zeros_like(words[0])
+    for pi, a in enumerate(planes):                  # borrow of count - thr
+        na = ~a & MASK32
+        borrow = (na | borrow) if (thr >> pi) & 1 else (na & borrow)
+    return ~borrow & MASK32                          # count >= thr
 
 
 def words_to_i32(w: torch.Tensor) -> torch.Tensor:

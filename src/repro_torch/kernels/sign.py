@@ -1,6 +1,7 @@
-"""Fused signSGD sign+pack / unpack+decode: the wrappers of the CUDA kernels
-in csrc/sign.cu and their plain-torch versions (the routing, checks and
-launch counters of kernels/qsgd.py).
+"""Fused signSGD sign+pack / unpack+decode and the majority vote on packed
+words: the wrappers of the CUDA kernels in csrc/sign.cu and their
+plain-torch versions (the routing, checks and launch counters of
+kernels/qsgd.py).
 
 Bit p of a unit is x[p] >= 0; each unit packs into words_per_unit(d, 1)
 words, held as int32 tensors with the uint32 bit patterns.
@@ -68,3 +69,33 @@ def sign_unpack(words, d: int) -> torch.Tensor:
 
 
 sign_unpack.launches = 0
+
+
+#: most workers the majority kernel counts (8 bit planes)
+MAX_VOTERS = 255
+
+
+def majority_plain(words) -> torch.Tensor:
+    return ref.words_to_i32(ref.majority_words_ref(ref.words_from_i32(words)))
+
+
+def majority(words) -> torch.Tensor:
+    """(n_workers, W) int32 packed sign words -> (W,) int32 majority words:
+    a bit is set where 2 * (votes for it) >= n_workers (ties -> +1)."""
+    n, W = words.shape
+    if not 1 <= n <= MAX_VOTERS:
+        raise ValueError(f"majority of {n} workers: supports 1..{MAX_VOTERS}")
+    if not _on_card(words):
+        return majority_plain(words)
+    _check(words, "words", torch.int32, (n, W))
+    out = torch.empty((W,), dtype=torch.int32, device=words.device)
+    if out.numel() == 0:
+        return out
+    build.check(build.library("sign").majority(
+        words.data_ptr(), out.data_ptr(), n, W, *_launch_args(words.device)),
+        "majority")
+    majority.launches += 1
+    return out
+
+
+majority.launches = 0

@@ -119,23 +119,30 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
     assert ops.sign_unpack_units(w, 70).shape == (3, 70)
     w = ops.fields_pack_units(torch.arange(210).reshape(3, 70), 8)
     assert ops.fields_unpack_units(w, 70, 8).shape == (3, 70)
+    w = ops.pack_words(x >= 0)
+    assert ops.unpack_words(w, 70).shape == (3, 70)
+    assert ops.majority_words(w).shape == (3,)
     assert kernels.launch_counts() == {
         "qsgd_pack": 0, "qsgd_unpack": 0, "terngrad_pack": 0,
         "terngrad_unpack": 0, "sign_pack": 0, "sign_unpack": 0,
-        "fields_pack": 0, "fields_unpack": 0}
+        "fields_pack": 0, "fields_unpack": 0, "bits_pack": 0,
+        "bits_unpack": 0, "majority": 0}
 
 
 def test_wrapper_rejects_a_device_without_a_kernel():
-    from repro_torch.kernels.pack import fields_pack, fields_unpack
+    from repro_torch.kernels.pack import (bits_pack, bits_unpack,
+                                          fields_pack, fields_unpack)
     from repro_torch.kernels.qsgd import qsgd_pack
-    from repro_torch.kernels.sign import sign_pack, sign_unpack
+    from repro_torch.kernels.sign import majority, sign_pack, sign_unpack
     x = torch.zeros((1, 4), device="meta")
     k = torch.zeros((1,), dtype=torch.int32, device="meta")
     w = torch.zeros((1, 4), dtype=torch.int32, device="meta")
     calls = [lambda: qsgd_pack(x, k, k, torch.ones((1,), device="meta"),
                                16, 6),
              lambda: sign_pack(x), lambda: sign_unpack(w, 4),
-             lambda: fields_pack(w, 9), lambda: fields_unpack(w, 4, 9)]
+             lambda: fields_pack(w, 9), lambda: fields_unpack(w, 4, 9),
+             lambda: bits_pack(w), lambda: bits_unpack(w, 4),
+             lambda: majority(w)]
     for call in calls:
         with pytest.raises(ValueError, match="no kernel"):
             call()

@@ -12,6 +12,7 @@ orders, so only inputs whose sum of squares is exact in any order give
 equal norms. TernGrad's statistic is max|x|, which does not depend on
 order, so it runs on random normal gradients.
 """
+import dataclasses
 import math
 
 import jax
@@ -207,13 +208,68 @@ def test_natural_message_buffers_within_tolerance(gran):
 
 
 def test_unported_compressors_name_the_queue():
-    """What this slice leaves out names its queue: the signSGD majority
-    vote and the integrity words."""
-    from repro_torch.core.compressors import SignSGD, make_compressor
-    from repro_torch.core.wire import SignSGDCodec, wire_codec
-    with pytest.raises(NotImplementedError, match="Queue 2, item 6"):
-        SignSGDCodec(comp=SignSGD()).majority_vote(
-            torch.zeros((3, 4), dtype=torch.uint8), 32)
-    for name in ("identity", "qsgd", "topk"):
-        with pytest.raises(NotImplementedError, match="Queue 1, item b"):
-            wire_codec(make_compressor(name), integrity=True)
+    """What this slice leaves out names its queue: the streaming
+    collectives and compressed_allreduce's fault, recorder and telemetry
+    hooks (checked before any collective runs, so no process group)."""
+    from repro_torch import random as R
+    from repro_torch.core.aggregation import (CompressionConfig,
+                                              compressed_allreduce)
+    from repro_torch.core.compressors import make_compressor
+    g = {"w": torch.zeros(4)}
+    for strategy in ("ring", "rs_stream"):
+        cfg = CompressionConfig(qw=make_compressor("qsgd"),
+                                strategy=strategy)
+        with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
+            compressed_allreduce(g, {"w": False}, cfg, None, R.key(0), 2,
+                                 wire=True)
+    cfg = CompressionConfig(qw=make_compressor("qsgd"), strategy="allgather")
+    for kw, queue in (({"faults": object()}, "item 13"),
+                      ({"recorder": object()}, "item 12"),
+                      ({"telemetry_plan": object()}, "item 11")):
+        with pytest.raises(NotImplementedError, match=f"Queue 1, {queue}"):
+            compressed_allreduce(g, {"w": False}, cfg, None, R.key(0), 2,
+                                 wire=True, **kw)
+
+
+@pytest.mark.parametrize("gran", ["layerwise", "entire_model"])
+def test_comm_report_matches_reference(gran):
+    """core/bits.py: comm_report for every strategy the reference reports,
+    analytic and measured, per-unit and fused messages, on resnet9."""
+    from repro_torch.core.aggregation import CompressionConfig
+    from repro_torch.core.bits import comm_report
+    from repro_torch.core.compressors import make_compressor
+    from repro_torch.core.granularity import Granularity
+    tg = _to_torch(_grads(RESNET9_SHAPES, seed=0, dyadic=False))
+    plan = _port_schedule(tg, gran, 0.0).plan
+    with reference() as ref:
+        import repro.core.bits as jbits
+        jg = _to_jax(_grads(RESNET9_SHAPES, seed=0, dyadic=False))
+        jplan = ref.core.build_plan(jg, ref.core.stacked_mask(jg),
+                                    ref.core.Granularity(gran))
+        for strategy, comp, kw in (
+                ("dense", "identity", {}), ("simulated", "qsgd", {}),
+                ("allgather", "qsgd", {}), ("allgather", "signsgd", {}),
+                ("allgather", "topk", {}), ("allgather", "natural", {}),
+                ("rs_compress_ag", "terngrad", {}),
+                ("shared_random", "randomk", {"ratio": 0.05})):
+            for wire_dtype in ("float32", "bfloat16"):
+                for fusion in (None, 65536.0):
+                    cfg = CompressionConfig(
+                        qw=make_compressor(comp, **kw),
+                        granularity=Granularity(gran), strategy=strategy,
+                        wire_dtype=wire_dtype, fusion_bytes=fusion)
+                    jcfg = ref.core.CompressionConfig(
+                        qw=ref.core.make_compressor(comp, **kw),
+                        granularity=ref.core.Granularity(gran),
+                        strategy=strategy, wire_dtype=wire_dtype,
+                        fusion_bytes=fusion)
+                    for measured in (False, True):
+                        mine = comm_report(cfg, plan, 4, measured=measured,
+                                           alpha_bits_per_message=7)
+                        theirs = jbits.comm_report(
+                            jcfg, jplan, 4, measured=measured,
+                            alpha_bits_per_message=7)
+                        assert dataclasses.asdict(mine) == \
+                            dataclasses.asdict(theirs), (strategy, comp)
+                        assert mine.total_bits_with_latency() == \
+                            theirs.total_bits_with_latency()
