@@ -52,14 +52,33 @@ error:
      and simulated-wire QSGD(16): seconds, test loss, collective bytes a
      step against comm_report, exact launch counts, equal parameters on
      every rank at the end
+  8. the compress-only path (kernels/ops.py) on one worker's resnet9
+     gradients: plan_compress for QSGD(16) and TernGrad at layerwise,
+     entire-model and blockwise (65,536) granularity, held to exactly
+     11 / 1 / 1 launches a call and to the same call built with the plain
+     versions on the card; qsgd_compress, terngrad_compress and
+     blockwise_topk(k=5) on the flat gradient and on 2**20 entries;
+     rmsnorm at (4096, 3072) bf16; theory.noise_bounds_from_plan for
+     QSGD(16) at both granularities and theory.lemma1_check over the
+     layer parts
+
+Phase 3 also holds the compress-only kernels against their plain versions
+on the card at every bucket shape, the entire-model gradient and 2**20
+entries: QSGD (levels 4/7/16/64) and TernGrad bitwise with one statistic
+per row and with one scalar statistic, top-k bitwise at k 1/5/16/128, and
+RMSNorm at (4096, 3072) in f32 (within 1e-6 relative) and bf16 (at most
+0.1% of entries one bf16 ulp apart): the two sum the squares in other
+orders. Phase 5 times them beside their bounds at the phase-8 shapes, and
+RMSNorm beside torch.nn.functional.rms_norm (`library_ms`, timed only).
 
 Run from the repository root: `python3 chip_smoke.py` (no arguments, one
 card). `python3 chip_smoke.py --nccl` on a machine with 4 cards runs the
 build and phase 7 only, one rank per card over NCCL. Details go to
 chiprun_out/chip_smoke.json. The last line is {"ok": true, "device":
-{...}}; the line before it the kernel table, whose launches are the
-main-path runs of phase 4 plus the multi-rank phase 7 summed over its
-ranks.
+{...}}; the line before it the kernel table, whose launches are, for the
+wire kernels, the main-path runs of phase 4 plus the multi-rank phase 7
+summed over its ranks, and for the compress-only kernels the runs of
+phase 8.
 """
 from __future__ import annotations
 
@@ -108,6 +127,22 @@ MAJORITY_PLANES = 8
 VOTERS = (1, 2, 3, 4, 5, 8)
 RANKS = 4
 RANK_TIMEOUT = 600.0
+# the compress-only path (phase 8)
+COMPRESS_KERNELS = ("qsgd_compress_rows", "terngrad_compress_rows",
+                    "topk_mask", "rmsnorm")
+COMPRESS_LEVELS = (4, 7, 16, 64)
+TOPK_KS = (1, 5, 16, 128)
+MICRO = 1 << 20              # benchmarks/microbench.py's D
+RMS_SHAPE = (4096, 3072)     # phi4-mini's d_model (configs/phi4_mini_3_8b.py)
+BLOCK = 65536
+# (int32, fp32) operations per element of the compress-only kernels: QSGD
+# abs, divide, fma (2), floor, sign, two multiplies; TernGrad abs, divide,
+# compare, select, multiply; top-k abs, max, 24 bisection compares and the
+# final compare (fp) with 24 count adds (int); RMSNorm square, add and two
+# multiplies
+COMPRESS_OPS = {"qsgd_compress_rows": (0, 8),
+                "terngrad_compress_rows": (0, 5),
+                "topk_mask": (24, 27), "rmsnorm": (0, 4)}
 
 
 def fail(msg: str) -> None:
@@ -274,6 +309,91 @@ def check_kernels(shapes, dev):
     return err
 
 
+# ---- phase 3: the compress-only kernels vs their plain versions -------------
+
+def compress_inputs(shape, seed, dev):
+    """Seeded (n, d) f32 units (every 7th entry 0, some -0.0) and (n, d)
+    uniforms in [0, 1), on the card."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g)
+    x[:, ::7] = 0.0
+    x[:, 3::11] = -0.0
+    return x.to(dev), torch.rand(shape, generator=g).to(dev)
+
+
+def rmsnorm_inputs(dtype, seed, dev):
+    """Seeded RMS_SHAPE rows of varied scale in `dtype` and gamma (f32)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    scale = torch.rand((RMS_SHAPE[0], 1), generator=g) * 10 + 0.1
+    x = torch.randn(RMS_SHAPE, generator=g) * scale
+    gamma = torch.rand(RMS_SHAPE[1], generator=g) + 0.5
+    return x.to(dtype).to(dev), gamma.to(dev)
+
+
+def rmsnorm_close(got, want) -> bool:
+    """The stated RMSNorm tolerance (the kernel and torch sum the squares in
+    other orders): f32 within 1e-6 relative; bf16 equal except at most 0.1%
+    of entries, each one bf16 ulp (2**-7 relative) apart."""
+    import torch
+    a, b = got.to(torch.float32), want.to(torch.float32)
+    err = (a - b).abs()
+    if got.dtype == torch.float32:
+        return bool((err <= 1e-6 * b.abs()).all())
+    off = a != b
+    return (float(off.float().mean()) <= 1e-3
+            and bool((err[off] <= 2.0**-7 * b.abs()[off]).all()))
+
+
+def check_compress_kernels(shapes, dev):
+    """The compress-only kernels vs their plain versions on the card ->
+    max |err| per kernel. At every (n, d) shape: QSGD and TernGrad with
+    one statistic per row on the (n, d) units and with one scalar statistic
+    on the same entries as 512-wide rows, bitwise (the statistic computed
+    once and fed to both); top-k on those rows, bitwise; then RMSNorm at
+    RMS_SHAPE in f32 and bf16 within the stated tolerance."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import qsgd as Q
+    from repro_torch.kernels import terngrad as T
+    from repro_torch.kernels import topk_mask as K
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+    err = {k: 0.0 for k in COMPRESS_KERNELS}
+
+    def same(name, got, want, what):
+        err[name] = max(err[name], max_abs_err(got, want))
+        check(bitwise_equal(got, want), f"{name} {what}")
+
+    for si, shape in enumerate(shapes):
+        x, u = compress_inputs(shape, 800 + si, dev)
+        xt, ut = ops._tile(x)[0], ops._tile(u)[0]
+        stats = {"qsgd": ((x, u, torch.linalg.vector_norm(x, dim=1), "rows"),
+                          (xt, ut, torch.linalg.vector_norm(x), "scalar")),
+                 "terngrad": ((x, u, x.abs().amax(dim=1), "rows"),
+                              (xt, ut, x.abs().amax(), "scalar"))}
+        for xx, uu, st, how in stats["qsgd"]:
+            for lv in COMPRESS_LEVELS:
+                same("qsgd_compress_rows", Q.qsgd_compress_rows(xx, uu, st, lv),
+                     Q.qsgd_compress_rows_plain(xx, uu, st, lv),
+                     f"{tuple(xx.shape)} levels {lv} {how}")
+        for xx, uu, st, how in stats["terngrad"]:
+            same("terngrad_compress_rows",
+                 T.terngrad_compress_rows(xx, uu, st),
+                 T.terngrad_compress_rows_plain(xx, uu, st),
+                 f"{tuple(xx.shape)} {how}")
+        for k in TOPK_KS:
+            same("topk_mask", K.topk_mask(xt, k), K.topk_mask_plain(xt, k),
+                 f"{tuple(xt.shape)} k {k}")
+    for dtype in (torch.float32, torch.bfloat16):
+        x, gamma = rmsnorm_inputs(dtype, 900, dev)
+        got, want = rmsnorm(x, gamma), rmsnorm_plain(x, gamma)
+        err["rmsnorm"] = max(err["rmsnorm"], max_abs_err(got, want))
+        check(rmsnorm_close(got, want), f"rmsnorm {RMS_SHAPE} {dtype}")
+    torch.cuda.synchronize()
+    return err
+
+
 # ---- phase 4: the main path -------------------------------------------------
 
 def main_path_runs(dev):
@@ -314,8 +434,8 @@ def main_path_runs(dev):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = kernels.launch_counts()
-        want = {k: (per_step * STEPS if k.split("_")[0] == fam else 0)
-                for k in counts}
+        want = {k: (per_step * STEPS if k.split("_")[0] == fam
+                    and k not in COMPRESS_KERNELS else 0) for k in counts}
         check(counts == want, f"{name}: launches {counts} != {want}")
         check(math.isfinite(loss) and math.isfinite(acc),
               f"{name}: test loss {loss} / accuracy {acc}")
@@ -580,6 +700,88 @@ def time_kernels(layer_shapes, em_shape, dev):
                     "bytes": nbytes, "int_ops": iops, "fp_ops": fops,
                     "bytes_ms": t_b, "ops_ms": t_o, "bound_ms": max(t_b, t_o),
                     "bound_by": "bytes" if t_b >= t_o else "operations"})
+    return rows
+
+
+def compress_bounds(kernel: str, rows: int, cols: int, stat_words: int = 0,
+                    elt: int = 4):
+    """(bytes moved, int ops, fp ops, byte-bound ms, op-bound ms) of one
+    compress-only launch over (rows, cols): QSGD / TernGrad read x and the
+    noise and write the output (12 B an entry) and read `stat_words`
+    statistics; top-k reads and writes 4 B an entry; RMSNorm reads and
+    writes `elt` B an entry and reads gamma (4 B a column)."""
+    if kernel == "rmsnorm":
+        nbytes = 2 * elt * rows * cols + 4 * cols
+    elif kernel == "topk_mask":
+        nbytes = 8 * rows * cols
+    else:
+        nbytes = 12 * rows * cols + 4 * stat_words
+    per_int, per_fp = COMPRESS_OPS[kernel]
+    int_ops, fp_ops = rows * cols * per_int, rows * cols * per_fp
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (int_ops / INT32_OPS_PER_S + fp_ops / FP32_OPS_PER_S) * 1e3
+    return nbytes, int_ops, fp_ops, t_bytes, t_ops
+
+
+def time_compress_kernels(unit_shapes, total, dev):
+    """Rows like time_kernels' for the compress-only kernels at phase 8's
+    shapes: QSGD(16) and TernGrad over the buckets of one layerwise
+    plan_compress call (group compress_layerwise: one statistic per unit),
+    over its entire-model bucket (compress_entire_model) and in the
+    whole-input calls on the flat gradient and on 2**20 entries (one
+    scalar statistic over 512-wide rows: compress_flat, compress_micro);
+    top-k (k=5) in the same two whole-input calls; RMSNorm at RMS_SHAPE in
+    bf16 and f32, beside torch.nn.functional.rms_norm (`library_ms`)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import qsgd as Q
+    from repro_torch.kernels import terngrad as T
+    from repro_torch.kernels import topk_mask as K
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+    rows = []
+
+    def add(group, kernel, shape, stat_words, kern, plain, elt=4,
+            library=None):
+        nbytes, iops, fops, t_b, t_o = compress_bounds(kernel, *shape,
+                                                       stat_words, elt)
+        rows.append({
+            "group": group, "kernel": kernel, "leg": "", "shape": list(shape),
+            "width": 0, "ms": device_ms(kern), "call_ms": call_ms(kern),
+            "plain_ms": device_ms(plain, reps=3, repeats=3),
+            "library_ms": None if library is None else device_ms(library),
+            "bytes": nbytes, "int_ops": iops, "fp_ops": fops,
+            "bytes_ms": t_b, "ops_ms": t_o, "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations"})
+
+    cases = ([("compress_layerwise", s, False) for s in unit_shapes]
+             + [("compress_entire_model", (1, total), False),
+                ("compress_flat", (1, total), True),
+                ("compress_micro", (1, MICRO), True)])
+    for si, (group, shape, whole) in enumerate(cases):
+        x, u = compress_inputs(shape, 1000 + si, dev)
+        if whole:
+            nrm, sc = torch.linalg.vector_norm(x), x.abs().amax()
+            x, u = ops._tile(x)[0], ops._tile(u)[0]
+        else:
+            nrm, sc = torch.linalg.vector_norm(x, dim=1), x.abs().amax(dim=1)
+        shp = tuple(x.shape)
+        add(group, "qsgd_compress_rows", shp, nrm.numel(),
+            lambda: Q.qsgd_compress_rows(x, u, nrm, MAIN_LEVELS),
+            lambda: Q.qsgd_compress_rows_plain(x, u, nrm, MAIN_LEVELS))
+        add(group, "terngrad_compress_rows", shp, sc.numel(),
+            lambda: T.terngrad_compress_rows(x, u, sc),
+            lambda: T.terngrad_compress_rows_plain(x, u, sc))
+        if whole:
+            add(group, "topk_mask", shp, 0, lambda: K.topk_mask(x, 5),
+                lambda: K.topk_mask_plain(x, 5))
+    for dtype, group in ((torch.bfloat16, "rmsnorm_bf16"),
+                         (torch.float32, "rmsnorm_f32")):
+        x, gamma = rmsnorm_inputs(dtype, 1100, dev)
+        g_lib = gamma.to(dtype)
+        add(group, "rmsnorm", RMS_SHAPE, 0, lambda: rmsnorm(x, gamma),
+            lambda: rmsnorm_plain(x, gamma), elt=x.element_size(),
+            library=lambda: F.rms_norm(x, (RMS_SHAPE[1],), g_lib, 1e-5))
     return rows
 
 
@@ -1023,6 +1225,148 @@ def multi_rank_path(backend: str = "gloo"):
     return res, launches, secs
 
 
+# ---- phase 8: the compress-only path ------------------------------------------
+
+def _plain_plan_compress(plan, grads, key, kind):
+    """ops.plan_compress built with the plain versions on the card: the same
+    gathers, keys, noise and statistics, the plain quantizer per bucket."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import qsgd as Q
+    from repro_torch.kernels import terngrad as T
+    flat = plan.flatten(grads)
+    keys = plan.unit_keys(key).to(flat.device)
+    out = torch.zeros_like(flat)
+    for b in plan.buckets:
+        x = plan.gather_bucket(flat, b).contiguous()
+        noise = ops._unit_noise(keys[list(b.unit_ids)], b.dim)
+        if kind == "qsgd":
+            y = Q.qsgd_compress_rows_plain(
+                x, noise, torch.linalg.vector_norm(x, dim=1), MAIN_LEVELS)
+        else:
+            y = T.terngrad_compress_rows_plain(x, noise, x.abs().amax(dim=1))
+        plan.scatter_bucket(out, b, y)
+    return plan.unflatten(out)
+
+
+def _plain_whole(kind, x, key):
+    """ops.qsgd_compress / terngrad_compress / blockwise_topk(k=5) built
+    with the plain versions on the card."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import qsgd as Q
+    from repro_torch.kernels import terngrad as T
+    from repro_torch.kernels import topk_mask as K
+    xt, d, n = ops._tile(x)
+    if kind == "topk":
+        y = K.topk_mask_plain(xt, 5)
+    elif kind == "qsgd":
+        y = Q.qsgd_compress_rows_plain(xt, ops._tile_noise(key, xt, n),
+                                       torch.linalg.vector_norm(x),
+                                       MAIN_LEVELS)
+    else:
+        y = T.terngrad_compress_rows_plain(xt, ops._tile_noise(key, xt, n),
+                                           x.abs().amax())
+    return ops._untile(y, d, x.shape)
+
+
+def compress_path(dev):
+    """Phase 8: the compress-only path on one worker's resnet9 gradients,
+    every call held to its exact launches and to the plain build. ->
+    (record, launch counts of the whole phase)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch import random as R
+    from repro_torch.configs.resnet9_cifar import RESNET9
+    from repro_torch.convert import tree_leaves, tree_map
+    from repro_torch.core import theory
+    from repro_torch.core.compressors import QSGD
+    from repro_torch.core.granularity import Granularity, stacked_mask
+    from repro_torch.core.plan import build_plan
+    from repro_torch.data.synthetic import classification_batch
+    from repro_torch.experiment import worker_grads
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rmsnorm import rmsnorm_plain
+    from repro_torch.models.cnn import init_cnn
+    key = R.key(0)
+    params = init_cnn(RESNET9, key, device=dev)
+    batch = classification_batch(R.fold_in(key, 0), 64, device=dev)
+    wg, _ = worker_grads(RESNET9, params, batch, 1)
+    g = tree_map(lambda t: t[0], wg)
+    sm = stacked_mask(g)
+    flat = torch.cat([t.reshape(-1) for t in tree_leaves(g)])
+    g_cpu = torch.Generator().manual_seed(8)
+    micro = torch.randn(MICRO, generator=g_cpu).to(dev)
+    rec = {"plan_compress": [], "whole": []}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+
+    def launched(fn, name, want):
+        before = kernels.launch_counts()[name]
+        out = fn()
+        got = kernels.launch_counts()[name] - before
+        check(got == want, f"{name}: {got} launches, want {want}")
+        return out
+
+    plans = {}
+    for gran in (Granularity("layerwise"), Granularity("entire_model"),
+                 Granularity("blockwise", BLOCK)):
+        plan = build_plan(g, sm, gran)
+        plans[gran.kind] = plan
+        for kind, name in (("qsgd", "qsgd_compress_rows"),
+                           ("terngrad", "terngrad_compress_rows")):
+            out = launched(lambda: ops.plan_compress(
+                plan, g, key, kind=kind, levels=MAIN_LEVELS), name,
+                plan.num_dispatches)
+            want = _plain_plan_compress(plan, g, key, kind)
+            for a, b in zip(tree_leaves(out), tree_leaves(want)):
+                check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+                      f"plan_compress {kind} {gran.kind}: bad output")
+                check(bitwise_equal(a, b),
+                      f"plan_compress {kind} {gran.kind} != plain build")
+            rec["plan_compress"].append({
+                "kind": kind, "granularity": gran.kind,
+                "plan": plan.summary(), "launches": plan.num_dispatches})
+    check([plans[k].num_dispatches for k in plans] == [11, 1, 1],
+          f"plans {[p.summary() for p in plans.values()]}")
+    for label, x in (("flat_gradient", flat), ("micro", micro)):
+        for kind, name, fn in (
+                ("qsgd", "qsgd_compress_rows",
+                 lambda: ops.qsgd_compress(x, key, MAIN_LEVELS)),
+                ("terngrad", "terngrad_compress_rows",
+                 lambda: ops.terngrad_compress(x, key)),
+                ("topk", "topk_mask", lambda: ops.blockwise_topk(x, 5))):
+            out = launched(fn, name, 1)
+            check(bitwise_equal(out, _plain_whole(kind, x, key)),
+                  f"{kind} whole-input {label} != plain build")
+            rec["whole"].append({"kind": kind, "input": label,
+                                 "d": x.numel()})
+    x, gamma = rmsnorm_inputs(torch.bfloat16, 1200, dev)
+    got = launched(lambda: ops.rmsnorm(x, gamma), "rmsnorm", 1)
+    check(rmsnorm_close(got, rmsnorm_plain(x, gamma)),
+          "rmsnorm (4096, 3072) bf16 beyond the stated tolerance")
+    qsgd = QSGD(levels=MAIN_LEVELS)
+    bounds_ = {}
+    for gname in ("layerwise", "entire_model"):
+        plan = plans[gname]
+        tr, em = theory.noise_bounds_from_plan(plan, qsgd)
+        ow = [qsgd.omega(d) for d in plan.unit_dims]
+        tighter = theory.layerwise_tighter(ow, [0.0] * len(ow),
+                                           plan.unit_dims)
+        check(tighter and math.isfinite(tr) and tr <= em + 1e-9,
+              f"{gname}: Trace(A) {tr} vs entire-model bound {em}")
+        bounds_[gname] = {"trace_A": tr, "entire_model_bound": em,
+                          "layerwise_tighter": tighter}
+    lhs, mid, rhs = theory.lemma1_check(qsgd, tree_leaves(g), key,
+                                        trials=64)
+    check(lhs <= mid * 1.15 and mid <= rhs + 1e-6,
+          f"Lemma 1: {lhs} <= {mid} <= {rhs} fails")
+    torch.cuda.synchronize()
+    rec.update({"seconds": time.perf_counter() - t0, "bounds": bounds_,
+                "lemma1": [lhs, mid, rhs], "lemma1_parts": len(tree_leaves(g))})
+    return rec, kernels.launch_counts()
+
+
 
 SOURCES = {
     "qsgd_pack": ("src/repro_torch/kernels/csrc/qsgd.cu",
@@ -1048,21 +1392,47 @@ SOURCES = {
     "majority": ("src/repro_torch/kernels/csrc/sign.cu",
                  "src/repro/kernels/sign.py:83"),
 }
+# the compress-only kernels (each QSGD / TernGrad kernel also replaces the
+# scalar-statistic Pallas function: qsgd.py:173, terngrad.py:138), and the
+# phase-5 group whose rows give their kernel-line times
+COMPRESS_SOURCES = {
+    "qsgd_compress_rows": ("src/repro_torch/kernels/csrc/compress.cu",
+                           "src/repro/kernels/qsgd.py:67"),
+    "terngrad_compress_rows": ("src/repro_torch/kernels/csrc/compress.cu",
+                               "src/repro/kernels/terngrad.py:48"),
+    "topk_mask": ("src/repro_torch/kernels/csrc/topk_mask.cu",
+                  "src/repro/kernels/topk_mask.py:43"),
+    "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:21"),
+}
+LINE_GROUP = {"qsgd_compress_rows": "compress_layerwise",
+              "terngrad_compress_rows": "compress_layerwise",
+              "topk_mask": "compress_flat", "rmsnorm": "rmsnorm_bf16"}
 
 
 def kernel_line(timings, launches, errs):
-    """The per-kernel summary: device ms / plain_ms / bound_ms summed over
-    one layerwise main-path step (the 11 resnet9 buckets x 4 workers; the
-    fields kernels on natural compression's 9-bit code leg); `launches`
-    the main-path launches of each kernel, every one above 0."""
+    """The per-kernel summary. Wire kernels: device ms / plain_ms /
+    bound_ms summed over one layerwise main-path step (the 11 resnet9
+    buckets x 4 workers; the fields kernels on natural compression's 9-bit
+    code leg). Compress-only kernels: summed over their LINE_GROUP rows
+    (one layerwise plan_compress call of QSGD(16) / TernGrad, top-k (k=5)
+    on the flat gradient, RMSNorm at (4096, 3072) bf16 with the time of
+    torch.nn.functional.rms_norm as `library_ms`). `launches` are each
+    kernel's launches on its path (phases 4 + 7, or phase 8), every one
+    above 0."""
     out = []
-    for name, (src, replaces) in SOURCES.items():
-        check(launches[name] > 0, f"{name}: no launch on the main path")
+    groups = ([(n, v, "layerwise_step") for n, v in SOURCES.items()]
+              + [(n, v, LINE_GROUP[n]) for n, v in COMPRESS_SOURCES.items()])
+    for name, (src, replaces), group in groups:
+        check(launches[name] > 0, f"{name}: no launch on its path")
         step = [r for r in timings
-                if r["kernel"] == name and r["group"] == "layerwise_step"
+                if r["kernel"] == name and r["group"] == group
                 and r["leg"] in ("", "natural")]
+        check(step, f"{name}: no timing rows in group {group}")
         tot = {k: sum(r[k] for r in step)
                for k in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
+        lib = [r["library_ms"] for r in step
+               if r.get("library_ms") is not None]
         out.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
@@ -1071,7 +1441,7 @@ def kernel_line(timings, launches, errs):
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
                          else "operations"),
-            "library_ms": None})
+            "library_ms": sum(lib) if lib else None})
     return {"kernels": out}
 
 
@@ -1141,6 +1511,15 @@ def main(argv) -> int:
           f"bits, fields widths {list(FIELD_WIDTHS)} and the top-k index "
           f"legs; majority of {list(VOTERS)} workers); max abs err {errs}",
           flush=True)
+    unit_shapes = [(n // WORKERS, d) for n, d in layer_shapes]
+    cshapes = layer_shapes + [(1, em_shape[1]), (1, MICRO)]
+    cerrs = check_compress_kernels(cshapes, dev)
+    errs.update(cerrs)
+    print(f"compress-only kernels vs plain: QSGD (levels "
+          f"{list(COMPRESS_LEVELS)}) and TernGrad bitwise, per-row and "
+          f"scalar statistics, top-k (k {list(TOPK_KS)}) bitwise over "
+          f"{len(cshapes)} shapes; rmsnorm {RMS_SHAPE} f32 and bf16 within "
+          f"tolerance; max abs err {cerrs}", flush=True)
 
     runs = main_path_runs(dev)
     n_msgs = check_step_buffers(dev)
@@ -1149,6 +1528,7 @@ def main(argv) -> int:
           f"path", flush=True)
 
     timings = time_kernels(layer_shapes, em_shape, dev)
+    timings += time_compress_kernels(unit_shapes, em_shape[1], dev)
     for r in timings:
         print(f"  {r['group']:17s} {r['kernel']:15s} {r['leg']:7s} "
               f"{str(r['shape']):15s} w{r['width']:<2d} "
@@ -1156,10 +1536,33 @@ def main(argv) -> int:
               f"plain_ms={r['plain_ms']:.5f} "
               f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}; bytes "
               f"{r['bytes_ms']:.6f}, ops {r['ops_ms']:.6f}) "
-              f"bytes={r['bytes']}", flush=True)
+              f"bytes={r['bytes']}"
+              + (f" library_ms={r['library_ms']:.5f}"
+                 if r.get("library_ms") is not None else ""), flush=True)
     multi, multi_launches, multi_secs = multi_rank_path()
     launches = {k: sum(r["launches"][k] for r in runs)
                 + multi_launches.get(k, 0) for k in SOURCES}
+    compress, compress_launches = compress_path(dev)
+    check(all(compress_launches[k] == 0 for k in SOURCES),
+          f"compress-only path launched wire kernels: {compress_launches}")
+    launches.update({k: compress_launches[k] for k in COMPRESS_SOURCES})
+    print(f"compress-only path: plan_compress QSGD({MAIN_LEVELS}) and "
+          f"TernGrad at layerwise / entire-model / blockwise({BLOCK}) with "
+          f"11 / 1 / 1 launches a call, == the plain build; whole-input "
+          f"QSGD, TernGrad and top-k(5) on d = {em_shape[1]} and {MICRO} == "
+          f"plain; rmsnorm {RMS_SHAPE} bf16 within tolerance; "
+          f"{compress['seconds']:.2f} s, launches "
+          f"{ {k: compress_launches[k] for k in COMPRESS_SOURCES} }",
+          flush=True)
+    for gname, b in compress["bounds"].items():
+        print(f"  theory QSGD({MAIN_LEVELS}) {gname}: Trace(A) "
+              f"{b['trace_A']:.1f}, entire-model bound "
+              f"{b['entire_model_bound']:.1f}, layerwise_tighter "
+              f"{b['layerwise_tighter']}", flush=True)
+    print(f"  Lemma 1 (QSGD({MAIN_LEVELS}) over the "
+          f"{compress['lemma1_parts']} layer parts): lhs {compress['lemma1'][0]:.6g} <= "
+          f"mid {compress['lemma1'][1]:.6g} <= rhs "
+          f"{compress['lemma1'][2]:.6g}", flush=True)
     summary = kernel_line(timings, launches, errs)
     from repro_torch.core.compressors import QSGD, TopK
     profiles = [profile_steps(dev, qw) for qw in (
@@ -1179,6 +1582,7 @@ def main(argv) -> int:
         "card": card, "torch": torch.__version__, "seconds": total,
         "build_seconds": secs, "main_path": runs, "timings": timings,
         "profiles": profiles, "multi_rank": multi,
+        "compress_path": compress,
         "ptxas": {src: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
                   for src, log in build.BUILD_LOG.items()},

@@ -165,13 +165,14 @@ class UnitPlan:
 
     def _scatter_runs(self, out_leaves, out_flat, b: Bucket,
                       y: torch.Tensor) -> None:
-        """Write bucket rows y (B * b.n, dim) into out_leaves / out_flat."""
+        """Write bucket rows y (B * b.n, dim) into out_leaves / out_flat
+        (with out_leaves None, every run into out_flat)."""
         y = y.reshape(-1, b.n, b.dim)
         B = y.shape[0]
         row = 0
         for start, k, li in b.runs:
             seg = y[:, row:row + k]
-            if li >= 0:
+            if li >= 0 and out_leaves is not None:
                 out_leaves[li] = seg.reshape((B,) + self.leaf_shapes[li]).to(
                     self.leaf_dtypes[li])
             else:
@@ -190,6 +191,27 @@ class UnitPlan:
             outs.append(leaf if batched else leaf[0])
             off += size
         return tree_unflatten(self.paths, outs)
+
+    # ---- flat <-> tree, one bucket at a time (ops.plan_compress) ----------
+    def flatten(self, tree) -> torch.Tensor:
+        """Tree -> f32 flat vector of length exec_total (zero-padded)."""
+        return self._flat([l[None] for l in tree_leaves(tree)])[0]
+
+    def unflatten(self, flat: torch.Tensor):
+        """f32 flat vector -> tree with the plan's shapes and dtypes."""
+        return self._assemble([None] * len(self.leaf_shapes), flat[None],
+                              batched=False)
+
+    def gather_bucket(self, flat: torch.Tensor, b: Bucket) -> torch.Tensor:
+        """(exec_total,) -> (b.n, b.dim) matrix of the bucket's units."""
+        return self._gather_runs(None, flat[None], b)
+
+    def scatter_bucket(self, out: torch.Tensor, b: Bucket,
+                       y: torch.Tensor) -> torch.Tensor:
+        """Write the bucket's rows y (b.n, b.dim) into the flat vector `out`
+        IN PLACE (the reference returns an updated copy) and return it."""
+        self._scatter_runs(None, out[None], b, y)
+        return out
 
     # ---- execution --------------------------------------------------------
     def execute(self, fn: Callable, grads, key: torch.Tensor):

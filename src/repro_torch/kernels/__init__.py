@@ -1,21 +1,45 @@
-"""The port's kernels: threefry (prng.py), the plain tile oracles (ref.py),
-the hand-written CUDA pack/unpack and majority-vote kernels (csrc/, built
-by build.py) with their wrappers (qsgd.py, terngrad.py, sign.py, pack.py),
-and the bucket entry points the wire codecs call (ops.py)."""
+"""The port's kernels: threefry (prng.py), the plain oracles (ref.py), the
+hand-written CUDA kernels (csrc/, built by build.py) with their wrappers,
+and the entry points (ops.py).
+
+Wrappers, each with a plain version and a `.launches` counter:
+
+- wire pack / unpack: qsgd.py, terngrad.py, sign.py (and the majority
+  vote), pack.py (width-bit fields and bits);
+- compress only: `qsgd_compress_rows` (qsgd.py), `terngrad_compress_rows`
+  (terngrad.py), `topk_mask` (topk_mask.py), `rmsnorm` (rmsnorm.py).
+
+Exported here, as from the JAX package's `repro.kernels`: `qsgd_compress`,
+`terngrad_compress` and `blockwise_topk` (whole inputs) and `rmsnorm`.
+`ops` also holds the bucket-level `qsgd_compress_units` /
+`terngrad_compress_units` and `plan_compress`, and the wire codecs'
+bucket entry points.
+"""
 from __future__ import annotations
 
 from typing import Dict
+
+from repro_torch.kernels.ops import (blockwise_topk, qsgd_compress, rmsnorm,
+                                     terngrad_compress)
+
+__all__ = ["qsgd_compress", "terngrad_compress", "blockwise_topk", "rmsnorm",
+           "launch_counts", "reset_launch_counts"]
 
 
 def _wrappers():
     from repro_torch.kernels.pack import (bits_pack, bits_unpack,
                                           fields_pack, fields_unpack)
-    from repro_torch.kernels.qsgd import qsgd_pack, qsgd_unpack
+    from repro_torch.kernels.qsgd import (qsgd_compress_rows, qsgd_pack,
+                                          qsgd_unpack)
     from repro_torch.kernels.sign import majority, sign_pack, sign_unpack
-    from repro_torch.kernels.terngrad import terngrad_pack, terngrad_unpack
+    from repro_torch.kernels.terngrad import (terngrad_compress_rows,
+                                              terngrad_pack, terngrad_unpack)
+    from repro_torch.kernels.rmsnorm import rmsnorm as rms
+    from repro_torch.kernels.topk_mask import topk_mask
     return (qsgd_pack, qsgd_unpack, terngrad_pack, terngrad_unpack,
             sign_pack, sign_unpack, fields_pack, fields_unpack, bits_pack,
-            bits_unpack, majority)
+            bits_unpack, majority, qsgd_compress_rows,
+            terngrad_compress_rows, topk_mask, rms)
 
 
 def launch_counts() -> Dict[str, int]:

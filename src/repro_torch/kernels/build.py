@@ -23,14 +23,15 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("qsgd.cu", "terngrad.cu", "sign.cu", "pack.cu", "bits.cu")
+SOURCES = ("qsgd.cu", "terngrad.cu", "sign.cu", "pack.cu", "bits.cu",
+           "compress.cu", "topk_mask.cu", "rmsnorm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: every pointer and the stream as void*, ints (sizes and the
-# CUDA device index) as int
+# CUDA device index) as int, f32 scalars as float
 SIGNATURES = {
     "qsgd_pack": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "qsgd_unpack": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -43,6 +44,10 @@ SIGNATURES = {
     "bits_pack": [_P, _P, _I, _I, _I, _I, _P],
     "bits_unpack": [_P, _P, _I, _I, _I, _I, _P],
     "majority": [_P, _P, _I, _I, _I, _P],
+    "qsgd_compress_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "terngrad_compress_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "topk_mask": [_P, _P, _I, _I, _I, _P],
+    "rmsnorm": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
 }
 
 #: nvcc output of the last build in this process, by source

@@ -1,5 +1,6 @@
-"""Fused QSGD quantize+pack / unpack+dequantize: the wrappers of the CUDA
-kernels in csrc/qsgd.cu and their plain-torch versions.
+"""Fused QSGD quantize+pack / unpack+dequantize (csrc/qsgd.cu) and the
+compress-only quantize+dequantize (csrc/compress.cu): the wrappers of the
+CUDA kernels and their plain-torch versions.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
 or the wrapper raises. Nothing falls back. Each wrapper counts its kernel
@@ -38,6 +39,18 @@ def _on_card(x: torch.Tensor, *others: torch.Tensor) -> bool:
         if o.device != x.device:
             raise ValueError(f"inputs on {o.device} and {x.device}")
     return True
+
+
+def stat_column(stat: torch.Tensor, rows: int):
+    """A compress kernel's statistic: (rows,) per row (stride 1) or one
+    scalar () for every row (stride 0) -> (plain-version broadcast form,
+    stride)."""
+    if stat.dim() == 0:
+        return stat, 0
+    if tuple(stat.shape) != (rows,):
+        raise ValueError(f"stat: want () or ({rows},), got "
+                         f"{tuple(stat.shape)}")
+    return stat[:, None], 1
 
 
 def _launch_args(device) -> tuple:
@@ -124,3 +137,34 @@ def qsgd_unpack(words, fac, d: int, levels: int, width: int) -> torch.Tensor:
 
 
 qsgd_unpack.launches = 0
+
+
+# ---- compress only (quantize + dequantize, noise given) -----------------------
+
+def qsgd_compress_rows_plain(x, noise, stat, levels: int) -> torch.Tensor:
+    return ref.qsgd_ref(x, noise, stat_column(stat, x.shape[0])[0], levels)
+
+
+def qsgd_compress_rows(x, noise, stat, levels: int) -> torch.Tensor:
+    """x, noise (R, C) f32 and the l2 norm of each row (R,) or of all rows
+    () f32 -> (R, C) f32 sign(x) * floor(|x| / n * levels + u) * n / levels
+    with n = max(stat, 1e-12) (ref.qsgd_ref)."""
+    if not _on_card(x, noise, stat):
+        return qsgd_compress_rows_plain(x, noise, stat, levels)
+    R, C = x.shape
+    _, stride = stat_column(stat, R)
+    _check(x, "x", torch.float32, (R, C))
+    _check(noise, "noise", torch.float32, (R, C))
+    _check(stat, "stat", torch.float32, stat.shape)
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    build.check(build.library("compress").qsgd_compress_rows(
+        x.data_ptr(), noise.data_ptr(), stat.data_ptr(), out.data_ptr(), R,
+        C, stride, levels, 1.0 / levels,      # ctypes rounds it to f32
+        *_launch_args(x.device)), "qsgd_compress_rows")
+    qsgd_compress_rows.launches += 1
+    return out
+
+
+qsgd_compress_rows.launches = 0

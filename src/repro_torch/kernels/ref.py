@@ -1,6 +1,6 @@
 """Plain-torch oracles of the compression kernels: the arithmetic the CUDA
 kernels in csrc/ perform, written as tensor ops (the JAX package's
-kernels/ref.py, lines 68-216).
+kernels/ref.py).
 
 Integer codes and uint32 words are carried in int64 tensors (values
 < 2**32) because torch on the CPU has no uint32 arithmetic. At buffer
@@ -12,6 +12,77 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.prng import MASK32
+
+_EPS = 1e-12
+TOPK_ITERS = 24
+
+
+def sign(x: torch.Tensor) -> torch.Tensor:
+    """jnp.sign: +-1, and x itself for +-0.0 and NaN (torch.sign maps
+    -0.0 and NaN to +0.0)."""
+    return torch.where(x > 0, 1.0, torch.where(x < 0, -1.0, x))
+
+
+# ---- compress-only oracles (kernels/ref.py:16-58) ---------------------------
+
+def fma_f32(a, b: int, c) -> torch.Tensor:
+    """fl32(a * b + c) rounded once (fmaf), for f32 tensors a, c and a small
+    integer b. The product is exact in f64; the f64 sum is made
+    round-to-odd (TwoSum error, then a step to the odd neighbour when
+    inexact), so rounding it to f32 rounds the exact sum correctly."""
+    p = a.to(torch.float64) * float(b)
+    c = c.to(torch.float64)
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    even = (s.view(torch.int64) & 1) == 0
+    step = (err != 0) & even & torch.isfinite(s)
+    away = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
+    return torch.where(step, torch.nextafter(s, away), s).to(torch.float32)
+
+
+def qsgd_ref(x, noise, norm, levels: int) -> torch.Tensor:
+    """QSGD quantize+dequantize against an l2 norm (a scalar, or one per row
+    as an (R, 1) column): n = max(norm, 1e-12),
+    sign(x) * floor(|x| / n * levels + u) * fac, as the reference's jitted
+    code computes it on XLA's CPU backend: the multiply-add is contracted
+    into one fma, and fac = n / levels is n * f32(1 / levels), a multiply
+    by the rounded reciprocal."""
+    n = norm.clamp_min(_EPS)            # f32(1e-12); a NaN norm stays NaN
+    lev = torch.floor(fma_f32(x.abs() / n, levels, noise))
+    return sign(x) * lev * (n * (1.0 / levels))   # f32(1 / levels)
+
+
+def terngrad_ref(x, noise, scale) -> torch.Tensor:
+    """TernGrad quantize+dequantize: s = max(scale, 1e-12),
+    sign(x) * [u < |x| / s] * s. XLA turns the reference's multiply by the
+    0/1 mask into a select, so a dropped entry is +0.0 (not -0.0 or NaN)."""
+    s = scale.clamp_min(_EPS)
+    return torch.where(noise < x.abs() / s, sign(x), 0.0) * s
+
+
+def topk_mask_ref(x, k: int, iters: int = TOPK_ITERS) -> torch.Tensor:
+    """Per-row top-k by magnitude: `iters` bisection halvings of [0, row
+    max] for the threshold lo with count(|x| >= lo) > k (ties at the
+    threshold keep more than k), then x where |x| >= lo, else +0.0 (XLA
+    turns the reference's multiply by the mask into this select)."""
+    mag = x.abs()
+    hi = mag.amax(dim=-1, keepdim=True)
+    lo = torch.zeros_like(hi)
+    for _ in range(iters):
+        thr = 0.5 * (lo + hi)
+        pred = (mag >= thr).sum(dim=-1, keepdim=True) > k
+        lo, hi = torch.where(pred, thr, lo), torch.where(pred, hi, thr)
+    return torch.where(mag >= lo, x, 0.0)
+
+
+def rmsnorm_ref(x, gamma, eps: float = 1e-5) -> torch.Tensor:
+    """Row-wise RMSNorm over the last axis, computed in f32 and cast back
+    to x's dtype."""
+    xf = x.to(torch.float32)
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps)
+            * gamma.to(torch.float32)).to(x.dtype)
 
 
 def words_per_unit(d: int, width: int) -> int:

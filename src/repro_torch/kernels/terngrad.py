@@ -1,6 +1,7 @@
-"""Fused TernGrad ternarize+pack / unpack+dequantize: the wrappers of the
-CUDA kernels in csrc/terngrad.cu and their plain-torch versions — the
-2-bit mirror of kernels/qsgd.py (same routing, checks and counters)."""
+"""Fused TernGrad ternarize+pack / unpack+dequantize (csrc/terngrad.cu)
+and the compress-only ternarize+dequantize (csrc/compress.cu): the wrappers
+of the CUDA kernels and their plain-torch versions — the TernGrad mirror of
+kernels/qsgd.py (same routing, checks and counters)."""
 from __future__ import annotations
 
 import torch
@@ -8,7 +9,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build, prng, ref
 from repro_torch.kernels.qsgd import (_check, _launch_args, _on_card,
-                                      unpack_codes_plain)
+                                      stat_column, unpack_codes_plain)
 from repro_torch.kernels.ref import words_per_unit
 
 TERN_WIDTH = 2
@@ -76,3 +77,33 @@ def terngrad_unpack(words, scale, d: int) -> torch.Tensor:
 
 
 terngrad_unpack.launches = 0
+
+
+# ---- compress only (ternarize + dequantize, noise given) ----------------------
+
+def terngrad_compress_rows_plain(x, noise, stat) -> torch.Tensor:
+    return ref.terngrad_ref(x, noise, stat_column(stat, x.shape[0])[0])
+
+
+def terngrad_compress_rows(x, noise, stat) -> torch.Tensor:
+    """x, noise (R, C) f32 and max|x| of each row (R,) or of all rows ()
+    f32 -> (R, C) f32 sign(x) * [u < |x| / s] * s with s = max(stat,
+    1e-12) (ref.terngrad_ref)."""
+    if not _on_card(x, noise, stat):
+        return terngrad_compress_rows_plain(x, noise, stat)
+    R, C = x.shape
+    _, stride = stat_column(stat, R)
+    _check(x, "x", torch.float32, (R, C))
+    _check(noise, "noise", torch.float32, (R, C))
+    _check(stat, "stat", torch.float32, stat.shape)
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    build.check(build.library("compress").terngrad_compress_rows(
+        x.data_ptr(), noise.data_ptr(), stat.data_ptr(), out.data_ptr(), R,
+        C, stride, *_launch_args(x.device)), "terngrad_compress_rows")
+    terngrad_compress_rows.launches += 1
+    return out
+
+
+terngrad_compress_rows.launches = 0

@@ -27,11 +27,14 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 _REF_MODULES = ("repro.core", "repro.core.wire", "repro.core.plan",
-                "repro.core.compressors", "repro.kernels.ops",
-                "repro.kernels.prng", "repro.kernels.qsgd",
-                "repro.kernels.terngrad", "repro.kernels.sign",
-                "repro.kernels.pack", "repro.models.cnn",
-                "repro.configs.resnet9_cifar", "repro.data.synthetic")
+                "repro.core.compressors", "repro.core.granularity",
+                "repro.core.theory", "repro.kernels.ops",
+                "repro.kernels.prng", "repro.kernels.ref",
+                "repro.kernels.qsgd", "repro.kernels.terngrad",
+                "repro.kernels.sign", "repro.kernels.pack",
+                "repro.kernels.topk_mask", "repro.kernels.rmsnorm",
+                "repro.models.cnn", "repro.configs.resnet9_cifar",
+                "repro.data.synthetic")
 
 
 @contextlib.contextmanager
@@ -126,7 +129,8 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
         "qsgd_pack": 0, "qsgd_unpack": 0, "terngrad_pack": 0,
         "terngrad_unpack": 0, "sign_pack": 0, "sign_unpack": 0,
         "fields_pack": 0, "fields_unpack": 0, "bits_pack": 0,
-        "bits_unpack": 0, "majority": 0}
+        "bits_unpack": 0, "majority": 0, "qsgd_compress_rows": 0,
+        "terngrad_compress_rows": 0, "topk_mask": 0, "rmsnorm": 0}
 
 
 def test_wrapper_rejects_a_device_without_a_kernel():
