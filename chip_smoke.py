@@ -16,12 +16,17 @@ error:
      bits, and fields at widths 1/4/9/13/16/17/24/31 (k = d) plus each
      shape's top-k index leg (k = 1% of d, ceil(log2 d) bits); the
      majority vote of n in {1, 2, 3, 4, 5, 8} workers over each shape's
-     signSGD words
+     signSGD words; the grouped QSGD pack (qsgd_pack_buckets) bitwise
+     against the per-bucket plain loop on the 11 layerwise buckets in one
+     launch, on MAX_BUCKETS + 8 buckets in two, and on units of edge
+     dimensions (d = 1, 2, 3, odd d, ceil(d/2) = 32k +- 1, tile edges),
+     grouped and one at a time
   4. the main path: train_cnn on resnet9 with QSGD(16) layerwise and
      entire_model, TernGrad, signSGD, natural, top-k(1%) and random-k(1%)
      layerwise, top-k entire_model, and adaptive threshold layerwise (the
      sim path: no launches); launch counters reset before and read after
-     each run and held to exact per-step counts; the wire buffers of one
+     each run and held to exact per-step counts (QSGD: one pack launch a
+     step for all its buckets); the wire buffers of one
      step built with the kernels equal those built with the plain
      versions (QSGD / TernGrad on the card's own statistics; signSGD,
      natural and top-k against the whole path run on the CPU); one
@@ -31,7 +36,10 @@ error:
      and the stress shape, beside the byte and operation bounds: device
      time from CUDA-event timed replays of a CUDA graph of 20 calls
      (`ms`, `plain_ms`), and the per-call time of the same calls issued
-     back to back from Python (`call_ms`, host enqueue included)
+     back to back from Python (`call_ms`, host enqueue included); QSGD's
+     pack also as the step's one grouped launch (layerwise_step_grouped,
+     the kernel line's time) and a layerwise step's QSGD encode from
+     Python, grouped and per bucket
   6. torch.profiler over five main-path steps each of QSGD(16) and
      top-k(1%) layerwise: wall and device-busy time per step, the
      device's idle share and the top device ops
@@ -67,9 +75,12 @@ on the card at every bucket shape, the entire-model gradient and 2**20
 entries: QSGD (levels 4/7/16/64) and TernGrad bitwise with one statistic
 per row and with one scalar statistic, top-k bitwise at k 1/5/16/128, and
 RMSNorm at (4096, 3072) in f32 (within 1e-6 relative) and bf16 (at most
-0.1% of entries one bf16 ulp apart): the two sum the squares in other
-orders. Phase 5 times them beside their bounds at the phase-8 shapes, and
-RMSNorm beside torch.nn.functional.rms_norm (`library_ms`, timed only).
+0.1% of entries one bf16 ulp apart; the two sum the squares in other
+orders) and at (64, 65536) bf16 (the looped kernel), and the RMSNorm
+wrapper refusing a view that does not start on a 16-byte boundary. Phase
+5 times them beside their bounds at the phase-8 shapes, and RMSNorm
+beside torch.nn.functional.rms_norm (`library_ms`, timed only) and a copy
+of the same bytes (`copy_ms`).
 
 Run from the repository root: `python3 chip_smoke.py` (no arguments, one
 card). `python3 chip_smoke.py --nccl` on a machine with 4 cards runs the
@@ -134,6 +145,12 @@ COMPRESS_LEVELS = (4, 7, 16, 64)
 TOPK_KS = (1, 5, 16, 128)
 MICRO = 1 << 20              # benchmarks/microbench.py's D
 RMS_SHAPE = (4096, 3072)     # phi4-mini's d_model (configs/phi4_mini_3_8b.py)
+# rows too wide for the registers kernel (past 512 threads x 8 vectors)
+RMS_WIDE = (64, 65536)
+# unit dimensions where the hash-once pack's split is most fragile: d = 1,
+# 2, 3, odd d, h = ceil(d / 2) = 32k +- 1 and h at tile edges (480 pairs)
+PACK_EDGE_DIMS = (1, 2, 3, 31, 32, 33, 61, 62, 63, 64, 65, 511, 513, 957,
+                  959, 960, 961, 962, 1025, 1919, 1921, 65537)
 BLOCK = 65536
 # (int32, fp32) operations per element of the compress-only kernels: QSGD
 # abs, divide, fma (2), floor, sign, two multiplies; TernGrad abs, divide,
@@ -322,13 +339,13 @@ def compress_inputs(shape, seed, dev):
     return x.to(dev), torch.rand(shape, generator=g).to(dev)
 
 
-def rmsnorm_inputs(dtype, seed, dev):
-    """Seeded RMS_SHAPE rows of varied scale in `dtype` and gamma (f32)."""
+def rmsnorm_inputs(dtype, seed, dev, shape=RMS_SHAPE):
+    """Seeded rows of varied scale in `dtype` and gamma (f32)."""
     import torch
     g = torch.Generator().manual_seed(seed)
-    scale = torch.rand((RMS_SHAPE[0], 1), generator=g) * 10 + 0.1
-    x = torch.randn(RMS_SHAPE, generator=g) * scale
-    gamma = torch.rand(RMS_SHAPE[1], generator=g) + 0.5
+    scale = torch.rand((shape[0], 1), generator=g) * 10 + 0.1
+    x = torch.randn(shape, generator=g) * scale
+    gamma = torch.rand(shape[1], generator=g) + 0.5
     return x.to(dtype).to(dev), gamma.to(dev)
 
 
@@ -352,7 +369,9 @@ def check_compress_kernels(shapes, dev):
     one statistic per row on the (n, d) units and with one scalar statistic
     on the same entries as 512-wide rows, bitwise (the statistic computed
     once and fed to both); top-k on those rows, bitwise; then RMSNorm at
-    RMS_SHAPE in f32 and bf16 within the stated tolerance."""
+    RMS_SHAPE in f32 and bf16 (the registers kernel) and at RMS_WIDE in
+    bf16 (the looped kernel) within the stated tolerance, and the wrapper
+    raising on a view that does not start on a 16-byte boundary."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import qsgd as Q
@@ -385,11 +404,63 @@ def check_compress_kernels(shapes, dev):
         for k in TOPK_KS:
             same("topk_mask", K.topk_mask(xt, k), K.topk_mask_plain(xt, k),
                  f"{tuple(xt.shape)} k {k}")
-    for dtype in (torch.float32, torch.bfloat16):
-        x, gamma = rmsnorm_inputs(dtype, 900, dev)
+    for shape, dtype, variant in ((RMS_SHAPE, torch.float32, "registers"),
+                                  (RMS_SHAPE, torch.bfloat16, "registers"),
+                                  (RMS_WIDE, torch.bfloat16, "looped")):
+        x, gamma = rmsnorm_inputs(dtype, 900, dev, shape)
         got, want = rmsnorm(x, gamma), rmsnorm_plain(x, gamma)
+        check(rmsnorm.variant == variant,
+              f"rmsnorm {shape} {dtype}: ran {rmsnorm.variant}")
         err["rmsnorm"] = max(err["rmsnorm"], max_abs_err(got, want))
-        check(rmsnorm_close(got, want), f"rmsnorm {RMS_SHAPE} {dtype}")
+        check(rmsnorm_close(got, want), f"rmsnorm {shape} {dtype}")
+    whole = torch.empty(RMS_SHAPE[0] * RMS_SHAPE[1] + 1, dtype=torch.bfloat16,
+                        device=dev)
+    try:
+        rmsnorm(whole[1:].view(RMS_SHAPE), torch.ones(RMS_SHAPE[1],
+                                                      device=dev))
+        fail("rmsnorm took a view 2 bytes off a 16-byte boundary")
+    except ValueError as e:
+        check("16-byte aligned" in str(e), f"rmsnorm misaligned view: {e}")
+    torch.cuda.synchronize()
+    return err
+
+
+def check_grouped_pack(layer_shapes, dev):
+    """The grouped qsgd_pack launch (qsgd_pack_buckets) vs the per-bucket
+    plain loop, bitwise, for every (width, levels) of QSGD_WIDTHS: the 11
+    resnet9 layerwise buckets in ONE launch, MAX_BUCKETS + 8 buckets in
+    two, and the PACK_EDGE_DIMS units grouped and one bucket at a time.
+    -> max |err|."""
+    import torch
+    from repro_torch.kernels import qsgd as Q
+    groups = {"layerwise": layer_shapes,
+              "over_max_buckets": [(1 + i % 3, 17 + 61 * i)
+                                   for i in range(Q.MAX_BUCKETS + 8)],
+              "edges": [(3, d) for d in PACK_EDGE_DIMS]}
+    err = 0.0
+    for gi, (gname, shapes) in enumerate(groups.items()):
+        ins = [make_inputs(s, 1500 + 64 * gi + i, dev)
+               for i, s in enumerate(shapes)]
+        xs = [x for x, _, _ in ins]
+        k0s = [k0 for _, k0, _ in ins]
+        k1s = [k1 for _, _, k1 in ins]
+        nrms = [torch.linalg.vector_norm(x, dim=1) + 1e-12 for x in xs]
+        for width, levels in QSGD_WIDTHS:
+            before = Q.qsgd_pack.launches
+            got = Q.qsgd_pack_buckets(xs, k0s, k1s, nrms, levels, width)
+            want_launches = -(-len(shapes) // Q.MAX_BUCKETS)
+            check(Q.qsgd_pack.launches - before == want_launches,
+                  f"grouped {gname}: {Q.qsgd_pack.launches - before} "
+                  f"launches, want {want_launches}")
+            for g, x, k0, k1, nrm in zip(got, xs, k0s, k1s, nrms):
+                want = Q.qsgd_pack_plain(x, k0, k1, nrm, levels, width)
+                err = max(err, max_abs_err(g, want))
+                check(bitwise_equal(g, want),
+                      f"qsgd_pack grouped {gname} {tuple(x.shape)} w{width}")
+                if gname == "edges":
+                    one = Q.qsgd_pack(x, k0, k1, nrm, levels, width)
+                    check(bitwise_equal(one, want),
+                          f"qsgd_pack {tuple(x.shape)} w{width}")
     torch.cuda.synchronize()
     return err
 
@@ -399,8 +470,9 @@ def check_compress_kernels(shapes, dev):
 def main_path_runs(dev):
     """train_cnn runs, each held to exact launch counts: per step, one pack
     and one unpack launch of the codec's kernel family per bucket (11
-    layerwise, 1 entire-model), none of any other kernel, and none at all
-    for adaptive threshold (its records are not sim-exact, so train_step
+    layerwise, 1 entire-model), except QSGD's pack, one launch a step for
+    all its buckets; none of any other kernel, and none at all for
+    adaptive threshold (its records are not sim-exact, so train_step
     takes the sim path, as the reference's train_cnn always does)."""
     from repro_torch import kernels
     from repro_torch.core.aggregation import CompressionConfig
@@ -434,8 +506,14 @@ def main_path_runs(dev):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = kernels.launch_counts()
-        want = {k: (per_step * STEPS if k.split("_")[0] == fam
-                    and k not in COMPRESS_KERNELS else 0) for k in counts}
+        # a step encodes every bucket, then decodes each: per bucket one
+        # pack and one unpack launch, but the fused QSGD codec packs all
+        # its buckets (11 <= MAX_BUCKETS) in one launch. QSGD layerwise:
+        # qsgd_pack 1 x 20 = 20, qsgd_unpack 11 x 20 = 220; entire-model
+        # 20 and 20
+        want = {k: (0 if k.split("_")[0] != fam or k in COMPRESS_KERNELS
+                    else STEPS if k == "qsgd_pack" else per_step * STEPS)
+                for k in counts}
         check(counts == want, f"{name}: launches {counts} != {want}")
         check(math.isfinite(loss) and math.isfinite(acc),
               f"{name}: test loss {loss} / accuracy {acc}")
@@ -700,7 +778,63 @@ def time_kernels(layer_shapes, em_shape, dev):
                     "bytes": nbytes, "int_ops": iops, "fp_ops": fops,
                     "bytes_ms": t_b, "ops_ms": t_o, "bound_ms": max(t_b, t_o),
                     "bound_by": "bytes" if t_b >= t_o else "operations"})
+    rows.append(time_grouped_pack(layer_shapes, dev))
     return rows
+
+
+def time_grouped_pack(layer_shapes, dev):
+    """The row of group layerwise_step_grouped: ONE qsgd_pack launch over
+    the 11 layerwise buckets x 4 workers (qsgd_pack_buckets), as a step
+    runs it, beside the per-bucket plain loop; shape [units, elements],
+    bounds the sums of the buckets' bytes and operations."""
+    import torch
+    from repro_torch.kernels import qsgd as Q
+    ins = [make_inputs(s, 500 + si, dev) for si, s in enumerate(layer_shapes)]
+    xs = [x for x, _, _ in ins]
+    k0s = [k0 for _, k0, _ in ins]
+    k1s = [k1 for _, _, k1 in ins]
+    nrms = [torch.linalg.vector_norm(x, dim=1) + 1e-12 for x in xs]
+
+    def kern():
+        return Q.qsgd_pack_buckets(xs, k0s, k1s, nrms, MAIN_LEVELS,
+                                   MAIN_WIDTH)
+
+    def plain():
+        return [Q.qsgd_pack_plain(x, k0, k1, nrm, MAIN_LEVELS, MAIN_WIDTH)
+                for x, k0, k1, nrm in zip(xs, k0s, k1s, nrms)]
+    parts = [bounds("qsgd_pack", n, d, MAIN_WIDTH) for n, d in layer_shapes]
+    nbytes, iops, fops = (sum(p[i] for p in parts) for i in range(3))
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = (iops / INT32_OPS_PER_S + fops / FP32_OPS_PER_S) * 1e3
+    return {"group": "layerwise_step_grouped", "kernel": "qsgd_pack",
+            "leg": f"{len(layer_shapes)} buckets",
+            "shape": [sum(n for n, _ in layer_shapes),
+                      sum(n * d for n, d in layer_shapes)],
+            "width": MAIN_WIDTH, "ms": device_ms(kern),
+            "call_ms": call_ms(kern),
+            "plain_ms": device_ms(plain, reps=3, repeats=3),
+            "bytes": nbytes, "int_ops": iops, "fp_ops": fops,
+            "bytes_ms": t_b, "ops_ms": t_o, "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def encode_host_ms(layer_shapes, dev):
+    """Per call, in ms (call_ms: host enqueue included): one layerwise
+    step's QSGD encode through ops.qsgd_pack_units_buckets (one pack
+    launch) and through ops.qsgd_pack_units per bucket (11), the norms and
+    key splits included in both."""
+    from repro_torch.kernels import ops
+    from repro_torch import random as R
+    import torch
+    g = torch.Generator().manual_seed(1400)
+    xs = [torch.randn(s, generator=g).to(dev) for s in layer_shapes]
+    ks = [R.fold_in(R.key(i)[None], torch.arange(s[0])).to(dev)
+          for i, s in enumerate(layer_shapes)]
+    return {
+        "grouped": call_ms(lambda: ops.qsgd_pack_units_buckets(
+            xs, ks, MAIN_LEVELS, MAIN_WIDTH)),
+        "per_bucket": call_ms(lambda: [ops.qsgd_pack_units(
+            x, k, MAIN_LEVELS, MAIN_WIDTH) for x, k in zip(xs, ks)])}
 
 
 def compress_bounds(kernel: str, rows: int, cols: int, stat_words: int = 0,
@@ -731,7 +865,8 @@ def time_compress_kernels(unit_shapes, total, dev):
     whole-input calls on the flat gradient and on 2**20 entries (one
     scalar statistic over 512-wide rows: compress_flat, compress_micro);
     top-k (k=5) in the same two whole-input calls; RMSNorm at RMS_SHAPE in
-    bf16 and f32, beside torch.nn.functional.rms_norm (`library_ms`)."""
+    bf16 and f32, beside torch.nn.functional.rms_norm (`library_ms`) and
+    a copy of x (`copy_ms`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -742,10 +877,10 @@ def time_compress_kernels(unit_shapes, total, dev):
     rows = []
 
     def add(group, kernel, shape, stat_words, kern, plain, elt=4,
-            library=None):
+            library=None, **extra):
         nbytes, iops, fops, t_b, t_o = compress_bounds(kernel, *shape,
                                                        stat_words, elt)
-        rows.append({
+        rows.append({**extra,
             "group": group, "kernel": kernel, "leg": "", "shape": list(shape),
             "width": 0, "ms": device_ms(kern), "call_ms": call_ms(kern),
             "plain_ms": device_ms(plain, reps=3, repeats=3),
@@ -779,9 +914,13 @@ def time_compress_kernels(unit_shapes, total, dev):
                          (torch.float32, "rmsnorm_f32")):
         x, gamma = rmsnorm_inputs(dtype, 1100, dev)
         g_lib = gamma.to(dtype)
+        y = torch.empty_like(x)
+        # copy_ms: x copied into y, the same bytes less gamma (information:
+        # what this card's copy reaches for the read + write stream)
         add(group, "rmsnorm", RMS_SHAPE, 0, lambda: rmsnorm(x, gamma),
             lambda: rmsnorm_plain(x, gamma), elt=x.element_size(),
-            library=lambda: F.rms_norm(x, (RMS_SHAPE[1],), g_lib, 1e-5))
+            library=lambda: F.rms_norm(x, (RMS_SHAPE[1],), g_lib, 1e-5),
+            copy_ms=device_ms(lambda: y.copy_(x)))
     return rows
 
 
@@ -1082,12 +1221,16 @@ def train_ranks(rank, n, dev):
     from repro_torch.core.granularity import Granularity, stacked_mask
     from repro_torch.core.plan import build_plan
     from repro_torch.experiment import train_cnn_ranks
+    # launches a step: QSGD packs its 11 buckets in one launch; the
+    # allgather receive leg decodes each bucket's gathered rows with the
+    # per-unit codec (one fields_unpack a bucket), simulated with the
+    # fused one (one qsgd_unpack a bucket)
     runs = [("allgather_qsgd16_layerwise", QSGD(levels=MAIN_LEVELS),
-             "allgather", {"qsgd_pack": 11, "fields_unpack": 11}),
+             "allgather", {"qsgd_pack": 1, "fields_unpack": 11}),
             ("allgather_signsgd_layerwise", SignSGD(), "allgather",
              {"sign_pack": 11, "bits_unpack": 11}),
             ("simulated_qsgd16_layerwise", QSGD(levels=MAIN_LEVELS),
-             "simulated", {"qsgd_pack": 11, "qsgd_unpack": 11})]
+             "simulated", {"qsgd_pack": 1, "qsgd_unpack": 11})]
     out = []
     for name, comp, strategy, per_step in runs:
         cfg = CompressionConfig(qw=comp, strategy=strategy,
@@ -1407,27 +1550,29 @@ COMPRESS_SOURCES = {
 }
 LINE_GROUP = {"qsgd_compress_rows": "compress_layerwise",
               "terngrad_compress_rows": "compress_layerwise",
-              "topk_mask": "compress_flat", "rmsnorm": "rmsnorm_bf16"}
+              "topk_mask": "compress_flat", "rmsnorm": "rmsnorm_bf16",
+              "qsgd_pack": "layerwise_step_grouped"}
 
 
 def kernel_line(timings, launches, errs):
     """The per-kernel summary. Wire kernels: device ms / plain_ms /
     bound_ms summed over one layerwise main-path step (the 11 resnet9
     buckets x 4 workers; the fields kernels on natural compression's 9-bit
-    code leg). Compress-only kernels: summed over their LINE_GROUP rows
-    (one layerwise plan_compress call of QSGD(16) / TernGrad, top-k (k=5)
+    code leg; qsgd_pack the step's one grouped launch). Compress-only
+    kernels: summed over their LINE_GROUP rows (one layerwise
+    plan_compress call of QSGD(16) / TernGrad, top-k (k=5)
     on the flat gradient, RMSNorm at (4096, 3072) bf16 with the time of
     torch.nn.functional.rms_norm as `library_ms`). `launches` are each
     kernel's launches on its path (phases 4 + 7, or phase 8), every one
     above 0."""
     out = []
-    groups = ([(n, v, "layerwise_step") for n, v in SOURCES.items()]
-              + [(n, v, LINE_GROUP[n]) for n, v in COMPRESS_SOURCES.items()])
+    groups = [(n, v, LINE_GROUP.get(n, "layerwise_step"))
+              for n, v in {**SOURCES, **COMPRESS_SOURCES}.items()]
     for name, (src, replaces), group in groups:
         check(launches[name] > 0, f"{name}: no launch on its path")
         step = [r for r in timings
                 if r["kernel"] == name and r["group"] == group
-                and r["leg"] in ("", "natural")]
+                and r["leg"] != "index"]
         check(step, f"{name}: no timing rows in group {group}")
         tot = {k: sum(r[k] for r in step)
                for k in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
@@ -1511,6 +1656,12 @@ def main(argv) -> int:
           f"bits, fields widths {list(FIELD_WIDTHS)} and the top-k index "
           f"legs; majority of {list(VOTERS)} workers); max abs err {errs}",
           flush=True)
+    gerr = check_grouped_pack(layer_shapes, dev)
+    errs["qsgd_pack"] = max(errs["qsgd_pack"], gerr)
+    print(f"grouped qsgd_pack: bitwise equal to the per-bucket plain loop "
+          f"(widths {[w for w, _ in QSGD_WIDTHS]}) on the 11 layerwise "
+          f"buckets in one launch, MAX_BUCKETS + 8 buckets in two and units "
+          f"of d in {list(PACK_EDGE_DIMS)}; max abs err {gerr}", flush=True)
     unit_shapes = [(n // WORKERS, d) for n, d in layer_shapes]
     cshapes = layer_shapes + [(1, em_shape[1]), (1, MICRO)]
     cerrs = check_compress_kernels(cshapes, dev)
@@ -1518,8 +1669,9 @@ def main(argv) -> int:
     print(f"compress-only kernels vs plain: QSGD (levels "
           f"{list(COMPRESS_LEVELS)}) and TernGrad bitwise, per-row and "
           f"scalar statistics, top-k (k {list(TOPK_KS)}) bitwise over "
-          f"{len(cshapes)} shapes; rmsnorm {RMS_SHAPE} f32 and bf16 within "
-          f"tolerance; max abs err {cerrs}", flush=True)
+          f"{len(cshapes)} shapes; rmsnorm {RMS_SHAPE} f32 and bf16 and "
+          f"{RMS_WIDE} bf16 (looped) within tolerance, a misaligned view "
+          f"refused; max abs err {cerrs}", flush=True)
 
     runs = main_path_runs(dev)
     n_msgs = check_step_buffers(dev)
@@ -1538,7 +1690,12 @@ def main(argv) -> int:
               f"{r['bytes_ms']:.6f}, ops {r['ops_ms']:.6f}) "
               f"bytes={r['bytes']}"
               + (f" library_ms={r['library_ms']:.5f}"
-                 if r.get("library_ms") is not None else ""), flush=True)
+                 if r.get("library_ms") is not None else "")
+              + (f" copy_ms={r['copy_ms']:.5f}" if "copy_ms" in r else ""),
+              flush=True)
+    encode_ms = encode_host_ms(layer_shapes, dev)
+    print(f"  QSGD encode of a layerwise step, per call from Python (ms): "
+          f"{encode_ms}", flush=True)
     multi, multi_launches, multi_secs = multi_rank_path()
     launches = {k: sum(r["launches"][k] for r in runs)
                 + multi_launches.get(k, 0) for k in SOURCES}
@@ -1581,6 +1738,7 @@ def main(argv) -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": card, "torch": torch.__version__, "seconds": total,
         "build_seconds": secs, "main_path": runs, "timings": timings,
+        "encode_call_ms": encode_ms,
         "profiles": profiles, "multi_rank": multi,
         "compress_path": compress,
         "ptxas": {src: [ln.strip() for ln in log.splitlines()

@@ -330,8 +330,11 @@ def compressed_allreduce(grads, stacked, cfg: CompressionConfig, group,
                             .to(g.dtype), grads), ef_state
         me = float(bool(alive[rank]))
         denom = float(sum(1.0 for a in alive if a))
+        # the reference's jitted `psum(g) / denom` is a multiply by
+        # f32(1 / denom) under XLA
+        recip = torch.tensor(1.0, dtype=torch.float32) / denom
         return tree_map(lambda g: (rank_sum(all_gather(
-            _wire(g, cfg) * me, group)) / denom).to(g.dtype),
+            _wire(g, cfg) * me, group)) * recip).to(g.dtype),
             grads), ef_state
 
     if not tree_leaves(grads):                       # nothing to aggregate

@@ -234,6 +234,11 @@ class WireCodec:
         """(n, d) units + (n, 2) unit keys -> (n, nbytes(d)) uint8 rows."""
         return self.encode_rows(x2d, keys)
 
+    def encode_buckets(self, es, keys) -> list:
+        """encode_batch of every bucket of a step: [(n_i, d_i) units] +
+        [(n_i, 2) unit keys] -> [(n_i, nbytes(d_i)) uint8 rows]."""
+        return [self.encode_batch(e, k) for e, k in zip(es, keys)]
+
     def decode_batch(self, payloads, d: int) -> torch.Tensor:
         """(n, nbytes(d)) uint8 rows -> (n, d) decoded f32 units."""
         return self.decode_rows(payloads, d)
@@ -293,9 +298,15 @@ class QSGDCodec(WireCodec):
     def encode_batch(self, x2d, keys):
         if not self.fused:
             return self.encode_rows(x2d, keys)
-        w, nrm = ops.qsgd_pack_units(x2d, keys, self.comp.levels,
-                                     self.entry_bits)
-        return _stat_and_words(nrm, w)
+        return self.encode_buckets([x2d], [keys])[0]
+
+    def encode_buckets(self, es, keys):
+        """Fused: one pack launch for all the buckets (up to MAX_BUCKETS)."""
+        if not self.fused:
+            return super().encode_buckets(es, keys)
+        return [_stat_and_words(nrm, w) for w, nrm in
+                ops.qsgd_pack_units_buckets(es, keys, self.comp.levels,
+                                            self.entry_bits)]
 
     def decode_batch(self, payloads, d: int):
         if not self.fused:
@@ -637,10 +648,11 @@ def execute_schedule_wire(schedule, codec: WireCodec, grads, key,
                           post: Optional[Callable] = None,
                           wire_key: Optional[Callable] = None,
                           decode_local: bool = True):
-    """Stream a CommSchedule through REAL wire buffers: per message, encode
-    every member bucket (one pack launch each), concatenate the payload
-    rows into one uint8 buffer behind the header, then decode each bucket
-    back out of the buffer (one unpack launch each) and apply
+    """Stream a CommSchedule through REAL wire buffers: encode every bucket
+    of the schedule (codec.encode_buckets: one pack launch each, one for
+    all of them under the fused QSGD codec), then per message concatenate
+    its payload rows into one uint8 buffer behind the header, decode each
+    bucket back out of the buffer (one unpack launch each) and apply
     `post(payload_rows, xhat, unit_keys, d) -> y` (None: y = xhat). Unit keys
     pass through `wire_key` (e.g. the rank fold) before encode.
     `decode_local=False` skips the local decode for a post that does not
@@ -676,29 +688,33 @@ def _execute_wire(schedule, codec, grads, state, key, post, wire_key,
     keys = plan._keys(key, leaves[0].device)
     out = ([None] * len(leaves), plan._new_flat(leaves) if need else None)
     mout = ([None] * len(leaves), plan._new_flat(leaves) if need else None)
+    # every bucket's encode input and key for the whole schedule, encoded
+    # in one call (one QSGD pack launch), then message by message
+    bs = [plan.buckets[bi] for msg in schedule.messages
+          for bi in msg.bucket_ids]
+    es = [plan._gather_runs(leaves, flat, b) for b in bs]
+    if state is not None:
+        es = [e + plan._gather_runs(sleaves, mflat, b)
+              for e, b in zip(es, bs)]
+    kbs = [plan._bucket_keys(keys, b) for b in bs]
+    wkbs = kbs if wire_key is None else [wire_key(k) for k in kbs]
+    pays = iter(zip(bs, es, kbs, codec.encode_buckets(es, wkbs)))
     buffers = []
     for msg, layout in zip(schedule.messages,
                            message_layouts(schedule, codec)):
-        bs = [plan.buckets[bi] for bi in msg.bucket_ids]
-        es = [plan._gather_runs(leaves, flat, b) for b in bs]
-        if state is not None:
-            es = [e + plan._gather_runs(sleaves, mflat, b)
-                  for e, b in zip(es, bs)]
-        kbs = [plan._bucket_keys(keys, b) for b in bs]
-        wkbs = kbs if wire_key is None else [wire_key(k) for k in kbs]
-        buf = _message_buffer(layout, [
-            codec.encode_batch(e, k).reshape(B, -1)
-            for e, k in zip(es, wkbs)])
+        mine = [next(pays) for _ in msg.bucket_ids]
+        buf = _message_buffer(layout, [pay.reshape(B, -1)
+                                       for _, _, _, pay in mine])
         buffers.append(buf if batched else buf[0])
-        for j, b in enumerate(bs):
+        for j, (b, e, kb, _) in enumerate(mine):
             pay = _bucket_region(buf, layout, j, b.n)
             if state is not None:
-                xhat, mn = codec.decode_ef_batch(pay, es[j], b.dim)
+                xhat, mn = codec.decode_ef_batch(pay, e, b.dim)
                 plan._scatter_runs(*mout, b, mn)
             else:
                 xhat = codec.decode_batch(pay, b.dim) if decode_local \
                     else None
-            y = xhat if post is None else post(pay, xhat, kbs[j], b.dim)
+            y = xhat if post is None else post(pay, xhat, kb, b.dim)
             plan._scatter_runs(*out, b, y)
     tree = plan._assemble(*out, batched)
     if state is None:

@@ -4,7 +4,8 @@ and the entry points (ops.py).
 
 Wrappers, each with a plain version and a `.launches` counter:
 
-- wire pack / unpack: qsgd.py, terngrad.py, sign.py (and the majority
+- wire pack / unpack: qsgd.py (its pack grouped over up to 32 buckets a
+  launch, `qsgd_pack_buckets`), terngrad.py, sign.py (and the majority
   vote), pack.py (width-bit fields and bits);
 - compress only: `qsgd_compress_rows` (qsgd.py), `terngrad_compress_rows`
   (terngrad.py), `topk_mask` (topk_mask.py), `rmsnorm` (rmsnorm.py).

@@ -30,10 +30,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures: every pointer and the stream as void*, ints (sizes and the
-# CUDA device index) as int, f32 scalars as float
+# C signatures: every pointer, pointer array and the stream as void*, ints
+# (sizes and the CUDA device index) as int, f32 scalars as float
 SIGNATURES = {
-    "qsgd_pack": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # count, the pointer array, the size array, blocks, levels, width
+    "qsgd_pack_buckets": [_I, _P, _P, _I, _I, _I, _I, _P],
     "qsgd_unpack": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "terngrad_pack": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "terngrad_unpack": [_P, _P, _P, _I, _I, _I, _I, _P],
@@ -47,7 +48,7 @@ SIGNATURES = {
     "qsgd_compress_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "terngrad_compress_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "topk_mask": [_P, _P, _I, _I, _I, _P],
-    "rmsnorm": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "rmsnorm": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
 }
 
 #: nvcc output of the last build in this process, by source

@@ -9,19 +9,39 @@
 //
 // What bounds it on the card. Pack moves 4 B read + width/8 B written per
 // element (4.75 B at width 6, QSGD(16)) and evaluates one threefry2x32 hash
-// per element (~77 integer operations: 20 rounds of add/rotate/xor plus the
-// key injections). At the resnet9 main-path sizes (<= 4 x 121,002 elements)
-// launch latency dominates; at 4 x 2^20 elements the integer throughput of
-// the hash, not memory bandwidth, is the bound. Unpack is bandwidth-bound
+// per pair of elements (~79 integer operations: 20 rounds of add/rotate/xor
+// plus the key injections). At the resnet9 main-path sizes (<= 4 x 121,002
+// elements) launch latency dominates, so one launch serves every bucket of
+// a step; at 4 x 2^20 elements the integer throughput of the hash, not
+// memory bandwidth, is the bound. Unpack is bandwidth-bound
 // (width/8 B read + 4 B written per element).
 //
-// Design (simple and right first): pack runs one warp per 32-field chunk of
-// a unit; each lane computes one code, the codes are staged in shared
-// memory, and lanes 0..width-1 each assemble one output word, so both the
-// f32 reads and the word writes are coalesced. Unpack runs one thread per
-// element and reads the one or two words its field spans. Each element
-// hashes its own counter pair, so every pair is hashed twice (once for p,
-// once for p + h); computing both outputs once would halve the hashing.
+// Design. Pack: position p < h = ceil(d / 2) is output word 0 of counter
+// pair (p, p + h) and p >= h word 1 of pair (p - h, p), so one hash of pair
+// j gives the codes of positions j and j + h (repro::uniform_pair_at). A
+// block of 256 threads takes a tile of 480 = 15 x 32 pairs of one unit plus
+// a halo chunk of the next 32 pairs, two pairs a thread, hashes each once
+// and stages the codes of both halves in shared memory. Words are written
+// one a thread, in 32-position chunks (a chunk spans exactly `width`
+// words, so no word has two writers): the tile's 15 chunks of the lower
+// half, and the 15 upper-half chunks whose first pair falls in its range;
+// their codes are 32 consecutive staged codes from any offset (h need not
+// be a multiple of 32), which the halo chunk completes. The one chunk
+// holding position h (when h % 32 != 0) mixes both halves; one warp
+// hashes its 32 positions directly. So a pair is hashed once, plus 32
+// halo pairs a tile and at most 32 a unit. At the resnet9 sizes the
+// launch is latency-bound: two pairs a thread keep a step's blocks (508
+// entire-model, 540 layerwise) within one wave of the card.
+//
+// Grouped launch: a table of up to kMaxBuckets buckets (pointers, sizes,
+// tiles per unit and the first block of each bucket, a prefix sum built by
+// the caller) travels by value as a kernel parameter, so one launch packs
+// every bucket of a step without a host-to-device copy (and a CUDA graph
+// can capture it). A block finds its bucket by a scan over the table's
+// block starts. The one-bucket pack is the same launch with one entry.
+//
+// Unpack runs one thread per element and reads the one or two words its
+// field spans.
 //
 // Numerics: y = |x| / nrm * levels needs an IEEE divide and no FMA
 // contraction, so the arithmetic uses the _rn intrinsics and the file is
@@ -36,42 +56,111 @@
 
 namespace {
 
-constexpr int kWarps = 8;  // warps (chunks) per pack block
+constexpr int kWarps = 8;                     // warps per pack block
+constexpr int kTileChunks = 15;               // 32-pair chunks a tile owns
+constexpr int kHashChunks = kTileChunks + 1;  // + the halo chunk
+constexpr int kTilePairs = 32 * kTileChunks;  // kernels/qsgd.py TILE_PAIRS
+constexpr int kMaxBuckets = 32;               // kernels/qsgd.py MAX_BUCKETS
 
-__global__ void qsgd_pack_kernel(const float* __restrict__ x,
-                                 const uint32_t* __restrict__ k0,
-                                 const uint32_t* __restrict__ k1,
-                                 const float* __restrict__ nrm,
-                                 uint32_t* __restrict__ out, int n, int d,
-                                 int levels, int width, int wpu, int chunks) {
-  __shared__ uint32_t codes[kWarps][32];
+struct PackBucket {
+  const float* x;          // (n, d) units
+  const uint32_t* k0;      // (n,) key words
+  const uint32_t* k1;
+  const float* nrm;        // (n,) norms, +1e-12 included
+  uint32_t* out;           // (n, wpu) words
+  int n, d, wpu, tiles;    // tiles per unit
+};
+
+// The first blocks lie together at the front, so a block's scan for its
+// bucket reads two constant-cache lines, not one per bucket.
+struct PackTable {
+  int block_start[kMaxBuckets];  // each bucket's first block in the launch
+  PackBucket b[kMaxBuckets];
+  int count;
+};
+
+// sign(x) * stochastic_round(|x| / nrm * levels) + levels, u the uniform.
+__device__ __forceinline__ uint32_t qsgd_code(float xv, float u, float nrm,
+                                              int levels) {
+  const float y = __fmul_rn(__fdiv_rn(fabsf(xv), nrm),
+                            static_cast<float>(levels));
+  const float lo = floorf(y);
+  const float lev = (u < __fsub_rn(y, lo)) ? __fadd_rn(lo, 1.0f) : lo;
+  const int q = static_cast<int>(lev);
+  return static_cast<uint32_t>(xv > 0.0f ? levels + q
+                               : xv < 0.0f ? levels - q : levels);
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+    qsgd_pack_kernel(const __grid_constant__ PackTable t, int levels,
+                     int width) {
+  __shared__ uint32_t lo[kHashChunks * 32];  // code of position j0 + i
+  __shared__ uint32_t hi[kHashChunks * 32];  // code of position j0 + i + h
+  __shared__ uint32_t mixed[32];             // codes of chunk qm
+  int k = 0;
+  while (k + 1 < t.count &&
+         static_cast<int>(blockIdx.x) >= t.block_start[k + 1])
+    ++k;
+  const PackBucket& b = t.b[k];
+  const int local = static_cast<int>(blockIdx.x) - t.block_start[k];
+  const int unit = local / b.tiles;
+  const int tile = local % b.tiles;
+  const int d = b.d;
+  const int h = (d + 1) >> 1;
+  const float* xu = b.x + static_cast<long long>(unit) * d;
+  uint32_t* ou = b.out + static_cast<long long>(unit) * b.wpu;
+  const uint32_t k0 = b.k0[unit], k1 = b.k1[unit];
+  const float nrm = b.nrm[unit];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long g = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  if (g >= static_cast<long long>(n) * chunks) return;  // whole warp leaves
-  const int unit = static_cast<int>(g / chunks);
-  const int c = static_cast<int>(g % chunks);
-  const int p = c * 32 + lane;
-  uint32_t code = 0u;
-  if (p < d) {
-    const float xv = x[static_cast<long long>(unit) * d + p];
-    const float u = repro::uniform_at(k0[unit], k1[unit], p, d);
-    const float y = __fmul_rn(__fdiv_rn(fabsf(xv), nrm[unit]),
-                              static_cast<float>(levels));
-    const float lo = floorf(y);
-    const float lev = (u < __fsub_rn(y, lo)) ? __fadd_rn(lo, 1.0f) : lo;
-    const int q = static_cast<int>(lev);
-    code = static_cast<uint32_t>(xv > 0.0f ? levels + q
-                                 : xv < 0.0f ? levels - q : levels);
-  }
-  codes[warp][lane] = code;
-  __syncwarp();
-  if (lane < width) {
-    const int word = c * width + lane;
-    if (word < wpu) {
-      out[static_cast<long long>(unit) * wpu + word] =
-          repro::assemble_word(codes[warp], width, lane);
+  const int j0 = tile * kTilePairs;
+  const int ql0 = tile * kTileChunks;         // the tile's first lower chunk
+  const int qm = (h & 31) ? h >> 5 : -1;      // the chunk holding position h
+  const bool has_mixed = qm >= ql0 && qm < ql0 + kTileChunks;
+
+  // 1. hash each pair of the tile and the halo chunk once (two pairs a
+  //    thread, independent, so their hashes interleave): both codes
+#pragma unroll
+  for (int r = 0; r < kHashChunks / kWarps; ++r) {
+    const int i = (warp + r * kWarps) * 32 + lane;
+    const int j = j0 + i;
+    uint32_t cl = 0u, ch = 0u;
+    if (j < h) {
+      float u0, u1;
+      repro::uniform_pair_at(k0, k1, j, d, u0, u1);
+      cl = qsgd_code(xu[j], u0, nrm, levels);
+      if (j + h < d) ch = qsgd_code(xu[j + h], u1, nrm, levels);
     }
+    lo[i] = cl;
+    hi[i] = ch;
+  }
+  if (has_mixed && warp == kWarps - 1) {  // mixes both halves: per position
+    const int p = 32 * qm + lane;
+    mixed[lane] = p < d ? qsgd_code(xu[p], repro::uniform_at(k0, k1, p, d),
+                                    nrm, levels)
+                        : 0u;
+  }
+  __syncthreads();
+
+  // 2. one thread a word over two runs of whole chunks (a chunk spans
+  //    exactly `width` words): the lower run, chunks [ql0, min(ql0 + 15,
+  //    h / 32)) entirely below h, then chunk qm; the upper run, the 15
+  //    chunks q >= q0 = ceil((j0 + h) / 32) whose first pair 32q - h lies
+  //    in [j0, j0 + 480), codes hi[o .. o + 31] with o = 32q - h - j0 <=
+  //    479 (the halo chunk completes them). Words past wpu (beyond d) are
+  //    not written.
+  const int ql1 = has_mixed ? qm + 1 : min(ql0 + kTileChunks, h >> 5);
+  const int nl = max(0, ql1 - ql0) * width;
+  const int q0 = (j0 + h + 31) >> 5;
+  const int nu = max(0, min(q0 + kTileChunks, (d + 31) >> 5) - q0) * width;
+  for (int i = threadIdx.x; i < nl + nu; i += blockDim.x) {
+    const bool upper = i >= nl;
+    const int word = upper ? q0 * width + (i - nl) : ql0 * width + i;
+    if (word >= b.wpu) continue;
+    const int q = word / width;
+    const uint32_t* codes = upper ? hi + (32 * q - h - j0)
+                            : q == qm ? mixed : lo + 32 * (q - ql0);
+    ou[word] = repro::assemble_word(codes, width, word - q * width);
   }
 }
 
@@ -95,20 +184,33 @@ __global__ void qsgd_unpack_kernel(const uint32_t* __restrict__ words,
 // C entry points (loaded with ctypes). Each launches on `stream` of CUDA
 // device `device` and returns cudaGetLastError(); empty inputs launch
 // nothing.
-extern "C" int qsgd_pack(const void* x, const void* k0, const void* k1,
-                         const void* nrm, void* out, int n, int d, int levels,
-                         int width, int wpu, int device, void* stream) {
-  const int chunks = (d + 31) / 32;
-  const long long warps = static_cast<long long>(n) * chunks;
-  if (warps == 0) return 0;
+//
+// qsgd_pack_buckets: `count` (1..kMaxBuckets) buckets. `ptrs` holds their
+// x, k0, k1, nrm and out pointers, `count` of each in that order; `sizes`
+// their n, d, wpu, tiles per unit and first block, `count` of each, as
+// kernels/qsgd.py bucket_table computes them; `blocks` in all.
+extern "C" int qsgd_pack_buckets(int count, void* const* ptrs,
+                                 const int* sizes, int blocks, int levels,
+                                 int width, int device, void* stream) {
+  if (count < 1 || count > kMaxBuckets || width < 1 || width > 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const unsigned blocks = static_cast<unsigned>((warps + kWarps - 1) / kWarps);
-  qsgd_pack_kernel<<<blocks, kWarps * 32, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const uint32_t*>(k0),
-      static_cast<const uint32_t*>(k1), static_cast<const float*>(nrm),
-      static_cast<uint32_t*>(out), n, d, levels, width, wpu, chunks);
+  PackTable t;
+  t.count = count;
+  for (int i = 0; i < count; ++i) {
+    t.b[i] = PackBucket{static_cast<const float*>(ptrs[i]),
+                        static_cast<const uint32_t*>(ptrs[count + i]),
+                        static_cast<const uint32_t*>(ptrs[2 * count + i]),
+                        static_cast<const float*>(ptrs[3 * count + i]),
+                        static_cast<uint32_t*>(ptrs[4 * count + i]),
+                        sizes[i], sizes[count + i], sizes[2 * count + i],
+                        sizes[3 * count + i]};
+    t.block_start[i] = sizes[4 * count + i];
+  }
+  qsgd_pack_kernel<<<static_cast<unsigned>(blocks), kWarps * 32, 0,
+                     static_cast<cudaStream_t>(stream)>>>(t, levels, width);
   return static_cast<int>(cudaGetLastError());
 }
 

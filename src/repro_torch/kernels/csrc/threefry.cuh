@@ -1,5 +1,6 @@
 // threefry2x32 as a device function: jax.random.uniform(key, (n,))[p], bit
-// for bit, evaluated per element inside the pack kernels.
+// for bit, evaluated inside the pack kernels (per element, or per counter
+// pair with both outputs kept).
 //
 // Port of the JAX package's kernels/prng.py (lines 41-82), which is itself
 // jax's non-partitionable counter layout: a length-n draw hashes the pairs
@@ -35,8 +36,15 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
   }
 }
 
-// jax.random.uniform(key, (n,))[p] for p < n: the mantissa construction
-// (bits >> 9 | 0x3F800000) as float, minus 1, floored at 0.
+// The mantissa construction of jax.random.uniform: (bits >> 9 | 0x3F800000)
+// as float, minus 1, floored at 0.
+__device__ __forceinline__ float bits_to_uniform(uint32_t bits) {
+  const float u = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
+  return fmaxf(0.0f, u);
+}
+
+// jax.random.uniform(key, (n,))[p] for p < n (hashes the whole pair that
+// holds p and keeps one of its two words).
 __device__ __forceinline__ float uniform_at(uint32_t k0, uint32_t k1,
                                             uint32_t p, uint32_t n) {
   const uint32_t h = (n >> 1) + (n & 1u);
@@ -45,9 +53,21 @@ __device__ __forceinline__ float uniform_at(uint32_t k0, uint32_t k1,
   uint32_t x0 = j;
   uint32_t x1 = (h + j < n) ? h + j : 0u;
   threefry2x32(k0, k1, x0, x1);
-  const uint32_t bits = first ? x0 : x1;
-  const float u = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
-  return fmaxf(0.0f, u);
+  return bits_to_uniform(first ? x0 : x1);
+}
+
+// Both uniforms of counter pair j < h = ceil(n / 2) from ONE hash:
+// u0 = jax.random.uniform(key, (n,))[j] and u1 = ...[j + h] (meaningless
+// when j + h >= n, where the odd-n pad slot folds the counter to 0).
+__device__ __forceinline__ void uniform_pair_at(uint32_t k0, uint32_t k1,
+                                                uint32_t j, uint32_t n,
+                                                float& u0, float& u1) {
+  const uint32_t h = (n >> 1) + (n & 1u);
+  uint32_t x0 = j;
+  uint32_t x1 = (h + j < n) ? h + j : 0u;
+  threefry2x32(k0, k1, x0, x1);
+  u0 = bits_to_uniform(x0);
+  u1 = bits_to_uniform(x1);
 }
 
 }  // namespace repro

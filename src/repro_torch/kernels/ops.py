@@ -8,7 +8,8 @@ Inputs of any float dtype are computed in f32 and cast back.
 
 The bucket entry points of the fused compress+pack kernels: what the wire
 codecs (core/wire.py) call, one kernel launch per bucket and direction
-(ops.py:274-522).
+(ops.py:274-522), and for QSGD one pack launch for all buckets of a step
+(`qsgd_pack_units_buckets`).
 
 A bucket is an (n, d) f32 matrix whose rows are compression units. The
 caller-side pieces stay here, outside the kernels, exactly as in the
@@ -26,7 +27,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import prng
 from repro_torch.kernels.pack import (bits_pack, bits_unpack, fields_pack,
                                       fields_unpack)
-from repro_torch.kernels.qsgd import (qsgd_compress_rows, qsgd_pack,
+from repro_torch.kernels.qsgd import (qsgd_compress_rows, qsgd_pack_buckets,
                                       qsgd_unpack)
 from repro_torch.kernels.ref import words_per_unit, words_to_i32
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_rows
@@ -37,7 +38,8 @@ from repro_torch.kernels.topk_mask import BLOCK_C, topk_mask
 
 __all__ = ["qsgd_compress", "terngrad_compress", "blockwise_topk",
            "qsgd_compress_units", "terngrad_compress_units", "plan_compress",
-           "rmsnorm", "words_per_unit", "qsgd_pack_units", "qsgd_unpack_units",
+           "rmsnorm", "words_per_unit", "qsgd_pack_units",
+           "qsgd_pack_units_buckets", "qsgd_unpack_units",
            "qsgd_unpack_ef_units", "terngrad_pack_units",
            "terngrad_unpack_units", "terngrad_unpack_ef_units",
            "sign_pack_units", "sign_unpack_units", "sign_unpack_ef_units",
@@ -185,10 +187,19 @@ def qsgd_pack_units(x2d, keys, levels: int, width: int):
     """Fused QSGD encode of a bucket: (n, d) f32 + (n, 2) unit keys ->
     ((n, words_per_unit(d, width)) int32 words, (n,) f32 norms). The norms
     include the compressor's +1e-12 and are exactly the payload norm field."""
-    xf = x2d.to(torch.float32).contiguous()
-    nrms = torch.linalg.vector_norm(xf, dim=1) + 1e-12
-    k0, k1 = _split_keys(keys, xf.device)
-    return qsgd_pack(xf, k0, k1, nrms, levels, width), nrms
+    return qsgd_pack_units_buckets([x2d], [keys], levels, width)[0]
+
+
+def qsgd_pack_units_buckets(x2ds, keys_list, levels: int, width: int):
+    """qsgd_pack_units over many buckets at one (levels, width) ->
+    [(words, nrms)] per bucket; the packing is ONE kernel launch for up to
+    MAX_BUCKETS buckets (kernels/qsgd.py qsgd_pack_buckets)."""
+    xfs = [x.to(torch.float32).contiguous() for x in x2ds]
+    nrms = [torch.linalg.vector_norm(xf, dim=1) + 1e-12 for xf in xfs]
+    ks = [_split_keys(k, xf.device) for k, xf in zip(keys_list, xfs)]
+    words = qsgd_pack_buckets(xfs, [k[0] for k in ks], [k[1] for k in ks],
+                              nrms, levels, width)
+    return list(zip(words, nrms))
 
 
 def qsgd_unpack_units(words, nrms, d: int, levels: int,

@@ -53,6 +53,17 @@ def random_bits_at(k0, k1, pos, n: int) -> torch.Tensor:
     return torch.where(first, o1, o2)
 
 
+def uniform_pairs(k0, k1, j, n: int):
+    """Both uniforms of counter pairs j < ceil(n/2) from one hash each
+    (csrc/threefry.cuh uniform_pair_at): (uniform at position j, uniform at
+    position j + h), the second meaningless where j + h >= n."""
+    j = j.to(torch.int64)
+    h = (n + 1) // 2
+    o1, o2 = threefry2x32(k0, k1, j,
+                          torch.where(h + j < n, h + j, torch.zeros_like(j)))
+    return bits_to_uniform(o1), bits_to_uniform(o2)
+
+
 def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     """uint32 bits -> f32 uniforms in [0, 1): jax.random.uniform's mantissa
     construction, (bits >> 9 | 0x3F800000) as float, minus 1."""

@@ -13,6 +13,12 @@ two key words (ops.py converts the int64 key data of random.py).
 """
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+import itertools
+from typing import List, Sequence, Tuple
+
 import torch
 import torch.nn.functional as F
 
@@ -73,29 +79,106 @@ def qsgd_pack_plain(x, k0, k1, nrm, levels: int, width: int) -> torch.Tensor:
     return ref.words_to_i32(words)
 
 
+#: pairs of counters a pack block hashes for itself (csrc/qsgd.cu
+#: kTilePairs: 15 chunks of 32, beside one halo chunk)
+TILE_PAIRS = 480
+#: buckets one pack launch takes (csrc/qsgd.cu kMaxBuckets)
+MAX_BUCKETS = 32
+
+
+def pack_tiles(d: int) -> int:
+    """Pack blocks per unit of d elements: tiles of TILE_PAIRS of its
+    ceil(d / 2) counter pairs."""
+    return -(-(-(-d // 2)) // TILE_PAIRS)
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketTable:
+    """One grouped pack launch: per bucket its n, d, words per unit, tiles
+    per unit and first block (the prefix sum of n * tiles); `blocks` in
+    all."""
+    n: Tuple[int, ...]
+    d: Tuple[int, ...]
+    wpu: Tuple[int, ...]
+    tiles: Tuple[int, ...]
+    block_start: Tuple[int, ...]
+    blocks: int
+
+
+def bucket_table(shapes: Sequence[Tuple[int, int]],
+                 width: int) -> List[BucketTable]:
+    """The launches that pack (n, d) buckets at `width` bits a code: one
+    table per MAX_BUCKETS buckets, in order."""
+    tables = []
+    for i in range(0, len(shapes), MAX_BUCKETS):
+        group = [(int(n), int(d)) for n, d in shapes[i:i + MAX_BUCKETS]]
+        tiles = tuple(pack_tiles(d) for _, d in group)
+        starts = list(itertools.accumulate(
+            [n * t for (n, _), t in zip(group, tiles)], initial=0))
+        tables.append(BucketTable(
+            n=tuple(n for n, _ in group), d=tuple(d for _, d in group),
+            wpu=tuple(words_per_unit(d, width) for _, d in group),
+            tiles=tiles, block_start=tuple(starts[:-1]), blocks=starts[-1]))
+    return tables
+
+
+@functools.lru_cache(maxsize=256)
+def _launches(shapes: Tuple[Tuple[int, int], ...], width: int):
+    """bucket_table's launches with each table's sizes as the C entry
+    point's int array (n, d, wpu, tiles, block_start; cached: a step's
+    shapes repeat)."""
+    return [(t, (ctypes.c_int * (5 * len(t.n)))(
+        *t.n, *t.d, *t.wpu, *t.tiles, *t.block_start))
+        for t in bucket_table(shapes, width)]
+
+
+def qsgd_pack_buckets(xs, k0s, k1s, nrms, levels: int,
+                      width: int) -> List[torch.Tensor]:
+    """qsgd_pack over many buckets at one (levels, width): bucket i is
+    (xs[i], k0s[i], k1s[i], nrms[i]) as qsgd_pack takes them. On the card
+    ONE launch per MAX_BUCKETS non-empty buckets (bucket_table), each
+    counted in qsgd_pack.launches. On the CPU, qsgd_pack_plain per
+    bucket."""
+    if not xs:
+        return []
+    if not _on_card(xs[0], *xs[1:], *k0s, *k1s, *nrms):
+        return [qsgd_pack_plain(x, k0, k1, nrm, levels, width)
+                for x, k0, k1, nrm in zip(xs, k0s, k1s, nrms)]
+    if not 1 <= width <= 16:
+        raise ValueError(f"width {width} out of range")
+    outs = []
+    for i, (x, k0, k1, nrm) in enumerate(zip(xs, k0s, k1s, nrms)):
+        if x.dim() != 2:
+            raise ValueError(f"x[{i}]: want (n, d), got {tuple(x.shape)}")
+        n, d = x.shape
+        _check(x, "x", torch.float32, (n, d))
+        _check(nrm, "nrm", torch.float32, (n,))
+        _check(k0, "k0", torch.int32, (n,))
+        _check(k1, "k1", torch.int32, (n,))
+        outs.append(torch.empty((n, words_per_unit(d, width)),
+                                dtype=torch.int32, device=x.device))
+    live = [i for i, x in enumerate(xs) if x.numel()]
+    dev = xs[0].device
+    lib = build.library("qsgd")
+    for g, (table, sizes) in enumerate(_launches(
+            tuple(tuple(xs[i].shape) for i in live), width)):
+        idx = live[g * MAX_BUCKETS:(g + 1) * MAX_BUCKETS]
+        ptrs = (ctypes.c_void_p * (5 * len(idx)))(
+            *(t[i].data_ptr() for t in (xs, k0s, k1s, nrms, outs)
+              for i in idx))
+        build.check(lib.qsgd_pack_buckets(
+            len(idx), ptrs, sizes, table.blocks, levels, width,
+            *_launch_args(dev)), "qsgd_pack_buckets")
+        qsgd_pack.launches += 1
+    return outs
+
+
 def qsgd_pack(x, k0, k1, nrm, levels: int, width: int) -> torch.Tensor:
     """x (n, d) f32 units, per-unit int32 key words k0/k1 (n,) and norms
     nrm (n,) f32 (+1e-12 already added) -> (n, words_per_unit(d, width)) int32 words of
-    offset-binary codes sign(x)*stochastic_round(|x|/nrm*levels) + levels."""
-    n, d = x.shape
-    if not _on_card(x, k0, k1, nrm):
-        return qsgd_pack_plain(x, k0, k1, nrm, levels, width)
-    if not 1 <= width <= 16:
-        raise ValueError(f"width {width} out of range")
-    _check(x, "x", torch.float32, (n, d))
-    _check(nrm, "nrm", torch.float32, (n,))
-    _check(k0, "k0", torch.int32, (n,))
-    _check(k1, "k1", torch.int32, (n,))
-    wpu = words_per_unit(d, width)
-    out = torch.empty((n, wpu), dtype=torch.int32, device=x.device)
-    if out.numel() == 0:
-        return out
-    build.check(build.library("qsgd").qsgd_pack(
-        x.data_ptr(), k0.data_ptr(), k1.data_ptr(), nrm.data_ptr(),
-        out.data_ptr(), n, d, levels, width, wpu, *_launch_args(x.device)),
-        "qsgd_pack")
-    qsgd_pack.launches += 1
-    return out
+    offset-binary codes sign(x)*stochastic_round(|x|/nrm*levels) + levels.
+    On the card: the one-bucket launch of qsgd_pack_buckets."""
+    return qsgd_pack_buckets([x], [k0], [k1], [nrm], levels, width)[0]
 
 
 qsgd_pack.launches = 0

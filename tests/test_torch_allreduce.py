@@ -13,10 +13,10 @@ Each rank feeds its own row of the same seeded numpy gradients. Held:
        with wire=True, and its uplink under simulated.
   (ii) the reference's compressed_allreduce under jax.shard_map on n
        virtual CPU devices, run in ONE subprocess for both n: bitwise
-       (XLA's CPU psum and mean sum in device order here), except the
-       dense mean over survivors (alive=): the reference's jitted
+       (XLA's CPU psum and mean sum in device order here), the dense
+       mean over survivors (alive=) included: the reference's jitted
        psum(g) / 3.0 becomes a multiply by the rounded reciprocal of 3,
-       while the port divides, so it holds 1 ulp (ROADMAP Queue 3).
+       and the port multiplies by f32(1 / 3) too.
 
 Input families: QSGD gets norm-exact units (every unit's sum of squares
 exact in any order, see test_torch_aggregation.py); under error feedback
@@ -66,14 +66,6 @@ class Case:
                 f"{'-ef' if self.ef else ''}"
                 f"{'-bf16' if self.wire_dtype != 'float32' else ''}"
                 f"{'-alive' if self.alive else ''}")
-
-    @property
-    def divides_by_reciprocal(self) -> bool:
-        """The reference's jit turns its division by the survivor count
-        into a multiply by the rounded reciprocal (not exact unless the
-        count is a power of two)."""
-        return self.alive is not None and sum(self.alive) & (
-            sum(self.alive) - 1) != 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -487,10 +479,7 @@ def test_compressed_allreduce_matches_reference(n, reference_run):
         want = ref[f"{n}/{case.name}"]
         for r in range(n):
             _bitwise(want[r], want[0], (case.name, "reference device", r))
-        if case.divides_by_reciprocal:
-            np.testing.assert_array_max_ulp(got, want[0], maxulp=1)
-        else:
-            _bitwise(got, want[0], case.name)
+        _bitwise(got, want[0], case.name)
         if case.ef:
             for r in range(n):
                 _bitwise(results[r][case.name][1],
