@@ -20,13 +20,19 @@ error:
      against the per-bucket plain loop on the 11 layerwise buckets in one
      launch, on MAX_BUCKETS + 8 buckets in two, and on units of edge
      dimensions (d = 1, 2, 3, odd d, ceil(d/2) = 32k +- 1, tile edges),
-     grouped and one at a time
+     grouped and one at a time; the grouped field pack / unpack
+     (fields_pack_buckets / fields_unpack_buckets) bitwise against the
+     per-bucket plain twins at every field width over k at the chunk and
+     tile edges, on the 22 mixed-width layerwise legs (natural's and the
+     top-k index legs) in one launch, on MAX_BUCKETS + 9 buckets in two,
+     and on inputs 4 bytes past a 16-byte boundary
   4. the main path: train_cnn on resnet9 with QSGD(16) layerwise and
      entire_model, TernGrad, signSGD, natural, top-k(1%) and random-k(1%)
      layerwise, top-k entire_model, and adaptive threshold layerwise (the
      sim path: no launches); launch counters reset before and read after
      each run and held to exact per-step counts (QSGD: one pack launch a
-     step for all its buckets); the wire buffers of one
+     step for all its buckets; natural and sparse: one field pack and one
+     field unpack launch a step); the wire buffers of one
      step built with the kernels equal those built with the plain
      versions (QSGD / TernGrad on the card's own statistics; signSGD,
      natural and top-k against the whole path run on the CPU); one
@@ -37,9 +43,10 @@ error:
      time from CUDA-event timed replays of a CUDA graph of 20 calls
      (`ms`, `plain_ms`), and the per-call time of the same calls issued
      back to back from Python (`call_ms`, host enqueue included); QSGD's
-     pack also as the step's one grouped launch (layerwise_step_grouped,
-     the kernel line's time) and a layerwise step's QSGD encode from
-     Python, grouped and per bucket
+     pack and the field pack / unpack (natural's legs and the top-k index
+     legs) also as the step's one grouped launch (layerwise_step_grouped,
+     the kernel line's time), a layerwise step's QSGD encode and natural
+     encode and decode from Python, grouped and per bucket
   6. torch.profiler over five main-path steps each of QSGD(16) and
      top-k(1%) layerwise: wall and device-busy time per step, the
      device's idle share and the top device ops
@@ -55,8 +62,9 @@ error:
      the signSGD majority vote on each bucket's gathered payloads, fused
      (majority kernel) = non-fused (bits_unpack, count, bits_pack) =
      plain; (c) one step's buffers of the per-unit codecs
-     (fused=False) = the fused buffers; (d) train_cnn_ranks, 20 resnet9
-     steps (batch 64, 16 a rank) for allgather-wire QSGD(16) and signSGD
+     (fused=False) = the fused buffers, with exact launch counts; (d)
+     train_cnn_ranks, 20 resnet9 steps (batch 64, 16 a rank) for
+     allgather-wire QSGD(16) and signSGD
      and simulated-wire QSGD(16): seconds, test loss, collective bytes a
      step against comm_report, exact launch counts, equal parameters on
      every rank at the end
@@ -147,6 +155,10 @@ MICRO = 1 << 20              # benchmarks/microbench.py's D
 RMS_SHAPE = (4096, 3072)     # phi4-mini's d_model (configs/phi4_mini_3_8b.py)
 # rows too wide for the registers kernel (past 512 threads x 8 vectors)
 RMS_WIDE = (64, 65536)
+# field counts at the grouped field kernels' chunk and tile edges (32-field
+# chunks, 2,048-field tiles), with k % 4 != 0 beside them (the 4-byte path)
+FIELD_EDGE_KS = (1, 2, 31, 32, 33, 100, 1025, 2047, 2048, 2049, 4095, 4096,
+                 4097, 65537)
 # unit dimensions where the hash-once pack's split is most fragile: d = 1,
 # 2, 3, odd d, h = ceil(d / 2) = 32k +- 1 and h at tile edges (480 pairs)
 PACK_EDGE_DIMS = (1, 2, 3, 31, 32, 33, 61, 62, 63, 64, 65, 511, 513, 957,
@@ -465,15 +477,89 @@ def check_grouped_pack(layer_shapes, dev):
     return err
 
 
+def check_grouped_fields(layer_shapes, dev):
+    """The grouped field launches (fields_pack_buckets /
+    fields_unpack_buckets) vs the per-bucket plain twins, bitwise, and
+    each group's exact launches: every width of FIELD_WIDTHS over the
+    FIELD_EDGE_KS buckets (one launch each way a width); natural's 9-bit
+    legs and the top-k index legs of the 11 layerwise buckets, mixed widths
+    in one table (one launch); MAX_BUCKETS + 9 buckets of mixed widths (two
+    launches); and inputs that start 4 bytes past a 16-byte boundary (the
+    4-byte load path at k % 4 == 0). Unpack runs on the packed words (a
+    round trip) and on random words. -> max |err| of (pack, unpack)."""
+    import torch
+    from repro_torch.kernels import pack as P
+    from repro_torch.kernels.ref import words_per_unit
+    groups = {f"edges_w{w}": [(3, k, w) for k in FIELD_EDGE_KS]
+              for w in FIELD_WIDTHS}
+    groups["layerwise_legs"] = (
+        [(n, d, NATURAL_WIDTH) for n, d in layer_shapes]
+        + [(n, *index_leg(d)) for n, d in layer_shapes])
+    groups["over_max_buckets"] = [
+        (1 + i % 3, 17 + 61 * i, FIELD_WIDTHS[i % len(FIELD_WIDTHS)])
+        for i in range(P.MAX_BUCKETS + 9)]
+    groups["misaligned"] = [(3, k, w) for k, w in ((1024, 9), (4608, 13),
+                                                   (100, 31))]
+    err = [0.0, 0.0]
+
+    def launched(name, fn, count, what):
+        wrapper = getattr(P, name)
+        before = wrapper.launches
+        out = fn()
+        got = wrapper.launches - before
+        check(got == -(-count // P.MAX_BUCKETS),
+              f"{name} grouped {what}: {got} launches for {count} buckets")
+        return out
+
+    for gi, (gname, buckets) in enumerate(groups.items()):
+        fs, ws, rand, ks = [], [], [], []
+        for i, (n, k, w) in enumerate(buckets):
+            f = make_fields((n, k), 2**w, 1700 + 97 * gi + i, dev)
+            r = make_words(n, words_per_unit(k, w), 1800 + 97 * gi + i, dev)
+            if gname == "misaligned":           # 4 bytes past the boundary
+                f = torch.cat([f.reshape(-1)[:1], f.reshape(-1)])[1:].view(
+                    n, k)
+                r = torch.cat([r.reshape(-1)[:1], r.reshape(-1)])[1:].view(
+                    r.shape)
+                check(f.data_ptr() % 16 == 4 and r.data_ptr() % 16 == 4,
+                      "misaligned inputs are aligned")
+            fs.append(f)
+            ws.append(w)
+            rand.append(r)
+            ks.append(k)
+        got = launched("fields_pack", lambda: P.fields_pack_buckets(fs, ws),
+                       len(buckets), gname)
+        back = launched("fields_unpack",
+                        lambda: P.fields_unpack_buckets(got, ks, ws),
+                        len(buckets), gname)
+        dec = launched("fields_unpack",
+                       lambda: P.fields_unpack_buckets(rand, ks, ws),
+                       len(buckets), gname)
+        for f, w, k, g, b, r, dd in zip(fs, ws, ks, got, back, rand, dec):
+            want = P.fields_pack_plain(f, w)
+            err[0] = max(err[0], max_abs_err(g, want))
+            check(bitwise_equal(g, want),
+                  f"fields_pack grouped {gname} {tuple(f.shape)} w{w}")
+            check(bitwise_equal(b, f),
+                  f"fields round trip grouped {gname} {tuple(f.shape)} w{w}")
+            want = P.fields_unpack_plain(r, k, w)
+            err[1] = max(err[1], max_abs_err(dd, want))
+            check(bitwise_equal(dd, want),
+                  f"fields_unpack grouped {gname} {tuple(r.shape)} w{w}")
+    torch.cuda.synchronize()
+    return tuple(err)
+
+
 # ---- phase 4: the main path -------------------------------------------------
 
 def main_path_runs(dev):
     """train_cnn runs, each held to exact launch counts: per step, one pack
     and one unpack launch of the codec's kernel family per bucket (11
-    layerwise, 1 entire-model), except QSGD's pack, one launch a step for
-    all its buckets; none of any other kernel, and none at all for
-    adaptive threshold (its records are not sim-exact, so train_step
-    takes the sim path, as the reference's train_cnn always does)."""
+    layerwise, 1 entire-model), except QSGD's pack and the natural and
+    sparse codecs' field pack and unpack, one launch a step for all their
+    buckets; none of any other kernel, and none at all for adaptive
+    threshold (its records are not sim-exact, so train_step takes the sim
+    path, as the reference's train_cnn always does)."""
     from repro_torch import kernels
     from repro_torch.core.aggregation import CompressionConfig
     from repro_torch.core.compressors import (QSGD, AdaptiveThreshold,
@@ -483,22 +569,34 @@ def main_path_runs(dev):
     from repro_torch.experiment import train_cnn
     import torch
     topk = TopK(ratio=SPARSE_RATIO)
+    # launches a step: a step encodes every bucket, then decodes each. The
+    # fused QSGD codec packs all its buckets (11 <= MAX_BUCKETS) in one
+    # launch and unpacks them one launch a bucket; the natural and sparse
+    # codecs pack and unpack all their buckets in one launch each
+    # (fields_pack_buckets / fields_unpack_buckets); TernGrad and signSGD
+    # launch once a bucket each way; an entire-model step has one bucket.
+    # Over STEPS = 20 steps: QSGD layerwise qsgd_pack 1 x 20 = 20,
+    # qsgd_unpack 11 x 20 = 220; natural, top-k and random-k layerwise and
+    # top-k entire-model 20 fields_pack and 20 fields_unpack each (80 / 80
+    # over the four runs; 11 x 20 a layerwise run before the grouped launch)
+    fields = {"fields_pack": 1, "fields_unpack": 1}
     runs = [("qsgd16_layerwise", QSGD(levels=MAIN_LEVELS), "layerwise",
-             "qsgd", 11),
+             {"qsgd_pack": 1, "qsgd_unpack": 11}),
             ("qsgd16_entire_model", QSGD(levels=MAIN_LEVELS), "entire_model",
-             "qsgd", 1),
-            ("terngrad_layerwise", TernGrad(), "layerwise", "terngrad", 11),
-            ("signsgd_layerwise", SignSGD(), "layerwise", "sign", 11),
-            ("natural_layerwise", NaturalCompression(), "layerwise",
-             "fields", 11),
-            ("topk1_layerwise", topk, "layerwise", "fields", 11),
+             {"qsgd_pack": 1, "qsgd_unpack": 1}),
+            ("terngrad_layerwise", TernGrad(), "layerwise",
+             {"terngrad_pack": 11, "terngrad_unpack": 11}),
+            ("signsgd_layerwise", SignSGD(), "layerwise",
+             {"sign_pack": 11, "sign_unpack": 11}),
+            ("natural_layerwise", NaturalCompression(), "layerwise", fields),
+            ("topk1_layerwise", topk, "layerwise", fields),
             ("randomk1_layerwise", RandomK(ratio=SPARSE_RATIO), "layerwise",
-             "fields", 11),
-            ("topk1_entire_model", topk, "entire_model", "fields", 1),
+             fields),
+            ("topk1_entire_model", topk, "entire_model", fields),
             ("adaptive_threshold_layerwise", AdaptiveThreshold(),
-             "layerwise", None, 0)]
+             "layerwise", {})]
     out = []
-    for name, comp, gran, fam, per_step in runs:
+    for name, comp, gran, per_step in runs:
         cfg = CompressionConfig(qw=comp, granularity=Granularity(gran))
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -506,14 +604,7 @@ def main_path_runs(dev):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = kernels.launch_counts()
-        # a step encodes every bucket, then decodes each: per bucket one
-        # pack and one unpack launch, but the fused QSGD codec packs all
-        # its buckets (11 <= MAX_BUCKETS) in one launch. QSGD layerwise:
-        # qsgd_pack 1 x 20 = 20, qsgd_unpack 11 x 20 = 220; entire-model
-        # 20 and 20
-        want = {k: (0 if k.split("_")[0] != fam or k in COMPRESS_KERNELS
-                    else STEPS if k == "qsgd_pack" else per_step * STEPS)
-                for k in counts}
+        want = {k: per_step.get(k, 0) * STEPS for k in counts}
         check(counts == want, f"{name}: launches {counts} != {want}")
         check(math.isfinite(loss) and math.isfinite(acc),
               f"{name}: test loss {loss} / accuracy {acc}")
@@ -779,6 +870,7 @@ def time_kernels(layer_shapes, em_shape, dev):
                     "bytes_ms": t_b, "ops_ms": t_o, "bound_ms": max(t_b, t_o),
                     "bound_by": "bytes" if t_b >= t_o else "operations"})
     rows.append(time_grouped_pack(layer_shapes, dev))
+    rows += time_grouped_fields(layer_shapes, dev)
     return rows
 
 
@@ -816,6 +908,78 @@ def time_grouped_pack(layer_shapes, dev):
             "bytes": nbytes, "int_ops": iops, "fp_ops": fops,
             "bytes_ms": t_b, "ops_ms": t_o, "bound_ms": max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def time_grouped_fields(layer_shapes, dev):
+    """Rows of group layerwise_step_grouped for the field kernels: ONE
+    fields_pack and ONE fields_unpack launch over the 11 layerwise buckets
+    x 4 workers (fields_pack_buckets / fields_unpack_buckets), as a step
+    runs them, for natural's 9-bit legs (leg natural) and the top-k(1%)
+    index legs (leg index, each bucket at its own width: width 0), on the
+    same inputs as time_kernels' one-bucket rows, beside the per-bucket
+    plain loop; shape [units, fields], bounds the sums of the buckets'."""
+    from repro_torch.kernels import pack as P
+    rows = []
+    legs = {"natural": [((n, d), NATURAL_WIDTH, 2**NATURAL_WIDTH, 600 + si)
+                        for si, (n, d) in enumerate(layer_shapes)],
+            "index": [((n, index_leg(d)[0]), index_leg(d)[1], d, 700 + si)
+                      for si, (n, d) in enumerate(layer_shapes)]}
+    for leg, buckets in legs.items():
+        fs = [make_fields(shape, bound, seed, dev)
+              for shape, _, bound, seed in buckets]
+        ws = [w for _, w, _, _ in buckets]
+        ks = [shape[1] for shape, _, _, _ in buckets]
+        words = P.fields_pack_buckets(fs, ws)
+        cases = (
+            ("fields_pack", lambda: P.fields_pack_buckets(fs, ws),
+             lambda: [P.fields_pack_plain(f, w) for f, w in zip(fs, ws)]),
+            ("fields_unpack", lambda: P.fields_unpack_buckets(words, ks, ws),
+             lambda: [P.fields_unpack_plain(x, k, w)
+                      for x, k, w in zip(words, ks, ws)]))
+        for name, kern, plain in cases:
+            parts = [bounds(name, shape[0], shape[1], w)
+                     for shape, w, _, _ in buckets]
+            nbytes, iops, fops = (sum(p[i] for p in parts) for i in range(3))
+            t_b = nbytes / HBM_BYTES_PER_S * 1e3
+            t_o = (iops / INT32_OPS_PER_S + fops / FP32_OPS_PER_S) * 1e3
+            rows.append({
+                "group": "layerwise_step_grouped", "kernel": name,
+                "leg": leg,
+                "shape": [sum(sh[0] for sh, _, _, _ in buckets),
+                          sum(sh[0] * sh[1] for sh, _, _, _ in buckets)],
+                "width": ws[0] if leg == "natural" else 0,
+                "ms": device_ms(kern), "call_ms": call_ms(kern),
+                "plain_ms": device_ms(plain, reps=3, repeats=3),
+                "bytes": nbytes, "int_ops": iops, "fp_ops": fops,
+                "bytes_ms": t_b, "ops_ms": t_o, "bound_ms": max(t_b, t_o),
+                "bound_by": "bytes" if t_b >= t_o else "operations"})
+    return rows
+
+
+def natural_host_ms(layer_shapes, dev):
+    """Per call, in ms (call_ms: host enqueue included): one layerwise
+    step's natural encode and decode through the codec, grouped
+    (encode_buckets / decode_buckets: one fields_pack and one
+    fields_unpack launch) and per bucket (encode_batch / decode_batch, one
+    launch a bucket each), the exponent draws included in the encode."""
+    from repro_torch import random as R
+    from repro_torch.core.compressors import NaturalCompression
+    from repro_torch.core.wire import wire_codec
+    import torch
+    codec = wire_codec(NaturalCompression())
+    g = torch.Generator().manual_seed(1500)
+    xs = [torch.randn(s, generator=g).to(dev) for s in layer_shapes]
+    ks = [R.fold_in(R.key(i)[None], torch.arange(s[0])).to(dev)
+          for i, s in enumerate(layer_shapes)]
+    dims = [d for _, d in layer_shapes]
+    pays = codec.encode_buckets(xs, ks)
+    return {
+        "encode_grouped": call_ms(lambda: codec.encode_buckets(xs, ks)),
+        "encode_per_bucket": call_ms(lambda: [codec.encode_batch(x, k)
+                                              for x, k in zip(xs, ks)]),
+        "decode_grouped": call_ms(lambda: codec.decode_buckets(pays, dims)),
+        "decode_per_bucket": call_ms(lambda: [codec.decode_batch(p, d)
+                                              for p, d in zip(pays, dims)])}
 
 
 def encode_host_ms(layer_shapes, dev):
@@ -1182,8 +1346,10 @@ def gate_majority(rank, n, dev, params, wg):
 
 def gate_unit_codecs(rank, n, dev, params, wg):
     """(c): one step's message buffers through the per-unit codecs
-    (fused=False) equal the fused buffers byte for byte. -> messages."""
+    (fused=False) equal the fused buffers byte for byte, with exact launch
+    counts. -> messages."""
     import torch
+    from repro_torch import kernels
     from repro_torch import random as R
     from repro_torch.convert import tree_map
     from repro_torch.core import wire
@@ -1204,6 +1370,23 @@ def gate_unit_codecs(rank, n, dev, params, wg):
                 check(bitwise_equal(x, y),
                       f"{comp.name} {gran}: fused=False buffer != fused")
                 msgs += 1
+    # launches over the 10 (codec, granularity) pairs, each run fused and
+    # per-unit with a local decode: B = 11 buckets layerwise + 1
+    # entire-model = 12. Fused QSGD packs in 1 launch and unpacks in B
+    # (qsgd_pack 2, qsgd_unpack 12); fused TernGrad and signSGD launch B
+    # each way (12 each); per-unit QSGD and TernGrad pack and unpack their
+    # codes with one field launch a bucket (12 + 12 each way), per-unit
+    # signSGD with bits_pack / bits_unpack (12 each); natural and top-k,
+    # fused or not, pack and unpack all buckets in one field launch each
+    # (2 x 2 each way apiece): fields 12 + 12 + 4 + 4 = 32 each way (72
+    # before the grouped field launch)
+    want = {"qsgd_pack": 2, "qsgd_unpack": 12, "terngrad_pack": 12,
+            "terngrad_unpack": 12, "sign_pack": 12, "sign_unpack": 12,
+            "bits_pack": 12, "bits_unpack": 12, "fields_pack": 32,
+            "fields_unpack": 32}
+    counts = kernels.launch_counts()
+    check(counts == {k: want.get(k, 0) for k in counts},
+          f"unit codecs: launches {counts} != {want}")
     torch.cuda.synchronize()
     return msgs
 
@@ -1223,8 +1406,9 @@ def train_ranks(rank, n, dev):
     from repro_torch.experiment import train_cnn_ranks
     # launches a step: QSGD packs its 11 buckets in one launch; the
     # allgather receive leg decodes each bucket's gathered rows with the
-    # per-unit codec (one fields_unpack a bucket), simulated with the
-    # fused one (one qsgd_unpack a bucket)
+    # per-unit codec after that bucket's own all_gather (one fields_unpack
+    # a bucket: the grouped decode waits for one gather per message),
+    # simulated with the fused one (one qsgd_unpack a bucket)
     runs = [("allgather_qsgd16_layerwise", QSGD(levels=MAIN_LEVELS),
              "allgather", {"qsgd_pack": 1, "fields_unpack": 11}),
             ("allgather_signsgd_layerwise", SignSGD(), "allgather",
@@ -1551,14 +1735,17 @@ COMPRESS_SOURCES = {
 LINE_GROUP = {"qsgd_compress_rows": "compress_layerwise",
               "terngrad_compress_rows": "compress_layerwise",
               "topk_mask": "compress_flat", "rmsnorm": "rmsnorm_bf16",
-              "qsgd_pack": "layerwise_step_grouped"}
+              "qsgd_pack": "layerwise_step_grouped",
+              "fields_pack": "layerwise_step_grouped",
+              "fields_unpack": "layerwise_step_grouped"}
 
 
 def kernel_line(timings, launches, errs):
     """The per-kernel summary. Wire kernels: device ms / plain_ms /
     bound_ms summed over one layerwise main-path step (the 11 resnet9
-    buckets x 4 workers; the fields kernels on natural compression's 9-bit
-    code leg; qsgd_pack the step's one grouped launch). Compress-only
+    buckets x 4 workers; qsgd_pack the step's one grouped launch, the
+    fields kernels theirs on natural compression's 9-bit code legs).
+    Compress-only
     kernels: summed over their LINE_GROUP rows (one layerwise
     plan_compress call of QSGD(16) / TernGrad, top-k (k=5)
     on the flat gradient, RMSNorm at (4096, 3072) bf16 with the time of
@@ -1662,6 +1849,15 @@ def main(argv) -> int:
           f"(widths {[w for w, _ in QSGD_WIDTHS]}) on the 11 layerwise "
           f"buckets in one launch, MAX_BUCKETS + 8 buckets in two and units "
           f"of d in {list(PACK_EDGE_DIMS)}; max abs err {gerr}", flush=True)
+    ferr = check_grouped_fields(layer_shapes, dev)
+    errs["fields_pack"] = max(errs["fields_pack"], ferr[0])
+    errs["fields_unpack"] = max(errs["fields_unpack"], ferr[1])
+    print(f"grouped fields_pack / fields_unpack: bitwise equal to the "
+          f"per-bucket plain twins at widths {list(FIELD_WIDTHS)} over k in "
+          f"{list(FIELD_EDGE_KS)} (one launch each way a width), the 22 "
+          f"mixed-width layerwise legs in one launch, MAX_BUCKETS + 9 "
+          f"buckets in two, and inputs 4 bytes past a 16-byte boundary; max "
+          f"abs err {ferr}", flush=True)
     unit_shapes = [(n // WORKERS, d) for n, d in layer_shapes]
     cshapes = layer_shapes + [(1, em_shape[1]), (1, MICRO)]
     cerrs = check_compress_kernels(cshapes, dev)
@@ -1696,6 +1892,9 @@ def main(argv) -> int:
     encode_ms = encode_host_ms(layer_shapes, dev)
     print(f"  QSGD encode of a layerwise step, per call from Python (ms): "
           f"{encode_ms}", flush=True)
+    natural_ms = natural_host_ms(layer_shapes, dev)
+    print(f"  natural encode / decode of a layerwise step, per call from "
+          f"Python (ms): {natural_ms}", flush=True)
     multi, multi_launches, multi_secs = multi_rank_path()
     launches = {k: sum(r["launches"][k] for r in runs)
                 + multi_launches.get(k, 0) for k in SOURCES}
@@ -1738,7 +1937,7 @@ def main(argv) -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": card, "torch": torch.__version__, "seconds": total,
         "build_seconds": secs, "main_path": runs, "timings": timings,
-        "encode_call_ms": encode_ms,
+        "encode_call_ms": encode_ms, "natural_call_ms": natural_ms,
         "profiles": profiles, "multi_rank": multi,
         "compress_path": compress,
         "ptxas": {src: [ln.strip() for ln in log.splitlines()

@@ -19,6 +19,12 @@ Two implementations of each format, byte-identical:
             bucket: one compress+pack kernel launch each way
             (kernels/ops.py). `fused=False` routes them to the per-unit
             rows instead (the reference's legacy fallback).
+  grouped   `encode_buckets` / `decode_buckets` / `decode_ef_buckets` of
+            every bucket of a step: one pack launch for all of them under
+            the fused QSGD codec, one pack and one unpack launch under the
+            natural and sparse codecs (whose per-unit and fused formats
+            are one path); the other codecs loop over their batch entry
+            points.
 
 Formats (little-endian; field i of a packed leg sits at bit i*width of
 its unit's uint32 words, each leg padded to a whole word):
@@ -37,7 +43,8 @@ its unit's uint32 words, each leg padded to a whole word):
 Fused wire messages: execute_schedule_wire streams a CommSchedule message
 by message, concatenating each message's payload rows into ONE uint8
 buffer behind a header table [n_buckets, byte_offset_0, ...] (uint32),
-then decodes every bucket back OUT OF the buffer. With a (B, 2) key batch
+then decodes every bucket of the step back OUT OF its buffer in one
+decode_buckets call. With a (B, 2) key batch
 every buffer is (B, nbytes): one message per worker, the reference's vmap
 over workers written out. `integrity=True` adds a Fletcher-32 word to
 the header, [n_buckets, fletcher32, offsets...], over every byte after it
@@ -248,6 +255,22 @@ class WireCodec:
         xhat = self.decode_batch(payloads, d)
         return xhat, e2d - xhat
 
+    def decode_buckets(self, payloads_list, dims) -> list:
+        """decode_batch of every bucket of a step: [(n_i, nbytes(d_i)) uint8
+        rows] + [d_i] -> [(n_i, d_i) f32]."""
+        return [self.decode_batch(p, d) for p, d in zip(payloads_list, dims)]
+
+    def decode_ef_buckets(self, payloads_list, es, dims) -> list:
+        """decode_ef_batch of every bucket of a step -> [(xhat_i, m_i)]."""
+        return [self.decode_ef_batch(p, e, d)
+                for p, e, d in zip(payloads_list, es, dims)]
+
+
+def _ef_pairs(xhats, es) -> list:
+    """Decoded buckets + their EF inputs -> [(xhat, m = e - xhat)], the
+    residual subtracted per bucket on the caller's side."""
+    return [(x, e - x) for x, e in zip(xhats, es)]
+
 
 @dataclasses.dataclass(frozen=True)
 class DenseCodec(WireCodec):
@@ -416,24 +439,42 @@ class SignSGDCodec(WireCodec):
 class NaturalCodec(WireCodec):
     """9-bit codes: sign * (exponent + 128), offset by 255 into [0, 510]
     (255 encodes exact zero). Per-unit and fused formats share one path:
-    exponent draws, then one fields_pack launch per bucket."""
+    exponent draws per bucket, then one fields_pack launch for all the
+    buckets of a step (and one fields_unpack to decode them)."""
     comp: Compressor = NaturalCompression()
 
     def nbytes(self, d: int) -> int:
         return 4 * words_for(9 * d)
 
     def encode_rows(self, x2d, keys):
-        e, sgn, zero = self.comp._exponents(x2d.to(torch.float32), keys)
-        code = torch.where(zero, 0, sgn.to(torch.int32)
-                           * (e + self.comp._BIAS + 1))
-        return _rows_to_u8(ops.fields_pack_units(code + 255, 9))
+        return self.encode_buckets([x2d], [keys])[0]
+
+    def encode_buckets(self, es, keys):
+        codes = []
+        for x2d, k in zip(es, keys):
+            e, sgn, zero = self.comp._exponents(x2d.to(torch.float32), k)
+            codes.append(torch.where(zero, 0, sgn.to(torch.int32)
+                                     * (e + self.comp._BIAS + 1)) + 255)
+        return [_rows_to_u8(w) for w in
+                ops.fields_pack_units_buckets(codes, [9] * len(codes))]
 
     def decode_rows(self, payloads, d: int):
-        code = ops.fields_unpack_units(_u8_rows_to(payloads, torch.int32),
-                                       d, 9) - 255
-        val = torch.sign(code).to(torch.float32) * pow2(
-            code.abs() - (self.comp._BIAS + 1))
-        return torch.where(code == 0, 0.0, val)
+        return self.decode_buckets([payloads], [d])[0]
+
+    def decode_buckets(self, payloads_list, dims):
+        codes = ops.fields_unpack_units_buckets(
+            [_u8_rows_to(p, torch.int32) for p in payloads_list], dims,
+            [9] * len(dims))
+        out = []
+        for code in codes:
+            code = code - 255
+            val = torch.sign(code).to(torch.float32) * pow2(
+                code.abs() - (self.comp._BIAS + 1))
+            out.append(torch.where(code == 0, 0.0, val))
+        return out
+
+    def decode_ef_buckets(self, payloads_list, es, dims):
+        return _ef_pairs(self.decode_buckets(payloads_list, dims), es)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -469,21 +510,39 @@ class SparseCodec(WireCodec):
         return self._k(d) * (16 + index_bits(d))
 
     def encode_rows(self, x2d, keys):
-        d = x2d.shape[1]
-        rec = self.comp.encode(x2d.to(torch.float32), keys)
-        words = ops.fields_pack_units(rec["idx"], index_bits(d))
-        return torch.cat([_val_rows_to_u8(rec["val"], self.wire_dtype),
-                          _rows_to_u8(words)], dim=1)
+        return self.encode_buckets([x2d], [keys])[0]
+
+    def encode_buckets(self, es, keys):
+        """Records per bucket, then every index leg in one pack launch."""
+        recs = [self.comp.encode(x2d.to(torch.float32), k)
+                for x2d, k in zip(es, keys)]
+        words = ops.fields_pack_units_buckets(
+            [r["idx"] for r in recs], [index_bits(x.shape[1]) for x in es])
+        return [torch.cat([_val_rows_to_u8(r["val"], self.wire_dtype),
+                           _rows_to_u8(w)], dim=1)
+                for r, w in zip(recs, words)]
 
     def decode_rows(self, payloads, d: int):
-        k, vb = self._k(d), self._vb(d)
-        val = _u8_rows_to_vals(payloads[:, :vb], k, self.wire_dtype)
-        idx = ops.fields_unpack_units(_u8_rows_to(payloads[:, vb:],
-                                                  torch.int32),
-                                      k, index_bits(d))
-        out = torch.zeros((payloads.shape[0], d), dtype=torch.float32,
-                          device=payloads.device)
-        return out.scatter_(1, idx.to(torch.int64), val)
+        return self.decode_buckets([payloads], [d])[0]
+
+    def decode_buckets(self, payloads_list, dims):
+        """Every index leg in one unpack launch, then the scatter per
+        bucket."""
+        idxs = ops.fields_unpack_units_buckets(
+            [_u8_rows_to(p[:, self._vb(d):], torch.int32)
+             for p, d in zip(payloads_list, dims)],
+            [self._k(d) for d in dims], [index_bits(d) for d in dims])
+        out = []
+        for p, d, idx in zip(payloads_list, dims, idxs):
+            val = _u8_rows_to_vals(p[:, :self._vb(d)], self._k(d),
+                                   self.wire_dtype)
+            z = torch.zeros((p.shape[0], d), dtype=torch.float32,
+                            device=p.device)
+            out.append(z.scatter_(1, idx.to(torch.int64), val))
+        return out
+
+    def decode_ef_buckets(self, payloads_list, es, dims):
+        return _ef_pairs(self.decode_buckets(payloads_list, dims), es)
 
 
 def wire_codec(comp: Compressor, wire_dtype: str = "float32",
@@ -650,9 +709,11 @@ def execute_schedule_wire(schedule, codec: WireCodec, grads, key,
                           decode_local: bool = True):
     """Stream a CommSchedule through REAL wire buffers: encode every bucket
     of the schedule (codec.encode_buckets: one pack launch each, one for
-    all of them under the fused QSGD codec), then per message concatenate
-    its payload rows into one uint8 buffer behind the header, decode each
-    bucket back out of the buffer (one unpack launch each) and apply
+    all of them under the fused QSGD, natural and sparse codecs), then per
+    message concatenate its payload rows into one uint8 buffer behind the
+    header, decode every bucket back out of its buffer
+    (codec.decode_buckets: one unpack launch each, one for all of them
+    under the natural and sparse codecs) and apply
     `post(payload_rows, xhat, unit_keys, d) -> y` (None: y = xhat). Unit keys
     pass through `wire_key` (e.g. the rank fold) before encode.
     `decode_local=False` skips the local decode for a post that does not
@@ -667,8 +728,9 @@ def execute_schedule_wire_with_state(schedule, codec: WireCodec, grads,
                                      post: Optional[Callable] = None,
                                      wire_key: Optional[Callable] = None):
     """Error-feedback twin of execute_schedule_wire: per unit e = x + m is
-    encoded, and decode threads through codec.decode_ef_batch (one unpack
-    launch per bucket plus the caller-side residual m' = e - xhat); post,
+    encoded, and decode threads through codec.decode_ef_buckets (the
+    unpack launches of decode_buckets plus the caller-side residual
+    m' = e - xhat per bucket); post,
     if given, maps (payload, xhat, keys, d) to the output. Returns (tree,
     m_tree, buffers)."""
     return _execute_wire(schedule, codec, grads, state, key, post, wire_key,
@@ -698,24 +760,32 @@ def _execute_wire(schedule, codec, grads, state, key, post, wire_key,
               for e, b in zip(es, bs)]
     kbs = [plan._bucket_keys(keys, b) for b in bs]
     wkbs = kbs if wire_key is None else [wire_key(k) for k in kbs]
-    pays = iter(zip(bs, es, kbs, codec.encode_buckets(es, wkbs)))
-    buffers = []
+    pays = iter(codec.encode_buckets(es, wkbs))
+    # every message buffer, then every bucket's region of its buffer
+    buffers, regions = [], []
     for msg, layout in zip(schedule.messages,
                            message_layouts(schedule, codec)):
-        mine = [next(pays) for _ in msg.bucket_ids]
-        buf = _message_buffer(layout, [pay.reshape(B, -1)
-                                       for _, _, _, pay in mine])
+        buf = _message_buffer(layout, [next(pays).reshape(B, -1)
+                                       for _ in msg.bucket_ids])
         buffers.append(buf if batched else buf[0])
-        for j, (b, e, kb, _) in enumerate(mine):
-            pay = _bucket_region(buf, layout, j, b.n)
-            if state is not None:
-                xhat, mn = codec.decode_ef_batch(pay, e, b.dim)
-                plan._scatter_runs(*mout, b, mn)
-            else:
-                xhat = codec.decode_batch(pay, b.dim) if decode_local \
-                    else None
-            y = xhat if post is None else post(pay, xhat, kb, b.dim)
-            plan._scatter_runs(*out, b, y)
+        regions += [_bucket_region(buf, layout, j, plan.buckets[bi].n)
+                    for j, bi in enumerate(msg.bucket_ids)]
+    # decode every bucket of the step in one call (one unpack launch for
+    # the natural and sparse codecs), then post and scatter in bucket
+    # order, so collectives inside post keep their order
+    dims = [b.dim for b in bs]
+    if state is not None:
+        dec = codec.decode_ef_buckets(regions, es, dims)
+        for b, (_, mn) in zip(bs, dec):
+            plan._scatter_runs(*mout, b, mn)
+        xhats = [x for x, _ in dec]
+    elif decode_local:
+        xhats = codec.decode_buckets(regions, dims)
+    else:
+        xhats = [None] * len(bs)
+    for b, kb, pay, xhat in zip(bs, kbs, regions, xhats):
+        y = xhat if post is None else post(pay, xhat, kb, b.dim)
+        plan._scatter_runs(*out, b, y)
     tree = plan._assemble(*out, batched)
     if state is None:
         return tree, tuple(buffers)

@@ -6,7 +6,9 @@ Wrappers, each with a plain version and a `.launches` counter:
 
 - wire pack / unpack: qsgd.py (its pack grouped over up to 32 buckets a
   launch, `qsgd_pack_buckets`), terngrad.py, sign.py (and the majority
-  vote), pack.py (width-bit fields and bits);
+  vote), pack.py (width-bit fields, pack and unpack grouped over up to 32
+  buckets of mixed widths a launch, `fields_pack_buckets` /
+  `fields_unpack_buckets`; and bits);
 - compress only: `qsgd_compress_rows` (qsgd.py), `terngrad_compress_rows`
   (terngrad.py), `topk_mask` (topk_mask.py), `rmsnorm` (rmsnorm.py).
 

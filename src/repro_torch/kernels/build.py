@@ -40,8 +40,9 @@ SIGNATURES = {
     "terngrad_unpack": [_P, _P, _P, _I, _I, _I, _I, _P],
     "sign_pack": [_P, _P, _I, _I, _I, _I, _P],
     "sign_unpack": [_P, _P, _I, _I, _I, _I, _P],
-    "fields_pack": [_P, _P, _I, _I, _I, _I, _I, _P],
-    "fields_unpack": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # count, the pointer array, the size array, blocks
+    "fields_pack_buckets": [_I, _P, _P, _I, _I, _P],
+    "fields_unpack_buckets": [_I, _P, _P, _I, _I, _P],
     "bits_pack": [_P, _P, _I, _I, _I, _I, _P],
     "bits_unpack": [_P, _P, _I, _I, _I, _I, _P],
     "majority": [_P, _P, _I, _I, _I, _P],

@@ -37,4 +37,16 @@ __device__ __forceinline__ uint32_t extract_field(const uint32_t* words,
   return f & (0xFFFFFFFFu >> (32 - width));
 }
 
+// The same for field p of staged words with p * width < 2**31 (a tile in
+// shared memory): 32-bit index arithmetic.
+__device__ __forceinline__ uint32_t extract_field(const uint32_t* words,
+                                                  int p, int width) {
+  const int b = p * width;
+  const int w = b >> 5;
+  const int s = b & 31;
+  uint32_t f = words[w] >> s;
+  if (s + width > 32) f |= words[w + 1] << (32 - s);  // s >= 1 here
+  return f & (0xFFFFFFFFu >> (32 - width));
+}
+
 }  // namespace repro

@@ -8,8 +8,10 @@ Inputs of any float dtype are computed in f32 and cast back.
 
 The bucket entry points of the fused compress+pack kernels: what the wire
 codecs (core/wire.py) call, one kernel launch per bucket and direction
-(ops.py:274-522), and for QSGD one pack launch for all buckets of a step
-(`qsgd_pack_units_buckets`).
+(ops.py:274-522), and one launch for all buckets of a step for the QSGD
+pack (`qsgd_pack_units_buckets`) and the field pack and unpack of the
+natural and sparse codecs (`fields_pack_units_buckets`,
+`fields_unpack_units_buckets`).
 
 A bucket is an (n, d) f32 matrix whose rows are compression units. The
 caller-side pieces stay here, outside the kernels, exactly as in the
@@ -26,7 +28,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import prng
 from repro_torch.kernels.pack import (bits_pack, bits_unpack, fields_pack,
-                                      fields_unpack)
+                                      fields_pack_buckets, fields_unpack,
+                                      fields_unpack_buckets)
 from repro_torch.kernels.qsgd import (qsgd_compress_rows, qsgd_pack_buckets,
                                       qsgd_unpack)
 from repro_torch.kernels.ref import words_per_unit, words_to_i32
@@ -43,8 +46,10 @@ __all__ = ["qsgd_compress", "terngrad_compress", "blockwise_topk",
            "qsgd_unpack_ef_units", "terngrad_pack_units",
            "terngrad_unpack_units", "terngrad_unpack_ef_units",
            "sign_pack_units", "sign_unpack_units", "sign_unpack_ef_units",
-           "fields_pack_units", "fields_unpack_units", "pack_fields",
-           "unpack_fields", "pack_words", "unpack_words", "majority_words",
+           "fields_pack_units", "fields_pack_units_buckets",
+           "fields_unpack_units", "fields_unpack_units_buckets",
+           "pack_fields", "unpack_fields", "pack_words", "unpack_words",
+           "majority_words",
            "pack_bytes_moved", "unpack_bytes_moved", "majority_bytes_moved"]
 
 
@@ -261,9 +266,24 @@ def fields_pack_units(f2d, width: int) -> torch.Tensor:
     return fields_pack(f2d.to(torch.int32).contiguous(), width)
 
 
+def fields_pack_units_buckets(f2ds, widths) -> list:
+    """fields_pack_units over many buckets, bucket i at widths[i] -> [(n_i,
+    words_per_unit(k_i, widths[i])) int32 words]; ONE kernel launch for up
+    to MAX_BUCKETS buckets (kernels/pack.py fields_pack_buckets)."""
+    return fields_pack_buckets([f.to(torch.int32).contiguous() for f in f2ds],
+                               widths)
+
+
 def fields_unpack_units(words, k: int, width: int) -> torch.Tensor:
     """Inverse of fields_pack_units -> (n, k) int32."""
     return fields_unpack(words.contiguous(), k, width)
+
+
+def fields_unpack_units_buckets(words_list, ks, widths) -> list:
+    """fields_unpack_units over many buckets -> [(n_i, ks[i]) int32]; ONE
+    kernel launch for up to MAX_BUCKETS buckets."""
+    return fields_unpack_buckets([w.contiguous() for w in words_list], ks,
+                                 widths)
 
 
 def pack_fields(vals, width: int) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Word packing: the wrappers of the CUDA kernels in csrc/pack.cu
-(width-parametric fields) and csrc/bits.cu ({0,1} bits), with their
-plain-torch versions (the routing, checks and launch counters of
-kernels/qsgd.py).
+(width-parametric fields, grouped over up to MAX_BUCKETS buckets of mixed
+widths a launch) and csrc/bits.cu ({0,1} bits), with their plain-torch
+versions (the routing, checks and launch counters of kernels/qsgd.py).
 
 Fields are (n, k) int32 tensors read as uint32 (values < 2**width, width
 1..31): the natural codec's 9-bit code leg and the sparse codecs'
@@ -11,6 +11,12 @@ into words_per_unit(k, width) words (width 1 for bits), held as int32
 tensors with the uint32 bit patterns.
 """
 from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import itertools
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,22 +42,103 @@ def fields_pack_plain(f, width: int) -> torch.Tensor:
     return ref.words_to_i32(words)
 
 
+#: fields a pack / unpack block owns: 64 chunks of 32 (csrc/pack.cu
+#: kTileFields)
+TILE_FIELDS = 2048
+#: buckets one launch takes (csrc/pack.cu kMaxBuckets)
+MAX_BUCKETS = 32
+
+
+def field_tiles(k: int) -> int:
+    """Blocks per unit of k fields: tiles of TILE_FIELDS."""
+    return -(-k // TILE_FIELDS)
+
+
+@dataclasses.dataclass(frozen=True)
+class FieldTable:
+    """One grouped field launch: per bucket its n, k, width, words per
+    unit, tiles per unit and first block (the prefix sum of n * tiles);
+    `blocks` in all. Pack and unpack share it."""
+    n: Tuple[int, ...]
+    k: Tuple[int, ...]
+    width: Tuple[int, ...]
+    wpu: Tuple[int, ...]
+    tiles: Tuple[int, ...]
+    block_start: Tuple[int, ...]
+    blocks: int
+
+
+def field_table(buckets: Sequence[Tuple[int, int, int]]) -> List[FieldTable]:
+    """The launches over (n, k, width) buckets: one table per MAX_BUCKETS
+    buckets, in order."""
+    tables = []
+    for i in range(0, len(buckets), MAX_BUCKETS):
+        group = [tuple(int(v) for v in b) for b in buckets[i:i + MAX_BUCKETS]]
+        tiles = tuple(field_tiles(k) for _, k, _ in group)
+        starts = list(itertools.accumulate(
+            [n * t for (n, _, _), t in zip(group, tiles)], initial=0))
+        tables.append(FieldTable(
+            n=tuple(n for n, _, _ in group), k=tuple(k for _, k, _ in group),
+            width=tuple(w for _, _, w in group),
+            wpu=tuple(words_per_unit(k, w) for _, k, w in group),
+            tiles=tiles, block_start=tuple(starts[:-1]), blocks=starts[-1]))
+    return tables
+
+
+@functools.lru_cache(maxsize=256)
+def _launches(buckets: Tuple[Tuple[int, int, int], ...]):
+    """field_table's launches with each table's sizes as the C entry
+    point's int array (n, k, width, wpu, tiles, block_start; cached: a
+    step's shapes repeat)."""
+    return [(t, (ctypes.c_int * (6 * len(t.n)))(
+        *t.n, *t.k, *t.width, *t.wpu, *t.tiles, *t.block_start))
+        for t in field_table(buckets)]
+
+
+def _launch_buckets(entry: str, wrapper, ins, outs, buckets) -> None:
+    """One launch of `entry` per MAX_BUCKETS non-empty buckets, each
+    counted in wrapper.launches."""
+    live = [i for i, (n, k, _) in enumerate(buckets) if n * k]
+    lib = build.library("pack")
+    dev = ins[0].device
+    for g, (table, sizes) in enumerate(_launches(
+            tuple(buckets[i] for i in live))):
+        idx = live[g * MAX_BUCKETS:(g + 1) * MAX_BUCKETS]
+        ptrs = (ctypes.c_void_p * (2 * len(idx)))(
+            *(t[i].data_ptr() for t in (ins, outs) for i in idx))
+        build.check(getattr(lib, entry)(len(idx), ptrs, sizes, table.blocks,
+                                        *_launch_args(dev)), entry)
+        wrapper.launches += 1
+
+
+def fields_pack_buckets(fs, widths) -> List[torch.Tensor]:
+    """fields_pack over many buckets, each at its own width: bucket i is
+    (fs[i], widths[i]) as fields_pack takes them. On the card ONE launch
+    per MAX_BUCKETS non-empty buckets (field_table), each counted in
+    fields_pack.launches. On the CPU, fields_pack_plain per bucket."""
+    for w in widths:
+        _check_width(w)
+    if not fs:
+        return []
+    if not _on_card(fs[0], *fs[1:]):
+        return [fields_pack_plain(f, w) for f, w in zip(fs, widths)]
+    outs, buckets = [], []
+    for f, w in zip(fs, widths):
+        if f.dim() != 2:
+            raise ValueError(f"fields: want (n, k), got {tuple(f.shape)}")
+        n, k = f.shape
+        _check(f, "fields", torch.int32, (n, k))
+        outs.append(torch.empty((n, words_per_unit(k, w)),
+                                dtype=torch.int32, device=f.device))
+        buckets.append((n, k, w))
+    _launch_buckets("fields_pack_buckets", fields_pack, fs, outs, buckets)
+    return outs
+
+
 def fields_pack(f, width: int) -> torch.Tensor:
-    """(n, k) int32 fields -> (n, words_per_unit(k, width)) int32 words."""
-    _check_width(width)
-    n, k = f.shape
-    if not _on_card(f):
-        return fields_pack_plain(f, width)
-    _check(f, "fields", torch.int32, (n, k))
-    wpu = words_per_unit(k, width)
-    out = torch.empty((n, wpu), dtype=torch.int32, device=f.device)
-    if out.numel() == 0:
-        return out
-    build.check(build.library("pack").fields_pack(
-        f.data_ptr(), out.data_ptr(), n, k, width, wpu,
-        *_launch_args(f.device)), "fields_pack")
-    fields_pack.launches += 1
-    return out
+    """(n, k) int32 fields -> (n, words_per_unit(k, width)) int32 words. On
+    the card: the one-bucket launch of fields_pack_buckets."""
+    return fields_pack_buckets([f], [width])[0]
 
 
 fields_pack.launches = 0
@@ -61,22 +148,34 @@ def fields_unpack_plain(words, k: int, width: int) -> torch.Tensor:
     return unpack_codes_plain(words, k, width).to(torch.int32)
 
 
+def fields_unpack_buckets(words_list, ks, widths) -> List[torch.Tensor]:
+    """fields_unpack over many buckets: bucket i is (words_list[i], ks[i],
+    widths[i]). On the card ONE launch per MAX_BUCKETS non-empty buckets,
+    each counted in fields_unpack.launches. On the CPU,
+    fields_unpack_plain per bucket."""
+    for w in widths:
+        _check_width(w)
+    if not words_list:
+        return []
+    if not _on_card(words_list[0], *words_list[1:]):
+        return [fields_unpack_plain(words, k, w)
+                for words, k, w in zip(words_list, ks, widths)]
+    outs, buckets = [], []
+    for words, k, w in zip(words_list, ks, widths):
+        n = words.shape[0]
+        _check(words, "words", torch.int32, (n, words_per_unit(k, w)))
+        outs.append(torch.empty((n, k), dtype=torch.int32,
+                                device=words.device))
+        buckets.append((n, int(k), w))
+    _launch_buckets("fields_unpack_buckets", fields_unpack, words_list, outs,
+                    buckets)
+    return outs
+
+
 def fields_unpack(words, k: int, width: int) -> torch.Tensor:
-    """(n, words_per_unit(k, width)) int32 words -> (n, k) int32 fields."""
-    _check_width(width)
-    n = words.shape[0]
-    if not _on_card(words):
-        return fields_unpack_plain(words, k, width)
-    wpu = words_per_unit(k, width)
-    _check(words, "words", torch.int32, (n, wpu))
-    out = torch.empty((n, k), dtype=torch.int32, device=words.device)
-    if out.numel() == 0:
-        return out
-    build.check(build.library("pack").fields_unpack(
-        words.data_ptr(), out.data_ptr(), n, k, width, wpu,
-        *_launch_args(words.device)), "fields_unpack")
-    fields_unpack.launches += 1
-    return out
+    """(n, words_per_unit(k, width)) int32 words -> (n, k) int32 fields. On
+    the card: the one-bucket launch of fields_unpack_buckets."""
+    return fields_unpack_buckets([words], [k], [width])[0]
 
 
 fields_unpack.launches = 0
