@@ -25,14 +25,21 @@ error:
      per-bucket plain twins at every field width over k at the chunk and
      tile edges, on the 22 mixed-width layerwise legs (natural's and the
      top-k index legs) in one launch, on MAX_BUCKETS + 9 buckets in two,
-     and on inputs 4 bytes past a 16-byte boundary
+     and on inputs 4 bytes past a 16-byte boundary; the grouped sign pack
+     and QSGD unpack (sign_pack_buckets / qsgd_unpack_buckets) bitwise
+     against the per-bucket plain twins on the 11 layerwise buckets in one
+     launch, on MAX_BUCKETS + 8 buckets in two, on units of d at the chunk
+     and tile edges and on inputs 4 bytes past a 16-byte boundary (sign
+     inputs holding -0.0 and NaN; QSGD widths 2/4/6/8, packed and random
+     words), grouped and one bucket at a time
   4. the main path: train_cnn on resnet9 with QSGD(16) layerwise and
      entire_model, TernGrad, signSGD, natural, top-k(1%) and random-k(1%)
      layerwise, top-k entire_model, and adaptive threshold layerwise (the
      sim path: no launches); launch counters reset before and read after
-     each run and held to exact per-step counts (QSGD: one pack launch a
-     step for all its buckets; natural and sparse: one field pack and one
-     field unpack launch a step); the wire buffers of one
+     each run and held to exact per-step counts (QSGD: one pack and one
+     unpack launch a step for all its buckets; signSGD: one pack launch a
+     step and one unpack a bucket; natural and sparse: one field pack and
+     one field unpack launch a step); the wire buffers of one
      step built with the kernels equal those built with the plain
      versions (QSGD / TernGrad on the card's own statistics; signSGD,
      natural and top-k against the whole path run on the CPU); one
@@ -43,10 +50,11 @@ error:
      time from CUDA-event timed replays of a CUDA graph of 20 calls
      (`ms`, `plain_ms`), and the per-call time of the same calls issued
      back to back from Python (`call_ms`, host enqueue included); QSGD's
-     pack and the field pack / unpack (natural's legs and the top-k index
-     legs) also as the step's one grouped launch (layerwise_step_grouped,
-     the kernel line's time), a layerwise step's QSGD encode and natural
-     encode and decode from Python, grouped and per bucket
+     pack and unpack, the sign pack and the field pack / unpack (natural's
+     legs and the top-k index legs) also as the step's one grouped launch
+     (layerwise_step_grouped, the kernel line's time), a layerwise step's
+     QSGD encode and natural encode and decode from Python, grouped and
+     per bucket
   6. torch.profiler over five main-path steps each of QSGD(16) and
      top-k(1%) layerwise: wall and device-busy time per step, the
      device's idle share and the top device ops
@@ -62,7 +70,8 @@ error:
      the signSGD majority vote on each bucket's gathered payloads, fused
      (majority kernel) = non-fused (bits_unpack, count, bits_pack) =
      plain; (c) one step's buffers of the per-unit codecs
-     (fused=False) = the fused buffers, with exact launch counts; (d)
+     (fused=False) = the fused buffers; each of (a)-(c) held to exact
+     launch counts; (d)
      train_cnn_ranks, 20 resnet9 steps (batch 64, 16 a rank) for
      allgather-wire QSGD(16) and signSGD
      and simulated-wire QSGD(16): seconds, test loss, collective bytes a
@@ -163,6 +172,9 @@ FIELD_EDGE_KS = (1, 2, 31, 32, 33, 100, 1025, 2047, 2048, 2049, 4095, 4096,
 # 2, 3, odd d, h = ceil(d / 2) = 32k +- 1 and h at tile edges (480 pairs)
 PACK_EDGE_DIMS = (1, 2, 3, 31, 32, 33, 61, 62, 63, 64, 65, 511, 513, 957,
                   959, 960, 961, 962, 1025, 1919, 1921, 65537)
+# unit dimensions at the grouped sign pack's and QSGD unpack's chunk (32)
+# and tile (2,048) edges
+GROUPED_EDGE_DIMS = (1, 2, 31, 32, 33, 2047, 2048, 2049, 4097, 65537)
 BLOCK = 65536
 # (int32, fp32) operations per element of the compress-only kernels: QSGD
 # abs, divide, fma (2), floor, sign, two multiplies; TernGrad abs, divide,
@@ -550,16 +562,100 @@ def check_grouped_fields(layer_shapes, dev):
     return tuple(err)
 
 
+def check_grouped_sign_unpack(layer_shapes, dev):
+    """The grouped sign pack and QSGD unpack launches (sign_pack_buckets /
+    qsgd_unpack_buckets) vs the per-bucket plain twins, bitwise, and each
+    group's exact launches: the 11 layerwise buckets (one launch),
+    MAX_BUCKETS + 8 buckets (two), units of GROUPED_EDGE_DIMS, and inputs
+    that start 4 bytes past a 16-byte boundary (the 4-byte load path at
+    d % 4 == 0). Sign inputs hold -0.0 and a NaN; QSGD unpacks every
+    (width, levels) of QSGD_WIDTHS on the packed words of the same units
+    and on random words. The edge and misaligned units also go one bucket
+    at a time. -> max |err| of (sign_pack, qsgd_unpack)."""
+    import torch
+    from repro_torch.kernels import qsgd as Q
+    from repro_torch.kernels import sign as S
+    from repro_torch.kernels.ref import words_per_unit
+    groups = {"layerwise": layer_shapes,
+              "over_max_buckets": [(1 + i % 3, 17 + 61 * i)
+                                   for i in range(Q.MAX_BUCKETS + 8)],
+              "edges": [(3, d) for d in GROUPED_EDGE_DIMS],
+              "misaligned": [(3, d) for d in (1024, 4608, 100, 2049)]}
+    err = [0.0, 0.0]
+
+    def launched(wrapper, fn, count, what):
+        before = wrapper.launches
+        out = fn()
+        got = wrapper.launches - before
+        want = -(-count // Q.MAX_BUCKETS)
+        check(got == want, f"{wrapper.__name__} grouped {what}: {got} "
+              f"launches for {count} buckets, want {want}")
+        return out
+
+    def shift(t):                           # 4 bytes past a 16-byte boundary
+        v = torch.cat([t.reshape(-1)[:1], t.reshape(-1)])[1:].view(t.shape)
+        check(v.data_ptr() % 16 == 4, "misaligned input is aligned")
+        return v
+
+    def same(i, got, want, what):
+        err[i] = max(err[i], max_abs_err(got, want))
+        check(bitwise_equal(got, want), what)
+
+    for gi, (gname, shapes) in enumerate(groups.items()):
+        one = gname in ("edges", "misaligned")
+        ins = [make_inputs(s, 2100 + 64 * gi + i, dev)
+               for i, s in enumerate(shapes)]
+        xs = []
+        for x, _, _ in ins:
+            x[:, 3::11] = -0.0
+            x[0, min(5, x.shape[1] - 1)] = float("nan")
+            xs.append(shift(x) if gname == "misaligned" else x)
+        got = launched(S.sign_pack, lambda: S.sign_pack_buckets(xs),
+                       len(xs), gname)
+        for g, x in zip(got, xs):
+            want = S.sign_pack_plain(x)
+            same(0, g, want, f"sign_pack grouped {gname} {tuple(x.shape)}")
+            if one:
+                same(0, S.sign_pack(x), want,
+                     f"sign_pack {gname} {tuple(x.shape)}")
+        dims = [d for _, d in shapes]
+        clean = [x.nan_to_num() for x, _, _ in ins]
+        nrms = [torch.linalg.vector_norm(x, dim=1) + 1e-12 for x in clean]
+        for width, levels in QSGD_WIDTHS:
+            packed = Q.qsgd_pack_buckets(clean, [k0 for _, k0, _ in ins],
+                                         [k1 for _, _, k1 in ins], nrms,
+                                         levels, width)
+            rand = [make_words(n, words_per_unit(d, width),
+                               2200 + 64 * gi + i, dev)
+                    for i, (n, d) in enumerate(shapes)]
+            if gname == "misaligned":
+                rand = [shift(r) for r in rand]
+            facs = [nrm / levels for nrm in nrms]
+            for kind, words in (("packed", packed), ("random", rand)):
+                got = launched(Q.qsgd_unpack, lambda: Q.qsgd_unpack_buckets(
+                    words, facs, dims, levels, width), len(words), gname)
+                for g, w, f, d in zip(got, words, facs, dims):
+                    want = Q.qsgd_unpack_plain(w, f, d, levels, width)
+                    what = f"{gname} {kind} {tuple(w.shape)} w{width}"
+                    same(1, g, want, f"qsgd_unpack grouped {what}")
+                    if one:
+                        same(1, Q.qsgd_unpack(w, f, d, levels, width), want,
+                             f"qsgd_unpack {what}")
+    torch.cuda.synchronize()
+    return tuple(err)
+
+
 # ---- phase 4: the main path -------------------------------------------------
 
 def main_path_runs(dev):
     """train_cnn runs, each held to exact launch counts: per step, one pack
     and one unpack launch of the codec's kernel family per bucket (11
-    layerwise, 1 entire-model), except QSGD's pack and the natural and
-    sparse codecs' field pack and unpack, one launch a step for all their
-    buckets; none of any other kernel, and none at all for adaptive
-    threshold (its records are not sim-exact, so train_step takes the sim
-    path, as the reference's train_cnn always does)."""
+    layerwise, 1 entire-model), except QSGD's pack and unpack, the sign
+    pack and the natural and sparse codecs' field pack and unpack, one
+    launch a step for all their buckets; none of any other kernel, and
+    none at all for adaptive threshold (its records are not sim-exact, so
+    train_step takes the sim path, as the reference's train_cnn always
+    does)."""
     from repro_torch import kernels
     from repro_torch.core.aggregation import CompressionConfig
     from repro_torch.core.compressors import (QSGD, AdaptiveThreshold,
@@ -569,25 +665,28 @@ def main_path_runs(dev):
     from repro_torch.experiment import train_cnn
     import torch
     topk = TopK(ratio=SPARSE_RATIO)
-    # launches a step: a step encodes every bucket, then decodes each. The
-    # fused QSGD codec packs all its buckets (11 <= MAX_BUCKETS) in one
-    # launch and unpacks them one launch a bucket; the natural and sparse
-    # codecs pack and unpack all their buckets in one launch each
-    # (fields_pack_buckets / fields_unpack_buckets); TernGrad and signSGD
-    # launch once a bucket each way; an entire-model step has one bucket.
-    # Over STEPS = 20 steps: QSGD layerwise qsgd_pack 1 x 20 = 20,
-    # qsgd_unpack 11 x 20 = 220; natural, top-k and random-k layerwise and
-    # top-k entire-model 20 fields_pack and 20 fields_unpack each (80 / 80
-    # over the four runs; 11 x 20 a layerwise run before the grouped launch)
+    # launches a step: a step encodes every bucket in one call, then
+    # decodes every bucket in one call. The fused QSGD codec packs all its
+    # buckets (11 <= MAX_BUCKETS) in one launch and unpacks them in one
+    # (qsgd_pack_buckets / qsgd_unpack_buckets); the signSGD codec packs
+    # them in one launch (sign_pack_buckets) and unpacks one launch a
+    # bucket; the natural and sparse codecs pack and unpack all their
+    # buckets in one launch each (fields_pack_buckets /
+    # fields_unpack_buckets); TernGrad launches once a bucket each way; an
+    # entire-model step has one bucket. Over STEPS = 20 steps: QSGD
+    # layerwise qsgd_pack 1 x 20 = 20 and qsgd_unpack 1 x 20 = 20, QSGD
+    # entire-model 20 / 20; signSGD layerwise sign_pack 1 x 20 = 20 and
+    # sign_unpack 11 x 20 = 220; natural, top-k and random-k layerwise and
+    # top-k entire-model 20 fields_pack and 20 fields_unpack each
     fields = {"fields_pack": 1, "fields_unpack": 1}
     runs = [("qsgd16_layerwise", QSGD(levels=MAIN_LEVELS), "layerwise",
-             {"qsgd_pack": 1, "qsgd_unpack": 11}),
+             {"qsgd_pack": 1, "qsgd_unpack": 1}),
             ("qsgd16_entire_model", QSGD(levels=MAIN_LEVELS), "entire_model",
              {"qsgd_pack": 1, "qsgd_unpack": 1}),
             ("terngrad_layerwise", TernGrad(), "layerwise",
              {"terngrad_pack": 11, "terngrad_unpack": 11}),
             ("signsgd_layerwise", SignSGD(), "layerwise",
-             {"sign_pack": 11, "sign_unpack": 11}),
+             {"sign_pack": 1, "sign_unpack": 11}),
             ("natural_layerwise", NaturalCompression(), "layerwise", fields),
             ("topk1_layerwise", topk, "layerwise", fields),
             ("randomk1_layerwise", RandomK(ratio=SPARSE_RATIO), "layerwise",
@@ -869,45 +968,65 @@ def time_kernels(layer_shapes, em_shape, dev):
                     "bytes": nbytes, "int_ops": iops, "fp_ops": fops,
                     "bytes_ms": t_b, "ops_ms": t_o, "bound_ms": max(t_b, t_o),
                     "bound_by": "bytes" if t_b >= t_o else "operations"})
-    rows.append(time_grouped_pack(layer_shapes, dev))
+    rows += time_grouped_wire(layer_shapes, dev)
     rows += time_grouped_fields(layer_shapes, dev)
     return rows
 
 
-def time_grouped_pack(layer_shapes, dev):
-    """The row of group layerwise_step_grouped: ONE qsgd_pack launch over
-    the 11 layerwise buckets x 4 workers (qsgd_pack_buckets), as a step
-    runs it, beside the per-bucket plain loop; shape [units, elements],
-    bounds the sums of the buckets' bytes and operations."""
+def grouped_row(kernel, leg, width, buckets, kern, plain):
+    """A row of group layerwise_step_grouped: `kern`, ONE grouped launch
+    over `buckets` ((n, d, width) each) as a step runs it, beside `plain`,
+    the per-bucket plain loop; shape [units, elements], bounds the sums of
+    the buckets' bytes and operations."""
+    parts = [bounds(kernel, n, d, w) for n, d, w in buckets]
+    nbytes, iops, fops = (sum(p[i] for p in parts) for i in range(3))
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = (iops / INT32_OPS_PER_S + fops / FP32_OPS_PER_S) * 1e3
+    return {"group": "layerwise_step_grouped", "kernel": kernel, "leg": leg,
+            "shape": [sum(n for n, _, _ in buckets),
+                      sum(n * d for n, d, _ in buckets)],
+            "width": width, "ms": device_ms(kern), "call_ms": call_ms(kern),
+            "plain_ms": device_ms(plain, reps=3, repeats=3),
+            "bytes": nbytes, "int_ops": iops, "fp_ops": fops,
+            "bytes_ms": t_b, "ops_ms": t_o, "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def time_grouped_wire(layer_shapes, dev):
+    """Rows of group layerwise_step_grouped for the QSGD pack and unpack
+    and the sign pack: ONE launch over the 11 layerwise buckets x 4
+    workers (qsgd_pack_buckets, qsgd_unpack_buckets at width 6,
+    sign_pack_buckets), on the same inputs as time_kernels' one-bucket
+    rows."""
     import torch
     from repro_torch.kernels import qsgd as Q
+    from repro_torch.kernels import sign as S
     ins = [make_inputs(s, 500 + si, dev) for si, s in enumerate(layer_shapes)]
     xs = [x for x, _, _ in ins]
     k0s = [k0 for _, k0, _ in ins]
     k1s = [k1 for _, _, k1 in ins]
     nrms = [torch.linalg.vector_norm(x, dim=1) + 1e-12 for x in xs]
-
-    def kern():
-        return Q.qsgd_pack_buckets(xs, k0s, k1s, nrms, MAIN_LEVELS,
-                                   MAIN_WIDTH)
-
-    def plain():
-        return [Q.qsgd_pack_plain(x, k0, k1, nrm, MAIN_LEVELS, MAIN_WIDTH)
-                for x, k0, k1, nrm in zip(xs, k0s, k1s, nrms)]
-    parts = [bounds("qsgd_pack", n, d, MAIN_WIDTH) for n, d in layer_shapes]
-    nbytes, iops, fops = (sum(p[i] for p in parts) for i in range(3))
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = (iops / INT32_OPS_PER_S + fops / FP32_OPS_PER_S) * 1e3
-    return {"group": "layerwise_step_grouped", "kernel": "qsgd_pack",
-            "leg": f"{len(layer_shapes)} buckets",
-            "shape": [sum(n for n, _ in layer_shapes),
-                      sum(n * d for n, d in layer_shapes)],
-            "width": MAIN_WIDTH, "ms": device_ms(kern),
-            "call_ms": call_ms(kern),
-            "plain_ms": device_ms(plain, reps=3, repeats=3),
-            "bytes": nbytes, "int_ops": iops, "fp_ops": fops,
-            "bytes_ms": t_b, "ops_ms": t_o, "bound_ms": max(t_b, t_o),
-            "bound_by": "bytes" if t_b >= t_o else "operations"}
+    facs = [nrm / MAIN_LEVELS for nrm in nrms]
+    dims = [d for _, d in layer_shapes]
+    words = Q.qsgd_pack_buckets(xs, k0s, k1s, nrms, MAIN_LEVELS, MAIN_WIDTH)
+    buckets = [(n, d, MAIN_WIDTH) for n, d in layer_shapes]
+    return [
+        grouped_row("qsgd_pack", f"{len(xs)} buckets", MAIN_WIDTH, buckets,
+                    lambda: Q.qsgd_pack_buckets(xs, k0s, k1s, nrms,
+                                                MAIN_LEVELS, MAIN_WIDTH),
+                    lambda: [Q.qsgd_pack_plain(x, k0, k1, nrm, MAIN_LEVELS,
+                                               MAIN_WIDTH)
+                             for x, k0, k1, nrm in zip(xs, k0s, k1s, nrms)]),
+        grouped_row("qsgd_unpack", f"{len(xs)} buckets", MAIN_WIDTH, buckets,
+                    lambda: Q.qsgd_unpack_buckets(words, facs, dims,
+                                                  MAIN_LEVELS, MAIN_WIDTH),
+                    lambda: [Q.qsgd_unpack_plain(w, f, d, MAIN_LEVELS,
+                                                 MAIN_WIDTH)
+                             for w, f, d in zip(words, facs, dims)]),
+        grouped_row("sign_pack", f"{len(xs)} buckets", 1,
+                    [(n, d, 1) for n, d in layer_shapes],
+                    lambda: S.sign_pack_buckets(xs),
+                    lambda: [S.sign_pack_plain(x) for x in xs])]
 
 
 def time_grouped_fields(layer_shapes, dev):
@@ -930,29 +1049,17 @@ def time_grouped_fields(layer_shapes, dev):
         ws = [w for _, w, _, _ in buckets]
         ks = [shape[1] for shape, _, _, _ in buckets]
         words = P.fields_pack_buckets(fs, ws)
-        cases = (
-            ("fields_pack", lambda: P.fields_pack_buckets(fs, ws),
-             lambda: [P.fields_pack_plain(f, w) for f, w in zip(fs, ws)]),
-            ("fields_unpack", lambda: P.fields_unpack_buckets(words, ks, ws),
-             lambda: [P.fields_unpack_plain(x, k, w)
-                      for x, k, w in zip(words, ks, ws)]))
-        for name, kern, plain in cases:
-            parts = [bounds(name, shape[0], shape[1], w)
-                     for shape, w, _, _ in buckets]
-            nbytes, iops, fops = (sum(p[i] for p in parts) for i in range(3))
-            t_b = nbytes / HBM_BYTES_PER_S * 1e3
-            t_o = (iops / INT32_OPS_PER_S + fops / FP32_OPS_PER_S) * 1e3
-            rows.append({
-                "group": "layerwise_step_grouped", "kernel": name,
-                "leg": leg,
-                "shape": [sum(sh[0] for sh, _, _, _ in buckets),
-                          sum(sh[0] * sh[1] for sh, _, _, _ in buckets)],
-                "width": ws[0] if leg == "natural" else 0,
-                "ms": device_ms(kern), "call_ms": call_ms(kern),
-                "plain_ms": device_ms(plain, reps=3, repeats=3),
-                "bytes": nbytes, "int_ops": iops, "fp_ops": fops,
-                "bytes_ms": t_b, "ops_ms": t_o, "bound_ms": max(t_b, t_o),
-                "bound_by": "bytes" if t_b >= t_o else "operations"})
+        sized = [(shape[0], shape[1], w) for shape, w, _, _ in buckets]
+        width = ws[0] if leg == "natural" else 0
+        rows += [
+            grouped_row("fields_pack", leg, width, sized,
+                        lambda: P.fields_pack_buckets(fs, ws),
+                        lambda: [P.fields_pack_plain(f, w)
+                                 for f, w in zip(fs, ws)]),
+            grouped_row("fields_unpack", leg, width, sized,
+                        lambda: P.fields_unpack_buckets(words, ks, ws),
+                        lambda: [P.fields_unpack_plain(x, k, w)
+                                 for x, k, w in zip(words, ks, ws)])]
     return rows
 
 
@@ -1372,16 +1479,17 @@ def gate_unit_codecs(rank, n, dev, params, wg):
                 msgs += 1
     # launches over the 10 (codec, granularity) pairs, each run fused and
     # per-unit with a local decode: B = 11 buckets layerwise + 1
-    # entire-model = 12. Fused QSGD packs in 1 launch and unpacks in B
-    # (qsgd_pack 2, qsgd_unpack 12); fused TernGrad and signSGD launch B
-    # each way (12 each); per-unit QSGD and TernGrad pack and unpack their
-    # codes with one field launch a bucket (12 + 12 each way), per-unit
-    # signSGD with bits_pack / bits_unpack (12 each); natural and top-k,
-    # fused or not, pack and unpack all buckets in one field launch each
-    # (2 x 2 each way apiece): fields 12 + 12 + 4 + 4 = 32 each way (72
-    # before the grouped field launch)
-    want = {"qsgd_pack": 2, "qsgd_unpack": 12, "terngrad_pack": 12,
-            "terngrad_unpack": 12, "sign_pack": 12, "sign_unpack": 12,
+    # entire-model = 12. Fused QSGD packs in 1 launch and unpacks in 1 a
+    # granularity (qsgd_pack 2, qsgd_unpack 2); fused signSGD packs in 1 a
+    # granularity (sign_pack 2) and unpacks in B (12); fused TernGrad
+    # launches B each way (12 each); per-unit QSGD and TernGrad pack and
+    # unpack their codes with one field launch a bucket (12 + 12 each
+    # way), per-unit signSGD with bits_pack / bits_unpack (12 each);
+    # natural and top-k, fused or not, pack and unpack all buckets in one
+    # field launch each (2 x 2 each way apiece): fields 12 + 12 + 4 + 4 =
+    # 32 each way
+    want = {"qsgd_pack": 2, "qsgd_unpack": 2, "terngrad_pack": 12,
+            "terngrad_unpack": 12, "sign_pack": 2, "sign_unpack": 12,
             "bits_pack": 12, "bits_unpack": 12, "fields_pack": 32,
             "fields_unpack": 32}
     counts = kernels.launch_counts()
@@ -1404,17 +1512,19 @@ def train_ranks(rank, n, dev):
     from repro_torch.core.granularity import Granularity, stacked_mask
     from repro_torch.core.plan import build_plan
     from repro_torch.experiment import train_cnn_ranks
-    # launches a step: QSGD packs its 11 buckets in one launch; the
-    # allgather receive leg decodes each bucket's gathered rows with the
-    # per-unit codec after that bucket's own all_gather (one fields_unpack
-    # a bucket: the grouped decode waits for one gather per message),
-    # simulated with the fused one (one qsgd_unpack a bucket)
+    # launches a step: QSGD packs its 11 buckets in one launch and signSGD
+    # its 11 in one; the allgather receive leg decodes each bucket's
+    # gathered rows with the per-unit codec after that bucket's own
+    # all_gather (one fields_unpack, or bits_unpack for signSGD, a bucket:
+    # the grouped decode waits for one gather per message), simulated
+    # decodes every bucket locally in one grouped launch (qsgd_unpack 1)
+    # and averages the decoded values
     runs = [("allgather_qsgd16_layerwise", QSGD(levels=MAIN_LEVELS),
              "allgather", {"qsgd_pack": 1, "fields_unpack": 11}),
             ("allgather_signsgd_layerwise", SignSGD(), "allgather",
-             {"sign_pack": 11, "bits_unpack": 11}),
+             {"sign_pack": 1, "bits_unpack": 11}),
             ("simulated_qsgd16_layerwise", QSGD(levels=MAIN_LEVELS),
-             "simulated", {"qsgd_pack": 1, "qsgd_unpack": 11})]
+             "simulated", {"qsgd_pack": 1, "qsgd_unpack": 1})]
     out = []
     for name, comp, strategy, per_step in runs:
         cfg = CompressionConfig(qw=comp, strategy=strategy,
@@ -1486,9 +1596,39 @@ def gather_timing(rank, n, dev, nbytes_list):
     return out
 
 
+# exact launches of gates (a) and (b) on each rank. (a) runs, per
+# compressor, compressed_allreduce at 2 granularities (B = 11 layerwise
+# buckets + 1 entire-model) x {simulated, allgather} x wire {off, on}, with
+# EF also for QSGD and top-k layerwise, then one allgather wire call and two
+# execute_schedule_wire calls (with a local decode), all layerwise, for
+# the integrity words. wire=False launches nothing (sim and records in
+# plain torch). A wire call encodes once (QSGD, signSGD, natural, top-k:
+# one grouped launch; TernGrad: one a bucket), decodes locally under
+# simulated and EF (QSGD, natural, top-k: one grouped launch; TernGrad and
+# signSGD: one a bucket), and under allgather decodes each bucket's
+# gathered rows with the per-unit codec (fields_unpack, or bits_unpack for
+# signSGD, one a bucket). So:
+#   qsgd_pack 4 + 2 (EF) + 3 = 9; qsgd_unpack 2 + 2 (EF) + 2 = 6;
+#   terngrad_pack 2 x 12 + 3 x 11 = 57; terngrad_unpack and sign_unpack
+#   12 + 2 x 11 = 34; sign_pack 4 + 3 = 7; fields_pack natural 4 + 3, top-k
+#   4 + 2 + 3 = 16; fields_unpack local natural 2 + 2 and top-k 2 + 2 + 2,
+#   gathered rows (12 + 11) x 4 codecs + 11 x 2 (EF) = 10 + 92 + 22 = 124;
+#   bits_unpack 12 + 11 = 23.
+# (b) encodes each of the 12 buckets alone (sign_pack 12) and votes on each
+# fused (majority 12) and non-fused (bits_unpack 12, bits_pack 12).
+GATE_LAUNCHES = {
+    "fixed_gradients": {"qsgd_pack": 9, "qsgd_unpack": 6,
+                        "terngrad_pack": 57, "terngrad_unpack": 34,
+                        "sign_pack": 7, "sign_unpack": 34, "fields_pack": 16,
+                        "fields_unpack": 124, "bits_unpack": 23},
+    "majority": {"sign_pack": 12, "majority": 12, "bits_unpack": 12,
+                 "bits_pack": 12}}
+
+
 def rank_phase(rank, n, dev):
     """Phase 7 on one rank: each gate driven with the launch counters set
-    to 0 just before it and read just after."""
+    to 0 just before it and read just after, gates (a) and (b) held to
+    GATE_LAUNCHES (gate (c) checks its own)."""
     import torch
     from repro_torch import kernels
     torch.backends.cudnn.allow_tf32 = False
@@ -1501,8 +1641,12 @@ def rank_phase(rank, n, dev):
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         count = gate(rank, n, dev, params, wg)
+        counts = kernels.launch_counts()
+        if name in GATE_LAUNCHES:
+            want = {k: GATE_LAUNCHES[name].get(k, 0) for k in counts}
+            check(counts == want, f"{name}: launches {counts} != {want}")
         res[name] = {"count": count, "seconds": time.perf_counter() - t0,
-                     "launches": kernels.launch_counts()}
+                     "launches": counts}
     res["train"] = train_ranks(rank, n, dev)
     res["gather_ms"] = gather_timing(rank, n, dev,
                                      (4_096, 60_512, 484_008, 4_194_304))
@@ -1736,6 +1880,8 @@ LINE_GROUP = {"qsgd_compress_rows": "compress_layerwise",
               "terngrad_compress_rows": "compress_layerwise",
               "topk_mask": "compress_flat", "rmsnorm": "rmsnorm_bf16",
               "qsgd_pack": "layerwise_step_grouped",
+              "qsgd_unpack": "layerwise_step_grouped",
+              "sign_pack": "layerwise_step_grouped",
               "fields_pack": "layerwise_step_grouped",
               "fields_unpack": "layerwise_step_grouped"}
 
@@ -1743,8 +1889,9 @@ LINE_GROUP = {"qsgd_compress_rows": "compress_layerwise",
 def kernel_line(timings, launches, errs):
     """The per-kernel summary. Wire kernels: device ms / plain_ms /
     bound_ms summed over one layerwise main-path step (the 11 resnet9
-    buckets x 4 workers; qsgd_pack the step's one grouped launch, the
-    fields kernels theirs on natural compression's 9-bit code legs).
+    buckets x 4 workers; qsgd_pack, qsgd_unpack and sign_pack the step's
+    one grouped launch, the fields kernels theirs on natural compression's
+    9-bit code legs).
     Compress-only
     kernels: summed over their LINE_GROUP rows (one layerwise
     plan_compress call of QSGD(16) / TernGrad, top-k (k=5)
@@ -1858,6 +2005,16 @@ def main(argv) -> int:
           f"mixed-width layerwise legs in one launch, MAX_BUCKETS + 9 "
           f"buckets in two, and inputs 4 bytes past a 16-byte boundary; max "
           f"abs err {ferr}", flush=True)
+    serr = check_grouped_sign_unpack(layer_shapes, dev)
+    errs["sign_pack"] = max(errs["sign_pack"], serr[0])
+    errs["qsgd_unpack"] = max(errs["qsgd_unpack"], serr[1])
+    print(f"grouped sign_pack / qsgd_unpack: bitwise equal to the per-bucket "
+          f"plain twins (sign with -0.0 and NaN; QSGD widths "
+          f"{[w for w, _ in QSGD_WIDTHS]}, packed and random words) on the "
+          f"11 layerwise buckets in one launch, MAX_BUCKETS + 8 buckets in "
+          f"two, units of d in {list(GROUPED_EDGE_DIMS)} and inputs 4 bytes "
+          f"past a 16-byte boundary, grouped and one at a time; max abs err "
+          f"{serr}", flush=True)
     unit_shapes = [(n // WORKERS, d) for n, d in layer_shapes]
     cshapes = layer_shapes + [(1, em_shape[1]), (1, MICRO)]
     cerrs = check_compress_kernels(cshapes, dev)

@@ -20,11 +20,11 @@ Two implementations of each format, byte-identical:
             (kernels/ops.py). `fused=False` routes them to the per-unit
             rows instead (the reference's legacy fallback).
   grouped   `encode_buckets` / `decode_buckets` / `decode_ef_buckets` of
-            every bucket of a step: one pack launch for all of them under
-            the fused QSGD codec, one pack and one unpack launch under the
-            natural and sparse codecs (whose per-unit and fused formats
-            are one path); the other codecs loop over their batch entry
-            points.
+            every bucket of a step: one pack and one unpack launch for all
+            of them under the fused QSGD codec and the natural and sparse
+            codecs (whose per-unit and fused formats are one path), one
+            pack launch under the fused signSGD codec; the other codecs
+            loop over their batch entry points.
 
 Formats (little-endian; field i of a packed leg sits at bit i*width of
 its unit's uint32 words, each leg padded to a whole word):
@@ -334,9 +334,7 @@ class QSGDCodec(WireCodec):
     def decode_batch(self, payloads, d: int):
         if not self.fused:
             return self.decode_rows(payloads, d)
-        nrm, w = _split(payloads)
-        return ops.qsgd_unpack_units(w, nrm, d, self.comp.levels,
-                                     self.entry_bits)
+        return self.decode_buckets([payloads], [d])[0]
 
     def decode_ef_batch(self, payloads, e2d, d: int):
         if not self.fused:
@@ -344,6 +342,21 @@ class QSGDCodec(WireCodec):
         nrm, w = _split(payloads)
         return ops.qsgd_unpack_ef_units(w, nrm, e2d, d, self.comp.levels,
                                         self.entry_bits)
+
+    def decode_buckets(self, payloads_list, dims):
+        """Fused: one unpack launch for all the buckets (up to
+        MAX_BUCKETS)."""
+        if not self.fused:
+            return super().decode_buckets(payloads_list, dims)
+        splits = [_split(p) for p in payloads_list]
+        return ops.qsgd_unpack_units_buckets(
+            [w for _, w in splits], [nrm for nrm, _ in splits], dims,
+            self.comp.levels, self.entry_bits)
+
+    def decode_ef_buckets(self, payloads_list, es, dims):
+        if not self.fused:
+            return super().decode_ef_buckets(payloads_list, es, dims)
+        return _ef_pairs(self.decode_buckets(payloads_list, dims), es)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -403,7 +416,13 @@ class SignSGDCodec(WireCodec):
     def encode_batch(self, x2d, keys):
         if not self.fused:
             return self.encode_rows(x2d, keys)
-        return _rows_to_u8(ops.sign_pack_units(x2d))
+        return self.encode_buckets([x2d], [keys])[0]
+
+    def encode_buckets(self, es, keys):
+        """Fused: one pack launch for all the buckets (up to MAX_BUCKETS)."""
+        if not self.fused:
+            return super().encode_buckets(es, keys)
+        return [_rows_to_u8(w) for w in ops.sign_pack_units_buckets(es)]
 
     def decode_batch(self, payloads, d: int):
         if not self.fused:
@@ -709,11 +728,11 @@ def execute_schedule_wire(schedule, codec: WireCodec, grads, key,
                           decode_local: bool = True):
     """Stream a CommSchedule through REAL wire buffers: encode every bucket
     of the schedule (codec.encode_buckets: one pack launch each, one for
-    all of them under the fused QSGD, natural and sparse codecs), then per
-    message concatenate its payload rows into one uint8 buffer behind the
-    header, decode every bucket back out of its buffer
+    all of them under the fused QSGD and signSGD, natural and sparse
+    codecs), then per message concatenate its payload rows into one uint8
+    buffer behind the header, decode every bucket back out of its buffer
     (codec.decode_buckets: one unpack launch each, one for all of them
-    under the natural and sparse codecs) and apply
+    under the fused QSGD, natural and sparse codecs) and apply
     `post(payload_rows, xhat, unit_keys, d) -> y` (None: y = xhat). Unit keys
     pass through `wire_key` (e.g. the rank fold) before encode.
     `decode_local=False` skips the local decode for a post that does not
@@ -751,7 +770,8 @@ def _execute_wire(schedule, codec, grads, state, key, post, wire_key,
     out = ([None] * len(leaves), plan._new_flat(leaves) if need else None)
     mout = ([None] * len(leaves), plan._new_flat(leaves) if need else None)
     # every bucket's encode input and key for the whole schedule, encoded
-    # in one call (one QSGD pack launch), then message by message
+    # in one call (one pack launch under the grouped codecs), then message
+    # by message
     bs = [plan.buckets[bi] for msg in schedule.messages
           for bi in msg.bucket_ids]
     es = [plan._gather_runs(leaves, flat, b) for b in bs]
@@ -770,9 +790,9 @@ def _execute_wire(schedule, codec, grads, state, key, post, wire_key,
         buffers.append(buf if batched else buf[0])
         regions += [_bucket_region(buf, layout, j, plan.buckets[bi].n)
                     for j, bi in enumerate(msg.bucket_ids)]
-    # decode every bucket of the step in one call (one unpack launch for
-    # the natural and sparse codecs), then post and scatter in bucket
-    # order, so collectives inside post keep their order
+    # decode every bucket of the step in one call (one unpack launch under
+    # the fused QSGD, natural and sparse codecs), then post and scatter in
+    # bucket order, so collectives inside post keep their order
     dims = [b.dim for b in bs]
     if state is not None:
         dec = codec.decode_ef_buckets(regions, es, dims)

@@ -35,12 +35,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # count, the pointer array, the size array, blocks, levels, width
     "qsgd_pack_buckets": [_I, _P, _P, _I, _I, _I, _I, _P],
-    "qsgd_unpack": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "qsgd_unpack_buckets": [_I, _P, _P, _I, _I, _I, _I, _P],
     "terngrad_pack": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "terngrad_unpack": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "sign_pack": [_P, _P, _I, _I, _I, _I, _P],
     "sign_unpack": [_P, _P, _I, _I, _I, _I, _P],
     # count, the pointer array, the size array, blocks
+    "sign_pack_buckets": [_I, _P, _P, _I, _I, _P],
     "fields_pack_buckets": [_I, _P, _P, _I, _I, _P],
     "fields_unpack_buckets": [_I, _P, _P, _I, _I, _P],
     "bits_pack": [_P, _P, _I, _I, _I, _I, _P],

@@ -55,6 +55,7 @@
 #include <cstdint>
 
 #include "fields.cuh"
+#include "grouped.cuh"
 
 namespace {
 
@@ -70,8 +71,6 @@ struct FieldBucket {
   int n, k, width, wpu, tiles;  // tiles per unit
 };
 
-// The first blocks lie together at the front, so a block's scan for its
-// bucket reads two constant-cache lines, not one per bucket.
 struct FieldTable {
   int block_start[kMaxBuckets];  // each bucket's first block in the launch
   FieldBucket b[kMaxBuckets];
@@ -85,18 +84,11 @@ struct Place {
 };
 
 __device__ __forceinline__ Place find(const FieldTable& t) {
-  int i = 0;
-  while (i + 1 < t.count &&
-         static_cast<int>(blockIdx.x) >= t.block_start[i + 1])
-    ++i;
+  const int i = repro::bucket_of(t.block_start, t.count);
   const FieldBucket b = t.b[i];
   const int local = static_cast<int>(blockIdx.x) - t.block_start[i];
   const int unit = local / b.tiles;
   return Place{b, unit, local - unit * b.tiles};
-}
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -110,7 +102,7 @@ __global__ void __launch_bounds__(kThreads)
   const uint32_t* src = b.in + static_cast<long long>(at.unit) * b.k + f0;
 
   // 1. stage the tile's fields (0 past k), coalesced
-  if (b.k % 4 == 0 && aligned16(b.in)) {        // nf % 4 == 0 here
+  if (b.k % 4 == 0 && repro::aligned16(b.in)) {  // nf % 4 == 0 here
     for (int v = threadIdx.x; v < kTileFields / 4; v += kThreads) {
       uint4 q = make_uint4(0u, 0u, 0u, 0u);
       if (4 * v < nf) q = __ldg(reinterpret_cast<const uint4*>(src) + v);
@@ -152,7 +144,7 @@ __global__ void __launch_bounds__(kThreads)
   const int f0 = at.tile * kTileFields;
   const int nf = min(kTileFields, b.k - f0);
   uint32_t* dst = b.out + static_cast<long long>(at.unit) * b.k + f0;
-  if (b.k % 4 == 0 && aligned16(b.out)) {       // nf % 4 == 0 here
+  if (b.k % 4 == 0 && repro::aligned16(b.out)) {  // nf % 4 == 0 here
     for (int v = threadIdx.x; 4 * v < nf; v += kThreads) {
       const int p = 4 * v;
       reinterpret_cast<uint4*>(dst)[v] = make_uint4(

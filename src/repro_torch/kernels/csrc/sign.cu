@@ -16,10 +16,27 @@
 // way, about 0.0006 ms at 3.35 TB/s, so at the main-path sizes every
 // launch is latency-bound; at 4 x 2^20 elements the byte bound is ~0.005 ms.
 //
-// Design (simple and right first): pack runs one warp per output word; each
-// lane loads one element (coalesced) and __ballot_sync assembles the word,
-// which lane 0 writes. Unpack runs one thread per element and reads the one
-// word holding its bit.
+// Design. sign_pack is grouped over the buckets of a step: a table of up to
+// kMaxBuckets buckets (pointers, n, d, words and tiles per unit, and each
+// bucket's first block, a prefix sum built by the caller) travels by value
+// as a __grid_constant__ kernel parameter, so one launch packs every bucket
+// without a host-to-device copy (and a CUDA graph can capture it). A block
+// finds its bucket by a scan over the block starts, then its unit and tile
+// with one 32-bit divide; no 64-bit divide remains. The one-bucket pack is
+// the same launch with one entry.
+//   A tile is kPackChunks = 64 consecutive 32-element chunks of one unit
+// (2,048 elements); a chunk is exactly one output word, so no word has two
+// writers. A block of 256 threads stages the tile's floats in shared memory
+// with coalesced loads: two 16-byte loads a thread where the row is 16-byte
+// aligned (d % 4 == 0 and an aligned base), eight 4-byte loads otherwise,
+// all issued before the barrier; elements at or past d are not read. Each
+// warp then takes one __ballot_sync per 32 staged elements (lane i reads
+// element i of the chunk: no bank conflicts) over 8 consecutive chunks,
+// keeps word r in lane r, and lanes 0-7 store the warp's 8 words: the
+// block's 64 words go out as one coalesced 256-byte run. A layerwise resnet9
+// step is 68 tiles a worker, the stress shape (4 x 1,048,579) 2,052.
+// Unpack runs one thread per element and reads the one word holding its
+// bit.
 //
 // majority: (n, W) packed sign words of n workers -> (W,) words whose bit is
 // set where at least half the workers' bits are (2 * count >= n, ties to
@@ -37,24 +54,87 @@
 
 #include <cstdint>
 
+#include "grouped.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;  // warps (output words) per pack block
+constexpr int kThreads = 256;                 // pack block
+constexpr int kPackChunks = 64;               // 32-element chunks a tile
+constexpr int kPackTile = 32 * kPackChunks;   // kernels/sign.py TILE_ELEMS
+constexpr int kChunksPerWarp = kPackChunks / (kThreads / 32);
+constexpr int kMaxBuckets = 32;               // kernels/qsgd.py MAX_BUCKETS
 constexpr int kPlanes = 8;  // count bit planes: n <= 255 workers
 
-__global__ void sign_pack_kernel(const float* __restrict__ x,
-                                 uint32_t* __restrict__ out, int n, int d,
-                                 int wpu) {
+struct SignBucket {
+  const float* x;      // (n, d) units
+  uint32_t* out;       // (n, wpu) words
+  int n, d, wpu, tiles;  // tiles per unit
+};
+
+struct SignTable {
+  int block_start[kMaxBuckets];  // each bucket's first block in the launch
+  SignBucket b[kMaxBuckets];
+  int count;
+};
+
+__global__ void __launch_bounds__(kThreads)
+    sign_pack_kernel(const __grid_constant__ SignTable t) {
+  __shared__ __align__(16) float xs[kPackTile];
+  const int k = repro::bucket_of(t.block_start, t.count);
+  const SignBucket& b = t.b[k];
+  const int local = static_cast<int>(blockIdx.x) - t.block_start[k];
+  const int unit = local / b.tiles;
+  const int tile = local - unit * b.tiles;
+  const int e0 = tile * kPackTile;               // the tile's first element
+  const int ne = min(kPackTile, b.d - e0);
+  const float* src = b.x + static_cast<long long>(unit) * b.d + e0;
+
+  // 1. stage the tile's elements, coalesced, every load of a thread issued
+  //    before the first store to shared memory
+  if (b.d % 4 == 0 && repro::aligned16(b.x)) {  // ne % 4 == 0 here
+    float4 v[kPackTile / 4 / kThreads];
+#pragma unroll
+    for (int r = 0; r < kPackTile / 4 / kThreads; ++r) {
+      const int i = threadIdx.x + r * kThreads;
+      if (4 * i < ne) v[r] = __ldg(reinterpret_cast<const float4*>(src) + i);
+    }
+#pragma unroll
+    for (int r = 0; r < kPackTile / 4 / kThreads; ++r) {
+      const int i = threadIdx.x + r * kThreads;
+      if (4 * i < ne) reinterpret_cast<float4*>(xs)[i] = v[r];
+    }
+  } else {
+    float v[kPackTile / kThreads];
+#pragma unroll
+    for (int r = 0; r < kPackTile / kThreads; ++r) {
+      const int i = threadIdx.x + r * kThreads;
+      if (i < ne) v[r] = __ldg(src + i);
+    }
+#pragma unroll
+    for (int r = 0; r < kPackTile / kThreads; ++r) {
+      const int i = threadIdx.x + r * kThreads;
+      if (i < ne) xs[i] = v[r];
+    }
+  }
+  __syncthreads();
+
+  // 2. one ballot a chunk: warp w owns chunks [8w, 8w + 8) of the tile,
+  //    word r lands in lane r, and lanes 0-7 store the 8 words (words past
+  //    wpu, beyond d, are not written)
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long g = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  if (g >= static_cast<long long>(n) * wpu) return;  // whole warp leaves
-  const int unit = static_cast<int>(g / wpu);
-  const int word = static_cast<int>(g % wpu);
-  const int p = word * 32 + lane;
-  const bool bit = p < d && x[static_cast<long long>(unit) * d + p] >= 0.0f;
-  const uint32_t w = __ballot_sync(0xFFFFFFFFu, bit);
-  if (lane == 0) out[g] = w;
+  const int c0 = warp * kChunksPerWarp;
+  uint32_t mine = 0u;
+#pragma unroll
+  for (int r = 0; r < kChunksPerWarp; ++r) {
+    const int i = (c0 + r) * 32 + lane;
+    const uint32_t w = __ballot_sync(0xFFFFFFFFu, i < ne && xs[i] >= 0.0f);
+    if (lane == r) mine = w;
+  }
+  const int c = c0 + lane;                       // this lane's chunk
+  if (lane < kChunksPerWarp && 32 * c < ne)
+    b.out[static_cast<long long>(unit) * b.wpu + tile * kPackChunks + c] =
+        mine;
 }
 
 __global__ void sign_unpack_kernel(const uint32_t* __restrict__ words,
@@ -99,18 +179,31 @@ __global__ void majority_kernel(const uint32_t* __restrict__ words,
 }  // namespace
 
 // C entry points (loaded with ctypes). Each launches on `stream` of CUDA
-// device `device` and returns cudaGetLastError(); empty inputs launch
-// nothing.
-extern "C" int sign_pack(const void* x, void* out, int n, int d, int wpu,
-                         int device, void* stream) {
-  const long long warps = static_cast<long long>(n) * wpu;
-  if (warps == 0) return 0;
+// device `device` and returns cudaGetLastError(); empty inputs (or
+// `blocks` == 0) launch nothing.
+// sign_pack_buckets: `count` (1..kMaxBuckets) buckets. `ptrs` holds their
+// x pointers, then their out pointers; `sizes` their n, d, wpu, tiles per
+// unit and first block, `count` of each in that order, as kernels/sign.py
+// sign_table computes them; `blocks` in all.
+extern "C" int sign_pack_buckets(int count, void* const* ptrs,
+                                 const int* sizes, int blocks, int device,
+                                 void* stream) {
+  if (count < 1 || count > kMaxBuckets)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const unsigned blocks = static_cast<unsigned>((warps + kWarps - 1) / kWarps);
-  sign_pack_kernel<<<blocks, kWarps * 32, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<uint32_t*>(out), n, d, wpu);
+  SignTable t;
+  t.count = count;
+  for (int i = 0; i < count; ++i) {
+    t.b[i] = SignBucket{static_cast<const float*>(ptrs[i]),
+                        static_cast<uint32_t*>(ptrs[count + i]), sizes[i],
+                        sizes[count + i], sizes[2 * count + i],
+                        sizes[3 * count + i]};
+    t.block_start[i] = sizes[4 * count + i];
+  }
+  sign_pack_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(t);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,9 +9,11 @@ Inputs of any float dtype are computed in f32 and cast back.
 The bucket entry points of the fused compress+pack kernels: what the wire
 codecs (core/wire.py) call, one kernel launch per bucket and direction
 (ops.py:274-522), and one launch for all buckets of a step for the QSGD
-pack (`qsgd_pack_units_buckets`) and the field pack and unpack of the
-natural and sparse codecs (`fields_pack_units_buckets`,
-`fields_unpack_units_buckets`).
+pack and unpack (`qsgd_pack_units_buckets`, `qsgd_unpack_units_buckets`),
+the sign pack (`sign_pack_units_buckets`) and the field pack and unpack
+of the natural and sparse codecs (`fields_pack_units_buckets`,
+`fields_unpack_units_buckets`). The one-bucket entry points are the
+grouped calls with one bucket.
 
 A bucket is an (n, d) f32 matrix whose rows are compression units. The
 caller-side pieces stay here, outside the kernels, exactly as in the
@@ -31,10 +33,10 @@ from repro_torch.kernels.pack import (bits_pack, bits_unpack, fields_pack,
                                       fields_pack_buckets, fields_unpack,
                                       fields_unpack_buckets)
 from repro_torch.kernels.qsgd import (qsgd_compress_rows, qsgd_pack_buckets,
-                                      qsgd_unpack)
+                                      qsgd_unpack_buckets)
 from repro_torch.kernels.ref import words_per_unit, words_to_i32
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_rows
-from repro_torch.kernels.sign import majority, sign_pack, sign_unpack
+from repro_torch.kernels.sign import majority, sign_pack_buckets, sign_unpack
 from repro_torch.kernels.terngrad import (terngrad_compress_rows,
                                           terngrad_pack, terngrad_unpack)
 from repro_torch.kernels.topk_mask import BLOCK_C, topk_mask
@@ -43,9 +45,11 @@ __all__ = ["qsgd_compress", "terngrad_compress", "blockwise_topk",
            "qsgd_compress_units", "terngrad_compress_units", "plan_compress",
            "rmsnorm", "words_per_unit", "qsgd_pack_units",
            "qsgd_pack_units_buckets", "qsgd_unpack_units",
-           "qsgd_unpack_ef_units", "terngrad_pack_units",
-           "terngrad_unpack_units", "terngrad_unpack_ef_units",
-           "sign_pack_units", "sign_unpack_units", "sign_unpack_ef_units",
+           "qsgd_unpack_units_buckets", "qsgd_unpack_ef_units",
+           "terngrad_pack_units", "terngrad_unpack_units",
+           "terngrad_unpack_ef_units", "sign_pack_units",
+           "sign_pack_units_buckets", "sign_unpack_units",
+           "sign_unpack_ef_units",
            "fields_pack_units", "fields_pack_units_buckets",
            "fields_unpack_units", "fields_unpack_units_buckets",
            "pack_fields", "unpack_fields", "pack_words", "unpack_words",
@@ -210,8 +214,22 @@ def qsgd_pack_units_buckets(x2ds, keys_list, levels: int, width: int):
 def qsgd_unpack_units(words, nrms, d: int, levels: int,
                       width: int) -> torch.Tensor:
     """Fused QSGD decode: words + payload norms -> (n, d) f32."""
-    fac = (nrms.to(torch.float32) / levels).contiguous()
-    return qsgd_unpack(words.contiguous(), fac, d, levels, width)
+    return qsgd_unpack_units_buckets([words], [nrms], [d], levels, width)[0]
+
+
+def qsgd_unpack_units_buckets(words_list, nrms_list, dims, levels: int,
+                              width: int) -> list:
+    """qsgd_unpack_units over many buckets at one (levels, width) -> [(n_i,
+    d_i) f32]; ONE kernel launch for up to MAX_BUCKETS buckets
+    (kernels/qsgd.py qsgd_unpack_buckets). The factors nrm / levels of
+    every bucket come from one elementwise f32 divide, the same rounding
+    as a divide per bucket."""
+    if not words_list:
+        return []
+    nrms = [n.to(torch.float32) for n in nrms_list]
+    facs = (torch.cat(nrms) / levels).split([n.shape[0] for n in nrms])
+    return qsgd_unpack_buckets([w.contiguous() for w in words_list],
+                               list(facs), dims, levels, width)
 
 
 def qsgd_unpack_ef_units(words, nrms, e2d, d: int, levels: int, width: int):
@@ -245,7 +263,15 @@ def terngrad_unpack_ef_units(words, scales, e2d, d: int):
 def sign_pack_units(x2d) -> torch.Tensor:
     """Fused signSGD encode: (n, d) f32 -> (n, words_per_unit(d, 1)) int32
     sign words (bit = x >= 0). No statistic, no randomness."""
-    return sign_pack(x2d.to(torch.float32).contiguous())
+    return sign_pack_units_buckets([x2d])[0]
+
+
+def sign_pack_units_buckets(x2ds) -> list:
+    """sign_pack_units over many buckets -> [(n_i, words_per_unit(d_i, 1))
+    int32 words]; ONE kernel launch for up to MAX_BUCKETS buckets
+    (kernels/sign.py sign_pack_buckets)."""
+    return sign_pack_buckets([x.to(torch.float32).contiguous()
+                              for x in x2ds])
 
 
 def sign_unpack_units(words, d: int) -> torch.Tensor:

@@ -6,6 +6,11 @@ A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
 or the wrapper raises. Nothing falls back. Each wrapper counts its kernel
 launches in `<wrapper>.launches`.
 
+The wire pack and unpack are grouped: one launch serves up to MAX_BUCKETS
+buckets (`qsgd_pack_buckets`, `qsgd_unpack_buckets`), described by a
+table of sizes and first blocks (`grouped_table`) and launched by
+`launch_grouped`, which kernels/sign.py's grouped pack shares.
+
 Words are (n, words_per_unit(d, width)) int32 tensors holding the uint32
 bit patterns of the payload (the bytes are what the wire carries).
 Keys k0/k1 are (n,) int32 tensors holding the uint32 bit patterns of the
@@ -82,8 +87,13 @@ def qsgd_pack_plain(x, k0, k1, nrm, levels: int, width: int) -> torch.Tensor:
 #: pairs of counters a pack block hashes for itself (csrc/qsgd.cu
 #: kTilePairs: 15 chunks of 32, beside one halo chunk)
 TILE_PAIRS = 480
-#: buckets one pack launch takes (csrc/qsgd.cu kMaxBuckets)
+#: codes an unpack block owns: 64 chunks of 32 (csrc/qsgd.cu kUnpackTile)
+TILE_CODES = 2048
+#: buckets one grouped launch takes (kMaxBuckets of csrc/qsgd.cu and
+#: csrc/sign.cu)
 MAX_BUCKETS = 32
+#: widest code the unpack kernel stages (csrc/qsgd.cu kMaxUnpackWidth)
+MAX_UNPACK_WIDTH = 31
 
 
 def pack_tiles(d: int) -> int:
@@ -92,10 +102,15 @@ def pack_tiles(d: int) -> int:
     return -(-(-(-d // 2)) // TILE_PAIRS)
 
 
+def unpack_tiles(d: int) -> int:
+    """Unpack blocks per unit of d elements: tiles of TILE_CODES."""
+    return -(-d // TILE_CODES)
+
+
 @dataclasses.dataclass(frozen=True)
 class BucketTable:
-    """One grouped pack launch: per bucket its n, d, words per unit, tiles
-    per unit and first block (the prefix sum of n * tiles); `blocks` in
+    """One grouped launch: per bucket its n, d, words per unit, tiles per
+    unit and first block (the prefix sum of n * tiles); `blocks` in
     all."""
     n: Tuple[int, ...]
     d: Tuple[int, ...]
@@ -105,14 +120,15 @@ class BucketTable:
     blocks: int
 
 
-def bucket_table(shapes: Sequence[Tuple[int, int]],
-                 width: int) -> List[BucketTable]:
-    """The launches that pack (n, d) buckets at `width` bits a code: one
+def grouped_table(shapes: Sequence[Tuple[int, int]], width: int,
+                  tiles_of) -> List[BucketTable]:
+    """The launches of a grouped kernel over (n, d) buckets at `width` bits
+    a code whose blocks each own one of a unit's tiles_of(d) tiles: one
     table per MAX_BUCKETS buckets, in order."""
     tables = []
     for i in range(0, len(shapes), MAX_BUCKETS):
         group = [(int(n), int(d)) for n, d in shapes[i:i + MAX_BUCKETS]]
-        tiles = tuple(pack_tiles(d) for _, d in group)
+        tiles = tuple(tiles_of(d) for _, d in group)
         starts = list(itertools.accumulate(
             [n * t for (n, _), t in zip(group, tiles)], initial=0))
         tables.append(BucketTable(
@@ -122,14 +138,45 @@ def bucket_table(shapes: Sequence[Tuple[int, int]],
     return tables
 
 
+def bucket_table(shapes: Sequence[Tuple[int, int]],
+                 width: int) -> List[BucketTable]:
+    """The launches that pack (n, d) buckets at `width` bits a code."""
+    return grouped_table(shapes, width, pack_tiles)
+
+
+def unpack_table(shapes: Sequence[Tuple[int, int]],
+                 width: int) -> List[BucketTable]:
+    """The launches that unpack (n, d) buckets at `width` bits a code."""
+    return grouped_table(shapes, width, unpack_tiles)
+
+
 @functools.lru_cache(maxsize=256)
-def _launches(shapes: Tuple[Tuple[int, int], ...], width: int):
-    """bucket_table's launches with each table's sizes as the C entry
+def _launches(shapes: Tuple[Tuple[int, int], ...], width: int, tiles_of):
+    """grouped_table's launches with each table's sizes as the C entry
     point's int array (n, d, wpu, tiles, block_start; cached: a step's
     shapes repeat)."""
     return [(t, (ctypes.c_int * (5 * len(t.n)))(
         *t.n, *t.d, *t.wpu, *t.tiles, *t.block_start))
-        for t in bucket_table(shapes, width)]
+        for t in grouped_table(shapes, width, tiles_of)]
+
+
+def launch_grouped(wrapper, stem: str, entry: str, shapes, tensors,
+                   width: int, tiles_of, *args) -> None:
+    """One launch of the C entry point `entry` of csrc/<stem>.cu per
+    MAX_BUCKETS non-empty (n, d) buckets of `shapes`, each counted in
+    wrapper.launches. `tensors` holds one list per pointer the entry
+    point takes for each bucket, in its order; `args` go between the
+    block count and the (device, stream)."""
+    live = [i for i, (n, d) in enumerate(shapes) if n * d]
+    for g, (table, sizes) in enumerate(_launches(
+            tuple(tuple(shapes[i]) for i in live), width, tiles_of)):
+        idx = live[g * MAX_BUCKETS:(g + 1) * MAX_BUCKETS]
+        ptrs = (ctypes.c_void_p * (len(tensors) * len(idx)))(
+            *(t[i].data_ptr() for t in tensors for i in idx))
+        build.check(getattr(build.library(stem), entry)(
+            len(idx), ptrs, sizes, table.blocks, *args,
+            *_launch_args(tensors[0][idx[0]].device)), entry)
+        wrapper.launches += 1
 
 
 def qsgd_pack_buckets(xs, k0s, k1s, nrms, levels: int,
@@ -157,19 +204,9 @@ def qsgd_pack_buckets(xs, k0s, k1s, nrms, levels: int,
         _check(k1, "k1", torch.int32, (n,))
         outs.append(torch.empty((n, words_per_unit(d, width)),
                                 dtype=torch.int32, device=x.device))
-    live = [i for i, x in enumerate(xs) if x.numel()]
-    dev = xs[0].device
-    lib = build.library("qsgd")
-    for g, (table, sizes) in enumerate(_launches(
-            tuple(tuple(xs[i].shape) for i in live), width)):
-        idx = live[g * MAX_BUCKETS:(g + 1) * MAX_BUCKETS]
-        ptrs = (ctypes.c_void_p * (5 * len(idx)))(
-            *(t[i].data_ptr() for t in (xs, k0s, k1s, nrms, outs)
-              for i in idx))
-        build.check(lib.qsgd_pack_buckets(
-            len(idx), ptrs, sizes, table.blocks, levels, width,
-            *_launch_args(dev)), "qsgd_pack_buckets")
-        qsgd_pack.launches += 1
+    launch_grouped(qsgd_pack, "qsgd", "qsgd_pack_buckets",
+                   [tuple(x.shape) for x in xs], (xs, k0s, k1s, nrms, outs),
+                   width, pack_tiles, levels, width)
     return outs
 
 
@@ -200,23 +237,39 @@ def qsgd_unpack_plain(words, fac, d: int, levels: int,
                                fac[:, None], levels)
 
 
+def qsgd_unpack_buckets(words_list, facs, dims, levels: int,
+                        width: int) -> List[torch.Tensor]:
+    """qsgd_unpack over many buckets at one (levels, width): bucket i is
+    (words_list[i], facs[i], dims[i]) as qsgd_unpack takes them. On the
+    card ONE launch per MAX_BUCKETS non-empty buckets (unpack_table), each
+    counted in qsgd_unpack.launches. On the CPU, qsgd_unpack_plain per
+    bucket."""
+    if not words_list:
+        return []
+    if not _on_card(words_list[0], *words_list[1:], *facs):
+        return [qsgd_unpack_plain(w, f, d, levels, width)
+                for w, f, d in zip(words_list, facs, dims)]
+    if not 1 <= width <= MAX_UNPACK_WIDTH:
+        raise ValueError(f"width {width} out of range")
+    outs, shapes = [], []
+    for words, fac, d in zip(words_list, facs, dims):
+        n = words.shape[0]
+        _check(words, "words", torch.int32, (n, words_per_unit(d, width)))
+        _check(fac, "fac", torch.float32, (n,))
+        outs.append(torch.empty((n, d), dtype=torch.float32,
+                                device=words.device))
+        shapes.append((n, int(d)))
+    launch_grouped(qsgd_unpack, "qsgd", "qsgd_unpack_buckets", shapes,
+                   (words_list, facs, outs), width, unpack_tiles, levels,
+                   width)
+    return outs
+
+
 def qsgd_unpack(words, fac, d: int, levels: int, width: int) -> torch.Tensor:
     """(n, wpu) int32 words + per-unit fac = nrm/levels (n,) f32, divided
-    by the caller -> (n, d) f32 (code - levels) * fac."""
-    n = words.shape[0]
-    if not _on_card(words, fac):
-        return qsgd_unpack_plain(words, fac, d, levels, width)
-    wpu = words_per_unit(d, width)
-    _check(words, "words", torch.int32, (n, wpu))
-    _check(fac, "fac", torch.float32, (n,))
-    out = torch.empty((n, d), dtype=torch.float32, device=words.device)
-    if out.numel() == 0:
-        return out
-    build.check(build.library("qsgd").qsgd_unpack(
-        words.data_ptr(), fac.data_ptr(), out.data_ptr(), n, d, levels,
-        width, wpu, *_launch_args(words.device)), "qsgd_unpack")
-    qsgd_unpack.launches += 1
-    return out
+    by the caller -> (n, d) f32 (code - levels) * fac. On the card: the
+    one-bucket launch of qsgd_unpack_buckets."""
+    return qsgd_unpack_buckets([words], [fac], [d], levels, width)[0]
 
 
 qsgd_unpack.launches = 0

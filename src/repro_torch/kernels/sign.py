@@ -1,18 +1,22 @@
 """Fused signSGD sign+pack / unpack+decode and the majority vote on packed
 words: the wrappers of the CUDA kernels in csrc/sign.cu and their
 plain-torch versions (the routing, checks and launch counters of
-kernels/qsgd.py).
+kernels/qsgd.py). The pack is grouped over up to 32 buckets a
+launch (`sign_pack_buckets`, with kernels/qsgd.py's bucket tables).
 
 Bit p of a unit is x[p] >= 0; each unit packs into words_per_unit(d, 1)
 words, held as int32 tensors with the uint32 bit patterns.
 """
 from __future__ import annotations
 
+from typing import List, Sequence, Tuple
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.qsgd import (_check, _launch_args, _on_card,
+from repro_torch.kernels.qsgd import (BucketTable, _check, _launch_args,
+                                      _on_card, grouped_table, launch_grouped,
                                       unpack_codes_plain)
 from repro_torch.kernels.ref import words_per_unit
 
@@ -27,21 +31,48 @@ def sign_pack_plain(x) -> torch.Tensor:
         d, 1)])
 
 
+#: elements a pack block owns: 64 chunks (words) of 32 (csrc/sign.cu
+#: kPackTile)
+TILE_ELEMS = 2048
+
+
+def sign_tiles(d: int) -> int:
+    """Pack blocks per unit of d elements: tiles of TILE_ELEMS."""
+    return -(-d // TILE_ELEMS)
+
+
+def sign_table(shapes: Sequence[Tuple[int, int]]) -> List[BucketTable]:
+    """The launches that pack (n, d) buckets of signs: one table per
+    MAX_BUCKETS buckets, in order."""
+    return grouped_table(shapes, 1, sign_tiles)
+
+
+def sign_pack_buckets(xs) -> List[torch.Tensor]:
+    """sign_pack over many buckets: bucket i is xs[i] as sign_pack takes
+    it. On the card ONE launch per MAX_BUCKETS non-empty buckets
+    (sign_table), each counted in sign_pack.launches. On the CPU,
+    sign_pack_plain per bucket."""
+    if not xs:
+        return []
+    if not _on_card(xs[0], *xs[1:]):
+        return [sign_pack_plain(x) for x in xs]
+    outs = []
+    for i, x in enumerate(xs):
+        if x.dim() != 2:
+            raise ValueError(f"x[{i}]: want (n, d), got {tuple(x.shape)}")
+        n, d = x.shape
+        _check(x, "x", torch.float32, (n, d))
+        outs.append(torch.empty((n, words_per_unit(d, 1)),
+                                dtype=torch.int32, device=x.device))
+    launch_grouped(sign_pack, "sign", "sign_pack_buckets",
+                   [tuple(x.shape) for x in xs], (xs, outs), 1, sign_tiles)
+    return outs
+
+
 def sign_pack(x) -> torch.Tensor:
-    """x (n, d) f32 units -> (n, words_per_unit(d, 1)) int32 sign words."""
-    n, d = x.shape
-    if not _on_card(x):
-        return sign_pack_plain(x)
-    _check(x, "x", torch.float32, (n, d))
-    wpu = words_per_unit(d, 1)
-    out = torch.empty((n, wpu), dtype=torch.int32, device=x.device)
-    if out.numel() == 0:
-        return out
-    build.check(build.library("sign").sign_pack(
-        x.data_ptr(), out.data_ptr(), n, d, wpu, *_launch_args(x.device)),
-        "sign_pack")
-    sign_pack.launches += 1
-    return out
+    """x (n, d) f32 units -> (n, words_per_unit(d, 1)) int32 sign words. On
+    the card: the one-bucket launch of sign_pack_buckets."""
+    return sign_pack_buckets([x])[0]
 
 
 sign_pack.launches = 0
