@@ -31,15 +31,22 @@ error:
      launch, on MAX_BUCKETS + 8 buckets in two, on units of d at the chunk
      and tile edges and on inputs 4 bytes past a 16-byte boundary (sign
      inputs holding -0.0 and NaN; QSGD widths 2/4/6/8, packed and random
-     words), grouped and one bucket at a time
+     words), grouped and one bucket at a time; the grouped TernGrad pack
+     (terngrad_pack_buckets, the hash-once tile walk it shares with the
+     QSGD pack) and bit unpack (bits_unpack_buckets) bitwise against the
+     per-bucket plain twins on the 11 layerwise buckets in one launch, on
+     MAX_BUCKETS + 8 buckets in two, on units of the edge dimensions
+     (TernGrad inputs holding -0.0 and NaN; bits on sign and random
+     words, and on words 4 bytes past a 16-byte boundary), grouped and one
+     bucket at a time
   4. the main path: train_cnn on resnet9 with QSGD(16) layerwise and
      entire_model, TernGrad, signSGD, natural, top-k(1%) and random-k(1%)
      layerwise, top-k entire_model, and adaptive threshold layerwise (the
      sim path: no launches); launch counters reset before and read after
      each run and held to exact per-step counts (QSGD: one pack and one
-     unpack launch a step for all its buckets; signSGD: one pack launch a
-     step and one unpack a bucket; natural and sparse: one field pack and
-     one field unpack launch a step); the wire buffers of one
+     unpack launch a step for all its buckets; TernGrad and signSGD: one
+     pack launch a step and one unpack a bucket; natural and sparse: one
+     field pack and one field unpack launch a step); the wire buffers of one
      step built with the kernels equal those built with the plain
      versions (QSGD / TernGrad on the card's own statistics; signSGD,
      natural and top-k against the whole path run on the CPU); one
@@ -50,8 +57,9 @@ error:
      time from CUDA-event timed replays of a CUDA graph of 20 calls
      (`ms`, `plain_ms`), and the per-call time of the same calls issued
      back to back from Python (`call_ms`, host enqueue included); QSGD's
-     pack and unpack, the sign pack and the field pack / unpack (natural's
-     legs and the top-k index legs) also as the step's one grouped launch
+     pack and unpack, the TernGrad and sign packs, the bit unpack and the
+     field pack / unpack (natural's legs and the top-k index legs) also as
+     the step's one grouped launch
      (layerwise_step_grouped, the kernel line's time), a layerwise step's
      QSGD encode and natural encode and decode from Python, grouped and
      per bucket
@@ -75,8 +83,9 @@ error:
      train_cnn_ranks, 20 resnet9 steps (batch 64, 16 a rank) for
      allgather-wire QSGD(16) and signSGD
      and simulated-wire QSGD(16): seconds, test loss, collective bytes a
-     step against comm_report, exact launch counts, equal parameters on
-     every rank at the end
+     step against comm_report, exact launch counts (the allgather receive
+     leg decodes a step's gathered buckets in one launch), equal
+     parameters on every rank at the end
   8. the compress-only path (kernels/ops.py) on one worker's resnet9
      gradients: plan_compress for QSGD(16) and TernGrad at layerwise,
      entire-model and blockwise (65,536) granularity, held to exactly
@@ -170,10 +179,11 @@ FIELD_EDGE_KS = (1, 2, 31, 32, 33, 100, 1025, 2047, 2048, 2049, 4095, 4096,
                  4097, 65537)
 # unit dimensions where the hash-once pack's split is most fragile: d = 1,
 # 2, 3, odd d, h = ceil(d / 2) = 32k +- 1 and h at tile edges (480 pairs)
-PACK_EDGE_DIMS = (1, 2, 3, 31, 32, 33, 61, 62, 63, 64, 65, 511, 513, 957,
-                  959, 960, 961, 962, 1025, 1919, 1921, 65537)
-# unit dimensions at the grouped sign pack's and QSGD unpack's chunk (32)
-# and tile (2,048) edges
+PACK_EDGE_DIMS = (1, 2, 3, 31, 32, 33, 61, 62, 63, 64, 65, 479, 480, 481,
+                  511, 513, 957, 959, 960, 961, 962, 1025, 1919, 1921, 2049,
+                  65537)
+# unit dimensions at the grouped sign pack's, QSGD unpack's and bit
+# unpack's chunk (32) and tile (2,048) edges
 GROUPED_EDGE_DIMS = (1, 2, 31, 32, 33, 2047, 2048, 2049, 4097, 65537)
 BLOCK = 65536
 # (int32, fp32) operations per element of the compress-only kernels: QSGD
@@ -449,19 +459,36 @@ def check_compress_kernels(shapes, dev):
     return err
 
 
+def launched(wrapper, fn, count, what):
+    """fn(), a grouped call over `count` buckets, held to exactly one
+    launch of `wrapper` per MAX_BUCKETS buckets -> what fn returns."""
+    from repro_torch.kernels.qsgd import MAX_BUCKETS
+    before = wrapper.launches
+    out = fn()
+    got = wrapper.launches - before
+    want = -(-count // MAX_BUCKETS)
+    check(got == want, f"{wrapper.__name__} grouped {what}: {got} "
+          f"launches for {count} buckets, want {want}")
+    return out
+
+
 def check_grouped_pack(layer_shapes, dev):
-    """The grouped qsgd_pack launch (qsgd_pack_buckets) vs the per-bucket
-    plain loop, bitwise, for every (width, levels) of QSGD_WIDTHS: the 11
-    resnet9 layerwise buckets in ONE launch, MAX_BUCKETS + 8 buckets in
-    two, and the PACK_EDGE_DIMS units grouped and one bucket at a time.
-    -> max |err|."""
+    """The grouped stochastic packs, the hash-once tile walk of
+    csrc/hash_pack.cuh (qsgd_pack_buckets for every (width, levels) of
+    QSGD_WIDTHS, terngrad_pack_buckets on inputs holding -0.0 and NaN), vs
+    the per-bucket plain loop, bitwise, and each group's exact launches:
+    the 11 resnet9 layerwise buckets in ONE launch, MAX_BUCKETS + 8 buckets
+    in two, and the PACK_EDGE_DIMS units grouped and one bucket at a time.
+    -> max |err| of (qsgd_pack, terngrad_pack)."""
     import torch
     from repro_torch.kernels import qsgd as Q
+    from repro_torch.kernels import terngrad as T
     groups = {"layerwise": layer_shapes,
               "over_max_buckets": [(1 + i % 3, 17 + 61 * i)
                                    for i in range(Q.MAX_BUCKETS + 8)],
               "edges": [(3, d) for d in PACK_EDGE_DIMS]}
-    err = 0.0
+    err = [0.0, 0.0]
+
     for gi, (gname, shapes) in enumerate(groups.items()):
         ins = [make_inputs(s, 1500 + 64 * gi + i, dev)
                for i, s in enumerate(shapes)]
@@ -470,23 +497,36 @@ def check_grouped_pack(layer_shapes, dev):
         k1s = [k1 for _, _, k1 in ins]
         nrms = [torch.linalg.vector_norm(x, dim=1) + 1e-12 for x in xs]
         for width, levels in QSGD_WIDTHS:
-            before = Q.qsgd_pack.launches
-            got = Q.qsgd_pack_buckets(xs, k0s, k1s, nrms, levels, width)
-            want_launches = -(-len(shapes) // Q.MAX_BUCKETS)
-            check(Q.qsgd_pack.launches - before == want_launches,
-                  f"grouped {gname}: {Q.qsgd_pack.launches - before} "
-                  f"launches, want {want_launches}")
+            got = launched(Q.qsgd_pack, lambda: Q.qsgd_pack_buckets(
+                xs, k0s, k1s, nrms, levels, width), len(shapes), gname)
             for g, x, k0, k1, nrm in zip(got, xs, k0s, k1s, nrms):
                 want = Q.qsgd_pack_plain(x, k0, k1, nrm, levels, width)
-                err = max(err, max_abs_err(g, want))
+                err[0] = max(err[0], max_abs_err(g, want))
                 check(bitwise_equal(g, want),
                       f"qsgd_pack grouped {gname} {tuple(x.shape)} w{width}")
                 if gname == "edges":
                     one = Q.qsgd_pack(x, k0, k1, nrm, levels, width)
                     check(bitwise_equal(one, want),
                           f"qsgd_pack {tuple(x.shape)} w{width}")
+        scs = [x.abs().amax(dim=1) + 1e-12 for x in xs]
+        txs = []
+        for x in xs:                 # -0.0 and NaN code as the plain twin's
+            t = x.clone()
+            t[:, 3::11] = -0.0
+            t[0, min(5, t.shape[1] - 1)] = float("nan")
+            txs.append(t)
+        got = launched(T.terngrad_pack, lambda: T.terngrad_pack_buckets(
+            txs, k0s, k1s, scs), len(shapes), gname)
+        for g, x, k0, k1, sc in zip(got, txs, k0s, k1s, scs):
+            want = T.terngrad_pack_plain(x, k0, k1, sc)
+            err[1] = max(err[1], max_abs_err(g, want))
+            check(bitwise_equal(g, want),
+                  f"terngrad_pack grouped {gname} {tuple(x.shape)}")
+            if gname == "edges":
+                check(bitwise_equal(T.terngrad_pack(x, k0, k1, sc), want),
+                      f"terngrad_pack {tuple(x.shape)}")
     torch.cuda.synchronize()
-    return err
+    return tuple(err)
 
 
 def check_grouped_fields(layer_shapes, dev):
@@ -514,15 +554,6 @@ def check_grouped_fields(layer_shapes, dev):
                                                    (100, 31))]
     err = [0.0, 0.0]
 
-    def launched(name, fn, count, what):
-        wrapper = getattr(P, name)
-        before = wrapper.launches
-        out = fn()
-        got = wrapper.launches - before
-        check(got == -(-count // P.MAX_BUCKETS),
-              f"{name} grouped {what}: {got} launches for {count} buckets")
-        return out
-
     for gi, (gname, buckets) in enumerate(groups.items()):
         fs, ws, rand, ks = [], [], [], []
         for i, (n, k, w) in enumerate(buckets):
@@ -539,12 +570,12 @@ def check_grouped_fields(layer_shapes, dev):
             ws.append(w)
             rand.append(r)
             ks.append(k)
-        got = launched("fields_pack", lambda: P.fields_pack_buckets(fs, ws),
+        got = launched(P.fields_pack, lambda: P.fields_pack_buckets(fs, ws),
                        len(buckets), gname)
-        back = launched("fields_unpack",
+        back = launched(P.fields_unpack,
                         lambda: P.fields_unpack_buckets(got, ks, ws),
                         len(buckets), gname)
-        dec = launched("fields_unpack",
+        dec = launched(P.fields_unpack,
                        lambda: P.fields_unpack_buckets(rand, ks, ws),
                        len(buckets), gname)
         for f, w, k, g, b, r, dd in zip(fs, ws, ks, got, back, rand, dec):
@@ -563,16 +594,19 @@ def check_grouped_fields(layer_shapes, dev):
 
 
 def check_grouped_sign_unpack(layer_shapes, dev):
-    """The grouped sign pack and QSGD unpack launches (sign_pack_buckets /
-    qsgd_unpack_buckets) vs the per-bucket plain twins, bitwise, and each
-    group's exact launches: the 11 layerwise buckets (one launch),
-    MAX_BUCKETS + 8 buckets (two), units of GROUPED_EDGE_DIMS, and inputs
-    that start 4 bytes past a 16-byte boundary (the 4-byte load path at
-    d % 4 == 0). Sign inputs hold -0.0 and a NaN; QSGD unpacks every
-    (width, levels) of QSGD_WIDTHS on the packed words of the same units
-    and on random words. The edge and misaligned units also go one bucket
-    at a time. -> max |err| of (sign_pack, qsgd_unpack)."""
+    """The grouped sign pack, QSGD unpack and bit unpack launches
+    (sign_pack_buckets / qsgd_unpack_buckets / bits_unpack_buckets) vs the
+    per-bucket plain twins, bitwise, and each group's exact launches: the
+    11 layerwise buckets (one launch), MAX_BUCKETS + 8 buckets (two), units
+    of GROUPED_EDGE_DIMS, and inputs that start 4 bytes past a 16-byte
+    boundary (the 4-byte load path at d % 4 == 0). Sign inputs hold -0.0
+    and a NaN; QSGD unpacks every (width, levels) of QSGD_WIDTHS on the
+    packed words of the same units and on random words; the bit unpack
+    runs on the sign words of the same units and on random words. The
+    edge and misaligned units also go one bucket at a time. -> max |err|
+    of (sign_pack, qsgd_unpack, bits_unpack)."""
     import torch
+    from repro_torch.kernels import pack as P
     from repro_torch.kernels import qsgd as Q
     from repro_torch.kernels import sign as S
     from repro_torch.kernels.ref import words_per_unit
@@ -581,16 +615,7 @@ def check_grouped_sign_unpack(layer_shapes, dev):
                                    for i in range(Q.MAX_BUCKETS + 8)],
               "edges": [(3, d) for d in GROUPED_EDGE_DIMS],
               "misaligned": [(3, d) for d in (1024, 4608, 100, 2049)]}
-    err = [0.0, 0.0]
-
-    def launched(wrapper, fn, count, what):
-        before = wrapper.launches
-        out = fn()
-        got = wrapper.launches - before
-        want = -(-count // Q.MAX_BUCKETS)
-        check(got == want, f"{wrapper.__name__} grouped {what}: {got} "
-              f"launches for {count} buckets, want {want}")
-        return out
+    err = [0.0, 0.0, 0.0]
 
     def shift(t):                           # 4 bytes past a 16-byte boundary
         v = torch.cat([t.reshape(-1)[:1], t.reshape(-1)])[1:].view(t.shape)
@@ -619,6 +644,21 @@ def check_grouped_sign_unpack(layer_shapes, dev):
                 same(0, S.sign_pack(x), want,
                      f"sign_pack {gname} {tuple(x.shape)}")
         dims = [d for _, d in shapes]
+        signs = got
+        rand = [make_words(n, words_per_unit(d, 1), 2300 + 64 * gi + i, dev)
+                for i, (n, d) in enumerate(shapes)]
+        if gname == "misaligned":
+            signs = [shift(w) for w in signs]
+            rand = [shift(r) for r in rand]
+        for kind, words in (("signs", signs), ("random", rand)):
+            got = launched(P.bits_unpack, lambda: P.bits_unpack_buckets(
+                words, dims), len(words), gname)
+            for g, w, d in zip(got, words, dims):
+                want = P.bits_unpack_plain(w, d)
+                what = f"{gname} {kind} {tuple(w.shape)}"
+                same(2, g, want, f"bits_unpack grouped {what}")
+                if one:
+                    same(2, P.bits_unpack(w, d), want, f"bits_unpack {what}")
         clean = [x.nan_to_num() for x, _, _ in ins]
         nrms = [torch.linalg.vector_norm(x, dim=1) + 1e-12 for x in clean]
         for width, levels in QSGD_WIDTHS:
@@ -650,9 +690,10 @@ def check_grouped_sign_unpack(layer_shapes, dev):
 def main_path_runs(dev):
     """train_cnn runs, each held to exact launch counts: per step, one pack
     and one unpack launch of the codec's kernel family per bucket (11
-    layerwise, 1 entire-model), except QSGD's pack and unpack, the sign
-    pack and the natural and sparse codecs' field pack and unpack, one
-    launch a step for all their buckets; none of any other kernel, and
+    layerwise, 1 entire-model), except QSGD's pack and unpack, the
+    TernGrad and sign packs and the natural and sparse codecs' field pack
+    and unpack, one launch a step for all their buckets; none of any
+    other kernel, and
     none at all for adaptive threshold (its records are not sim-exact, so
     train_step takes the sim path, as the reference's train_cnn always
     does)."""
@@ -668,23 +709,24 @@ def main_path_runs(dev):
     # launches a step: a step encodes every bucket in one call, then
     # decodes every bucket in one call. The fused QSGD codec packs all its
     # buckets (11 <= MAX_BUCKETS) in one launch and unpacks them in one
-    # (qsgd_pack_buckets / qsgd_unpack_buckets); the signSGD codec packs
-    # them in one launch (sign_pack_buckets) and unpacks one launch a
-    # bucket; the natural and sparse codecs pack and unpack all their
-    # buckets in one launch each (fields_pack_buckets /
-    # fields_unpack_buckets); TernGrad launches once a bucket each way; an
-    # entire-model step has one bucket. Over STEPS = 20 steps: QSGD
-    # layerwise qsgd_pack 1 x 20 = 20 and qsgd_unpack 1 x 20 = 20, QSGD
-    # entire-model 20 / 20; signSGD layerwise sign_pack 1 x 20 = 20 and
-    # sign_unpack 11 x 20 = 220; natural, top-k and random-k layerwise and
-    # top-k entire-model 20 fields_pack and 20 fields_unpack each
+    # (qsgd_pack_buckets / qsgd_unpack_buckets); the TernGrad and signSGD
+    # codecs pack them in one launch (terngrad_pack_buckets /
+    # sign_pack_buckets) and unpack one launch a bucket; the natural and
+    # sparse codecs pack and unpack all their buckets in one launch each
+    # (fields_pack_buckets / fields_unpack_buckets); an entire-model step
+    # has one bucket. Over STEPS = 20 steps: QSGD layerwise qsgd_pack
+    # 1 x 20 = 20 and qsgd_unpack 1 x 20 = 20, QSGD entire-model 20 / 20;
+    # TernGrad layerwise terngrad_pack 1 x 20 = 20 and terngrad_unpack
+    # 11 x 20 = 220; signSGD layerwise sign_pack 20 and sign_unpack 220;
+    # natural, top-k and random-k layerwise and top-k entire-model 20
+    # fields_pack and 20 fields_unpack each
     fields = {"fields_pack": 1, "fields_unpack": 1}
     runs = [("qsgd16_layerwise", QSGD(levels=MAIN_LEVELS), "layerwise",
              {"qsgd_pack": 1, "qsgd_unpack": 1}),
             ("qsgd16_entire_model", QSGD(levels=MAIN_LEVELS), "entire_model",
              {"qsgd_pack": 1, "qsgd_unpack": 1}),
             ("terngrad_layerwise", TernGrad(), "layerwise",
-             {"terngrad_pack": 11, "terngrad_unpack": 11}),
+             {"terngrad_pack": 1, "terngrad_unpack": 11}),
             ("signsgd_layerwise", SignSGD(), "layerwise",
              {"sign_pack": 1, "sign_unpack": 11}),
             ("natural_layerwise", NaturalCompression(), "layerwise", fields),
@@ -993,14 +1035,17 @@ def grouped_row(kernel, leg, width, buckets, kern, plain):
 
 
 def time_grouped_wire(layer_shapes, dev):
-    """Rows of group layerwise_step_grouped for the QSGD pack and unpack
-    and the sign pack: ONE launch over the 11 layerwise buckets x 4
-    workers (qsgd_pack_buckets, qsgd_unpack_buckets at width 6,
-    sign_pack_buckets), on the same inputs as time_kernels' one-bucket
-    rows."""
+    """Rows of group layerwise_step_grouped for the QSGD pack and unpack,
+    the TernGrad and sign packs and the bit unpack: ONE launch over the 11
+    layerwise buckets x 4 workers (qsgd_pack_buckets, qsgd_unpack_buckets
+    at width 6, terngrad_pack_buckets, sign_pack_buckets, and
+    bits_unpack_buckets on the sign words, the allgather receive leg's
+    decode), on the same inputs as time_kernels' one-bucket rows."""
     import torch
+    from repro_torch.kernels import pack as P
     from repro_torch.kernels import qsgd as Q
     from repro_torch.kernels import sign as S
+    from repro_torch.kernels import terngrad as T
     ins = [make_inputs(s, 500 + si, dev) for si, s in enumerate(layer_shapes)]
     xs = [x for x, _, _ in ins]
     k0s = [k0 for _, k0, _ in ins]
@@ -1010,6 +1055,8 @@ def time_grouped_wire(layer_shapes, dev):
     dims = [d for _, d in layer_shapes]
     words = Q.qsgd_pack_buckets(xs, k0s, k1s, nrms, MAIN_LEVELS, MAIN_WIDTH)
     buckets = [(n, d, MAIN_WIDTH) for n, d in layer_shapes]
+    scs = [x.abs().amax(dim=1) + 1e-12 for x in xs]
+    signs = S.sign_pack_buckets(xs)
     return [
         grouped_row("qsgd_pack", f"{len(xs)} buckets", MAIN_WIDTH, buckets,
                     lambda: Q.qsgd_pack_buckets(xs, k0s, k1s, nrms,
@@ -1023,10 +1070,20 @@ def time_grouped_wire(layer_shapes, dev):
                     lambda: [Q.qsgd_unpack_plain(w, f, d, MAIN_LEVELS,
                                                  MAIN_WIDTH)
                              for w, f, d in zip(words, facs, dims)]),
+        grouped_row("terngrad_pack", f"{len(xs)} buckets", 2,
+                    [(n, d, 2) for n, d in layer_shapes],
+                    lambda: T.terngrad_pack_buckets(xs, k0s, k1s, scs),
+                    lambda: [T.terngrad_pack_plain(x, k0, k1, sc)
+                             for x, k0, k1, sc in zip(xs, k0s, k1s, scs)]),
         grouped_row("sign_pack", f"{len(xs)} buckets", 1,
                     [(n, d, 1) for n, d in layer_shapes],
                     lambda: S.sign_pack_buckets(xs),
-                    lambda: [S.sign_pack_plain(x) for x in xs])]
+                    lambda: [S.sign_pack_plain(x) for x in xs]),
+        grouped_row("bits_unpack", f"{len(xs)} buckets", 1,
+                    [(n, d, 1) for n, d in layer_shapes],
+                    lambda: P.bits_unpack_buckets(signs, dims),
+                    lambda: [P.bits_unpack_plain(w, d)
+                             for w, d in zip(signs, dims)])]
 
 
 def time_grouped_fields(layer_shapes, dev):
@@ -1480,18 +1537,20 @@ def gate_unit_codecs(rank, n, dev, params, wg):
     # launches over the 10 (codec, granularity) pairs, each run fused and
     # per-unit with a local decode: B = 11 buckets layerwise + 1
     # entire-model = 12. Fused QSGD packs in 1 launch and unpacks in 1 a
-    # granularity (qsgd_pack 2, qsgd_unpack 2); fused signSGD packs in 1 a
-    # granularity (sign_pack 2) and unpacks in B (12); fused TernGrad
-    # launches B each way (12 each); per-unit QSGD and TernGrad pack and
-    # unpack their codes with one field launch a bucket (12 + 12 each
-    # way), per-unit signSGD with bits_pack / bits_unpack (12 each);
-    # natural and top-k, fused or not, pack and unpack all buckets in one
-    # field launch each (2 x 2 each way apiece): fields 12 + 12 + 4 + 4 =
-    # 32 each way
-    want = {"qsgd_pack": 2, "qsgd_unpack": 2, "terngrad_pack": 12,
+    # granularity (qsgd_pack 2, qsgd_unpack 2); fused TernGrad and signSGD
+    # pack in 1 a granularity (terngrad_pack 2, sign_pack 2) and unpack in
+    # B (terngrad_unpack 12, sign_unpack 12); the per-unit codecs encode
+    # one bucket a launch (QSGD and TernGrad fields_pack 12 each, signSGD
+    # bits_pack 12) and decode every bucket of a granularity in one
+    # decode_rows_buckets launch (QSGD and TernGrad fields_unpack 2 each,
+    # signSGD bits_unpack 2); natural and top-k, fused or not, pack and
+    # unpack all buckets in one field launch each (2 x 2 each way
+    # apiece): fields_pack 12 + 12 + 4 + 4 = 32, fields_unpack 2 + 2 + 4 +
+    # 4 = 12
+    want = {"qsgd_pack": 2, "qsgd_unpack": 2, "terngrad_pack": 2,
             "terngrad_unpack": 12, "sign_pack": 2, "sign_unpack": 12,
-            "bits_pack": 12, "bits_unpack": 12, "fields_pack": 32,
-            "fields_unpack": 32}
+            "bits_pack": 12, "bits_unpack": 2, "fields_pack": 32,
+            "fields_unpack": 12}
     counts = kernels.launch_counts()
     check(counts == {k: want.get(k, 0) for k in counts},
           f"unit codecs: launches {counts} != {want}")
@@ -1513,16 +1572,16 @@ def train_ranks(rank, n, dev):
     from repro_torch.core.plan import build_plan
     from repro_torch.experiment import train_cnn_ranks
     # launches a step: QSGD packs its 11 buckets in one launch and signSGD
-    # its 11 in one; the allgather receive leg decodes each bucket's
-    # gathered rows with the per-unit codec after that bucket's own
-    # all_gather (one fields_unpack, or bits_unpack for signSGD, a bucket:
-    # the grouped decode waits for one gather per message), simulated
+    # its 11 in one; the allgather receive leg makes the step's 11
+    # all_gathers in bucket order, then decodes every bucket's gathered
+    # rows with the per-unit codec in one decode_rows_buckets call (one
+    # fields_unpack, or bits_unpack for signSGD, a step); simulated
     # decodes every bucket locally in one grouped launch (qsgd_unpack 1)
     # and averages the decoded values
     runs = [("allgather_qsgd16_layerwise", QSGD(levels=MAIN_LEVELS),
-             "allgather", {"qsgd_pack": 1, "fields_unpack": 11}),
+             "allgather", {"qsgd_pack": 1, "fields_unpack": 1}),
             ("allgather_signsgd_layerwise", SignSGD(), "allgather",
-             {"sign_pack": 1, "bits_unpack": 11}),
+             {"sign_pack": 1, "bits_unpack": 1}),
             ("simulated_qsgd16_layerwise", QSGD(levels=MAIN_LEVELS),
              "simulated", {"qsgd_pack": 1, "qsgd_unpack": 1})]
     out = []
@@ -1602,25 +1661,25 @@ def gather_timing(rank, n, dev, nbytes_list):
 # EF also for QSGD and top-k layerwise, then one allgather wire call and two
 # execute_schedule_wire calls (with a local decode), all layerwise, for
 # the integrity words. wire=False launches nothing (sim and records in
-# plain torch). A wire call encodes once (QSGD, signSGD, natural, top-k:
-# one grouped launch; TernGrad: one a bucket), decodes locally under
-# simulated and EF (QSGD, natural, top-k: one grouped launch; TernGrad and
-# signSGD: one a bucket), and under allgather decodes each bucket's
-# gathered rows with the per-unit codec (fields_unpack, or bits_unpack for
-# signSGD, one a bucket). So:
+# plain torch). A wire call encodes once (one grouped launch for every
+# codec), decodes locally under simulated and EF (QSGD, natural, top-k:
+# one grouped launch; TernGrad and signSGD: one a bucket), and under
+# allgather decodes the gathered rows of all its buckets with the per-unit
+# codec in one decode_rows_buckets call (one fields_unpack, or bits_unpack
+# for signSGD, a call). So:
 #   qsgd_pack 4 + 2 (EF) + 3 = 9; qsgd_unpack 2 + 2 (EF) + 2 = 6;
-#   terngrad_pack 2 x 12 + 3 x 11 = 57; terngrad_unpack and sign_unpack
-#   12 + 2 x 11 = 34; sign_pack 4 + 3 = 7; fields_pack natural 4 + 3, top-k
-#   4 + 2 + 3 = 16; fields_unpack local natural 2 + 2 and top-k 2 + 2 + 2,
-#   gathered rows (12 + 11) x 4 codecs + 11 x 2 (EF) = 10 + 92 + 22 = 124;
-#   bits_unpack 12 + 11 = 23.
+#   terngrad_pack 4 + 3 = 7; terngrad_unpack and sign_unpack 12 + 2 x 11
+#   = 34; sign_pack 4 + 3 = 7; fields_pack natural 4 + 3, top-k 4 + 2 + 3
+#   = 16; fields_unpack local natural 2 + 2 and top-k 2 + 2 + 2, gathered
+#   rows 3 calls x 4 codecs + 2 (EF) = 10 + 12 + 2 = 24; bits_unpack
+#   2 + 1 = 3.
 # (b) encodes each of the 12 buckets alone (sign_pack 12) and votes on each
 # fused (majority 12) and non-fused (bits_unpack 12, bits_pack 12).
 GATE_LAUNCHES = {
     "fixed_gradients": {"qsgd_pack": 9, "qsgd_unpack": 6,
-                        "terngrad_pack": 57, "terngrad_unpack": 34,
+                        "terngrad_pack": 7, "terngrad_unpack": 34,
                         "sign_pack": 7, "sign_unpack": 34, "fields_pack": 16,
-                        "fields_unpack": 124, "bits_unpack": 23},
+                        "fields_unpack": 24, "bits_unpack": 3},
     "majority": {"sign_pack": 12, "majority": 12, "bits_unpack": 12,
                  "bits_pack": 12}}
 
@@ -1881,7 +1940,9 @@ LINE_GROUP = {"qsgd_compress_rows": "compress_layerwise",
               "topk_mask": "compress_flat", "rmsnorm": "rmsnorm_bf16",
               "qsgd_pack": "layerwise_step_grouped",
               "qsgd_unpack": "layerwise_step_grouped",
+              "terngrad_pack": "layerwise_step_grouped",
               "sign_pack": "layerwise_step_grouped",
+              "bits_unpack": "layerwise_step_grouped",
               "fields_pack": "layerwise_step_grouped",
               "fields_unpack": "layerwise_step_grouped"}
 
@@ -1889,9 +1950,9 @@ LINE_GROUP = {"qsgd_compress_rows": "compress_layerwise",
 def kernel_line(timings, launches, errs):
     """The per-kernel summary. Wire kernels: device ms / plain_ms /
     bound_ms summed over one layerwise main-path step (the 11 resnet9
-    buckets x 4 workers; qsgd_pack, qsgd_unpack and sign_pack the step's
-    one grouped launch, the fields kernels theirs on natural compression's
-    9-bit code legs).
+    buckets x 4 workers; qsgd_pack, qsgd_unpack, terngrad_pack, sign_pack
+    and bits_unpack the step's one grouped launch, the fields kernels
+    theirs on natural compression's 9-bit code legs).
     Compress-only
     kernels: summed over their LINE_GROUP rows (one layerwise
     plan_compress call of QSGD(16) / TernGrad, top-k (k=5)
@@ -1991,11 +2052,14 @@ def main(argv) -> int:
           f"legs; majority of {list(VOTERS)} workers); max abs err {errs}",
           flush=True)
     gerr = check_grouped_pack(layer_shapes, dev)
-    errs["qsgd_pack"] = max(errs["qsgd_pack"], gerr)
-    print(f"grouped qsgd_pack: bitwise equal to the per-bucket plain loop "
-          f"(widths {[w for w, _ in QSGD_WIDTHS]}) on the 11 layerwise "
-          f"buckets in one launch, MAX_BUCKETS + 8 buckets in two and units "
-          f"of d in {list(PACK_EDGE_DIMS)}; max abs err {gerr}", flush=True)
+    errs["qsgd_pack"] = max(errs["qsgd_pack"], gerr[0])
+    errs["terngrad_pack"] = max(errs["terngrad_pack"], gerr[1])
+    print(f"grouped qsgd_pack / terngrad_pack (one tile walk): bitwise equal "
+          f"to the per-bucket plain loop (QSGD widths "
+          f"{[w for w, _ in QSGD_WIDTHS]}; TernGrad with -0.0 and NaN) on "
+          f"the 11 layerwise buckets in one launch, MAX_BUCKETS + 8 buckets "
+          f"in two and units of d in {list(PACK_EDGE_DIMS)}; max abs err "
+          f"{gerr}", flush=True)
     ferr = check_grouped_fields(layer_shapes, dev)
     errs["fields_pack"] = max(errs["fields_pack"], ferr[0])
     errs["fields_unpack"] = max(errs["fields_unpack"], ferr[1])
@@ -2008,9 +2072,11 @@ def main(argv) -> int:
     serr = check_grouped_sign_unpack(layer_shapes, dev)
     errs["sign_pack"] = max(errs["sign_pack"], serr[0])
     errs["qsgd_unpack"] = max(errs["qsgd_unpack"], serr[1])
-    print(f"grouped sign_pack / qsgd_unpack: bitwise equal to the per-bucket "
-          f"plain twins (sign with -0.0 and NaN; QSGD widths "
-          f"{[w for w, _ in QSGD_WIDTHS]}, packed and random words) on the "
+    errs["bits_unpack"] = max(errs["bits_unpack"], serr[2])
+    print(f"grouped sign_pack / qsgd_unpack / bits_unpack: bitwise equal to "
+          f"the per-bucket plain twins (sign with -0.0 and NaN; QSGD widths "
+          f"{[w for w, _ in QSGD_WIDTHS]}, packed and random words; bits on "
+          f"sign and random words) on the "
           f"11 layerwise buckets in one launch, MAX_BUCKETS + 8 buckets in "
           f"two, units of d in {list(GROUPED_EDGE_DIMS)} and inputs 4 bytes "
           f"past a 16-byte boundary, grouped and one at a time; max abs err "

@@ -250,18 +250,29 @@ def _wire_post(cfg, group, codec):
     """The post-decode leg of the wire pipeline: the collective + master
     compression of _unit_simulated / _unit_allgather with Q_W replaced by
     the bit-exact payload round trip (simulated) or the packed bytes
-    through the collective (allgather)."""
+    through the collective (allgather). The allgather post also has the
+    bucket-list form `post.buckets` (execute_schedule_wire calls it): the
+    step's all_gathers in bucket order, then ONE decode_rows_buckets call
+    over every gathered bucket, then the worker mean and Q_M per bucket."""
     master = _master(cfg)
     if cfg.strategy == "simulated":
         def post(payload, xhat, ukeys, d):
             xm = rank_mean(_wire(xhat, cfg), group).to(xhat.dtype)
             return master(xm, ukeys)
-    else:  # allgather: the packed uint8 payload rows cross the collective
-        def post(payload, xhat, ukeys, d):
-            g = all_gather(payload, group)
-            dec = codec.decode_rows(g.reshape(-1, g.shape[-1]), d)
-            return master(worker_mean(dec.reshape(g.shape[0], -1, d)),
-                          ukeys)
+        return post
+
+    # allgather: the packed uint8 payload rows cross the collective
+    def post_buckets(payloads, xhats, ukeys_list, dims):
+        gathered = [all_gather(p, group) for p in payloads]
+        decs = codec.decode_rows_buckets(
+            [g.reshape(-1, g.shape[-1]) for g in gathered], dims)
+        return [master(worker_mean(dec.reshape(g.shape[0], -1, d)), ukeys)
+                for g, dec, ukeys, d in zip(gathered, decs, ukeys_list,
+                                            dims)]
+
+    def post(payload, xhat, ukeys, d):
+        return post_buckets([payload], [xhat], [ukeys], [d])[0]
+    post.buckets = post_buckets
     return post
 
 

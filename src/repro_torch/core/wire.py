@@ -13,8 +13,10 @@ Two implementations of each format, byte-identical:
             `decode_rows` run the same per-unit arithmetic batched over
             rows (the reference's vmapped per-unit path): compressor draws
             and codes, then the word packing kernels (fields_pack, or
-            bits_pack / bits_unpack for signSGD). The allgather receive
-            leg decodes every gathered row with it.
+            bits_pack / bits_unpack for signSGD). `decode_rows_buckets`
+            decodes every bucket of a step in one unpack launch
+            (fields_unpack, or bits_unpack for signSGD); the allgather
+            receive leg decodes a step's gathered rows with it.
   fused     `encode_batch` / `decode_batch` / `decode_ef_batch` of a whole
             bucket: one compress+pack kernel launch each way
             (kernels/ops.py). `fused=False` routes them to the per-unit
@@ -23,8 +25,9 @@ Two implementations of each format, byte-identical:
             every bucket of a step: one pack and one unpack launch for all
             of them under the fused QSGD codec and the natural and sparse
             codecs (whose per-unit and fused formats are one path), one
-            pack launch under the fused signSGD codec; the other codecs
-            loop over their batch entry points.
+            pack launch under the fused signSGD and TernGrad codecs (their
+            fused decode is one launch a bucket), and under fused=False
+            the per-unit encode per bucket and `decode_rows_buckets`.
 
 Formats (little-endian; field i of a packed leg sits at bit i*width of
 its unit's uint32 words, each leg padded to a whole word):
@@ -255,13 +258,25 @@ class WireCodec:
         xhat = self.decode_batch(payloads, d)
         return xhat, e2d - xhat
 
+    def decode_rows_buckets(self, payloads_list, dims) -> list:
+        """decode_rows of every bucket of a step: [(n_i, nbytes(d_i)) uint8
+        rows] + [d_i] -> [(n_i, d_i) f32]."""
+        return [self.decode_rows(p, d) for p, d in zip(payloads_list, dims)]
+
     def decode_buckets(self, payloads_list, dims) -> list:
         """decode_batch of every bucket of a step: [(n_i, nbytes(d_i)) uint8
-        rows] + [d_i] -> [(n_i, d_i) f32]."""
+        rows] + [d_i] -> [(n_i, d_i) f32]. fused=False: the per-unit
+        decode_rows_buckets."""
+        if not self.fused:
+            return self.decode_rows_buckets(payloads_list, dims)
         return [self.decode_batch(p, d) for p, d in zip(payloads_list, dims)]
 
     def decode_ef_buckets(self, payloads_list, es, dims) -> list:
-        """decode_ef_batch of every bucket of a step -> [(xhat_i, m_i)]."""
+        """decode_ef_batch of every bucket of a step -> [(xhat_i, m_i)].
+        fused=False: the per-unit decode_rows_buckets, then the residuals."""
+        if not self.fused:
+            return _ef_pairs(self.decode_rows_buckets(payloads_list, dims),
+                             es)
         return [self.decode_ef_batch(p, e, d)
                 for p, e, d in zip(payloads_list, es, dims)]
 
@@ -313,10 +328,17 @@ class QSGDCodec(WireCodec):
                                                           self.entry_bits))
 
     def decode_rows(self, payloads, d: int):
-        nrm, w = _split(payloads)
-        codes = ops.fields_unpack_units(w, d, self.entry_bits)
-        q = codes - self.comp.levels
-        return q.to(torch.float32) * (nrm / self.comp.levels)[:, None]
+        return self.decode_rows_buckets([payloads], [d])[0]
+
+    def decode_rows_buckets(self, payloads_list, dims):
+        """Every bucket's codes in one fields_unpack launch, then the
+        dequantization per bucket."""
+        splits = [_split(p) for p in payloads_list]
+        codes = ops.fields_unpack_units_buckets(
+            [w for _, w in splits], dims, [self.entry_bits] * len(dims))
+        return [(c - self.comp.levels).to(torch.float32)
+                * (nrm / self.comp.levels)[:, None]
+                for (nrm, _), c in zip(splits, codes)]
 
     def encode_batch(self, x2d, keys):
         if not self.fused:
@@ -373,15 +395,28 @@ class TernGradCodec(WireCodec):
                                                         + 1, 2))
 
     def decode_rows(self, payloads, d: int):
-        s, w = _split(payloads)
-        t = ops.fields_unpack_units(w, d, 2) - 1
-        return t.to(torch.float32) * s[:, None]
+        return self.decode_rows_buckets([payloads], [d])[0]
+
+    def decode_rows_buckets(self, payloads_list, dims):
+        """Every bucket's codes in one fields_unpack launch, then the
+        dequantization per bucket."""
+        splits = [_split(p) for p in payloads_list]
+        codes = ops.fields_unpack_units_buckets(
+            [w for _, w in splits], dims, [2] * len(dims))
+        return [(c - 1).to(torch.float32) * s[:, None]
+                for (s, _), c in zip(splits, codes)]
 
     def encode_batch(self, x2d, keys):
         if not self.fused:
             return self.encode_rows(x2d, keys)
-        w, s = ops.terngrad_pack_units(x2d, keys)
-        return _stat_and_words(s, w)
+        return self.encode_buckets([x2d], [keys])[0]
+
+    def encode_buckets(self, es, keys):
+        """Fused: one pack launch for all the buckets (up to MAX_BUCKETS)."""
+        if not self.fused:
+            return super().encode_buckets(es, keys)
+        return [_stat_and_words(s, w)
+                for w, s in ops.terngrad_pack_units_buckets(es, keys)]
 
     def decode_batch(self, payloads, d: int):
         if not self.fused:
@@ -410,8 +445,13 @@ class SignSGDCodec(WireCodec):
         return _rows_to_u8(ops.pack_words(x2d >= 0))
 
     def decode_rows(self, payloads, d: int):
-        bits = ops.unpack_words(_u8_rows_to(payloads, torch.int32), d)
-        return (2 * bits - 1).to(torch.float32)
+        return self.decode_rows_buckets([payloads], [d])[0]
+
+    def decode_rows_buckets(self, payloads_list, dims):
+        """Every bucket's bits in one bits_unpack launch."""
+        bits = ops.unpack_words_buckets(
+            [_u8_rows_to(p, torch.int32) for p in payloads_list], dims)
+        return [(2 * b - 1).to(torch.float32) for b in bits]
 
     def encode_batch(self, x2d, keys):
         if not self.fused:
@@ -480,6 +520,9 @@ class NaturalCodec(WireCodec):
     def decode_rows(self, payloads, d: int):
         return self.decode_buckets([payloads], [d])[0]
 
+    def decode_rows_buckets(self, payloads_list, dims):
+        return self.decode_buckets(payloads_list, dims)
+
     def decode_buckets(self, payloads_list, dims):
         codes = ops.fields_unpack_units_buckets(
             [_u8_rows_to(p, torch.int32) for p in payloads_list], dims,
@@ -543,6 +586,9 @@ class SparseCodec(WireCodec):
 
     def decode_rows(self, payloads, d: int):
         return self.decode_buckets([payloads], [d])[0]
+
+    def decode_rows_buckets(self, payloads_list, dims):
+        return self.decode_buckets(payloads_list, dims)
 
     def decode_buckets(self, payloads_list, dims):
         """Every index leg in one unpack launch, then the scatter per
@@ -728,16 +774,19 @@ def execute_schedule_wire(schedule, codec: WireCodec, grads, key,
                           decode_local: bool = True):
     """Stream a CommSchedule through REAL wire buffers: encode every bucket
     of the schedule (codec.encode_buckets: one pack launch each, one for
-    all of them under the fused QSGD and signSGD, natural and sparse
-    codecs), then per message concatenate its payload rows into one uint8
-    buffer behind the header, decode every bucket back out of its buffer
-    (codec.decode_buckets: one unpack launch each, one for all of them
-    under the fused QSGD, natural and sparse codecs) and apply
-    `post(payload_rows, xhat, unit_keys, d) -> y` (None: y = xhat). Unit keys
-    pass through `wire_key` (e.g. the rank fold) before encode.
-    `decode_local=False` skips the local decode for a post that does not
-    read xhat (it gets None). Returns (tree, buffers); sum(8 * buf.numel())
-    is the measured wire truth."""
+    all of them under the fused QSGD, TernGrad and signSGD, natural and
+    sparse codecs), then per message concatenate its payload rows into one
+    uint8 buffer behind the header, decode every bucket back out of its
+    buffer (codec.decode_buckets: one unpack launch each, one for all of
+    them under the fused QSGD, natural and sparse codecs and the per-unit
+    codecs) and apply `post(payload_rows, xhat, unit_keys, d) -> y` (None:
+    y = xhat) bucket by bucket, or, where the post has one, its bucket-list
+    form `post.buckets([payload_rows], [xhat], [unit_keys], [d]) -> [y]`
+    once over every bucket in order. Unit keys pass through `wire_key`
+    (e.g. the rank fold) before encode. `decode_local=False` skips the
+    local decode for a post that does not read xhat (it gets None).
+    Returns (tree, buffers); sum(8 * buf.numel()) is the measured wire
+    truth."""
     return _execute_wire(schedule, codec, grads, None, key, post, wire_key,
                          decode_local)
 
@@ -749,9 +798,9 @@ def execute_schedule_wire_with_state(schedule, codec: WireCodec, grads,
     """Error-feedback twin of execute_schedule_wire: per unit e = x + m is
     encoded, and decode threads through codec.decode_ef_buckets (the
     unpack launches of decode_buckets plus the caller-side residual
-    m' = e - xhat per bucket); post,
-    if given, maps (payload, xhat, keys, d) to the output. Returns (tree,
-    m_tree, buffers)."""
+    m' = e - xhat per bucket); post, if given, maps (payload, xhat, keys,
+    d) to the output, or its bucket-list form the whole step, as in
+    execute_schedule_wire. Returns (tree, m_tree, buffers)."""
     return _execute_wire(schedule, codec, grads, state, key, post, wire_key,
                          True)
 
@@ -791,8 +840,9 @@ def _execute_wire(schedule, codec, grads, state, key, post, wire_key,
         regions += [_bucket_region(buf, layout, j, plan.buckets[bi].n)
                     for j, bi in enumerate(msg.bucket_ids)]
     # decode every bucket of the step in one call (one unpack launch under
-    # the fused QSGD, natural and sparse codecs), then post and scatter in
-    # bucket order, so collectives inside post keep their order
+    # the fused QSGD, natural and sparse codecs and every per-unit codec),
+    # then post in bucket order, so collectives inside post keep their
+    # order, and scatter
     dims = [b.dim for b in bs]
     if state is not None:
         dec = codec.decode_ef_buckets(regions, es, dims)
@@ -803,8 +853,14 @@ def _execute_wire(schedule, codec, grads, state, key, post, wire_key,
         xhats = codec.decode_buckets(regions, dims)
     else:
         xhats = [None] * len(bs)
-    for b, kb, pay, xhat in zip(bs, kbs, regions, xhats):
-        y = xhat if post is None else post(pay, xhat, kb, b.dim)
+    if post is None:
+        ys = xhats
+    elif hasattr(post, "buckets"):        # the whole step in one call
+        ys = post.buckets(regions, xhats, kbs, dims)
+    else:
+        ys = [post(pay, xhat, kb, d)
+              for pay, xhat, kb, d in zip(regions, xhats, kbs, dims)]
+    for b, y in zip(bs, ys):
         plan._scatter_runs(*out, b, y)
     tree = plan._assemble(*out, batched)
     if state is None:

@@ -6,10 +6,12 @@ Wrappers, each with a plain version and a `.launches` counter:
 
 - wire pack / unpack: qsgd.py (pack and unpack grouped over up to 32
   buckets a launch, `qsgd_pack_buckets` / `qsgd_unpack_buckets`),
-  terngrad.py, sign.py (its pack grouped likewise, `sign_pack_buckets`;
-  and the majority vote), pack.py (width-bit fields, pack and unpack
-  grouped over up to 32 buckets of mixed widths a launch,
-  `fields_pack_buckets` / `fields_unpack_buckets`; and bits);
+  terngrad.py (its pack grouped likewise, `terngrad_pack_buckets`),
+  sign.py (its pack grouped likewise, `sign_pack_buckets`; and the
+  majority vote), pack.py (width-bit fields, pack and unpack grouped over
+  up to 32 buckets of mixed widths a launch, `fields_pack_buckets` /
+  `fields_unpack_buckets`; and bits, the unpack grouped likewise,
+  `bits_unpack_buckets`);
 - compress only: `qsgd_compress_rows` (qsgd.py), `terngrad_compress_rows`
   (terngrad.py), `topk_mask` (topk_mask.py), `rmsnorm` (rmsnorm.py).
 

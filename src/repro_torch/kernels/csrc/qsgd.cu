@@ -16,29 +16,15 @@
 // memory bandwidth, is the bound. Unpack is bandwidth-bound
 // (width/8 B read + 4 B written per element).
 //
-// Design. Pack: position p < h = ceil(d / 2) is output word 0 of counter
-// pair (p, p + h) and p >= h word 1 of pair (p - h, p), so one hash of pair
-// j gives the codes of positions j and j + h (repro::uniform_pair_at). A
-// block of 256 threads takes a tile of 480 = 15 x 32 pairs of one unit plus
-// a halo chunk of the next 32 pairs, two pairs a thread, hashes each once
-// and stages the codes of both halves in shared memory. Words are written
-// one a thread, in 32-position chunks (a chunk spans exactly `width`
-// words, so no word has two writers): the tile's 15 chunks of the lower
-// half, and the 15 upper-half chunks whose first pair falls in its range;
-// their codes are 32 consecutive staged codes from any offset (h need not
-// be a multiple of 32), which the halo chunk completes. The one chunk
-// holding position h (when h % 32 != 0) mixes both halves; one warp
-// hashes its 32 positions directly. So a pair is hashed once, plus 32
-// halo pairs a tile and at most 32 a unit. At the resnet9 sizes the
-// launch is latency-bound: two pairs a thread keep a step's blocks (508
-// entire-model, 540 layerwise) within one wave of the card.
-//
-// Grouped launch: a table of up to kMaxBuckets buckets (pointers, sizes,
-// tiles per unit and the first block of each bucket, a prefix sum built by
-// the caller) travels by value as a kernel parameter, so one launch packs
-// every bucket of a step without a host-to-device copy (and a CUDA graph
-// can capture it). A block finds its bucket by a scan over the table's
-// block starts. The one-bucket pack is the same launch with one entry.
+// Design. Pack: the hash-once tile walk of hash_pack.cuh over qsgd_code
+// (the TernGrad pack of terngrad.cu is the same walk over its own code):
+// each counter pair hashed once, tiles of 480 pairs plus a halo chunk, one
+// thread a word in whole 32-position chunks, every bucket of a step in one
+// grouped launch (a __grid_constant__ table, no host-to-device copy, CUDA
+// graph capturable). At the resnet9 sizes the launch is latency-bound: two
+// pairs a thread keep a step's blocks (508 entire-model, 540 layerwise)
+// within one wave of the card. The one-bucket pack is the same launch with
+// one entry.
 //
 // Unpack is grouped the same way (its own table: words, factor and out
 // pointers, n, d, words and tiles per unit, first blocks; levels and width
@@ -64,34 +50,15 @@
 
 #include "fields.cuh"
 #include "grouped.cuh"
-#include "threefry.cuh"
+#include "hash_pack.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;                     // warps per pack block
-constexpr int kTileChunks = 15;               // 32-pair chunks a tile owns
-constexpr int kHashChunks = kTileChunks + 1;  // + the halo chunk
-constexpr int kTilePairs = 32 * kTileChunks;  // kernels/qsgd.py TILE_PAIRS
-constexpr int kMaxBuckets = 32;               // kernels/qsgd.py MAX_BUCKETS
+constexpr int kMaxBuckets = repro::kPackMaxBuckets;  // kernels/qsgd.py MAX_BUCKETS
 constexpr int kThreads = 256;                 // unpack block
 constexpr int kUnpackChunks = 64;             // 32-code chunks a tile
 constexpr int kUnpackTile = 32 * kUnpackChunks;  // kernels/qsgd.py TILE_CODES
 constexpr int kMaxUnpackWidth = 31;  // kernels/qsgd.py MAX_UNPACK_WIDTH
-
-struct PackBucket {
-  const float* x;          // (n, d) units
-  const uint32_t* k0;      // (n,) key words
-  const uint32_t* k1;
-  const float* nrm;        // (n,) norms, +1e-12 included
-  uint32_t* out;           // (n, wpu) words
-  int n, d, wpu, tiles;    // tiles per unit
-};
-
-struct PackTable {
-  int block_start[kMaxBuckets];  // each bucket's first block in the launch
-  PackBucket b[kMaxBuckets];
-  int count;
-};
 
 struct UnpackBucket {
   const uint32_t* words;  // (n, wpu) words
@@ -118,74 +85,19 @@ __device__ __forceinline__ uint32_t qsgd_code(float xv, float u, float nrm,
                                : xv < 0.0f ? levels - q : levels);
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-    qsgd_pack_kernel(const __grid_constant__ PackTable t, int levels,
+// The code function of hash_pack_tile.
+struct QsgdCode {
+  int levels;
+  __device__ __forceinline__ uint32_t operator()(float xv, float u,
+                                                 float nrm) const {
+    return qsgd_code(xv, u, nrm, levels);
+  }
+};
+
+__global__ void __launch_bounds__(repro::kPackWarps * 32)
+    qsgd_pack_kernel(const __grid_constant__ repro::PackTable t, int levels,
                      int width) {
-  __shared__ uint32_t lo[kHashChunks * 32];  // code of position j0 + i
-  __shared__ uint32_t hi[kHashChunks * 32];  // code of position j0 + i + h
-  __shared__ uint32_t mixed[32];             // codes of chunk qm
-  const int k = repro::bucket_of(t.block_start, t.count);
-  const PackBucket& b = t.b[k];
-  const int local = static_cast<int>(blockIdx.x) - t.block_start[k];
-  const int unit = local / b.tiles;
-  const int tile = local % b.tiles;
-  const int d = b.d;
-  const int h = (d + 1) >> 1;
-  const float* xu = b.x + static_cast<long long>(unit) * d;
-  uint32_t* ou = b.out + static_cast<long long>(unit) * b.wpu;
-  const uint32_t k0 = b.k0[unit], k1 = b.k1[unit];
-  const float nrm = b.nrm[unit];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int j0 = tile * kTilePairs;
-  const int ql0 = tile * kTileChunks;         // the tile's first lower chunk
-  const int qm = (h & 31) ? h >> 5 : -1;      // the chunk holding position h
-  const bool has_mixed = qm >= ql0 && qm < ql0 + kTileChunks;
-
-  // 1. hash each pair of the tile and the halo chunk once (two pairs a
-  //    thread, independent, so their hashes interleave): both codes
-#pragma unroll
-  for (int r = 0; r < kHashChunks / kWarps; ++r) {
-    const int i = (warp + r * kWarps) * 32 + lane;
-    const int j = j0 + i;
-    uint32_t cl = 0u, ch = 0u;
-    if (j < h) {
-      float u0, u1;
-      repro::uniform_pair_at(k0, k1, j, d, u0, u1);
-      cl = qsgd_code(xu[j], u0, nrm, levels);
-      if (j + h < d) ch = qsgd_code(xu[j + h], u1, nrm, levels);
-    }
-    lo[i] = cl;
-    hi[i] = ch;
-  }
-  if (has_mixed && warp == kWarps - 1) {  // mixes both halves: per position
-    const int p = 32 * qm + lane;
-    mixed[lane] = p < d ? qsgd_code(xu[p], repro::uniform_at(k0, k1, p, d),
-                                    nrm, levels)
-                        : 0u;
-  }
-  __syncthreads();
-
-  // 2. one thread a word over two runs of whole chunks (a chunk spans
-  //    exactly `width` words): the lower run, chunks [ql0, min(ql0 + 15,
-  //    h / 32)) entirely below h, then chunk qm; the upper run, the 15
-  //    chunks q >= q0 = ceil((j0 + h) / 32) whose first pair 32q - h lies
-  //    in [j0, j0 + 480), codes hi[o .. o + 31] with o = 32q - h - j0 <=
-  //    479 (the halo chunk completes them). Words past wpu (beyond d) are
-  //    not written.
-  const int ql1 = has_mixed ? qm + 1 : min(ql0 + kTileChunks, h >> 5);
-  const int nl = max(0, ql1 - ql0) * width;
-  const int q0 = (j0 + h + 31) >> 5;
-  const int nu = max(0, min(q0 + kTileChunks, (d + 31) >> 5) - q0) * width;
-  for (int i = threadIdx.x; i < nl + nu; i += blockDim.x) {
-    const bool upper = i >= nl;
-    const int word = upper ? q0 * width + (i - nl) : ql0 * width + i;
-    if (word >= b.wpu) continue;
-    const int q = word / width;
-    const uint32_t* codes = upper ? hi + (32 * q - h - j0)
-                            : q == qm ? mixed : lo + 32 * (q - ql0);
-    ou[word] = repro::assemble_word(codes, width, word - q * width);
-  }
+  repro::hash_pack_tile(t, QsgdCode{levels}, width);
 }
 
 // (code - levels) * fac of staged code p
@@ -251,20 +163,10 @@ extern "C" int qsgd_pack_buckets(int count, void* const* ptrs,
   if (blocks == 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  PackTable t;
-  t.count = count;
-  for (int i = 0; i < count; ++i) {
-    t.b[i] = PackBucket{static_cast<const float*>(ptrs[i]),
-                        static_cast<const uint32_t*>(ptrs[count + i]),
-                        static_cast<const uint32_t*>(ptrs[2 * count + i]),
-                        static_cast<const float*>(ptrs[3 * count + i]),
-                        static_cast<uint32_t*>(ptrs[4 * count + i]),
-                        sizes[i], sizes[count + i], sizes[2 * count + i],
-                        sizes[3 * count + i]};
-    t.block_start[i] = sizes[4 * count + i];
-  }
-  qsgd_pack_kernel<<<static_cast<unsigned>(blocks), kWarps * 32, 0,
-                     static_cast<cudaStream_t>(stream)>>>(t, levels, width);
+  const repro::PackTable t = repro::pack_table(count, ptrs, sizes);
+  qsgd_pack_kernel<<<static_cast<unsigned>(blocks), repro::kPackWarps * 32,
+                     0, static_cast<cudaStream_t>(stream)>>>(t, levels,
+                                                              width);
   return static_cast<int>(cudaGetLastError());
 }
 

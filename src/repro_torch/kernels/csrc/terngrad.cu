@@ -9,57 +9,45 @@
 // (code - 1) * scale. Each unit packs into ceil(d / 16) uint32 words.
 //
 // What bounds it on the card. Pack moves 4 B read + 0.25 B written per
-// element and hashes one threefry2x32 pair per element (~77 integer
+// element and hashes one threefry2x32 pair per two elements (~79 integer
 // operations), so like QSGD it is launch-bound at the resnet9 main-path
 // sizes and integer-throughput-bound at 4 x 2^20 elements. Unpack is
 // bandwidth-bound (0.25 B read + 4 B written per element).
 //
-// Design: the same warp-per-32-field-chunk pack and thread-per-element
-// unpack as qsgd.cu; IEEE divide via __fdiv_rn, compiled with -fmad=false.
+// Design. Pack: the hash-once tile walk of hash_pack.cuh (qsgd.cu's pack)
+// over the ternary code at width 2: each counter pair hashed once with
+// repro::uniform_pair_at, tiles of 480 pairs plus a halo chunk, one thread
+// a word in whole 32-position chunks, every bucket of a step in one
+// grouped launch (a __grid_constant__ table, no host-to-device copy); a
+// block finds its unit and tile with one 32-bit divide, and the width is a
+// constant, so a word's chunk is a shift. The one-bucket pack is the same
+// launch with one entry. Unpack runs one thread per element. Numerics: the
+// IEEE divide __fdiv_rn(|x|, scale), compiled with -fmad=false.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "fields.cuh"
-#include "threefry.cuh"
+#include "hash_pack.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
 constexpr int kWidth = 2;
 
-__global__ void terngrad_pack_kernel(const float* __restrict__ x,
-                                     const uint32_t* __restrict__ k0,
-                                     const uint32_t* __restrict__ k1,
-                                     const float* __restrict__ scale,
-                                     uint32_t* __restrict__ out, int n, int d,
-                                     int wpu, int chunks) {
-  __shared__ uint32_t codes[kWarps][32];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long g = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  if (g >= static_cast<long long>(n) * chunks) return;  // whole warp leaves
-  const int unit = static_cast<int>(g / chunks);
-  const int c = static_cast<int>(g % chunks);
-  const int p = c * 32 + lane;
-  uint32_t code = 0u;
-  if (p < d) {
-    const float xv = x[static_cast<long long>(unit) * d + p];
-    const float u = repro::uniform_at(k0[unit], k1[unit], p, d);
-    const bool keep = u < __fdiv_rn(fabsf(xv), scale[unit]);
-    code = 1u;
-    if (keep && xv > 0.0f) code = 2u;
-    if (keep && xv < 0.0f) code = 0u;
+// The code function of hash_pack_tile: sign(x) * [u < |x| / scale] + 1,
+// so 2 for a kept x > 0, 0 for a kept x < 0 and 1 otherwise (-0.0 and NaN
+// are never kept).
+struct TernCode {
+  __device__ __forceinline__ uint32_t operator()(float xv, float u,
+                                                 float scale) const {
+    const bool keep = u < __fdiv_rn(fabsf(xv), scale);
+    return keep && xv > 0.0f ? 2u : keep && xv < 0.0f ? 0u : 1u;
   }
-  codes[warp][lane] = code;
-  __syncwarp();
-  if (lane < kWidth) {
-    const int word = c * kWidth + lane;
-    if (word < wpu) {
-      out[static_cast<long long>(unit) * wpu + word] =
-          repro::assemble_word(codes[warp], kWidth, lane);
-    }
-  }
+};
+
+__global__ void __launch_bounds__(repro::kPackWarps * 32)
+    terngrad_pack_kernel(const __grid_constant__ repro::PackTable t) {
+  repro::hash_pack_tile(t, TernCode{}, kWidth);
 }
 
 __global__ void terngrad_unpack_kernel(const uint32_t* __restrict__ words,
@@ -79,20 +67,24 @@ __global__ void terngrad_unpack_kernel(const uint32_t* __restrict__ words,
 }  // namespace
 
 // C entry points (loaded with ctypes), as in qsgd.cu.
-extern "C" int terngrad_pack(const void* x, const void* k0, const void* k1,
-                             const void* scale, void* out, int n, int d,
-                             int wpu, int device, void* stream) {
-  const int chunks = (d + 31) / 32;
-  const long long warps = static_cast<long long>(n) * chunks;
-  if (warps == 0) return 0;
+//
+// terngrad_pack_buckets: `count` (1..kPackMaxBuckets) buckets. `ptrs` holds
+// their x, k0, k1, scale and out pointers, `count` of each in that order;
+// `sizes` their n, d, wpu, tiles per unit and first block, `count` of
+// each, as kernels/qsgd.py bucket_table computes them at width 2; `blocks`
+// in all (0 launches nothing).
+extern "C" int terngrad_pack_buckets(int count, void* const* ptrs,
+                                     const int* sizes, int blocks,
+                                     int device, void* stream) {
+  if (count < 1 || count > repro::kPackMaxBuckets)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const unsigned blocks = static_cast<unsigned>((warps + kWarps - 1) / kWarps);
-  terngrad_pack_kernel<<<blocks, kWarps * 32, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const uint32_t*>(k0),
-      static_cast<const uint32_t*>(k1), static_cast<const float*>(scale),
-      static_cast<uint32_t*>(out), n, d, wpu, chunks);
+  const repro::PackTable t = repro::pack_table(count, ptrs, sizes);
+  terngrad_pack_kernel<<<static_cast<unsigned>(blocks),
+                         repro::kPackWarps * 32, 0,
+                         static_cast<cudaStream_t>(stream)>>>(t);
   return static_cast<int>(cudaGetLastError());
 }
 

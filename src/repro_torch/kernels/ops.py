@@ -10,10 +10,12 @@ The bucket entry points of the fused compress+pack kernels: what the wire
 codecs (core/wire.py) call, one kernel launch per bucket and direction
 (ops.py:274-522), and one launch for all buckets of a step for the QSGD
 pack and unpack (`qsgd_pack_units_buckets`, `qsgd_unpack_units_buckets`),
-the sign pack (`sign_pack_units_buckets`) and the field pack and unpack
-of the natural and sparse codecs (`fields_pack_units_buckets`,
-`fields_unpack_units_buckets`). The one-bucket entry points are the
-grouped calls with one bucket.
+the TernGrad pack (`terngrad_pack_units_buckets`), the sign pack
+(`sign_pack_units_buckets`), the field pack and unpack of the natural and
+sparse codecs and of the per-unit QSGD / TernGrad decode
+(`fields_pack_units_buckets`, `fields_unpack_units_buckets`) and the bit
+unpack of the per-unit signSGD decode (`unpack_words_buckets`). The
+one-bucket entry points are the grouped calls with one bucket.
 
 A bucket is an (n, d) f32 matrix whose rows are compression units. The
 caller-side pieces stay here, outside the kernels, exactly as in the
@@ -29,7 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import prng
-from repro_torch.kernels.pack import (bits_pack, bits_unpack, fields_pack,
+from repro_torch.kernels.pack import (bits_pack, bits_unpack,
+                                      bits_unpack_buckets, fields_pack,
                                       fields_pack_buckets, fields_unpack,
                                       fields_unpack_buckets)
 from repro_torch.kernels.qsgd import (qsgd_compress_rows, qsgd_pack_buckets,
@@ -38,7 +41,8 @@ from repro_torch.kernels.ref import words_per_unit, words_to_i32
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_rows
 from repro_torch.kernels.sign import majority, sign_pack_buckets, sign_unpack
 from repro_torch.kernels.terngrad import (terngrad_compress_rows,
-                                          terngrad_pack, terngrad_unpack)
+                                          terngrad_pack_buckets,
+                                          terngrad_unpack)
 from repro_torch.kernels.topk_mask import BLOCK_C, topk_mask
 
 __all__ = ["qsgd_compress", "terngrad_compress", "blockwise_topk",
@@ -46,13 +50,15 @@ __all__ = ["qsgd_compress", "terngrad_compress", "blockwise_topk",
            "rmsnorm", "words_per_unit", "qsgd_pack_units",
            "qsgd_pack_units_buckets", "qsgd_unpack_units",
            "qsgd_unpack_units_buckets", "qsgd_unpack_ef_units",
-           "terngrad_pack_units", "terngrad_unpack_units",
+           "terngrad_pack_units", "terngrad_pack_units_buckets",
+           "terngrad_unpack_units",
            "terngrad_unpack_ef_units", "sign_pack_units",
            "sign_pack_units_buckets", "sign_unpack_units",
            "sign_unpack_ef_units",
            "fields_pack_units", "fields_pack_units_buckets",
            "fields_unpack_units", "fields_unpack_units_buckets",
            "pack_fields", "unpack_fields", "pack_words", "unpack_words",
+           "unpack_words_buckets",
            "majority_words",
            "pack_bytes_moved", "unpack_bytes_moved", "majority_bytes_moved"]
 
@@ -242,10 +248,19 @@ def qsgd_unpack_ef_units(words, nrms, e2d, d: int, levels: int, width: int):
 def terngrad_pack_units(x2d, keys):
     """Fused TernGrad encode: (n, d) f32 + unit keys -> ((n,
     words_per_unit(d, 2)) int32 words, (n,) f32 scales incl. +1e-12)."""
-    xf = x2d.to(torch.float32).contiguous()
-    scales = xf.abs().amax(dim=1) + 1e-12
-    k0, k1 = _split_keys(keys, xf.device)
-    return terngrad_pack(xf, k0, k1, scales), scales
+    return terngrad_pack_units_buckets([x2d], [keys])[0]
+
+
+def terngrad_pack_units_buckets(x2ds, keys_list):
+    """terngrad_pack_units over many buckets -> [(words, scales)] per
+    bucket; the packing is ONE kernel launch for up to MAX_BUCKETS buckets
+    (kernels/terngrad.py terngrad_pack_buckets)."""
+    xfs = [x.to(torch.float32).contiguous() for x in x2ds]
+    scales = [xf.abs().amax(dim=1) + 1e-12 for xf in xfs]
+    ks = [_split_keys(k, xf.device) for k, xf in zip(keys_list, xfs)]
+    words = terngrad_pack_buckets(xfs, [k[0] for k in ks],
+                                  [k[1] for k in ks], scales)
+    return list(zip(words, scales))
 
 
 def terngrad_unpack_units(words, scales, d: int) -> torch.Tensor:
@@ -333,6 +348,13 @@ def unpack_words(words, d: int) -> torch.Tensor:
     """Inverse of pack_words: (n, words_per_unit(d, 1)) int32 words -> the
     first d bits of each row as (n, d) int32 {0, 1} (ops.py:239)."""
     return bits_unpack(words.contiguous(), d)
+
+
+def unpack_words_buckets(words_list, dims) -> list:
+    """unpack_words over many buckets -> [(n_i, dims[i]) int32 {0, 1}];
+    ONE kernel launch for up to MAX_BUCKETS buckets (kernels/pack.py
+    bits_unpack_buckets)."""
+    return bits_unpack_buckets([w.contiguous() for w in words_list], dims)
 
 
 def majority_words(words) -> torch.Tensor:

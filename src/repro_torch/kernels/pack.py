@@ -1,7 +1,9 @@
 """Word packing: the wrappers of the CUDA kernels in csrc/pack.cu
 (width-parametric fields, grouped over up to MAX_BUCKETS buckets of mixed
-widths a launch) and csrc/bits.cu ({0,1} bits), with their plain-torch
-versions (the routing, checks and launch counters of kernels/qsgd.py).
+widths a launch) and csrc/bits.cu ({0,1} bits; the unpack grouped over up
+to MAX_BUCKETS buckets a launch with kernels/qsgd.py's bucket tables),
+with their plain-torch versions (the routing, checks and launch counters
+of kernels/qsgd.py).
 
 Fields are (n, k) int32 tensors read as uint32 (values < 2**width, width
 1..31): the natural codec's 9-bit code leg and the sparse codecs'
@@ -23,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.qsgd import (_check, _launch_args, _on_card,
-                                      unpack_codes_plain)
+                                      launch_grouped, unpack_codes_plain)
 from repro_torch.kernels.ref import words_per_unit
 
 MAX_WIDTH = 31
@@ -213,21 +215,41 @@ def bits_unpack_plain(words, d: int) -> torch.Tensor:
         torch.int32)
 
 
+#: bits an unpack block owns: 64 words of 32 (csrc/bits.cu kTileBits)
+TILE_BITS = 2048
+
+
+def bits_tiles(d: int) -> int:
+    """Unpack blocks per unit of d bits: tiles of TILE_BITS."""
+    return -(-d // TILE_BITS)
+
+
+def bits_unpack_buckets(words_list, dims) -> List[torch.Tensor]:
+    """bits_unpack over many buckets: bucket i is (words_list[i], dims[i])
+    as bits_unpack takes them. On the card ONE launch per MAX_BUCKETS
+    non-empty buckets (kernels/qsgd.py grouped_table at width 1 over
+    bits_tiles), each counted in bits_unpack.launches.
+    On the CPU, bits_unpack_plain per bucket."""
+    if not words_list:
+        return []
+    if not _on_card(words_list[0], *words_list[1:]):
+        return [bits_unpack_plain(w, d) for w, d in zip(words_list, dims)]
+    outs, shapes = [], []
+    for words, d in zip(words_list, dims):
+        n = words.shape[0]
+        _check(words, "words", torch.int32, (n, words_per_unit(d, 1)))
+        outs.append(torch.empty((n, d), dtype=torch.int32,
+                                device=words.device))
+        shapes.append((n, int(d)))
+    launch_grouped(bits_unpack, "bits", "bits_unpack_buckets", shapes,
+                   (words_list, outs), 1, bits_tiles)
+    return outs
+
+
 def bits_unpack(words, d: int) -> torch.Tensor:
-    """(n, words_per_unit(d, 1)) int32 words -> (n, d) int32 {0,1} bits."""
-    n = words.shape[0]
-    if not _on_card(words):
-        return bits_unpack_plain(words, d)
-    wpu = words_per_unit(d, 1)
-    _check(words, "words", torch.int32, (n, wpu))
-    out = torch.empty((n, d), dtype=torch.int32, device=words.device)
-    if out.numel() == 0:
-        return out
-    build.check(build.library("bits").bits_unpack(
-        words.data_ptr(), out.data_ptr(), n, d, wpu,
-        *_launch_args(words.device)), "bits_unpack")
-    bits_unpack.launches += 1
-    return out
+    """(n, words_per_unit(d, 1)) int32 words -> (n, d) int32 {0,1} bits. On
+    the card: the one-bucket launch of bits_unpack_buckets."""
+    return bits_unpack_buckets([words], [d])[0]
 
 
 bits_unpack.launches = 0

@@ -9,7 +9,8 @@ launches in `<wrapper>.launches`.
 The wire pack and unpack are grouped: one launch serves up to MAX_BUCKETS
 buckets (`qsgd_pack_buckets`, `qsgd_unpack_buckets`), described by a
 table of sizes and first blocks (`grouped_table`) and launched by
-`launch_grouped`, which kernels/sign.py's grouped pack shares.
+`launch_grouped`, which the other grouped kernels share (kernels/sign.py,
+kernels/terngrad.py, kernels/pack.py's bit unpack).
 
 Words are (n, words_per_unit(d, width)) int32 tensors holding the uint32
 bit patterns of the payload (the bytes are what the wire carries).
@@ -179,6 +180,26 @@ def launch_grouped(wrapper, stem: str, entry: str, shapes, tensors,
         wrapper.launches += 1
 
 
+def pack_outputs(xs, k0s, k1s, stats, width: int) -> List[torch.Tensor]:
+    """Check the inputs of a grouped stochastic pack (qsgd_pack_buckets,
+    kernels/terngrad.py terngrad_pack_buckets) on the card: bucket i is
+    xs[i] (n, d) f32, key words k0s[i] / k1s[i] (n,) int32 and statistics
+    stats[i] (n,) f32, all contiguous -> its (n, words_per_unit(d, width))
+    int32 output, allocated."""
+    outs = []
+    for i, (x, k0, k1, stat) in enumerate(zip(xs, k0s, k1s, stats)):
+        if x.dim() != 2:
+            raise ValueError(f"x[{i}]: want (n, d), got {tuple(x.shape)}")
+        n, d = x.shape
+        _check(x, "x", torch.float32, (n, d))
+        _check(stat, "stat", torch.float32, (n,))
+        _check(k0, "k0", torch.int32, (n,))
+        _check(k1, "k1", torch.int32, (n,))
+        outs.append(torch.empty((n, words_per_unit(d, width)),
+                                dtype=torch.int32, device=x.device))
+    return outs
+
+
 def qsgd_pack_buckets(xs, k0s, k1s, nrms, levels: int,
                       width: int) -> List[torch.Tensor]:
     """qsgd_pack over many buckets at one (levels, width): bucket i is
@@ -193,17 +214,7 @@ def qsgd_pack_buckets(xs, k0s, k1s, nrms, levels: int,
                 for x, k0, k1, nrm in zip(xs, k0s, k1s, nrms)]
     if not 1 <= width <= 16:
         raise ValueError(f"width {width} out of range")
-    outs = []
-    for i, (x, k0, k1, nrm) in enumerate(zip(xs, k0s, k1s, nrms)):
-        if x.dim() != 2:
-            raise ValueError(f"x[{i}]: want (n, d), got {tuple(x.shape)}")
-        n, d = x.shape
-        _check(x, "x", torch.float32, (n, d))
-        _check(nrm, "nrm", torch.float32, (n,))
-        _check(k0, "k0", torch.int32, (n,))
-        _check(k1, "k1", torch.int32, (n,))
-        outs.append(torch.empty((n, words_per_unit(d, width)),
-                                dtype=torch.int32, device=x.device))
+    outs = pack_outputs(xs, k0s, k1s, nrms, width)
     launch_grouped(qsgd_pack, "qsgd", "qsgd_pack_buckets",
                    [tuple(x.shape) for x in xs], (xs, k0s, k1s, nrms, outs),
                    width, pack_tiles, levels, width)

@@ -1,15 +1,22 @@
 """Fused TernGrad ternarize+pack / unpack+dequantize (csrc/terngrad.cu)
 and the compress-only ternarize+dequantize (csrc/compress.cu): the wrappers
 of the CUDA kernels and their plain-torch versions — the TernGrad mirror of
-kernels/qsgd.py (same routing, checks and counters)."""
+kernels/qsgd.py (same routing, checks and counters). The pack is grouped
+over up to MAX_BUCKETS buckets a launch (`terngrad_pack_buckets`, with
+kernels/qsgd.py's bucket tables: the same hash-once tile walk as the QSGD
+pack, csrc/hash_pack.cuh)."""
 from __future__ import annotations
+
+from typing import List
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build, prng, ref
 from repro_torch.kernels.qsgd import (_check, _launch_args, _on_card,
-                                      stat_column, unpack_codes_plain)
+                                      launch_grouped, pack_outputs,
+                                      pack_tiles, stat_column,
+                                      unpack_codes_plain)
 from repro_torch.kernels.ref import words_per_unit
 
 TERN_WIDTH = 2
@@ -27,26 +34,30 @@ def terngrad_pack_plain(x, k0, k1, scale) -> torch.Tensor:
     return ref.words_to_i32(words[:, :words_per_unit(d, TERN_WIDTH)])
 
 
+def terngrad_pack_buckets(xs, k0s, k1s, scales) -> List[torch.Tensor]:
+    """terngrad_pack over many buckets: bucket i is (xs[i], k0s[i], k1s[i],
+    scales[i]) as terngrad_pack takes them. On the card ONE launch per
+    MAX_BUCKETS non-empty buckets (kernels/qsgd.py bucket_table at width
+    2), each counted in terngrad_pack.launches. On the CPU,
+    terngrad_pack_plain per bucket."""
+    if not xs:
+        return []
+    if not _on_card(xs[0], *xs[1:], *k0s, *k1s, *scales):
+        return [terngrad_pack_plain(x, k0, k1, sc)
+                for x, k0, k1, sc in zip(xs, k0s, k1s, scales)]
+    outs = pack_outputs(xs, k0s, k1s, scales, TERN_WIDTH)
+    launch_grouped(terngrad_pack, "terngrad", "terngrad_pack_buckets",
+                   [tuple(x.shape) for x in xs],
+                   (xs, k0s, k1s, scales, outs), TERN_WIDTH, pack_tiles)
+    return outs
+
+
 def terngrad_pack(x, k0, k1, scale) -> torch.Tensor:
     """x (n, d) f32 units, per-unit int32 key words k0/k1 (n,) and scales
     (n,) f32 (max|x| + 1e-12) -> (n, words_per_unit(d, 2)) int32 words of
-    codes sign(x)*Bernoulli(|x|/scale) + 1."""
-    n, d = x.shape
-    if not _on_card(x, k0, k1, scale):
-        return terngrad_pack_plain(x, k0, k1, scale)
-    _check(x, "x", torch.float32, (n, d))
-    _check(scale, "scale", torch.float32, (n,))
-    _check(k0, "k0", torch.int32, (n,))
-    _check(k1, "k1", torch.int32, (n,))
-    wpu = words_per_unit(d, TERN_WIDTH)
-    out = torch.empty((n, wpu), dtype=torch.int32, device=x.device)
-    if out.numel() == 0:
-        return out
-    build.check(build.library("terngrad").terngrad_pack(
-        x.data_ptr(), k0.data_ptr(), k1.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), n, d, wpu, *_launch_args(x.device)), "terngrad_pack")
-    terngrad_pack.launches += 1
-    return out
+    codes sign(x)*Bernoulli(|x|/scale) + 1. On the card: the one-bucket
+    launch of terngrad_pack_buckets."""
+    return terngrad_pack_buckets([x], [k0], [k1], [scale])[0]
 
 
 terngrad_pack.launches = 0

@@ -3,9 +3,10 @@
 
   - prng.uniform_pairs (one hash per counter pair, both outputs) equals
     prng.uniform_at at every position;
-  - a plain mirror of the pack kernel's work split (tiles of 480 pairs and
-    a halo chunk, lower / upper / mixed 32-position chunks) writes every
-    output word exactly once and equals qsgd_pack_plain bit for bit,
+  - a plain mirror of the pack kernel's work split (csrc/hash_pack.cuh:
+    tiles of 480 pairs and a halo chunk, lower / upper / mixed 32-position
+    chunks) writes every output word exactly once and equals
+    qsgd_pack_plain bit for bit,
     including d = 1, 2, 3, odd d, h = 32k +- 1 and tile edges;
   - bucket_table's block prefix sums and words per unit, one table per
     MAX_BUCKETS buckets;
@@ -70,11 +71,13 @@ def test_uniform_pairs_equal_uniform_at(d):
                        want[:, h:].view(torch.int32))
 
 
-def _mirror_pack(x, k0, k1, nrm, levels, width):
-    """csrc/qsgd.cu's pack, block by block: each tile hashes pairs
-    [480 t, 480 t + 512) once, then writes its lower chunks, the mixed
-    chunk (hashed per position) and its upper chunks. Returns the words
-    (as qsgd_pack_plain) and how often each word was written."""
+def _mirror_pack(x, k0, k1, width, code):
+    """csrc/hash_pack.cuh's tile walk (the QSGD and TernGrad packs), block
+    by block: each tile hashes pairs [480 t, 480 t + 512) once, then writes
+    its lower chunks, the mixed chunk (hashed per position) and its upper
+    chunks; code(unit, x, u) gives the codes of `width` bits. Returns the
+    words (as the pack's plain twin) and how often each word was
+    written."""
     from repro_torch.kernels import prng, ref
     from repro_torch.kernels.qsgd import TILE_PAIRS, pack_tiles
     n, d = x.shape
@@ -86,8 +89,7 @@ def _mirror_pack(x, k0, k1, nrm, levels, width):
 
     def codes(unit, pos, u):
         xv = x[unit, pos.clamp(max=d - 1)]
-        c = ref.qsgd_codes_ref(xv, u, nrm[unit], levels)
-        return torch.where(pos < d, c, 0)
+        return torch.where(pos < d, code(unit, xv, u), 0)
 
     def store(unit, q, chunk):
         words = ref.pack_fields_tile(chunk[None], width)[0]
@@ -127,7 +129,9 @@ def test_pack_work_split_writes_each_word_once(d, width, levels):
     x, keys = _inputs(2, d, seed=d + width)
     k0, k1 = _key_words(keys)
     nrm = torch.linalg.vector_norm(x, dim=1) + 1e-12
-    got, writes = _mirror_pack(x, k0, k1, nrm, levels, width)
+    from repro_torch.kernels.ref import qsgd_codes_ref
+    got, writes = _mirror_pack(x, k0, k1, width, lambda unit, xv, u:
+                               qsgd_codes_ref(xv, u, nrm[unit], levels))
     assert bool((writes == 1).all())
     assert torch.equal(got, qsgd_pack_plain(x, k0, k1, nrm, levels, width))
 
