@@ -38,16 +38,21 @@ error:
      MAX_BUCKETS + 8 buckets in two, on units of the edge dimensions
      (TernGrad inputs holding -0.0 and NaN; bits on sign and random
      words, and on words 4 bytes past a 16-byte boundary), grouped and one
-     bucket at a time
+     bucket at a time; the grouped TernGrad and signSGD unpacks
+     (terngrad_unpack_buckets / sign_unpack_buckets, the tile walk of
+     csrc/unpack_tile.cuh they share with the QSGD and bit unpacks)
+     bitwise against the per-bucket plain twins on packed and random words
+     on the same groups and on words 4 bytes past a 16-byte boundary,
+     grouped and one bucket at a time
   4. the main path: train_cnn on resnet9 with QSGD(16) layerwise and
      entire_model, TernGrad, signSGD, natural, top-k(1%) and random-k(1%)
      layerwise, top-k entire_model, and adaptive threshold layerwise (the
      sim path: no launches); launch counters reset before and read after
-     each run and held to exact per-step counts (QSGD: one pack and one
-     unpack launch a step for all its buckets; TernGrad and signSGD: one
-     pack launch a step and one unpack a bucket; natural and sparse: one
-     field pack and one field unpack launch a step); the wire buffers of one
-     step built with the kernels equal those built with the plain
+     each run and held to exact per-step counts (QSGD, TernGrad and
+     signSGD: one pack and one unpack launch a step for all their
+     buckets; natural and sparse: one field pack and one field unpack
+     launch a step); the wire buffers of one step built with the kernels
+     equal those built with the plain
      versions (QSGD / TernGrad on the card's own statistics; signSGD,
      natural and top-k against the whole path run on the CPU); one
      error-feedback aggregation each for QSGD and top-k through the
@@ -56,8 +61,8 @@ error:
      and the stress shape, beside the byte and operation bounds: device
      time from CUDA-event timed replays of a CUDA graph of 20 calls
      (`ms`, `plain_ms`), and the per-call time of the same calls issued
-     back to back from Python (`call_ms`, host enqueue included); QSGD's
-     pack and unpack, the TernGrad and sign packs, the bit unpack and the
+     back to back from Python (`call_ms`, host enqueue included); the
+     QSGD, TernGrad and sign packs and unpacks, the bit unpack and the
      field pack / unpack (natural's legs and the top-k index legs) also as
      the step's one grouped launch
      (layerwise_step_grouped, the kernel line's time), a layerwise step's
@@ -182,8 +187,8 @@ FIELD_EDGE_KS = (1, 2, 31, 32, 33, 100, 1025, 2047, 2048, 2049, 4095, 4096,
 PACK_EDGE_DIMS = (1, 2, 3, 31, 32, 33, 61, 62, 63, 64, 65, 479, 480, 481,
                   511, 513, 957, 959, 960, 961, 962, 1025, 1919, 1921, 2049,
                   65537)
-# unit dimensions at the grouped sign pack's, QSGD unpack's and bit
-# unpack's chunk (32) and tile (2,048) edges
+# unit dimensions at the grouped sign pack's and the unpack walk's chunk
+# (32) and tile (2,048) edges
 GROUPED_EDGE_DIMS = (1, 2, 31, 32, 33, 2047, 2048, 2049, 4097, 65537)
 BLOCK = 65536
 # (int32, fp32) operations per element of the compress-only kernels: QSGD
@@ -685,15 +690,87 @@ def check_grouped_sign_unpack(layer_shapes, dev):
     return tuple(err)
 
 
+def check_grouped_decode(layer_shapes, dev):
+    """The grouped TernGrad and signSGD unpacks (terngrad_unpack_buckets /
+    sign_unpack_buckets, the tile walk of csrc/unpack_tile.cuh) vs the
+    per-bucket plain twins, bitwise, and each group's exact launches: the
+    11 layerwise buckets (one launch), MAX_BUCKETS + 8 buckets (two), units
+    of GROUPED_EDGE_DIMS, and words that start 4 bytes past a 16-byte
+    boundary. Each decodes the words packed from the same units (the
+    grouped packs) and random words (at width 2 they hold code 3, which
+    the pack never emits). The edge and misaligned units also go one
+    bucket at a time. -> max |err| of (terngrad_unpack, sign_unpack)."""
+    import torch
+    from repro_torch.kernels import qsgd as Q
+    from repro_torch.kernels import sign as S
+    from repro_torch.kernels import terngrad as T
+    from repro_torch.kernels.ref import words_per_unit
+    groups = {"layerwise": layer_shapes,
+              "over_max_buckets": [(1 + i % 3, 17 + 61 * i)
+                                   for i in range(Q.MAX_BUCKETS + 8)],
+              "edges": [(3, d) for d in GROUPED_EDGE_DIMS],
+              "misaligned": [(3, d) for d in (1024, 4608, 100, 2049)]}
+    err = [0.0, 0.0]
+
+    def shift(t):                           # 4 bytes past a 16-byte boundary
+        v = torch.cat([t.reshape(-1)[:1], t.reshape(-1)])[1:].view(t.shape)
+        check(v.data_ptr() % 16 == 4, "misaligned input is aligned")
+        return v
+
+    for gi, (gname, shapes) in enumerate(groups.items()):
+        one = gname in ("edges", "misaligned")
+        ins = [make_inputs(s, 2500 + 64 * gi + i, dev)
+               for i, s in enumerate(shapes)]
+        xs = [x for x, _, _ in ins]
+        scs = [x.abs().amax(dim=1) + 1e-12 for x in xs]
+        dims = [d for _, d in shapes]
+        tern = {"packed": T.terngrad_pack_buckets(
+                    xs, [k0 for _, k0, _ in ins], [k1 for _, _, k1 in ins],
+                    scs),
+                "random": [make_words(n, words_per_unit(d, 2),
+                                      2600 + 64 * gi + i, dev)
+                           for i, (n, d) in enumerate(shapes)]}
+        signs = {"packed": S.sign_pack_buckets(xs),
+                 "random": [make_words(n, words_per_unit(d, 1),
+                                       2700 + 64 * gi + i, dev)
+                            for i, (n, d) in enumerate(shapes)]}
+        if gname == "misaligned":
+            tern = {k: [shift(w) for w in v] for k, v in tern.items()}
+            signs = {k: [shift(w) for w in v] for k, v in signs.items()}
+        for kind in ("packed", "random"):
+            got = launched(T.terngrad_unpack,
+                           lambda: T.terngrad_unpack_buckets(tern[kind], scs,
+                                                             dims),
+                           len(shapes), gname)
+            for g, w, sc, d in zip(got, tern[kind], scs, dims):
+                want = T.terngrad_unpack_plain(w, sc, d)
+                what = f"{gname} {kind} {tuple(w.shape)}"
+                err[0] = max(err[0], max_abs_err(g, want))
+                check(bitwise_equal(g, want),
+                      f"terngrad_unpack grouped {what}")
+                if one:
+                    check(bitwise_equal(T.terngrad_unpack(w, sc, d), want),
+                          f"terngrad_unpack {what}")
+            got = launched(S.sign_unpack, lambda: S.sign_unpack_buckets(
+                signs[kind], dims), len(shapes), gname)
+            for g, w, d in zip(got, signs[kind], dims):
+                want = S.sign_unpack_plain(w, d)
+                what = f"{gname} {kind} {tuple(w.shape)}"
+                err[1] = max(err[1], max_abs_err(g, want))
+                check(bitwise_equal(g, want), f"sign_unpack grouped {what}")
+                if one:
+                    check(bitwise_equal(S.sign_unpack(w, d), want),
+                          f"sign_unpack {what}")
+    torch.cuda.synchronize()
+    return tuple(err)
+
+
 # ---- phase 4: the main path -------------------------------------------------
 
 def main_path_runs(dev):
     """train_cnn runs, each held to exact launch counts: per step, one pack
-    and one unpack launch of the codec's kernel family per bucket (11
-    layerwise, 1 entire-model), except QSGD's pack and unpack, the
-    TernGrad and sign packs and the natural and sparse codecs' field pack
-    and unpack, one launch a step for all their buckets; none of any
-    other kernel, and
+    and one unpack launch of the codec's kernel family for all its buckets
+    (11 layerwise, 1 entire-model); none of any other kernel, and
     none at all for adaptive threshold (its records are not sim-exact, so
     train_step takes the sim path, as the reference's train_cnn always
     does)."""
@@ -707,17 +784,17 @@ def main_path_runs(dev):
     import torch
     topk = TopK(ratio=SPARSE_RATIO)
     # launches a step: a step encodes every bucket in one call, then
-    # decodes every bucket in one call. The fused QSGD codec packs all its
-    # buckets (11 <= MAX_BUCKETS) in one launch and unpacks them in one
-    # (qsgd_pack_buckets / qsgd_unpack_buckets); the TernGrad and signSGD
-    # codecs pack them in one launch (terngrad_pack_buckets /
-    # sign_pack_buckets) and unpack one launch a bucket; the natural and
-    # sparse codecs pack and unpack all their buckets in one launch each
+    # decodes every bucket in one call. The fused QSGD, TernGrad and
+    # signSGD codecs pack all their buckets (11 <= MAX_BUCKETS) in one
+    # launch and unpack them in one (qsgd_pack_buckets /
+    # qsgd_unpack_buckets, terngrad_pack_buckets / terngrad_unpack_buckets,
+    # sign_pack_buckets / sign_unpack_buckets); the natural and sparse
+    # codecs pack and unpack all their buckets in one launch each
     # (fields_pack_buckets / fields_unpack_buckets); an entire-model step
     # has one bucket. Over STEPS = 20 steps: QSGD layerwise qsgd_pack
     # 1 x 20 = 20 and qsgd_unpack 1 x 20 = 20, QSGD entire-model 20 / 20;
     # TernGrad layerwise terngrad_pack 1 x 20 = 20 and terngrad_unpack
-    # 11 x 20 = 220; signSGD layerwise sign_pack 20 and sign_unpack 220;
+    # 1 x 20 = 20; signSGD layerwise sign_pack 20 and sign_unpack 20;
     # natural, top-k and random-k layerwise and top-k entire-model 20
     # fields_pack and 20 fields_unpack each
     fields = {"fields_pack": 1, "fields_unpack": 1}
@@ -726,9 +803,9 @@ def main_path_runs(dev):
             ("qsgd16_entire_model", QSGD(levels=MAIN_LEVELS), "entire_model",
              {"qsgd_pack": 1, "qsgd_unpack": 1}),
             ("terngrad_layerwise", TernGrad(), "layerwise",
-             {"terngrad_pack": 1, "terngrad_unpack": 11}),
+             {"terngrad_pack": 1, "terngrad_unpack": 1}),
             ("signsgd_layerwise", SignSGD(), "layerwise",
-             {"sign_pack": 1, "sign_unpack": 11}),
+             {"sign_pack": 1, "sign_unpack": 1}),
             ("natural_layerwise", NaturalCompression(), "layerwise", fields),
             ("topk1_layerwise", topk, "layerwise", fields),
             ("randomk1_layerwise", RandomK(ratio=SPARSE_RATIO), "layerwise",
@@ -1035,12 +1112,13 @@ def grouped_row(kernel, leg, width, buckets, kern, plain):
 
 
 def time_grouped_wire(layer_shapes, dev):
-    """Rows of group layerwise_step_grouped for the QSGD pack and unpack,
-    the TernGrad and sign packs and the bit unpack: ONE launch over the 11
+    """Rows of group layerwise_step_grouped for the QSGD, TernGrad and
+    sign packs and unpacks and the bit unpack: ONE launch over the 11
     layerwise buckets x 4 workers (qsgd_pack_buckets, qsgd_unpack_buckets
-    at width 6, terngrad_pack_buckets, sign_pack_buckets, and
-    bits_unpack_buckets on the sign words, the allgather receive leg's
-    decode), on the same inputs as time_kernels' one-bucket rows."""
+    at width 6, terngrad_pack_buckets, terngrad_unpack_buckets,
+    sign_pack_buckets, sign_unpack_buckets, and bits_unpack_buckets on the
+    sign words, the allgather receive leg's decode), on the same inputs as
+    time_kernels' one-bucket rows."""
     import torch
     from repro_torch.kernels import pack as P
     from repro_torch.kernels import qsgd as Q
@@ -1056,6 +1134,7 @@ def time_grouped_wire(layer_shapes, dev):
     words = Q.qsgd_pack_buckets(xs, k0s, k1s, nrms, MAIN_LEVELS, MAIN_WIDTH)
     buckets = [(n, d, MAIN_WIDTH) for n, d in layer_shapes]
     scs = [x.abs().amax(dim=1) + 1e-12 for x in xs]
+    terns = T.terngrad_pack_buckets(xs, k0s, k1s, scs)
     signs = S.sign_pack_buckets(xs)
     return [
         grouped_row("qsgd_pack", f"{len(xs)} buckets", MAIN_WIDTH, buckets,
@@ -1075,10 +1154,20 @@ def time_grouped_wire(layer_shapes, dev):
                     lambda: T.terngrad_pack_buckets(xs, k0s, k1s, scs),
                     lambda: [T.terngrad_pack_plain(x, k0, k1, sc)
                              for x, k0, k1, sc in zip(xs, k0s, k1s, scs)]),
+        grouped_row("terngrad_unpack", f"{len(xs)} buckets", 2,
+                    [(n, d, 2) for n, d in layer_shapes],
+                    lambda: T.terngrad_unpack_buckets(terns, scs, dims),
+                    lambda: [T.terngrad_unpack_plain(w, sc, d)
+                             for w, sc, d in zip(terns, scs, dims)]),
         grouped_row("sign_pack", f"{len(xs)} buckets", 1,
                     [(n, d, 1) for n, d in layer_shapes],
                     lambda: S.sign_pack_buckets(xs),
                     lambda: [S.sign_pack_plain(x) for x in xs]),
+        grouped_row("sign_unpack", f"{len(xs)} buckets", 1,
+                    [(n, d, 1) for n, d in layer_shapes],
+                    lambda: S.sign_unpack_buckets(signs, dims),
+                    lambda: [S.sign_unpack_plain(w, d)
+                             for w, d in zip(signs, dims)]),
         grouped_row("bits_unpack", f"{len(xs)} buckets", 1,
                     [(n, d, 1) for n, d in layer_shapes],
                     lambda: P.bits_unpack_buckets(signs, dims),
@@ -1536,10 +1625,10 @@ def gate_unit_codecs(rank, n, dev, params, wg):
                 msgs += 1
     # launches over the 10 (codec, granularity) pairs, each run fused and
     # per-unit with a local decode: B = 11 buckets layerwise + 1
-    # entire-model = 12. Fused QSGD packs in 1 launch and unpacks in 1 a
-    # granularity (qsgd_pack 2, qsgd_unpack 2); fused TernGrad and signSGD
-    # pack in 1 a granularity (terngrad_pack 2, sign_pack 2) and unpack in
-    # B (terngrad_unpack 12, sign_unpack 12); the per-unit codecs encode
+    # entire-model = 12. Fused QSGD, TernGrad and signSGD each pack in 1
+    # launch and unpack in 1 a granularity (qsgd_pack 2, qsgd_unpack 2,
+    # terngrad_pack 2, terngrad_unpack 2, sign_pack 2, sign_unpack 2); the
+    # per-unit codecs encode
     # one bucket a launch (QSGD and TernGrad fields_pack 12 each, signSGD
     # bits_pack 12) and decode every bucket of a granularity in one
     # decode_rows_buckets launch (QSGD and TernGrad fields_unpack 2 each,
@@ -1548,7 +1637,7 @@ def gate_unit_codecs(rank, n, dev, params, wg):
     # apiece): fields_pack 12 + 12 + 4 + 4 = 32, fields_unpack 2 + 2 + 4 +
     # 4 = 12
     want = {"qsgd_pack": 2, "qsgd_unpack": 2, "terngrad_pack": 2,
-            "terngrad_unpack": 12, "sign_pack": 2, "sign_unpack": 12,
+            "terngrad_unpack": 2, "sign_pack": 2, "sign_unpack": 2,
             "bits_pack": 12, "bits_unpack": 2, "fields_pack": 32,
             "fields_unpack": 12}
     counts = kernels.launch_counts()
@@ -1662,14 +1751,14 @@ def gather_timing(rank, n, dev, nbytes_list):
 # execute_schedule_wire calls (with a local decode), all layerwise, for
 # the integrity words. wire=False launches nothing (sim and records in
 # plain torch). A wire call encodes once (one grouped launch for every
-# codec), decodes locally under simulated and EF (QSGD, natural, top-k:
-# one grouped launch; TernGrad and signSGD: one a bucket), and under
-# allgather decodes the gathered rows of all its buckets with the per-unit
-# codec in one decode_rows_buckets call (one fields_unpack, or bits_unpack
-# for signSGD, a call). So:
+# codec), decodes locally under simulated and EF in one grouped launch for
+# every codec, and under allgather decodes the gathered rows of all its
+# buckets with the per-unit codec in one decode_rows_buckets call (one
+# fields_unpack, or bits_unpack for signSGD, a call). So:
 #   qsgd_pack 4 + 2 (EF) + 3 = 9; qsgd_unpack 2 + 2 (EF) + 2 = 6;
-#   terngrad_pack 4 + 3 = 7; terngrad_unpack and sign_unpack 12 + 2 x 11
-#   = 34; sign_pack 4 + 3 = 7; fields_pack natural 4 + 3, top-k 4 + 2 + 3
+#   terngrad_pack 4 + 3 = 7; terngrad_unpack and sign_unpack each 1 + 1
+#   (simulated wire, a granularity) + 2 x 1 (the two execute_schedule_wire
+#   calls) = 4; sign_pack 4 + 3 = 7; fields_pack natural 4 + 3, top-k 4 + 2 + 3
 #   = 16; fields_unpack local natural 2 + 2 and top-k 2 + 2 + 2, gathered
 #   rows 3 calls x 4 codecs + 2 (EF) = 10 + 12 + 2 = 24; bits_unpack
 #   2 + 1 = 3.
@@ -1677,8 +1766,8 @@ def gather_timing(rank, n, dev, nbytes_list):
 # fused (majority 12) and non-fused (bits_unpack 12, bits_pack 12).
 GATE_LAUNCHES = {
     "fixed_gradients": {"qsgd_pack": 9, "qsgd_unpack": 6,
-                        "terngrad_pack": 7, "terngrad_unpack": 34,
-                        "sign_pack": 7, "sign_unpack": 34, "fields_pack": 16,
+                        "terngrad_pack": 7, "terngrad_unpack": 4,
+                        "sign_pack": 7, "sign_unpack": 4, "fields_pack": 16,
                         "fields_unpack": 24, "bits_unpack": 3},
     "majority": {"sign_pack": 12, "majority": 12, "bits_unpack": 12,
                  "bits_pack": 12}}
@@ -1898,6 +1987,13 @@ def compress_path(dev):
 
 
 
+# per wire kernel: its source and the TPU kernel it replaces. The C entry
+# points: qsgd_pack_buckets / qsgd_unpack_buckets, terngrad_pack_buckets /
+# terngrad_unpack_buckets, sign_pack_buckets / sign_unpack_buckets,
+# fields_pack_buckets / fields_unpack_buckets, bits_pack,
+# bits_unpack_buckets and majority; every unpack but fields_unpack is the
+# tile walk of csrc/unpack_tile.cuh, the QSGD and TernGrad packs that of
+# csrc/hash_pack.cuh
 SOURCES = {
     "qsgd_pack": ("src/repro_torch/kernels/csrc/qsgd.cu",
                   "src/repro/kernels/qsgd.py:122"),
@@ -1941,7 +2037,9 @@ LINE_GROUP = {"qsgd_compress_rows": "compress_layerwise",
               "qsgd_pack": "layerwise_step_grouped",
               "qsgd_unpack": "layerwise_step_grouped",
               "terngrad_pack": "layerwise_step_grouped",
+              "terngrad_unpack": "layerwise_step_grouped",
               "sign_pack": "layerwise_step_grouped",
+              "sign_unpack": "layerwise_step_grouped",
               "bits_unpack": "layerwise_step_grouped",
               "fields_pack": "layerwise_step_grouped",
               "fields_unpack": "layerwise_step_grouped"}
@@ -1950,9 +2048,9 @@ LINE_GROUP = {"qsgd_compress_rows": "compress_layerwise",
 def kernel_line(timings, launches, errs):
     """The per-kernel summary. Wire kernels: device ms / plain_ms /
     bound_ms summed over one layerwise main-path step (the 11 resnet9
-    buckets x 4 workers; qsgd_pack, qsgd_unpack, terngrad_pack, sign_pack
-    and bits_unpack the step's one grouped launch, the fields kernels
-    theirs on natural compression's 9-bit code legs).
+    buckets x 4 workers; every wire kernel but bits_pack and majority the
+    step's one grouped launch, the fields kernels theirs on natural
+    compression's 9-bit code legs).
     Compress-only
     kernels: summed over their LINE_GROUP rows (one layerwise
     plan_compress call of QSGD(16) / TernGrad, top-k (k=5)
@@ -2081,6 +2179,16 @@ def main(argv) -> int:
           f"two, units of d in {list(GROUPED_EDGE_DIMS)} and inputs 4 bytes "
           f"past a 16-byte boundary, grouped and one at a time; max abs err "
           f"{serr}", flush=True)
+    derr = check_grouped_decode(layer_shapes, dev)
+    errs["terngrad_unpack"] = max(errs["terngrad_unpack"], derr[0])
+    errs["sign_unpack"] = max(errs["sign_unpack"], derr[1])
+    print(f"grouped terngrad_unpack / sign_unpack (the unpack tile walk): "
+          f"bitwise equal to the per-bucket plain twins on packed and "
+          f"random words on the 11 layerwise buckets in one launch, "
+          f"MAX_BUCKETS + 8 buckets in two, units of d in "
+          f"{list(GROUPED_EDGE_DIMS)} and words 4 bytes past a 16-byte "
+          f"boundary, grouped and one at a time; max abs err {derr}",
+          flush=True)
     unit_shapes = [(n // WORKERS, d) for n, d in layer_shapes]
     cshapes = layer_shapes + [(1, em_shape[1]), (1, MICRO)]
     cerrs = check_compress_kernels(cshapes, dev)

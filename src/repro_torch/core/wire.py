@@ -23,11 +23,10 @@ Two implementations of each format, byte-identical:
             rows instead (the reference's legacy fallback).
   grouped   `encode_buckets` / `decode_buckets` / `decode_ef_buckets` of
             every bucket of a step: one pack and one unpack launch for all
-            of them under the fused QSGD codec and the natural and sparse
-            codecs (whose per-unit and fused formats are one path), one
-            pack launch under the fused signSGD and TernGrad codecs (their
-            fused decode is one launch a bucket), and under fused=False
-            the per-unit encode per bucket and `decode_rows_buckets`.
+            of them under the fused QSGD, TernGrad and signSGD codecs and
+            the natural and sparse codecs (whose per-unit and fused
+            formats are one path), and under fused=False the per-unit
+            encode per bucket and `decode_rows_buckets`.
 
 Formats (little-endian; field i of a packed leg sits at bit i*width of
 its unit's uint32 words, each leg padded to a whole word):
@@ -421,14 +420,27 @@ class TernGradCodec(WireCodec):
     def decode_batch(self, payloads, d: int):
         if not self.fused:
             return self.decode_rows(payloads, d)
-        s, w = _split(payloads)
-        return ops.terngrad_unpack_units(w, s, d)
+        return self.decode_buckets([payloads], [d])[0]
 
     def decode_ef_batch(self, payloads, e2d, d: int):
         if not self.fused:
             return super().decode_ef_batch(payloads, e2d, d)
         s, w = _split(payloads)
         return ops.terngrad_unpack_ef_units(w, s, e2d, d)
+
+    def decode_buckets(self, payloads_list, dims):
+        """Fused: one unpack launch for all the buckets (up to
+        MAX_BUCKETS)."""
+        if not self.fused:
+            return super().decode_buckets(payloads_list, dims)
+        splits = [_split(p) for p in payloads_list]
+        return ops.terngrad_unpack_units_buckets(
+            [w for _, w in splits], [s for s, _ in splits], dims)
+
+    def decode_ef_buckets(self, payloads_list, es, dims):
+        if not self.fused:
+            return super().decode_ef_buckets(payloads_list, es, dims)
+        return _ef_pairs(self.decode_buckets(payloads_list, dims), es)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -467,13 +479,26 @@ class SignSGDCodec(WireCodec):
     def decode_batch(self, payloads, d: int):
         if not self.fused:
             return self.decode_rows(payloads, d)
-        return ops.sign_unpack_units(_u8_rows_to(payloads, torch.int32), d)
+        return self.decode_buckets([payloads], [d])[0]
 
     def decode_ef_batch(self, payloads, e2d, d: int):
         if not self.fused:
             return super().decode_ef_batch(payloads, e2d, d)
         return ops.sign_unpack_ef_units(_u8_rows_to(payloads, torch.int32),
                                         e2d, d)
+
+    def decode_buckets(self, payloads_list, dims):
+        """Fused: one unpack launch for all the buckets (up to
+        MAX_BUCKETS)."""
+        if not self.fused:
+            return super().decode_buckets(payloads_list, dims)
+        return ops.sign_unpack_units_buckets(
+            [_u8_rows_to(p, torch.int32) for p in payloads_list], dims)
+
+    def decode_ef_buckets(self, payloads_list, es, dims):
+        if not self.fused:
+            return super().decode_ef_buckets(payloads_list, es, dims)
+        return _ef_pairs(self.decode_buckets(payloads_list, dims), es)
 
     def majority_vote(self, payloads, d: int) -> torch.Tensor:
         """(n_workers, ..., nbytes(d)) packed payloads -> (..., nbytes(d)):
@@ -840,7 +865,7 @@ def _execute_wire(schedule, codec, grads, state, key, post, wire_key,
         regions += [_bucket_region(buf, layout, j, plan.buckets[bi].n)
                     for j, bi in enumerate(msg.bucket_ids)]
     # decode every bucket of the step in one call (one unpack launch under
-    # the fused QSGD, natural and sparse codecs and every per-unit codec),
+    # every fused codec with a kernel and every per-unit codec),
     # then post in bucket order, so collectives inside post keep their
     # order, and scatter
     dims = [b.dim for b in bs]

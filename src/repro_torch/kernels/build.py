@@ -36,11 +36,11 @@ SIGNATURES = {
     # count, the pointer array, the size array, blocks, levels, width
     "qsgd_pack_buckets": [_I, _P, _P, _I, _I, _I, _I, _P],
     "qsgd_unpack_buckets": [_I, _P, _P, _I, _I, _I, _I, _P],
-    "terngrad_unpack": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "sign_unpack": [_P, _P, _I, _I, _I, _I, _P],
     # count, the pointer array, the size array, blocks
     "terngrad_pack_buckets": [_I, _P, _P, _I, _I, _P],
+    "terngrad_unpack_buckets": [_I, _P, _P, _I, _I, _P],
     "sign_pack_buckets": [_I, _P, _P, _I, _I, _P],
+    "sign_unpack_buckets": [_I, _P, _P, _I, _I, _P],
     "fields_pack_buckets": [_I, _P, _P, _I, _I, _P],
     "fields_unpack_buckets": [_I, _P, _P, _I, _I, _P],
     "bits_pack": [_P, _P, _I, _I, _I, _I, _P],

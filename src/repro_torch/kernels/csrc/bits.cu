@@ -21,48 +21,27 @@
 // Design. Pack runs one warp per output word; each lane loads one int32
 // (coalesced) and __ballot_sync assembles the word, which lane 0 writes
 // (csrc/sign.cu's sign_pack with `bit != 0` for `x >= 0`).
-//   Unpack is grouped over the buckets of a step: a table of up to
-// kMaxBuckets buckets (words and out pointers, n, d, words and tiles per
-// unit, and each bucket's first block, a prefix sum built by the caller,
-// kernels/qsgd.py grouped_table) travels by value as a __grid_constant__
-// kernel parameter (grouped.cuh), so one launch decodes every bucket of a
-// step, the allgather receive leg's gathered rows of every bucket
-// included. A block finds its bucket by a scan over the block starts, then
-// its unit and tile with one 32-bit divide; no 64-bit divide remains. A
-// tile is kTileWords = 64 words of one unit (2,048 bits), so no word is
-// read across tiles. A block of 256 threads stages the tile's words in
-// shared memory with coalesced loads, then writes the tile's bits as int32
-// {0, 1}, coalesced: from the first 16-byte boundary of the tile's output
-// on, four consecutive bits (a funnel shift of the two words that hold
-// them) as one 16-byte store, so a row of any d and alignment is stored in
-// vectors but for at most 3 bits at each end of a tile. The one-bucket unpack
-// is the same launch with one entry. A layerwise resnet9 step on 4 ranks
-// is 68 tiles a worker, the stress shape 2,052.
+//   Unpack is grouped over the buckets of a step: the tile walk of
+// unpack_tile.cuh (shared with the QSGD, TernGrad and signSGD unpacks) at
+// width 1 with the emit bit -> int32 {0, 1}. A table of up to 32 buckets
+// travels by value as a __grid_constant__ kernel parameter, so one launch
+// decodes every bucket of a step, the allgather receive leg's gathered
+// rows of every bucket included; a block finds its unit and tile with one
+// 32-bit divide. A tile is 64 words of one unit (2,048 bits) staged in
+// shared memory with coalesced loads plus a zero word; from the first
+// 16-byte boundary of the tile's output on, four bits (a funnel shift of
+// the two words that hold them) leave as one 16-byte store, so a row of
+// any d and alignment is stored in vectors but for at most 3 bits at each
+// end of a tile. The one-bucket unpack is the same launch with one entry.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "grouped.cuh"
+#include "unpack_tile.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;  // warps (output words) per pack block
-constexpr int kThreads = 256;                 // unpack block
-constexpr int kTileWords = 64;                // words an unpack tile owns
-constexpr int kTileBits = 32 * kTileWords;    // kernels/pack.py TILE_BITS
-constexpr int kMaxBuckets = 32;               // kernels/qsgd.py MAX_BUCKETS
-
-struct BitsBucket {
-  const uint32_t* words;  // (n, wpu) words
-  int32_t* out;           // (n, d) bits
-  int n, d, wpu, tiles;   // tiles per unit
-};
-
-struct BitsTable {
-  int block_start[kMaxBuckets];  // each bucket's first block in the launch
-  BitsBucket b[kMaxBuckets];
-  int count;
-};
 
 __global__ void bits_pack_kernel(const int32_t* __restrict__ bits,
                                  uint32_t* __restrict__ out, int n, int d,
@@ -79,54 +58,17 @@ __global__ void bits_pack_kernel(const int32_t* __restrict__ bits,
   if (lane == 0) out[g] = w;
 }
 
-// Bit p of the staged words, as an int32 {0, 1}.
-__device__ __forceinline__ int32_t bit_at(const uint32_t* words, int p) {
-  return static_cast<int32_t>((words[p >> 5] >> (p & 31)) & 1u);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    bits_unpack_kernel(const __grid_constant__ BitsTable t) {
-  __shared__ uint32_t words[kTileWords + 1];  // + a zero word past the tile
-  const int k = repro::bucket_of(t.block_start, t.count);
-  const BitsBucket& b = t.b[k];
-  const int local = static_cast<int>(blockIdx.x) - t.block_start[k];
-  const int unit = local / b.tiles;
-  const int tile = local - unit * b.tiles;
-  const int w0 = tile * kTileWords;              // the tile's first word
-  const int nw = min(kTileWords, b.wpu - w0);
-
-  // 1. stage the tile's words, coalesced
-  const uint32_t* src = b.words + static_cast<long long>(unit) * b.wpu + w0;
-  const int i = static_cast<int>(threadIdx.x);
-  if (i <= kTileWords) words[i] = i < nw ? __ldg(src + i) : 0u;
-  __syncthreads();
-
-  // 2. store the tile's bits, coalesced: from the first 16-byte boundary of
-  //    the tile's output on, four bits (one funnel shift of the two words
-  //    that hold them) as one 16-byte store; the up to 3 bits before that
-  //    boundary and the up to 3 after the last whole vector one 4-byte
-  //    store each
-  const int f0 = tile * kTileBits;
-  const int nf = min(kTileBits, b.d - f0);
-  int32_t* dst = b.out + static_cast<long long>(unit) * b.d + f0;
-  const int head = min(
-      nf, static_cast<int>((16u - (reinterpret_cast<uintptr_t>(dst) & 15u)) &
-                           15u) >> 2);
-  const int nv = (nf - head) >> 2;
-  int4* vec = reinterpret_cast<int4*>(dst + head);
-  for (int v = i; v < nv; v += kThreads) {
-    const int p = head + 4 * v;
-    const uint32_t q =
-        __funnelshift_r(words[p >> 5], words[(p >> 5) + 1], p & 31);
-    vec[v] = make_int4(static_cast<int32_t>(q & 1u),
-                       static_cast<int32_t>((q >> 1) & 1u),
-                       static_cast<int32_t>((q >> 2) & 1u),
-                       static_cast<int32_t>((q >> 3) & 1u));
+// The emit of the bit unpack: the bit itself, as an int32.
+struct Bit01 {
+  static constexpr bool kFactor = false;
+  __device__ __forceinline__ int32_t operator()(uint32_t bit, float) const {
+    return static_cast<int32_t>(bit);
   }
-  const int tail = head + 4 * nv;  // nf - tail <= 3
-  if (i < head) dst[i] = bit_at(words, i);
-  const int r = tail + i - 4;     // threads 4..6 store the tail
-  if (i >= 4 && r < nf) dst[r] = bit_at(words, r);
+};
+
+__global__ void __launch_bounds__(repro::kUnpackThreads)
+    bits_unpack_kernel(const __grid_constant__ repro::UnpackTable t) {
+  repro::unpack_tile<1>(t, 1, Bit01{});
 }
 
 }  // namespace
@@ -148,29 +90,21 @@ extern "C" int bits_pack(const void* bits, void* out, int n, int d, int wpu,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bits_unpack_buckets: `count` (1..kMaxBuckets) buckets. `ptrs` holds their
+// bits_unpack_buckets: `count` (1..kUnpackMaxBuckets) buckets. `ptrs` holds their
 // words and out pointers, `count` of each in that order; `sizes` their n,
 // d, wpu, tiles per unit and first block, `count` of each, as
 // kernels/qsgd.py grouped_table computes them at width 1 over
-// kernels/pack.py bits_tiles; `blocks` in all (0 launches nothing).
+// unpack_tiles; `blocks` in all (0 launches nothing).
 extern "C" int bits_unpack_buckets(int count, void* const* ptrs,
                                    const int* sizes, int blocks, int device,
                                    void* stream) {
-  if (count < 1 || count > kMaxBuckets)
+  if (count < 1 || count > repro::kUnpackMaxBuckets)
     return static_cast<int>(cudaErrorInvalidValue);
   if (blocks == 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  BitsTable t;
-  t.count = count;
-  for (int i = 0; i < count; ++i) {
-    t.b[i] = BitsBucket{static_cast<const uint32_t*>(ptrs[i]),
-                        static_cast<int32_t*>(ptrs[count + i]), sizes[i],
-                        sizes[count + i], sizes[2 * count + i],
-                        sizes[3 * count + i]};
-    t.block_start[i] = sizes[4 * count + i];
-  }
-  bits_unpack_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(t);
+  const repro::UnpackTable t = repro::unpack_table(count, ptrs, sizes, false);
+  bits_unpack_kernel<<<static_cast<unsigned>(blocks), repro::kUnpackThreads,
+                       0, static_cast<cudaStream_t>(stream)>>>(t);
   return static_cast<int>(cudaGetLastError());
 }

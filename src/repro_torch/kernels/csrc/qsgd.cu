@@ -26,19 +26,13 @@
 // within one wave of the card. The one-bucket pack is the same launch with
 // one entry.
 //
-// Unpack is grouped the same way (its own table: words, factor and out
-// pointers, n, d, words and tiles per unit, first blocks; levels and width
-// one per launch), and a block finds its unit and tile with one 32-bit
-// divide. A tile is kUnpackChunks = 64 consecutive 32-code chunks of one
-// unit (2,048 codes); a chunk spans exactly `width` words, so the tile's
-// 64 x width words are contiguous in their row and no element has two
-// writers. A block of 256 threads stages the tile's words in shared memory
-// with coalesced 4-byte loads, reads its unit's factor once, then each
-// thread extracts codes from shared memory (fields.cuh extract_field,
-// 32-bit) and stores (code - levels) * fac coalesced, four consecutive
-// elements as one 16-byte store where the output row is 16-byte aligned
-// (d % 4 == 0 and an aligned base). A layerwise resnet9 step is 68 tiles a
-// worker, the stress shape (4 x 1,048,579) 2,052.
+// Unpack: the tile walk of unpack_tile.cuh (shared with the TernGrad,
+// bit and signSGD unpacks) with the emit (code - levels) * fac, grouped the
+// same way (its own table: words, fac and out pointers, n, d, words and
+// tiles per unit, first blocks; levels and width one per launch). A tile
+// is 64 chunks of 32 codes, its 64 x width words staged in shared memory
+// with coalesced loads; the values leave as 16-byte stores at any row
+// alignment, four codes a funnel shift at width <= 8.
 //
 // Numerics: y = |x| / nrm * levels needs an IEEE divide and no FMA
 // contraction, so the arithmetic uses the _rn intrinsics and the file is
@@ -48,30 +42,13 @@
 
 #include <cstdint>
 
-#include "fields.cuh"
-#include "grouped.cuh"
 #include "hash_pack.cuh"
+#include "unpack_tile.cuh"
 
 namespace {
 
 constexpr int kMaxBuckets = repro::kPackMaxBuckets;  // kernels/qsgd.py MAX_BUCKETS
-constexpr int kThreads = 256;                 // unpack block
-constexpr int kUnpackChunks = 64;             // 32-code chunks a tile
-constexpr int kUnpackTile = 32 * kUnpackChunks;  // kernels/qsgd.py TILE_CODES
 constexpr int kMaxUnpackWidth = 31;  // kernels/qsgd.py MAX_UNPACK_WIDTH
-
-struct UnpackBucket {
-  const uint32_t* words;  // (n, wpu) words
-  const float* fac;       // (n,) nrm / levels
-  float* out;             // (n, d) values
-  int n, d, wpu, tiles;   // tiles per unit
-};
-
-struct UnpackTable {
-  int block_start[kMaxBuckets];  // each bucket's first block in the launch
-  UnpackBucket b[kMaxBuckets];
-  int count;
-};
 
 // sign(x) * stochastic_round(|x| / nrm * levels) + levels, u the uniform.
 __device__ __forceinline__ uint32_t qsgd_code(float xv, float u, float nrm,
@@ -100,49 +77,10 @@ __global__ void __launch_bounds__(repro::kPackWarps * 32)
   repro::hash_pack_tile(t, QsgdCode{levels}, width);
 }
 
-// (code - levels) * fac of staged code p
-__device__ __forceinline__ float dequant(const uint32_t* words, int p,
-                                         int width, int levels, float fac) {
-  const uint32_t f = repro::extract_field(words, p, width);
-  return __fmul_rn(static_cast<float>(static_cast<int>(f) - levels), fac);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    qsgd_unpack_kernel(const __grid_constant__ UnpackTable t, int levels,
-                       int width) {
-  __shared__ uint32_t words[kUnpackChunks * kMaxUnpackWidth];
-  const int k = repro::bucket_of(t.block_start, t.count);
-  const UnpackBucket& b = t.b[k];
-  const int local = static_cast<int>(blockIdx.x) - t.block_start[k];
-  const int unit = local / b.tiles;
-  const int tile = local - unit * b.tiles;
-  const int w0 = tile * kUnpackChunks * width;   // the tile's first word
-  const int nw = min(kUnpackChunks * width, b.wpu - w0);
-  const uint32_t* src = b.words + static_cast<long long>(unit) * b.wpu + w0;
-
-  // 1. stage the tile's words, coalesced; a code < d reads no word past the
-  //    tile's last (64 chunks span exactly 64 * width words)
-  for (int i = threadIdx.x; i < nw; i += kThreads) words[i] = __ldg(src + i);
-  const float fac = __ldg(b.fac + unit);
-  __syncthreads();
-
-  // 2. extract, dequantize and store the tile's elements, coalesced
-  const int f0 = tile * kUnpackTile;
-  const int nf = min(kUnpackTile, b.d - f0);
-  float* dst = b.out + static_cast<long long>(unit) * b.d + f0;
-  if (b.d % 4 == 0 && repro::aligned16(b.out)) {  // nf % 4 == 0 here
-    for (int v = threadIdx.x; 4 * v < nf; v += kThreads) {
-      const int p = 4 * v;
-      reinterpret_cast<float4*>(dst)[v] = make_float4(
-          dequant(words, p, width, levels, fac),
-          dequant(words, p + 1, width, levels, fac),
-          dequant(words, p + 2, width, levels, fac),
-          dequant(words, p + 3, width, levels, fac));
-    }
-  } else {
-    for (int p = threadIdx.x; p < nf; p += kThreads)
-      dst[p] = dequant(words, p, width, levels, fac);
-  }
+__global__ void __launch_bounds__(repro::kUnpackThreads)
+    qsgd_unpack_kernel(const __grid_constant__ repro::UnpackTable t,
+                       int levels, int width) {
+  repro::unpack_tile<kMaxUnpackWidth>(t, width, repro::Dequant{levels});
 }
 
 }  // namespace
@@ -183,18 +121,9 @@ extern "C" int qsgd_unpack_buckets(int count, void* const* ptrs,
   if (blocks == 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  UnpackTable t;
-  t.count = count;
-  for (int i = 0; i < count; ++i) {
-    t.b[i] = UnpackBucket{static_cast<const uint32_t*>(ptrs[i]),
-                          static_cast<const float*>(ptrs[count + i]),
-                          static_cast<float*>(ptrs[2 * count + i]),
-                          sizes[i], sizes[count + i], sizes[2 * count + i],
-                          sizes[3 * count + i]};
-    t.block_start[i] = sizes[4 * count + i];
-  }
-  qsgd_unpack_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(t, levels,
-                                                            width);
+  const repro::UnpackTable t = repro::unpack_table(count, ptrs, sizes, true);
+  qsgd_unpack_kernel<<<static_cast<unsigned>(blocks), repro::kUnpackThreads,
+                       0, static_cast<cudaStream_t>(stream)>>>(t, levels,
+                                                               width);
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,8 +35,14 @@
 // keeps word r in lane r, and lanes 0-7 store the warp's 8 words: the
 // block's 64 words go out as one coalesced 256-byte run. A layerwise resnet9
 // step is 68 tiles a worker, the stress shape (4 x 1,048,579) 2,052.
-// Unpack runs one thread per element and reads the one word holding its
-// bit.
+//   Unpack is the bit unpack's walk (unpack_tile.cuh, shared with
+// bits.cu and the QSGD and TernGrad unpacks) with the emit bit -> +1.0f /
+// -1.0f: every bucket of a step in one grouped launch, a tile's 64 words
+// (2,048 bits) staged in shared memory plus a zero word, and from the
+// tile's first 16-byte output boundary on four values a funnel shift as
+// one 16-byte store, at most 3 scalar stores at each tile end, so any d
+// and any row alignment is served. The one-bucket unpack is the same
+// launch with one entry.
 //
 // majority: (n, W) packed sign words of n workers -> (W,) words whose bit is
 // set where at least half the workers' bits are (2 * count >= n, ties to
@@ -55,6 +61,7 @@
 #include <cstdint>
 
 #include "grouped.cuh"
+#include "unpack_tile.cuh"
 
 namespace {
 
@@ -137,16 +144,18 @@ __global__ void __launch_bounds__(kThreads)
         mine;
 }
 
-__global__ void sign_unpack_kernel(const uint32_t* __restrict__ words,
-                                   float* __restrict__ out, int n, int d,
-                                   int wpu) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= static_cast<long long>(n) * d) return;
-  const int unit = static_cast<int>(i / d);
-  const int p = static_cast<int>(i % d);
-  const uint32_t w = words[static_cast<long long>(unit) * wpu + (p >> 5)];
-  out[i] = ((w >> (p & 31)) & 1u) ? 1.0f : -1.0f;
+// The emit of the signSGD decode: a set bit is +1, a clear one -1
+// (the reference's 2 * code - 1 as f32).
+struct SignPm {
+  static constexpr bool kFactor = false;
+  __device__ __forceinline__ float operator()(uint32_t bit, float) const {
+    return bit ? 1.0f : -1.0f;
+  }
+};
+
+__global__ void __launch_bounds__(repro::kUnpackThreads)
+    sign_unpack_kernel(const __grid_constant__ repro::UnpackTable t) {
+  repro::unpack_tile<1>(t, 1, SignPm{});
 }
 
 __global__ void majority_kernel(const uint32_t* __restrict__ words,
@@ -207,18 +216,22 @@ extern "C" int sign_pack_buckets(int count, void* const* ptrs,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int sign_unpack(const void* words, void* out, int n, int d,
-                           int wpu, int device, void* stream) {
-  const long long total = static_cast<long long>(n) * d;
-  if (total == 0) return 0;
+// sign_unpack_buckets: `count` (1..kMaxBuckets) buckets. `ptrs` holds their
+// words and out pointers, `count` of each in that order; `sizes` their n,
+// d, wpu, tiles per unit and first block, `count` of each, as
+// kernels/qsgd.py grouped_table computes them at width 1 over
+// unpack_tiles; `blocks` in all.
+extern "C" int sign_unpack_buckets(int count, void* const* ptrs,
+                                   const int* sizes, int blocks, int device,
+                                   void* stream) {
+  if (count < 1 || count > kMaxBuckets)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-  sign_unpack_kernel<<<blocks, threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<float*>(out), n, d,
-      wpu);
+  const repro::UnpackTable t = repro::unpack_table(count, ptrs, sizes, false);
+  sign_unpack_kernel<<<static_cast<unsigned>(blocks), repro::kUnpackThreads,
+                       0, static_cast<cudaStream_t>(stream)>>>(t);
   return static_cast<int>(cudaGetLastError());
 }
 

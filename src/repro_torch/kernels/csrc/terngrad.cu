@@ -21,14 +21,22 @@
 // grouped launch (a __grid_constant__ table, no host-to-device copy); a
 // block finds its unit and tile with one 32-bit divide, and the width is a
 // constant, so a word's chunk is a shift. The one-bucket pack is the same
-// launch with one entry. Unpack runs one thread per element. Numerics: the
-// IEEE divide __fdiv_rn(|x|, scale), compiled with -fmad=false.
+// launch with one entry.
+//   Unpack: the tile walk of unpack_tile.cuh (qsgd.cu's unpack) with the
+// emit (code - 1) * scale, QSGD's (code - levels) * fac at levels 1: every
+// bucket of a step in one grouped launch, a tile's 128 words (2,048 codes)
+// staged in shared memory with coalesced loads, one 32-bit divide a block
+// for unit and tile, the width a constant (a code's word is a shift), and
+// four values a funnel shift as one 16-byte store at any row alignment.
+// The one-bucket unpack is the same launch with one entry.
+//   Numerics: the IEEE divide __fdiv_rn(|x|, scale) and the multiply
+// __fmul_rn, compiled with -fmad=false.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "fields.cuh"
 #include "hash_pack.cuh"
+#include "unpack_tile.cuh"
 
 namespace {
 
@@ -50,18 +58,9 @@ __global__ void __launch_bounds__(repro::kPackWarps * 32)
   repro::hash_pack_tile(t, TernCode{}, kWidth);
 }
 
-__global__ void terngrad_unpack_kernel(const uint32_t* __restrict__ words,
-                                       const float* __restrict__ scale,
-                                       float* __restrict__ out, int n, int d,
-                                       int wpu) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= static_cast<long long>(n) * d) return;
-  const int unit = static_cast<int>(i / d);
-  const long long p = i % d;
-  const uint32_t f = repro::extract_field(
-      words + static_cast<long long>(unit) * wpu, p, kWidth);
-  out[i] = __fmul_rn(static_cast<float>(static_cast<int>(f) - 1), scale[unit]);
+__global__ void __launch_bounds__(repro::kUnpackThreads)
+    terngrad_unpack_kernel(const __grid_constant__ repro::UnpackTable t) {
+  repro::unpack_tile<kWidth>(t, kWidth, repro::Dequant{1});
 }
 
 }  // namespace
@@ -88,18 +87,22 @@ extern "C" int terngrad_pack_buckets(int count, void* const* ptrs,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int terngrad_unpack(const void* words, const void* scale,
-                               void* out, int n, int d, int wpu, int device,
-                               void* stream) {
-  const long long total = static_cast<long long>(n) * d;
-  if (total == 0) return 0;
+// terngrad_unpack_buckets: `count` (1..kUnpackMaxBuckets) buckets. `ptrs`
+// holds their words, scale and out pointers, `count` of each in that order;
+// `sizes` their n, d, wpu, tiles per unit and first block, `count` of
+// each, as kernels/qsgd.py unpack_table computes them at width 2; `blocks`
+// in all (0 launches nothing).
+extern "C" int terngrad_unpack_buckets(int count, void* const* ptrs,
+                                       const int* sizes, int blocks,
+                                       int device, void* stream) {
+  if (count < 1 || count > repro::kUnpackMaxBuckets)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-  terngrad_unpack_kernel<<<blocks, threads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<const float*>(scale),
-      static_cast<float*>(out), n, d, wpu);
+  const repro::UnpackTable t = repro::unpack_table(count, ptrs, sizes, true);
+  terngrad_unpack_kernel<<<static_cast<unsigned>(blocks),
+                           repro::kUnpackThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(t);
   return static_cast<int>(cudaGetLastError());
 }

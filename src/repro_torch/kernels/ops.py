@@ -7,15 +7,17 @@ bucket-level `qsgd_compress_units` / `terngrad_compress_units`,
 Inputs of any float dtype are computed in f32 and cast back.
 
 The bucket entry points of the fused compress+pack kernels: what the wire
-codecs (core/wire.py) call, one kernel launch per bucket and direction
-(ops.py:274-522), and one launch for all buckets of a step for the QSGD
+codecs (core/wire.py) call (the reference's ops.py:274-522), each with a
+grouped form that takes every bucket of a step in one launch: the QSGD
 pack and unpack (`qsgd_pack_units_buckets`, `qsgd_unpack_units_buckets`),
-the TernGrad pack (`terngrad_pack_units_buckets`), the sign pack
-(`sign_pack_units_buckets`), the field pack and unpack of the natural and
-sparse codecs and of the per-unit QSGD / TernGrad decode
-(`fields_pack_units_buckets`, `fields_unpack_units_buckets`) and the bit
-unpack of the per-unit signSGD decode (`unpack_words_buckets`). The
-one-bucket entry points are the grouped calls with one bucket.
+the TernGrad pack and unpack (`terngrad_pack_units_buckets`,
+`terngrad_unpack_units_buckets`), the sign pack and unpack
+(`sign_pack_units_buckets`, `sign_unpack_units_buckets`), the field pack
+and unpack of the natural and sparse codecs and of the per-unit QSGD /
+TernGrad decode (`fields_pack_units_buckets`,
+`fields_unpack_units_buckets`) and the bit unpack of the per-unit signSGD
+decode (`unpack_words_buckets`). The one-bucket entry points are the
+grouped calls with one bucket.
 
 A bucket is an (n, d) f32 matrix whose rows are compression units. The
 caller-side pieces stay here, outside the kernels, exactly as in the
@@ -39,10 +41,11 @@ from repro_torch.kernels.qsgd import (qsgd_compress_rows, qsgd_pack_buckets,
                                       qsgd_unpack_buckets)
 from repro_torch.kernels.ref import words_per_unit, words_to_i32
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_rows
-from repro_torch.kernels.sign import majority, sign_pack_buckets, sign_unpack
+from repro_torch.kernels.sign import (majority, sign_pack_buckets,
+                                      sign_unpack_buckets)
 from repro_torch.kernels.terngrad import (terngrad_compress_rows,
                                           terngrad_pack_buckets,
-                                          terngrad_unpack)
+                                          terngrad_unpack_buckets)
 from repro_torch.kernels.topk_mask import BLOCK_C, topk_mask
 
 __all__ = ["qsgd_compress", "terngrad_compress", "blockwise_topk",
@@ -51,10 +54,10 @@ __all__ = ["qsgd_compress", "terngrad_compress", "blockwise_topk",
            "qsgd_pack_units_buckets", "qsgd_unpack_units",
            "qsgd_unpack_units_buckets", "qsgd_unpack_ef_units",
            "terngrad_pack_units", "terngrad_pack_units_buckets",
-           "terngrad_unpack_units",
+           "terngrad_unpack_units", "terngrad_unpack_units_buckets",
            "terngrad_unpack_ef_units", "sign_pack_units",
            "sign_pack_units_buckets", "sign_unpack_units",
-           "sign_unpack_ef_units",
+           "sign_unpack_units_buckets", "sign_unpack_ef_units",
            "fields_pack_units", "fields_pack_units_buckets",
            "fields_unpack_units", "fields_unpack_units_buckets",
            "pack_fields", "unpack_fields", "pack_words", "unpack_words",
@@ -265,8 +268,16 @@ def terngrad_pack_units_buckets(x2ds, keys_list):
 
 def terngrad_unpack_units(words, scales, d: int) -> torch.Tensor:
     """Fused TernGrad decode: words + payload scales -> (n, d) f32."""
-    return terngrad_unpack(words.contiguous(),
-                           scales.to(torch.float32).contiguous(), d)
+    return terngrad_unpack_units_buckets([words], [scales], [d])[0]
+
+
+def terngrad_unpack_units_buckets(words_list, scales_list, dims) -> list:
+    """terngrad_unpack_units over many buckets -> [(n_i, d_i) f32]; ONE
+    kernel launch for up to MAX_BUCKETS buckets (kernels/terngrad.py
+    terngrad_unpack_buckets)."""
+    return terngrad_unpack_buckets(
+        [w.contiguous() for w in words_list],
+        [s.to(torch.float32).contiguous() for s in scales_list], dims)
 
 
 def terngrad_unpack_ef_units(words, scales, e2d, d: int):
@@ -291,7 +302,14 @@ def sign_pack_units_buckets(x2ds) -> list:
 
 def sign_unpack_units(words, d: int) -> torch.Tensor:
     """Fused signSGD decode: sign words -> (n, d) f32 in {-1, +1}."""
-    return sign_unpack(words.contiguous(), d)
+    return sign_unpack_units_buckets([words], [d])[0]
+
+
+def sign_unpack_units_buckets(words_list, dims) -> list:
+    """sign_unpack_units over many buckets -> [(n_i, d_i) f32 in {-1,
+    +1}]; ONE kernel launch for up to MAX_BUCKETS buckets (kernels/sign.py
+    sign_unpack_buckets)."""
+    return sign_unpack_buckets([w.contiguous() for w in words_list], dims)
 
 
 def sign_unpack_ef_units(words, e2d, d: int):

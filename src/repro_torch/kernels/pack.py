@@ -24,8 +24,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.qsgd import (_check, _launch_args, _on_card,
-                                      launch_grouped, unpack_codes_plain)
+from repro_torch.kernels.qsgd import (TILE_CODES, _check, _launch_args,
+                                      _on_card, launch_grouped,
+                                      unpack_codes_plain, unpack_tiles)
 from repro_torch.kernels.ref import words_per_unit
 
 MAX_WIDTH = 31
@@ -215,20 +216,17 @@ def bits_unpack_plain(words, d: int) -> torch.Tensor:
         torch.int32)
 
 
-#: bits an unpack block owns: 64 words of 32 (csrc/bits.cu kTileBits)
-TILE_BITS = 2048
-
-
-def bits_tiles(d: int) -> int:
-    """Unpack blocks per unit of d bits: tiles of TILE_BITS."""
-    return -(-d // TILE_BITS)
+#: bits an unpack block owns, and the unpack blocks per unit of d bits:
+#: the tile of every grouped unpack (csrc/unpack_tile.cuh) at width 1
+TILE_BITS = TILE_CODES
+bits_tiles = unpack_tiles
 
 
 def bits_unpack_buckets(words_list, dims) -> List[torch.Tensor]:
     """bits_unpack over many buckets: bucket i is (words_list[i], dims[i])
     as bits_unpack takes them. On the card ONE launch per MAX_BUCKETS
     non-empty buckets (kernels/qsgd.py grouped_table at width 1 over
-    bits_tiles), each counted in bits_unpack.launches.
+    unpack_tiles), each counted in bits_unpack.launches.
     On the CPU, bits_unpack_plain per bucket."""
     if not words_list:
         return []
@@ -242,7 +240,7 @@ def bits_unpack_buckets(words_list, dims) -> List[torch.Tensor]:
                                 device=words.device))
         shapes.append((n, int(d)))
     launch_grouped(bits_unpack, "bits", "bits_unpack_buckets", shapes,
-                   (words_list, outs), 1, bits_tiles)
+                   (words_list, outs), 1, unpack_tiles)
     return outs
 
 

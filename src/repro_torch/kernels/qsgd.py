@@ -10,7 +10,9 @@ The wire pack and unpack are grouped: one launch serves up to MAX_BUCKETS
 buckets (`qsgd_pack_buckets`, `qsgd_unpack_buckets`), described by a
 table of sizes and first blocks (`grouped_table`) and launched by
 `launch_grouped`, which the other grouped kernels share (kernels/sign.py,
-kernels/terngrad.py, kernels/pack.py's bit unpack).
+kernels/terngrad.py, kernels/pack.py's bit unpack). The four grouped
+unpacks (QSGD, TernGrad, bits, signSGD) are one tile walk,
+csrc/unpack_tile.cuh.
 
 Words are (n, words_per_unit(d, width)) int32 tensors holding the uint32
 bit patterns of the payload (the bytes are what the wire carries).
@@ -88,10 +90,11 @@ def qsgd_pack_plain(x, k0, k1, nrm, levels: int, width: int) -> torch.Tensor:
 #: pairs of counters a pack block hashes for itself (csrc/qsgd.cu
 #: kTilePairs: 15 chunks of 32, beside one halo chunk)
 TILE_PAIRS = 480
-#: codes an unpack block owns: 64 chunks of 32 (csrc/qsgd.cu kUnpackTile)
+#: codes an unpack block owns: 64 chunks of 32 (csrc/unpack_tile.cuh
+#: kUnpackTile, the tile of every grouped unpack)
 TILE_CODES = 2048
-#: buckets one grouped launch takes (kMaxBuckets of csrc/qsgd.cu and
-#: csrc/sign.cu)
+#: buckets one grouped launch takes (csrc/hash_pack.cuh kPackMaxBuckets,
+#: csrc/unpack_tile.cuh kUnpackMaxBuckets, csrc/sign.cu kMaxBuckets)
 MAX_BUCKETS = 32
 #: widest code the unpack kernel stages (csrc/qsgd.cu kMaxUnpackWidth)
 MAX_UNPACK_WIDTH = 31

@@ -1,8 +1,10 @@
 """Fused signSGD sign+pack / unpack+decode and the majority vote on packed
 words: the wrappers of the CUDA kernels in csrc/sign.cu and their
 plain-torch versions (the routing, checks and launch counters of
-kernels/qsgd.py). The pack is grouped over up to 32 buckets a
-launch (`sign_pack_buckets`, with kernels/qsgd.py's bucket tables).
+kernels/qsgd.py). The pack and the unpack are grouped over up to 32
+buckets a launch (`sign_pack_buckets`, `sign_unpack_buckets`, with
+kernels/qsgd.py's bucket tables); the unpack is the bit unpack's tile walk
+(csrc/unpack_tile.cuh) with +1 / -1 for a bit.
 
 Bit p of a unit is x[p] >= 0; each unit packs into words_per_unit(d, 1)
 words, held as int32 tensors with the uint32 bit patterns.
@@ -17,7 +19,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.qsgd import (BucketTable, _check, _launch_args,
                                       _on_card, grouped_table, launch_grouped,
-                                      unpack_codes_plain)
+                                      unpack_codes_plain, unpack_tiles)
 from repro_torch.kernels.ref import words_per_unit
 
 
@@ -82,21 +84,32 @@ def sign_unpack_plain(words, d: int) -> torch.Tensor:
     return ref.sign_decode_ref(unpack_codes_plain(words, d, 1))
 
 
+def sign_unpack_buckets(words_list, dims) -> List[torch.Tensor]:
+    """sign_unpack over many buckets: bucket i is (words_list[i], dims[i])
+    as sign_unpack takes them. On the card ONE launch per MAX_BUCKETS
+    non-empty buckets (kernels/qsgd.py grouped_table at width 1 over
+    unpack_tiles), each counted in sign_unpack.launches. On the CPU,
+    sign_unpack_plain per bucket."""
+    if not words_list:
+        return []
+    if not _on_card(words_list[0], *words_list[1:]):
+        return [sign_unpack_plain(w, d) for w, d in zip(words_list, dims)]
+    outs, shapes = [], []
+    for words, d in zip(words_list, dims):
+        n = words.shape[0]
+        _check(words, "words", torch.int32, (n, words_per_unit(d, 1)))
+        outs.append(torch.empty((n, d), dtype=torch.float32,
+                                device=words.device))
+        shapes.append((n, int(d)))
+    launch_grouped(sign_unpack, "sign", "sign_unpack_buckets", shapes,
+                   (words_list, outs), 1, unpack_tiles)
+    return outs
+
+
 def sign_unpack(words, d: int) -> torch.Tensor:
-    """(n, words_per_unit(d, 1)) int32 sign words -> (n, d) f32 +1 / -1."""
-    n = words.shape[0]
-    if not _on_card(words):
-        return sign_unpack_plain(words, d)
-    wpu = words_per_unit(d, 1)
-    _check(words, "words", torch.int32, (n, wpu))
-    out = torch.empty((n, d), dtype=torch.float32, device=words.device)
-    if out.numel() == 0:
-        return out
-    build.check(build.library("sign").sign_unpack(
-        words.data_ptr(), out.data_ptr(), n, d, wpu,
-        *_launch_args(words.device)), "sign_unpack")
-    sign_unpack.launches += 1
-    return out
+    """(n, words_per_unit(d, 1)) int32 sign words -> (n, d) f32 +1 / -1. On
+    the card: the one-bucket launch of sign_unpack_buckets."""
+    return sign_unpack_buckets([words], [d])[0]
 
 
 sign_unpack.launches = 0

@@ -1,10 +1,12 @@
 """Fused TernGrad ternarize+pack / unpack+dequantize (csrc/terngrad.cu)
 and the compress-only ternarize+dequantize (csrc/compress.cu): the wrappers
 of the CUDA kernels and their plain-torch versions — the TernGrad mirror of
-kernels/qsgd.py (same routing, checks and counters). The pack is grouped
-over up to MAX_BUCKETS buckets a launch (`terngrad_pack_buckets`, with
-kernels/qsgd.py's bucket tables: the same hash-once tile walk as the QSGD
-pack, csrc/hash_pack.cuh)."""
+kernels/qsgd.py (same routing, checks and counters). The pack and the
+unpack are grouped over up to MAX_BUCKETS buckets a launch
+(`terngrad_pack_buckets`, `terngrad_unpack_buckets`, with kernels/qsgd.py's
+bucket tables): the pack is the QSGD pack's hash-once tile walk
+(csrc/hash_pack.cuh), the unpack the QSGD unpack's tile walk
+(csrc/unpack_tile.cuh) at width 2."""
 from __future__ import annotations
 
 from typing import List
@@ -16,7 +18,7 @@ from repro_torch.kernels import build, prng, ref
 from repro_torch.kernels.qsgd import (_check, _launch_args, _on_card,
                                       launch_grouped, pack_outputs,
                                       pack_tiles, stat_column,
-                                      unpack_codes_plain)
+                                      unpack_codes_plain, unpack_tiles)
 from repro_torch.kernels.ref import words_per_unit
 
 TERN_WIDTH = 2
@@ -68,23 +70,37 @@ def terngrad_unpack_plain(words, scale, d: int) -> torch.Tensor:
                                    scale[:, None])
 
 
+def terngrad_unpack_buckets(words_list, scales, dims) -> List[torch.Tensor]:
+    """terngrad_unpack over many buckets: bucket i is (words_list[i],
+    scales[i], dims[i]) as terngrad_unpack takes them. On the card ONE
+    launch per MAX_BUCKETS non-empty buckets (kernels/qsgd.py unpack_table
+    at width 2), each counted in terngrad_unpack.launches. On the CPU,
+    terngrad_unpack_plain per bucket."""
+    if not words_list:
+        return []
+    if not _on_card(words_list[0], *words_list[1:], *scales):
+        return [terngrad_unpack_plain(w, s, d)
+                for w, s, d in zip(words_list, scales, dims)]
+    outs, shapes = [], []
+    for words, scale, d in zip(words_list, scales, dims):
+        n = words.shape[0]
+        _check(words, "words", torch.int32,
+               (n, words_per_unit(d, TERN_WIDTH)))
+        _check(scale, "scale", torch.float32, (n,))
+        outs.append(torch.empty((n, d), dtype=torch.float32,
+                                device=words.device))
+        shapes.append((n, int(d)))
+    launch_grouped(terngrad_unpack, "terngrad", "terngrad_unpack_buckets",
+                   shapes, (words_list, scales, outs), TERN_WIDTH,
+                   unpack_tiles)
+    return outs
+
+
 def terngrad_unpack(words, scale, d: int) -> torch.Tensor:
     """(n, wpu) int32 words + per-unit payload scales (n,) f32 -> (n, d)
-    f32 (code - 1) * scale."""
-    n = words.shape[0]
-    if not _on_card(words, scale):
-        return terngrad_unpack_plain(words, scale, d)
-    wpu = words_per_unit(d, TERN_WIDTH)
-    _check(words, "words", torch.int32, (n, wpu))
-    _check(scale, "scale", torch.float32, (n,))
-    out = torch.empty((n, d), dtype=torch.float32, device=words.device)
-    if out.numel() == 0:
-        return out
-    build.check(build.library("terngrad").terngrad_unpack(
-        words.data_ptr(), scale.data_ptr(), out.data_ptr(), n, d, wpu,
-        *_launch_args(words.device)), "terngrad_unpack")
-    terngrad_unpack.launches += 1
-    return out
+    f32 (code - 1) * scale. On the card: the one-bucket launch of
+    terngrad_unpack_buckets."""
+    return terngrad_unpack_buckets([words], [scale], [d])[0]
 
 
 terngrad_unpack.launches = 0
