@@ -43,7 +43,16 @@ error:
      csrc/unpack_tile.cuh they share with the QSGD and bit unpacks)
      bitwise against the per-bucket plain twins on packed and random words
      on the same groups and on words 4 bytes past a 16-byte boundary,
-     grouped and one bucket at a time
+     grouped and one bucket at a time; the grouped bit pack
+     (bits_pack_buckets, the staged-tile ballot walk of
+     csrc/ballot_pack.cuh it shares with the sign pack) and the grouped
+     majority vote (majority_buckets) bitwise against the per-bucket
+     plain twins on the 11 layerwise buckets in one launch, on
+     MAX_BUCKETS + 8 buckets in two, on units of the edge dimensions,
+     on votes of n in {1, 2, 3, 4, 5, 8, 9, 17, 255} workers over W at the
+     vote's tile edges with every W % 4 (zero columns, exact ties) and
+     on inputs 4 bytes past a 16-byte boundary, grouped and one bucket
+     at a time
   4. the main path: train_cnn on resnet9 with QSGD(16) layerwise and
      entire_model, TernGrad, signSGD, natural, top-k(1%) and random-k(1%)
      layerwise, top-k entire_model, and adaptive threshold layerwise (the
@@ -62,9 +71,9 @@ error:
      time from CUDA-event timed replays of a CUDA graph of 20 calls
      (`ms`, `plain_ms`), and the per-call time of the same calls issued
      back to back from Python (`call_ms`, host enqueue included); the
-     QSGD, TernGrad and sign packs and unpacks, the bit unpack and the
-     field pack / unpack (natural's legs and the top-k index legs) also as
-     the step's one grouped launch
+     QSGD, TernGrad and sign packs and unpacks, the bit pack and unpack,
+     the majority vote and the field pack / unpack (natural's legs and
+     the top-k index legs) also as the step's one grouped launch
      (layerwise_step_grouped, the kernel line's time), a layerwise step's
      QSGD encode and natural encode and decode from Python, grouped and
      per bucket
@@ -80,11 +89,12 @@ error:
      rank (and aggregate_simulated_workers for the key-free signSGD and
      top-k), its collectives moving comm_report's bytes under wire=True,
      with integrity words verifying and leaving payloads unchanged; (b)
-     the signSGD majority vote on each bucket's gathered payloads, fused
-     (majority kernel) = non-fused (bits_unpack, count, bits_pack) =
-     plain; (c) one step's buffers of the per-unit codecs
-     (fused=False) = the fused buffers; each of (a)-(c) held to exact
-     launch counts; (d)
+     the signSGD majority vote on every bucket's gathered payloads in
+     one call a granularity, fused (one majority launch) = non-fused
+     (one bits_unpack, count, one bits_pack) = plain, bucket by bucket;
+     (c) one step's buffers of the per-unit codecs (fused=False: one
+     pack and one unpack launch a granularity) = the fused buffers; each
+     of (a)-(c) held to exact launch counts; (d)
      train_cnn_ranks, 20 resnet9 steps (batch 64, 16 a rank) for
      allgather-wire QSGD(16) and signSGD
      and simulated-wire QSGD(16): seconds, test loss, collective bytes a
@@ -190,6 +200,12 @@ PACK_EDGE_DIMS = (1, 2, 3, 31, 32, 33, 61, 62, 63, 64, 65, 479, 480, 481,
 # unit dimensions at the grouped sign pack's and the unpack walk's chunk
 # (32) and tile (2,048) edges
 GROUPED_EDGE_DIMS = (1, 2, 31, 32, 33, 2047, 2048, 2049, 4097, 65537)
+# the grouped vote's checks: every worker count of VOTERS, two and three
+# groups of 8 and the most the kernel counts (8 bit planes), over word
+# columns at its 4-column and 128-column tile edges with every W % 4
+VOTE_NS = VOTERS + (9, 17, 255)
+VOTE_EDGE_COLS = (1, 2, 3, 4, 5, 6, 7, 127, 128, 129, 130, 255, 256, 1025,
+                  4096)
 BLOCK = 65536
 # (int32, fp32) operations per element of the compress-only kernels: QSGD
 # abs, divide, fma (2), floor, sign, two multiplies; TernGrad abs, divide,
@@ -279,6 +295,26 @@ def make_words(n, wpu, seed, dev):
     g = torch.Generator().manual_seed(seed)
     return torch.randint(-2**31, 2**31, (n, wpu), generator=g,
                          dtype=torch.int64).to(torch.int32).to(dev)
+
+
+def make_votes(n, W, seed, dev):
+    """Seeded (n, W) int32 words of n workers: the last column zero (the
+    padding votes 0) and, at even n, an exact tie in every bit of column
+    0 (ties vote 1)."""
+    w = make_words(n, W, seed, dev)
+    w[:, -1] = 0
+    if n % 2 == 0:
+        w[: n // 2, 0] = -1
+        w[n // 2:, 0] = 0
+    return w
+
+
+def shift(t):
+    """t's values in a view that starts 4 bytes past a 16-byte boundary."""
+    import torch
+    v = torch.cat([t.reshape(-1)[:1], t.reshape(-1)])[1:].view(t.shape)
+    check(v.data_ptr() % 16 == 4, "misaligned input is aligned")
+    return v
 
 
 def index_leg(d: int):
@@ -622,11 +658,6 @@ def check_grouped_sign_unpack(layer_shapes, dev):
               "misaligned": [(3, d) for d in (1024, 4608, 100, 2049)]}
     err = [0.0, 0.0, 0.0]
 
-    def shift(t):                           # 4 bytes past a 16-byte boundary
-        v = torch.cat([t.reshape(-1)[:1], t.reshape(-1)])[1:].view(t.shape)
-        check(v.data_ptr() % 16 == 4, "misaligned input is aligned")
-        return v
-
     def same(i, got, want, what):
         err[i] = max(err[i], max_abs_err(got, want))
         check(bitwise_equal(got, want), what)
@@ -712,11 +743,6 @@ def check_grouped_decode(layer_shapes, dev):
               "misaligned": [(3, d) for d in (1024, 4608, 100, 2049)]}
     err = [0.0, 0.0]
 
-    def shift(t):                           # 4 bytes past a 16-byte boundary
-        v = torch.cat([t.reshape(-1)[:1], t.reshape(-1)])[1:].view(t.shape)
-        check(v.data_ptr() % 16 == 4, "misaligned input is aligned")
-        return v
-
     for gi, (gname, shapes) in enumerate(groups.items()):
         one = gname in ("edges", "misaligned")
         ins = [make_inputs(s, 2500 + 64 * gi + i, dev)
@@ -761,6 +787,78 @@ def check_grouped_decode(layer_shapes, dev):
                 if one:
                     check(bitwise_equal(S.sign_unpack(w, d), want),
                           f"sign_unpack {what}")
+    torch.cuda.synchronize()
+    return tuple(err)
+
+
+def check_grouped_vote(layer_shapes, dev):
+    """The grouped bit pack (bits_pack_buckets, the staged-tile ballot walk
+    of csrc/ballot_pack.cuh it shares with sign_pack) and the grouped
+    majority vote (majority_buckets) vs the per-bucket plain twins,
+    bitwise, and each group's exact launches: the 11 layerwise buckets
+    (one launch each; the vote on each bucket's sign words as 4 workers'),
+    MAX_BUCKETS + 8 buckets (two), units of GROUPED_EDGE_DIMS (bits) and
+    VOTE_EDGE_COLS columns at each worker count of VOTE_NS (the vote, one
+    launch a count), and inputs that start 4 bytes past a 16-byte boundary
+    (the 4-byte paths at d % 4 == 0 and W % 4 == 0). The bits are the
+    signs of inputs holding -0.0 and a NaN; the votes of every group but
+    the layerwise one hold a zero column and, at even n, exact ties. The
+    edge and misaligned groups also go one bucket at a time. -> max |err|
+    of (bits_pack, majority)."""
+    import torch
+    from repro_torch.kernels import pack as P
+    from repro_torch.kernels import qsgd as Q
+    from repro_torch.kernels import sign as S
+    groups = {"layerwise": layer_shapes,
+              "over_max_buckets": [(1 + i % 3, 17 + 61 * i)
+                                   for i in range(Q.MAX_BUCKETS + 8)],
+              "edges": [(3, d) for d in GROUPED_EDGE_DIMS],
+              "misaligned": [(3, d) for d in (1024, 4608, 100, 2049)]}
+    votes = {"over_max_buckets": [[(1 + i % 9, 1 + 53 * i)
+                                   for i in range(Q.MAX_BUCKETS + 8)]],
+             "edges": [[(nv, W) for W in VOTE_EDGE_COLS] for nv in VOTE_NS],
+             "misaligned": [[(4, 1024), (3, 4608), (8, 100), (2, 2049),
+                             (255, 1028)]]}
+    err = [0.0, 0.0]
+
+    def same(i, got, want, what):
+        err[i] = max(err[i], max_abs_err(got, want))
+        check(bitwise_equal(got, want), what)
+
+    for gi, (gname, shapes) in enumerate(groups.items()):
+        one = gname in ("edges", "misaligned")
+        bits = []
+        for i, s in enumerate(shapes):
+            x, _, _ = make_inputs(s, 2900 + 64 * gi + i, dev)
+            x[:, 3::11] = -0.0
+            x[0, min(5, x.shape[1] - 1)] = float("nan")
+            b = (x >= 0).to(torch.int32)
+            bits.append(shift(b) if gname == "misaligned" else b)
+        got = launched(P.bits_pack, lambda: P.bits_pack_buckets(bits),
+                       len(bits), gname)
+        for g, b in zip(got, bits):
+            want = P.bits_pack_plain(b)
+            what = f"{gname} {tuple(b.shape)}"
+            same(0, g, want, f"bits_pack grouped {what}")
+            if one:
+                same(0, P.bits_pack(b), want, f"bits_pack {what}")
+        if gname == "layerwise":            # 4 workers' sign words a bucket
+            tables = [[w.reshape(WORKERS, -1) for w in got]]
+        else:
+            tables = [[make_votes(nv, W, 3100 + 97 * gi + 13 * ti + i, dev)
+                       for i, (nv, W) in enumerate(table)]
+                      for ti, table in enumerate(votes[gname])]
+        if gname == "misaligned":
+            tables = [[shift(w) for w in table] for table in tables]
+        for words in tables:
+            got = launched(S.majority, lambda: S.majority_buckets(words),
+                           len(words), gname)
+            for g, w in zip(got, words):
+                want = S.majority_plain(w)
+                what = f"{gname} {tuple(w.shape)}"
+                same(1, g, want, f"majority grouped {what}")
+                if one:
+                    same(1, S.majority(w), want, f"majority {what}")
     torch.cuda.synchronize()
     return tuple(err)
 
@@ -1113,12 +1211,15 @@ def grouped_row(kernel, leg, width, buckets, kern, plain):
 
 def time_grouped_wire(layer_shapes, dev):
     """Rows of group layerwise_step_grouped for the QSGD, TernGrad and
-    sign packs and unpacks and the bit unpack: ONE launch over the 11
-    layerwise buckets x 4 workers (qsgd_pack_buckets, qsgd_unpack_buckets
-    at width 6, terngrad_pack_buckets, terngrad_unpack_buckets,
-    sign_pack_buckets, sign_unpack_buckets, and bits_unpack_buckets on the
-    sign words, the allgather receive leg's decode), on the same inputs as
-    time_kernels' one-bucket rows."""
+    sign packs and unpacks, the bit pack and unpack and the majority vote:
+    ONE launch over the 11 layerwise buckets x 4 workers
+    (qsgd_pack_buckets, qsgd_unpack_buckets at width 6,
+    terngrad_pack_buckets, terngrad_unpack_buckets, sign_pack_buckets,
+    sign_unpack_buckets, bits_pack_buckets on the signs, the per-unit
+    signSGD encode, bits_unpack_buckets on the sign words, the allgather
+    receive leg's decode, and majority_buckets on each bucket's sign
+    words as 4 workers'), on the same inputs as time_kernels' one-bucket
+    rows."""
     import torch
     from repro_torch.kernels import pack as P
     from repro_torch.kernels import qsgd as Q
@@ -1136,6 +1237,8 @@ def time_grouped_wire(layer_shapes, dev):
     scs = [x.abs().amax(dim=1) + 1e-12 for x in xs]
     terns = T.terngrad_pack_buckets(xs, k0s, k1s, scs)
     signs = S.sign_pack_buckets(xs)
+    bis = [(x >= 0).to(torch.int32) for x in xs]
+    wms = [w.reshape(WORKERS, -1) for w in signs]
     return [
         grouped_row("qsgd_pack", f"{len(xs)} buckets", MAIN_WIDTH, buckets,
                     lambda: Q.qsgd_pack_buckets(xs, k0s, k1s, nrms,
@@ -1168,11 +1271,19 @@ def time_grouped_wire(layer_shapes, dev):
                     lambda: S.sign_unpack_buckets(signs, dims),
                     lambda: [S.sign_unpack_plain(w, d)
                              for w, d in zip(signs, dims)]),
+        grouped_row("bits_pack", f"{len(xs)} buckets", 1,
+                    [(n, d, 1) for n, d in layer_shapes],
+                    lambda: P.bits_pack_buckets(bis),
+                    lambda: [P.bits_pack_plain(b) for b in bis]),
         grouped_row("bits_unpack", f"{len(xs)} buckets", 1,
                     [(n, d, 1) for n, d in layer_shapes],
                     lambda: P.bits_unpack_buckets(signs, dims),
                     lambda: [P.bits_unpack_plain(w, d)
-                             for w, d in zip(signs, dims)])]
+                             for w, d in zip(signs, dims)]),
+        grouped_row("majority", f"{len(xs)} buckets", 1,
+                    [(WORKERS, w.shape[1], 1) for w in wms],
+                    lambda: S.majority_buckets(wms),
+                    lambda: [S.majority_plain(w) for w in wms])]
 
 
 def time_grouped_fields(layer_shapes, dev):
@@ -1562,9 +1673,12 @@ def gate_fixed_gradients(rank, n, dev, params, wg):
 
 
 def gate_majority(rank, n, dev, params, wg):
-    """(b): on each bucket's gathered signSGD payloads (layerwise and
-    entire-model), the fused vote (majority kernel) equals the non-fused
-    one (bits_unpack, count, bits_pack) and the plain version. -> votes."""
+    """(b): per granularity (layerwise and entire-model), every bucket's
+    signSGD payloads encoded in one encode_buckets call and gathered bucket
+    by bucket; the fused vote of all of them in one majority_vote_buckets
+    call (one majority launch) equals the non-fused one (one bits_unpack,
+    the count, one bits_pack) and the plain version, bucket by bucket.
+    -> votes."""
     import torch
     from repro_torch import random as R
     from repro_torch.convert import tree_map
@@ -1582,13 +1696,16 @@ def gate_majority(rank, n, dev, params, wg):
         plan = build_plan(g, stacked_mask(params), Granularity(gran))
         leaves, _ = plan._inputs(g, R.key(0))
         flat = plan._flat(leaves) if plan.needs_flat else None
-        for b in plan.buckets:
-            pay = fused.encode_batch(plan._gather_runs(leaves, flat, b), None)
-            gathered = all_gather(pay)                  # (n, units, nbytes)
-            v = fused.majority_vote(gathered, b.dim)
-            check(bitwise_equal(v, unfused.majority_vote(gathered, b.dim)),
+        xs = [plan._gather_runs(leaves, flat, b) for b in plan.buckets]
+        pays = fused.encode_buckets(xs, [None] * len(xs))
+        gathered = [all_gather(p) for p in pays]    # (n, units, nbytes)
+        dims = [b.dim for b in plan.buckets]
+        fv = fused.majority_vote_buckets(gathered, dims)
+        uv = unfused.majority_vote_buckets(gathered, dims)
+        for b, v, u, gat in zip(plan.buckets, fv, uv, gathered):
+            check(bitwise_equal(v, u),
                   f"{gran} {b.n}x{b.dim}: fused vote != non-fused vote")
-            words = gathered.reshape(n, -1).view(torch.int32)
+            words = gat.reshape(n, -1).view(torch.int32)
             check(bitwise_equal(v.reshape(-1).view(torch.int32),
                                 majority_plain(words)),
                   f"{gran} {b.n}x{b.dim}: vote != plain version")
@@ -1624,21 +1741,21 @@ def gate_unit_codecs(rank, n, dev, params, wg):
                       f"{comp.name} {gran}: fused=False buffer != fused")
                 msgs += 1
     # launches over the 10 (codec, granularity) pairs, each run fused and
-    # per-unit with a local decode: B = 11 buckets layerwise + 1
-    # entire-model = 12. Fused QSGD, TernGrad and signSGD each pack in 1
-    # launch and unpack in 1 a granularity (qsgd_pack 2, qsgd_unpack 2,
-    # terngrad_pack 2, terngrad_unpack 2, sign_pack 2, sign_unpack 2); the
-    # per-unit codecs encode
-    # one bucket a launch (QSGD and TernGrad fields_pack 12 each, signSGD
-    # bits_pack 12) and decode every bucket of a granularity in one
+    # per-unit with a local decode, at 2 granularities (11 buckets
+    # layerwise, 1 entire-model). Fused QSGD, TernGrad and signSGD each
+    # pack in 1 launch and unpack in 1 a granularity (qsgd_pack 2,
+    # qsgd_unpack 2, terngrad_pack 2, terngrad_unpack 2, sign_pack 2,
+    # sign_unpack 2); the per-unit codecs encode every bucket of a
+    # granularity in one encode_rows_buckets launch (QSGD and TernGrad
+    # fields_pack 2 each, signSGD bits_pack 2) and decode them in one
     # decode_rows_buckets launch (QSGD and TernGrad fields_unpack 2 each,
     # signSGD bits_unpack 2); natural and top-k, fused or not, pack and
     # unpack all buckets in one field launch each (2 x 2 each way
-    # apiece): fields_pack 12 + 12 + 4 + 4 = 32, fields_unpack 2 + 2 + 4 +
+    # apiece): fields_pack 2 + 2 + 4 + 4 = 12, fields_unpack 2 + 2 + 4 +
     # 4 = 12
     want = {"qsgd_pack": 2, "qsgd_unpack": 2, "terngrad_pack": 2,
             "terngrad_unpack": 2, "sign_pack": 2, "sign_unpack": 2,
-            "bits_pack": 12, "bits_unpack": 2, "fields_pack": 32,
+            "bits_pack": 2, "bits_unpack": 2, "fields_pack": 12,
             "fields_unpack": 12}
     counts = kernels.launch_counts()
     check(counts == {k: want.get(k, 0) for k in counts},
@@ -1762,15 +1879,16 @@ def gather_timing(rank, n, dev, nbytes_list):
 #   = 16; fields_unpack local natural 2 + 2 and top-k 2 + 2 + 2, gathered
 #   rows 3 calls x 4 codecs + 2 (EF) = 10 + 12 + 2 = 24; bits_unpack
 #   2 + 1 = 3.
-# (b) encodes each of the 12 buckets alone (sign_pack 12) and votes on each
-# fused (majority 12) and non-fused (bits_unpack 12, bits_pack 12).
+# (b) encodes the buckets of each granularity in one call (sign_pack 2) and
+# votes on all of them in one fused call (majority 2) and one non-fused
+# call (bits_unpack 2, bits_pack 2).
 GATE_LAUNCHES = {
     "fixed_gradients": {"qsgd_pack": 9, "qsgd_unpack": 6,
                         "terngrad_pack": 7, "terngrad_unpack": 4,
                         "sign_pack": 7, "sign_unpack": 4, "fields_pack": 16,
                         "fields_unpack": 24, "bits_unpack": 3},
-    "majority": {"sign_pack": 12, "majority": 12, "bits_unpack": 12,
-                 "bits_pack": 12}}
+    "majority": {"sign_pack": 2, "majority": 2, "bits_unpack": 2,
+                 "bits_pack": 2}}
 
 
 def rank_phase(rank, n, dev):
@@ -1990,10 +2108,11 @@ def compress_path(dev):
 # per wire kernel: its source and the TPU kernel it replaces. The C entry
 # points: qsgd_pack_buckets / qsgd_unpack_buckets, terngrad_pack_buckets /
 # terngrad_unpack_buckets, sign_pack_buckets / sign_unpack_buckets,
-# fields_pack_buckets / fields_unpack_buckets, bits_pack,
-# bits_unpack_buckets and majority; every unpack but fields_unpack is the
-# tile walk of csrc/unpack_tile.cuh, the QSGD and TernGrad packs that of
-# csrc/hash_pack.cuh
+# fields_pack_buckets / fields_unpack_buckets, bits_pack_buckets /
+# bits_unpack_buckets and majority_buckets; every unpack but fields_unpack
+# is the tile walk of csrc/unpack_tile.cuh, the QSGD and TernGrad packs
+# that of csrc/hash_pack.cuh, the sign and bit packs that of
+# csrc/ballot_pack.cuh
 SOURCES = {
     "qsgd_pack": ("src/repro_torch/kernels/csrc/qsgd.cu",
                   "src/repro/kernels/qsgd.py:122"),
@@ -2040,17 +2159,18 @@ LINE_GROUP = {"qsgd_compress_rows": "compress_layerwise",
               "terngrad_unpack": "layerwise_step_grouped",
               "sign_pack": "layerwise_step_grouped",
               "sign_unpack": "layerwise_step_grouped",
+              "bits_pack": "layerwise_step_grouped",
               "bits_unpack": "layerwise_step_grouped",
+              "majority": "layerwise_step_grouped",
               "fields_pack": "layerwise_step_grouped",
               "fields_unpack": "layerwise_step_grouped"}
 
 
 def kernel_line(timings, launches, errs):
     """The per-kernel summary. Wire kernels: device ms / plain_ms /
-    bound_ms summed over one layerwise main-path step (the 11 resnet9
-    buckets x 4 workers; every wire kernel but bits_pack and majority the
-    step's one grouped launch, the fields kernels theirs on natural
-    compression's 9-bit code legs).
+    bound_ms of one layerwise main-path step (the 11 resnet9 buckets x 4
+    workers; every wire kernel the step's one grouped launch, the fields
+    kernels theirs on natural compression's 9-bit code legs).
     Compress-only
     kernels: summed over their LINE_GROUP rows (one layerwise
     plan_compress call of QSGD(16) / TernGrad, top-k (k=5)
@@ -2188,6 +2308,17 @@ def main(argv) -> int:
           f"MAX_BUCKETS + 8 buckets in two, units of d in "
           f"{list(GROUPED_EDGE_DIMS)} and words 4 bytes past a 16-byte "
           f"boundary, grouped and one at a time; max abs err {derr}",
+          flush=True)
+    verr = check_grouped_vote(layer_shapes, dev)
+    errs["bits_pack"] = max(errs["bits_pack"], verr[0])
+    errs["majority"] = max(errs["majority"], verr[1])
+    print(f"grouped bits_pack (the ballot walk it shares with sign_pack) / "
+          f"majority: bitwise equal to the per-bucket plain twins on the 11 "
+          f"layerwise buckets in one launch, MAX_BUCKETS + 8 buckets in two, "
+          f"units of d in {list(GROUPED_EDGE_DIMS)}, votes of "
+          f"{list(VOTE_NS)} workers over W in {list(VOTE_EDGE_COLS)} (zero "
+          f"columns, exact ties) and inputs 4 bytes past a 16-byte "
+          f"boundary, grouped and one at a time; max abs err {verr}",
           flush=True)
     unit_shapes = [(n // WORKERS, d) for n, d in layer_shapes]
     cshapes = layer_shapes + [(1, em_shape[1]), (1, MICRO)]

@@ -13,10 +13,12 @@ Two implementations of each format, byte-identical:
             `decode_rows` run the same per-unit arithmetic batched over
             rows (the reference's vmapped per-unit path): compressor draws
             and codes, then the word packing kernels (fields_pack, or
-            bits_pack / bits_unpack for signSGD). `decode_rows_buckets`
-            decodes every bucket of a step in one unpack launch
-            (fields_unpack, or bits_unpack for signSGD); the allgather
-            receive leg decodes a step's gathered rows with it.
+            bits_pack / bits_unpack for signSGD). `encode_rows_buckets`
+            and `decode_rows_buckets` encode and decode every bucket of
+            a step in one pack and one unpack launch (fields_pack /
+            fields_unpack, or bits_pack / bits_unpack for signSGD); the
+            allgather receive leg decodes a step's gathered rows with
+            it.
   fused     `encode_batch` / `decode_batch` / `decode_ef_batch` of a whole
             bucket: one compress+pack kernel launch each way
             (kernels/ops.py). `fused=False` routes them to the per-unit
@@ -25,8 +27,8 @@ Two implementations of each format, byte-identical:
             every bucket of a step: one pack and one unpack launch for all
             of them under the fused QSGD, TernGrad and signSGD codecs and
             the natural and sparse codecs (whose per-unit and fused
-            formats are one path), and under fused=False the per-unit
-            encode per bucket and `decode_rows_buckets`.
+            formats are one path), and under fused=False
+            `encode_rows_buckets` and `decode_rows_buckets`.
 
 Formats (little-endian; field i of a packed leg sits at bit i*width of
 its unit's uint32 words, each leg padded to a whole word):
@@ -321,10 +323,17 @@ class QSGDCodec(WireCodec):
         return 4 + 4 * words_for(self.entry_bits * d)
 
     def encode_rows(self, x2d, keys):
-        q, nrm = self.comp._quantize(x2d.to(torch.float32), keys)
-        codes = q.to(torch.int32) + self.comp.levels
-        return _stat_and_words(nrm, ops.fields_pack_units(codes,
-                                                          self.entry_bits))
+        return self.encode_rows_buckets([x2d], [keys])[0]
+
+    def encode_rows_buckets(self, es, keys):
+        """encode_rows of every bucket of a step: each bucket quantized
+        per unit, then every bucket's codes in one fields_pack launch."""
+        qs = [self.comp._quantize(x.to(torch.float32), k)
+              for x, k in zip(es, keys)]
+        words = ops.fields_pack_units_buckets(
+            [q.to(torch.int32) + self.comp.levels for q, _ in qs],
+            [self.entry_bits] * len(qs))
+        return [_stat_and_words(nrm, w) for (_, nrm), w in zip(qs, words)]
 
     def decode_rows(self, payloads, d: int):
         return self.decode_rows_buckets([payloads], [d])[0]
@@ -345,9 +354,10 @@ class QSGDCodec(WireCodec):
         return self.encode_buckets([x2d], [keys])[0]
 
     def encode_buckets(self, es, keys):
-        """Fused: one pack launch for all the buckets (up to MAX_BUCKETS)."""
+        """Fused: one pack launch for all the buckets (up to MAX_BUCKETS);
+        per-unit: encode_rows_buckets."""
         if not self.fused:
-            return super().encode_buckets(es, keys)
+            return self.encode_rows_buckets(es, keys)
         return [_stat_and_words(nrm, w) for w, nrm in
                 ops.qsgd_pack_units_buckets(es, keys, self.comp.levels,
                                             self.entry_bits)]
@@ -389,9 +399,16 @@ class TernGradCodec(WireCodec):
         return 4 + 4 * words_for(2 * d)
 
     def encode_rows(self, x2d, keys):
-        t, s = self.comp._quantize(x2d.to(torch.float32), keys)
-        return _stat_and_words(s, ops.fields_pack_units(t.to(torch.int32)
-                                                        + 1, 2))
+        return self.encode_rows_buckets([x2d], [keys])[0]
+
+    def encode_rows_buckets(self, es, keys):
+        """encode_rows of every bucket of a step: each bucket quantized
+        per unit, then every bucket's codes in one fields_pack launch."""
+        ts = [self.comp._quantize(x.to(torch.float32), k)
+              for x, k in zip(es, keys)]
+        words = ops.fields_pack_units_buckets(
+            [t.to(torch.int32) + 1 for t, _ in ts], [2] * len(ts))
+        return [_stat_and_words(s, w) for (_, s), w in zip(ts, words)]
 
     def decode_rows(self, payloads, d: int):
         return self.decode_rows_buckets([payloads], [d])[0]
@@ -411,9 +428,10 @@ class TernGradCodec(WireCodec):
         return self.encode_buckets([x2d], [keys])[0]
 
     def encode_buckets(self, es, keys):
-        """Fused: one pack launch for all the buckets (up to MAX_BUCKETS)."""
+        """Fused: one pack launch for all the buckets (up to MAX_BUCKETS);
+        per-unit: encode_rows_buckets."""
         if not self.fused:
-            return super().encode_buckets(es, keys)
+            return self.encode_rows_buckets(es, keys)
         return [_stat_and_words(s, w)
                 for w, s in ops.terngrad_pack_units_buckets(es, keys)]
 
@@ -454,7 +472,13 @@ class SignSGDCodec(WireCodec):
         return 4 * words_for(d)
 
     def encode_rows(self, x2d, keys):
-        return _rows_to_u8(ops.pack_words(x2d >= 0))
+        return self.encode_rows_buckets([x2d], [keys])[0]
+
+    def encode_rows_buckets(self, es, keys):
+        """encode_rows of every bucket of a step: every bucket's signs in
+        one bits_pack launch."""
+        return [_rows_to_u8(w)
+                for w in ops.pack_words_buckets([x >= 0 for x in es])]
 
     def decode_rows(self, payloads, d: int):
         return self.decode_rows_buckets([payloads], [d])[0]
@@ -471,9 +495,10 @@ class SignSGDCodec(WireCodec):
         return self.encode_buckets([x2d], [keys])[0]
 
     def encode_buckets(self, es, keys):
-        """Fused: one pack launch for all the buckets (up to MAX_BUCKETS)."""
+        """Fused: one pack launch for all the buckets (up to MAX_BUCKETS);
+        per-unit: encode_rows_buckets."""
         if not self.fused:
-            return super().encode_buckets(es, keys)
+            return self.encode_rows_buckets(es, keys)
         return [_rows_to_u8(w) for w in ops.sign_pack_units_buckets(es)]
 
     def decode_batch(self, payloads, d: int):
@@ -508,15 +533,28 @@ class SignSGDCodec(WireCodec):
         launch); otherwise unpack, count, pack (the reference's non-fused
         vote, wire.py:579-594). Zero padding bits vote 0 on both paths, so
         both give the same bytes."""
-        n, nb = payloads.shape[0], payloads.shape[-1]
+        return self.majority_vote_buckets([payloads], [d])[0]
+
+    def majority_vote_buckets(self, payloads_list, dims) -> list:
+        """majority_vote of every bucket of a step: [(n_workers, ...,
+        nbytes(d_i)) payloads] + [d_i] -> [(..., nbytes(d_i))]. Fused:
+        every bucket's words in one majority launch; otherwise every
+        bucket's rows in one bits_unpack launch, the count per bucket, and
+        every vote in one bits_pack launch."""
         if self.fused:
-            words = _u8_rows_to(payloads.reshape(n, -1), torch.int32)
-            return _rows_to_u8(ops.majority_words(words)[None]).reshape(
-                payloads.shape[1:])
-        rows = _u8_rows_to(payloads.reshape(-1, nb), torch.int32)
-        bits = ops.unpack_words(rows, d).reshape(n, -1, d)
-        maj = (2 * bits.sum(dim=0) >= n).to(torch.int32)
-        return _rows_to_u8(ops.pack_words(maj)).reshape(payloads.shape[1:])
+            votes = ops.majority_words_buckets(
+                [_u8_rows_to(p.reshape(p.shape[0], -1), torch.int32)
+                 for p in payloads_list])
+            return [_rows_to_u8(v[None]).reshape(p.shape[1:])
+                    for v, p in zip(votes, payloads_list)]
+        bits = ops.unpack_words_buckets(
+            [_u8_rows_to(p.reshape(-1, p.shape[-1]), torch.int32)
+             for p in payloads_list], dims)
+        majs = [(2 * b.reshape(p.shape[0], -1, d).sum(dim=0)
+                 >= p.shape[0]).to(torch.int32)
+                for b, p, d in zip(bits, payloads_list, dims)]
+        return [_rows_to_u8(w).reshape(p.shape[1:])
+                for w, p in zip(ops.pack_words_buckets(majs), payloads_list)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -798,9 +836,9 @@ def execute_schedule_wire(schedule, codec: WireCodec, grads, key,
                           wire_key: Optional[Callable] = None,
                           decode_local: bool = True):
     """Stream a CommSchedule through REAL wire buffers: encode every bucket
-    of the schedule (codec.encode_buckets: one pack launch each, one for
-    all of them under the fused QSGD, TernGrad and signSGD, natural and
-    sparse codecs), then per message concatenate its payload rows into one
+    of the schedule (codec.encode_buckets: one pack launch for all of them
+    under every codec but the dense one, which launches none), then per
+    message concatenate its payload rows into one
     uint8 buffer behind the header, decode every bucket back out of its
     buffer (codec.decode_buckets: one unpack launch each, one for all of
     them under the fused QSGD, natural and sparse codecs and the per-unit

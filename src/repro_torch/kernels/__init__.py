@@ -7,12 +7,12 @@ Wrappers, each with a plain version and a `.launches` counter:
 - wire pack / unpack: qsgd.py (pack and unpack grouped over up to 32
   buckets a launch, `qsgd_pack_buckets` / `qsgd_unpack_buckets`),
   terngrad.py (pack and unpack grouped likewise,
-  `terngrad_pack_buckets` / `terngrad_unpack_buckets`), sign.py (pack and
-  unpack grouped likewise, `sign_pack_buckets` / `sign_unpack_buckets`;
-  and the majority vote), pack.py (width-bit fields, pack and unpack grouped over
-  up to 32 buckets of mixed widths a launch, `fields_pack_buckets` /
-  `fields_unpack_buckets`; and bits, the unpack grouped likewise,
-  `bits_unpack_buckets`);
+  `terngrad_pack_buckets` / `terngrad_unpack_buckets`), sign.py (pack,
+  unpack and majority vote grouped likewise, `sign_pack_buckets` /
+  `sign_unpack_buckets` / `majority_buckets`), pack.py (width-bit fields,
+  pack and unpack grouped over up to 32 buckets of mixed widths a launch,
+  `fields_pack_buckets` / `fields_unpack_buckets`; and bits, grouped
+  likewise, `bits_pack_buckets` / `bits_unpack_buckets`);
 - compress only: `qsgd_compress_rows` (qsgd.py), `terngrad_compress_rows`
   (terngrad.py), `topk_mask` (topk_mask.py), `rmsnorm` (rmsnorm.py).
 

@@ -43,9 +43,9 @@ SIGNATURES = {
     "sign_unpack_buckets": [_I, _P, _P, _I, _I, _P],
     "fields_pack_buckets": [_I, _P, _P, _I, _I, _P],
     "fields_unpack_buckets": [_I, _P, _P, _I, _I, _P],
-    "bits_pack": [_P, _P, _I, _I, _I, _I, _P],
+    "bits_pack_buckets": [_I, _P, _P, _I, _I, _P],
     "bits_unpack_buckets": [_I, _P, _P, _I, _I, _P],
-    "majority": [_P, _P, _I, _I, _I, _P],
+    "majority_buckets": [_I, _P, _P, _I, _I, _P],
     "qsgd_compress_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "terngrad_compress_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "topk_mask": [_P, _P, _I, _I, _I, _P],

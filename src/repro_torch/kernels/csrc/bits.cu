@@ -18,9 +18,16 @@
 // every launch of the main path is latency-bound; at the stress shape
 // (4 x 1,048,579 bits, 17.3 MB) the byte bound is about 0.0052 ms.
 //
-// Design. Pack runs one warp per output word; each lane loads one int32
-// (coalesced) and __ballot_sync assembles the word, which lane 0 writes
-// (csrc/sign.cu's sign_pack with `bit != 0` for `x >= 0`).
+// Design. Pack is grouped over the buckets of a step: the staged-tile
+// ballot walk of ballot_pack.cuh (shared with sign.cu's sign_pack) on int32
+// with the predicate bit != 0. A table of up to 32 buckets travels by value
+// as a __grid_constant__ kernel parameter, so one launch packs every
+// bucket, the per-unit signSGD encode and the non-fused vote of a step
+// included; a block finds its unit and tile with one 32-bit divide. A tile
+// is 64 words of one unit (2,048 bits) staged in shared memory with 16-byte
+// loads where d % 4 == 0 and the base is aligned, 4-byte loads otherwise;
+// one __ballot_sync a 32-bit chunk, and lanes 0-7 of each warp store its 8
+// words. The one-bucket pack is the same launch with one entry.
 //   Unpack is grouped over the buckets of a step: the tile walk of
 // unpack_tile.cuh (shared with the QSGD, TernGrad and signSGD unpacks) at
 // width 1 with the emit bit -> int32 {0, 1}. A table of up to 32 buckets
@@ -37,25 +44,21 @@
 
 #include <cstdint>
 
+#include "ballot_pack.cuh"
 #include "unpack_tile.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;  // warps (output words) per pack block
+// The predicate of the bit pack: a nonzero int32 is a set bit.
+struct NonZero {
+  __device__ __forceinline__ bool operator()(int32_t bit) const {
+    return bit != 0;
+  }
+};
 
-__global__ void bits_pack_kernel(const int32_t* __restrict__ bits,
-                                 uint32_t* __restrict__ out, int n, int d,
-                                 int wpu) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long g = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  if (g >= static_cast<long long>(n) * wpu) return;  // whole warp leaves
-  const int unit = static_cast<int>(g / wpu);
-  const int word = static_cast<int>(g % wpu);
-  const int p = word * 32 + lane;
-  const bool bit = p < d && bits[static_cast<long long>(unit) * d + p] != 0;
-  const uint32_t w = __ballot_sync(0xFFFFFFFFu, bit);
-  if (lane == 0) out[g] = w;
+__global__ void __launch_bounds__(repro::kBallotThreads)
+    bits_pack_kernel(const __grid_constant__ repro::BallotTable t) {
+  repro::ballot_pack_tile<int32_t>(t, NonZero{});
 }
 
 // The emit of the bit unpack: the bit itself, as an int32.
@@ -74,19 +77,24 @@ __global__ void __launch_bounds__(repro::kUnpackThreads)
 }  // namespace
 
 // C entry points (loaded with ctypes). Each launches on `stream` of CUDA
-// device `device` and returns cudaGetLastError(); empty inputs launch
+// device `device` and returns cudaGetLastError(); `blocks` == 0 launches
 // nothing.
-extern "C" int bits_pack(const void* bits, void* out, int n, int d, int wpu,
-                         int device, void* stream) {
-  const long long warps = static_cast<long long>(n) * wpu;
-  if (warps == 0) return 0;
+// bits_pack_buckets: `count` (1..kBallotMaxBuckets) buckets. `ptrs` holds
+// their bits pointers, then their out pointers; `sizes` their n, d, wpu,
+// tiles per unit and first block, `count` of each in that order, as
+// kernels/qsgd.py grouped_table computes them at width 1 over
+// kernels/qsgd.py ballot_tiles; `blocks` in all.
+extern "C" int bits_pack_buckets(int count, void* const* ptrs,
+                                 const int* sizes, int blocks, int device,
+                                 void* stream) {
+  if (count < 1 || count > repro::kBallotMaxBuckets)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const unsigned blocks = static_cast<unsigned>((warps + kWarps - 1) / kWarps);
-  bits_pack_kernel<<<blocks, kWarps * 32, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(bits), static_cast<uint32_t*>(out), n, d,
-      wpu);
+  const repro::BallotTable t = repro::ballot_table(count, ptrs, sizes);
+  bits_pack_kernel<<<static_cast<unsigned>(blocks), repro::kBallotThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(t);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,8 @@
 // Pieces shared by the grouped launches (hash_pack.cuh, unpack_tile.cuh,
-// sign.cu, pack.cu): a table of up to 32 buckets travels by value as a
-// __grid_constant__ kernel parameter, each bucket's first block a prefix
-// sum built by the caller (kernels/qsgd.py grouped_table, kernels/pack.py
-// field_table).
+// ballot_pack.cuh, sign.cu, pack.cu): a table of up to 32 buckets travels
+// by value as a __grid_constant__ kernel parameter, each bucket's first
+// block a prefix sum built by the caller (kernels/qsgd.py grouped_table,
+// kernels/pack.py field_table, kernels/sign.py vote_table).
 #pragma once
 
 #include <cstdint>

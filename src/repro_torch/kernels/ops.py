@@ -15,9 +15,10 @@ the TernGrad pack and unpack (`terngrad_pack_units_buckets`,
 (`sign_pack_units_buckets`, `sign_unpack_units_buckets`), the field pack
 and unpack of the natural and sparse codecs and of the per-unit QSGD /
 TernGrad decode (`fields_pack_units_buckets`,
-`fields_unpack_units_buckets`) and the bit unpack of the per-unit signSGD
-decode (`unpack_words_buckets`). The one-bucket entry points are the
-grouped calls with one bucket.
+`fields_unpack_units_buckets`), the bit pack and unpack of the per-unit
+signSGD encode and decode (`pack_words_buckets`, `unpack_words_buckets`)
+and the majority vote (`majority_words_buckets`). The one-bucket entry
+points are the grouped calls with one bucket.
 
 A bucket is an (n, d) f32 matrix whose rows are compression units. The
 caller-side pieces stay here, outside the kernels, exactly as in the
@@ -33,16 +34,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import prng
-from repro_torch.kernels.pack import (bits_pack, bits_unpack,
-                                      bits_unpack_buckets, fields_pack,
-                                      fields_pack_buckets, fields_unpack,
-                                      fields_unpack_buckets)
+from repro_torch.kernels.pack import (bits_pack, bits_pack_buckets,
+                                      bits_unpack, bits_unpack_buckets,
+                                      fields_pack, fields_pack_buckets,
+                                      fields_unpack, fields_unpack_buckets)
 from repro_torch.kernels.qsgd import (qsgd_compress_rows, qsgd_pack_buckets,
                                       qsgd_unpack_buckets)
 from repro_torch.kernels.ref import words_per_unit, words_to_i32
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_rows
-from repro_torch.kernels.sign import (majority, sign_pack_buckets,
-                                      sign_unpack_buckets)
+from repro_torch.kernels.sign import (majority, majority_buckets,
+                                      sign_pack_buckets, sign_unpack_buckets)
 from repro_torch.kernels.terngrad import (terngrad_compress_rows,
                                           terngrad_pack_buckets,
                                           terngrad_unpack_buckets)
@@ -60,9 +61,9 @@ __all__ = ["qsgd_compress", "terngrad_compress", "blockwise_topk",
            "sign_unpack_units_buckets", "sign_unpack_ef_units",
            "fields_pack_units", "fields_pack_units_buckets",
            "fields_unpack_units", "fields_unpack_units_buckets",
-           "pack_fields", "unpack_fields", "pack_words", "unpack_words",
-           "unpack_words_buckets",
-           "majority_words",
+           "pack_fields", "unpack_fields", "pack_words",
+           "pack_words_buckets", "unpack_words", "unpack_words_buckets",
+           "majority_words", "majority_words_buckets",
            "pack_bytes_moved", "unpack_bytes_moved", "majority_bytes_moved"]
 
 
@@ -358,8 +359,16 @@ def unpack_fields(words, k: int, width: int) -> torch.Tensor:
 def pack_words(bits) -> torch.Tensor:
     """(n, d) {0,1} int bits -> (n, words_per_unit(d, 1)) int32 words, bit p
     in word p // 32 at position p % 32 (the reference's ops.pack_words,
-    ops.py:211, with a leading batch of rows: one launch per bucket)."""
+    ops.py:211, with a leading batch of rows)."""
     return bits_pack(bits.to(torch.int32).contiguous())
+
+
+def pack_words_buckets(bits_list) -> list:
+    """pack_words over many buckets -> [(n_i, words_per_unit(d_i, 1)) int32
+    words]; ONE kernel launch for up to MAX_BUCKETS buckets
+    (kernels/pack.py bits_pack_buckets)."""
+    return bits_pack_buckets([b.to(torch.int32).contiguous()
+                              for b in bits_list])
 
 
 def unpack_words(words, d: int) -> torch.Tensor:
@@ -380,6 +389,13 @@ def majority_words(words) -> torch.Tensor:
     (ties -> +1), counted on the packed words: the {0,1} bit tensor never
     exists (ops.py:525)."""
     return majority(words.contiguous())
+
+
+def majority_words_buckets(words_list) -> list:
+    """majority_words over many buckets, bucket i (n_i, W_i) words of n_i
+    workers -> [(W_i,) majority-vote words]; ONE kernel launch for up to
+    MAX_BUCKETS buckets (kernels/sign.py majority_buckets)."""
+    return majority_buckets([w.contiguous() for w in words_list])
 
 
 # ---- bytes moved: what each kernel must read and write for one bucket ------

@@ -1,7 +1,8 @@
 """Word packing: the wrappers of the CUDA kernels in csrc/pack.cu
 (width-parametric fields, grouped over up to MAX_BUCKETS buckets of mixed
-widths a launch) and csrc/bits.cu ({0,1} bits; the unpack grouped over up
-to MAX_BUCKETS buckets a launch with kernels/qsgd.py's bucket tables),
+widths a launch) and csrc/bits.cu ({0,1} bits; the pack and the unpack
+grouped over up to MAX_BUCKETS buckets a launch with kernels/qsgd.py's
+bucket tables, the pack on the sign pack's tiles, csrc/ballot_pack.cuh),
 with their plain-torch versions (the routing, checks and launch counters
 of kernels/qsgd.py).
 
@@ -25,7 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.qsgd import (TILE_CODES, _check, _launch_args,
-                                      _on_card, launch_grouped,
+                                      _on_card, ballot_tiles, launch_grouped,
                                       unpack_codes_plain, unpack_tiles)
 from repro_torch.kernels.ref import words_per_unit
 
@@ -190,22 +191,35 @@ def bits_pack_plain(bits) -> torch.Tensor:
     return ref.words_to_i32(ref.pack_bits_ref(b))
 
 
+def bits_pack_buckets(bits_list) -> List[torch.Tensor]:
+    """bits_pack over many buckets: bucket i is bits_list[i] as bits_pack
+    takes it. On the card ONE launch per MAX_BUCKETS non-empty buckets
+    (kernels/qsgd.py grouped_table at width 1 over ballot_tiles: the sign
+    pack's staged-tile walk), each counted in
+    bits_pack.launches. On the CPU, bits_pack_plain per bucket."""
+    if not bits_list:
+        return []
+    if not _on_card(bits_list[0], *bits_list[1:]):
+        return [bits_pack_plain(b) for b in bits_list]
+    outs = []
+    for i, b in enumerate(bits_list):
+        if b.dim() != 2:
+            raise ValueError(f"bits[{i}]: want (n, d), got {tuple(b.shape)}")
+        n, d = b.shape
+        _check(b, "bits", torch.int32, (n, d))
+        outs.append(torch.empty((n, words_per_unit(d, 1)),
+                                dtype=torch.int32, device=b.device))
+    launch_grouped(bits_pack, "bits", "bits_pack_buckets",
+                   [tuple(b.shape) for b in bits_list], (bits_list, outs), 1,
+                   ballot_tiles)
+    return outs
+
+
 def bits_pack(bits) -> torch.Tensor:
     """(n, d) int32 {0,1} bits -> (n, words_per_unit(d, 1)) int32 words, bit
-    p in word p // 32 at position p % 32, zero past d."""
-    n, d = bits.shape
-    if not _on_card(bits):
-        return bits_pack_plain(bits)
-    _check(bits, "bits", torch.int32, (n, d))
-    wpu = words_per_unit(d, 1)
-    out = torch.empty((n, wpu), dtype=torch.int32, device=bits.device)
-    if out.numel() == 0:
-        return out
-    build.check(build.library("bits").bits_pack(
-        bits.data_ptr(), out.data_ptr(), n, d, wpu,
-        *_launch_args(bits.device)), "bits_pack")
-    bits_pack.launches += 1
-    return out
+    p in word p // 32 at position p % 32, zero past d. On the card: the
+    one-bucket launch of bits_pack_buckets."""
+    return bits_pack_buckets([bits])[0]
 
 
 bits_pack.launches = 0

@@ -93,6 +93,9 @@ TILE_PAIRS = 480
 #: codes an unpack block owns: 64 chunks of 32 (csrc/unpack_tile.cuh
 #: kUnpackTile, the tile of every grouped unpack)
 TILE_CODES = 2048
+#: elements a one-bit pack block owns: 64 chunks (words) of 32
+#: (csrc/ballot_pack.cuh kBallotTile, the sign pack's and the bit pack's)
+BALLOT_TILE = 2048
 #: buckets one grouped launch takes (csrc/hash_pack.cuh kPackMaxBuckets,
 #: csrc/unpack_tile.cuh kUnpackMaxBuckets, csrc/sign.cu kMaxBuckets)
 MAX_BUCKETS = 32
@@ -109,6 +112,11 @@ def pack_tiles(d: int) -> int:
 def unpack_tiles(d: int) -> int:
     """Unpack blocks per unit of d elements: tiles of TILE_CODES."""
     return -(-d // TILE_CODES)
+
+
+def ballot_tiles(d: int) -> int:
+    """One-bit pack blocks per unit of d elements: tiles of BALLOT_TILE."""
+    return -(-d // BALLOT_TILE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,25 +163,31 @@ def unpack_table(shapes: Sequence[Tuple[int, int]],
 
 
 @functools.lru_cache(maxsize=256)
-def _launches(shapes: Tuple[Tuple[int, int], ...], width: int, tiles_of):
+def _launches(shapes: Tuple[Tuple[int, int], ...], width: int, tiles_of,
+              extra: Tuple[int, ...]):
     """grouped_table's launches with each table's sizes as the C entry
-    point's int array (n, d, wpu, tiles, block_start; cached: a step's
-    shapes repeat)."""
-    return [(t, (ctypes.c_int * (5 * len(t.n)))(
-        *t.n, *t.d, *t.wpu, *t.tiles, *t.block_start))
-        for t in grouped_table(shapes, width, tiles_of)]
+    point's int array (n, d, wpu, tiles, block_start, then each bucket's
+    `extra` int if given; cached: a step's shapes repeat)."""
+    out = []
+    for g, t in enumerate(grouped_table(shapes, width, tiles_of)):
+        more = extra[g * MAX_BUCKETS:(g + 1) * MAX_BUCKETS]
+        out.append((t, (ctypes.c_int * (5 * len(t.n) + len(more)))(
+            *t.n, *t.d, *t.wpu, *t.tiles, *t.block_start, *more)))
+    return out
 
 
 def launch_grouped(wrapper, stem: str, entry: str, shapes, tensors,
-                   width: int, tiles_of, *args) -> None:
+                   width: int, tiles_of, *args, extra=None) -> None:
     """One launch of the C entry point `entry` of csrc/<stem>.cu per
     MAX_BUCKETS non-empty (n, d) buckets of `shapes`, each counted in
     wrapper.launches. `tensors` holds one list per pointer the entry
-    point takes for each bucket, in its order; `args` go between the
+    point takes for each bucket, in its order; `extra`, if given, one int
+    per bucket that follows the table's sizes; `args` go between the
     block count and the (device, stream)."""
     live = [i for i, (n, d) in enumerate(shapes) if n * d]
+    more = () if extra is None else tuple(int(extra[i]) for i in live)
     for g, (table, sizes) in enumerate(_launches(
-            tuple(tuple(shapes[i]) for i in live), width, tiles_of)):
+            tuple(tuple(shapes[i]) for i in live), width, tiles_of, more)):
         idx = live[g * MAX_BUCKETS:(g + 1) * MAX_BUCKETS]
         ptrs = (ctypes.c_void_p * (len(tensors) * len(idx)))(
             *(t[i].data_ptr() for t in tensors for i in idx))

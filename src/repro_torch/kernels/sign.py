@@ -1,9 +1,11 @@
 """Fused signSGD sign+pack / unpack+decode and the majority vote on packed
 words: the wrappers of the CUDA kernels in csrc/sign.cu and their
 plain-torch versions (the routing, checks and launch counters of
-kernels/qsgd.py). The pack and the unpack are grouped over up to 32
-buckets a launch (`sign_pack_buckets`, `sign_unpack_buckets`, with
-kernels/qsgd.py's bucket tables); the unpack is the bit unpack's tile walk
+kernels/qsgd.py). The pack, the unpack and the vote are grouped over up
+to 32 buckets a launch (`sign_pack_buckets`, `sign_unpack_buckets` with
+kernels/qsgd.py's bucket tables, `majority_buckets` with `vote_table`);
+the pack is the staged-tile ballot walk it shares with the bit pack
+(csrc/ballot_pack.cuh), the unpack the bit unpack's tile walk
 (csrc/unpack_tile.cuh) with +1 / -1 for a bit.
 
 Bit p of a unit is x[p] >= 0; each unit packs into words_per_unit(d, 1)
@@ -16,10 +18,11 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build, ref
-from repro_torch.kernels.qsgd import (BucketTable, _check, _launch_args,
-                                      _on_card, grouped_table, launch_grouped,
-                                      unpack_codes_plain, unpack_tiles)
+from repro_torch.kernels import ref
+from repro_torch.kernels.qsgd import (BucketTable, _check, _on_card,
+                                      ballot_tiles, grouped_table,
+                                      launch_grouped, unpack_codes_plain,
+                                      unpack_tiles)
 from repro_torch.kernels.ref import words_per_unit
 
 
@@ -33,20 +36,10 @@ def sign_pack_plain(x) -> torch.Tensor:
         d, 1)])
 
 
-#: elements a pack block owns: 64 chunks (words) of 32 (csrc/sign.cu
-#: kPackTile)
-TILE_ELEMS = 2048
-
-
-def sign_tiles(d: int) -> int:
-    """Pack blocks per unit of d elements: tiles of TILE_ELEMS."""
-    return -(-d // TILE_ELEMS)
-
-
 def sign_table(shapes: Sequence[Tuple[int, int]]) -> List[BucketTable]:
     """The launches that pack (n, d) buckets of signs: one table per
-    MAX_BUCKETS buckets, in order."""
-    return grouped_table(shapes, 1, sign_tiles)
+    MAX_BUCKETS buckets, in order, over kernels/qsgd.py ballot_tiles."""
+    return grouped_table(shapes, 1, ballot_tiles)
 
 
 def sign_pack_buckets(xs) -> List[torch.Tensor]:
@@ -67,7 +60,7 @@ def sign_pack_buckets(xs) -> List[torch.Tensor]:
         outs.append(torch.empty((n, words_per_unit(d, 1)),
                                 dtype=torch.int32, device=x.device))
     launch_grouped(sign_pack, "sign", "sign_pack_buckets",
-                   [tuple(x.shape) for x in xs], (xs, outs), 1, sign_tiles)
+                   [tuple(x.shape) for x in xs], (xs, outs), 1, ballot_tiles)
     return outs
 
 
@@ -123,23 +116,56 @@ def majority_plain(words) -> torch.Tensor:
     return ref.words_to_i32(ref.majority_words_ref(ref.words_from_i32(words)))
 
 
+#: word columns a majority block owns, one a thread (csrc/sign.cu
+#: kVoteCols)
+VOTE_COLS = 128
+
+
+def vote_tiles(W: int) -> int:
+    """Majority blocks per (n, W) bucket: tiles of VOTE_COLS columns."""
+    return -(-W // VOTE_COLS)
+
+
+def vote_table(shapes: Sequence[Tuple[int, int]]) -> List[BucketTable]:
+    """The launches that vote over (n, W) buckets: one table per
+    MAX_BUCKETS buckets, in order, each bucket one output row of W words
+    in tiles of VOTE_COLS (grouped_table over (1, W); n is the voters)."""
+    return grouped_table([(1, W) for _, W in shapes], 1, vote_tiles)
+
+
+def majority_buckets(words_list) -> List[torch.Tensor]:
+    """majority over many buckets: bucket i is words_list[i], (n_i, W_i)
+    int32 words of n_i workers, as majority takes it. On the card ONE
+    launch per MAX_BUCKETS buckets with W_i > 0 (vote_table), each counted
+    in majority.launches. On the CPU, majority_plain per bucket."""
+    for i, w in enumerate(words_list):
+        if w.dim() != 2:
+            raise ValueError(f"words[{i}]: want (n, W), got {tuple(w.shape)}")
+        if not 1 <= w.shape[0] <= MAX_VOTERS:
+            raise ValueError(f"majority of {w.shape[0]} workers: supports "
+                             f"1..{MAX_VOTERS}")
+    if not words_list:
+        return []
+    if not _on_card(words_list[0], *words_list[1:]):
+        return [majority_plain(w) for w in words_list]
+    outs = []
+    for w in words_list:
+        _check(w, "words", torch.int32, w.shape)
+        outs.append(torch.empty((w.shape[1],), dtype=torch.int32,
+                                device=w.device))
+    # vote_table's launches: one output row of W words a bucket, its
+    # voters after the table's sizes
+    launch_grouped(majority, "sign", "majority_buckets",
+                   [(1, w.shape[1]) for w in words_list], (words_list, outs),
+                   1, vote_tiles, extra=[w.shape[0] for w in words_list])
+    return outs
+
+
 def majority(words) -> torch.Tensor:
     """(n_workers, W) int32 packed sign words -> (W,) int32 majority words:
-    a bit is set where 2 * (votes for it) >= n_workers (ties -> +1)."""
-    n, W = words.shape
-    if not 1 <= n <= MAX_VOTERS:
-        raise ValueError(f"majority of {n} workers: supports 1..{MAX_VOTERS}")
-    if not _on_card(words):
-        return majority_plain(words)
-    _check(words, "words", torch.int32, (n, W))
-    out = torch.empty((W,), dtype=torch.int32, device=words.device)
-    if out.numel() == 0:
-        return out
-    build.check(build.library("sign").majority(
-        words.data_ptr(), out.data_ptr(), n, W, *_launch_args(words.device)),
-        "majority")
-    majority.launches += 1
-    return out
+    a bit is set where 2 * (votes for it) >= n_workers (ties -> +1). On
+    the card: the one-bucket launch of majority_buckets."""
+    return majority_buckets([words])[0]
 
 
 majority.launches = 0

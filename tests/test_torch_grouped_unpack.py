@@ -78,10 +78,11 @@ def _facs(n, seed):
 @pytest.mark.parametrize("case", ["resnet9_layerwise", "33_buckets",
                                   "70_buckets"])
 def test_tables(case, kernel):
-    from repro_torch.kernels.qsgd import (MAX_BUCKETS, TILE_CODES,
+    from repro_torch.kernels.qsgd import (BALLOT_TILE, MAX_BUCKETS,
+                                          TILE_CODES, ballot_tiles,
                                           unpack_table, unpack_tiles)
     from repro_torch.kernels.ref import words_per_unit
-    from repro_torch.kernels.sign import TILE_ELEMS, sign_table, sign_tiles
+    from repro_torch.kernels.sign import sign_table
     if case == "resnet9_layerwise":
         shapes = _resnet9_layerwise_shapes()
         assert len(shapes) == 11
@@ -92,8 +93,8 @@ def test_tables(case, kernel):
         groups = [shapes[i:i + MAX_BUCKETS]
                   for i in range(0, count, MAX_BUCKETS)]
     if kernel == "sign_pack":
-        width, tile, tables = 1, TILE_ELEMS, sign_table(shapes)
-        assert [sign_tiles(d) for _, d in shapes] == [
+        width, tile, tables = 1, BALLOT_TILE, sign_table(shapes)
+        assert [ballot_tiles(d) for _, d in shapes] == [
             math.ceil(d / 2048) for _, d in shapes]
     else:
         width, tile, tables = 6, TILE_CODES, unpack_table(shapes, 6)
@@ -116,10 +117,10 @@ def _mirror_sign_pack(x):
     """csrc/sign.cu sign_pack_kernel, block by block -> (words as
     sign_pack_plain gives them, writes per word)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.sign import TILE_ELEMS, sign_tiles
+    from repro_torch.kernels.qsgd import BALLOT_TILE, ballot_tiles
     n, d = x.shape
     wpu = ref.words_per_unit(d, 1)
-    chunks, warps = TILE_ELEMS // 32, 8
+    chunks, warps = BALLOT_TILE // 32, 8
     per_warp = chunks // warps
     out = torch.zeros((n, wpu), dtype=torch.int64)
     writes = torch.zeros((n, wpu), dtype=torch.int64)
@@ -128,12 +129,12 @@ def _mirror_sign_pack(x):
     warp, lane = c // per_warp, c % per_warp    # who stores chunk c's word
     assert bool((warp < warps).all() and (lane < 32).all())
     for unit in range(n):
-        for tile in range(sign_tiles(d)):
-            e0 = tile * TILE_ELEMS
-            ne = min(TILE_ELEMS, d - e0)
+        for tile in range(ballot_tiles(d)):
+            e0 = tile * BALLOT_TILE
+            ne = min(BALLOT_TILE, d - e0)
             if d % 4 == 0:                      # 16-byte loads: none past d
                 assert ne % 4 == 0
-            staged = torch.full((TILE_ELEMS,), float("nan"))  # never read
+            staged = torch.full((BALLOT_TILE,), float("nan"))  # never read
             staged[:ne] = x[unit, e0:e0 + ne]
             i = c[:, None] * 32 + lanes[None, :]
             bits = (i < ne) & (staged[i] >= 0.0)     # one ballot a chunk
