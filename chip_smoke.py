@@ -52,7 +52,17 @@ error:
      on votes of n in {1, 2, 3, 4, 5, 8, 9, 17, 255} workers over W at the
      vote's tile edges with every W % 4 (zero columns, exact ties) and
      on inputs 4 bytes past a 16-byte boundary, grouped and one bucket
-     at a time
+     at a time; the grouped compress-only quantizers
+     (qsgd_compress_buckets at levels 4/7/16/64, terngrad_compress_buckets:
+     the pair walks of csrc/compress.cu, 1 and 4 pairs a thread, that draw
+     each unit's uniforms themselves over the unit's draw length), each
+     walk bitwise against the per-bucket
+     plain twins on one worker's 11 layerwise buckets in one launch, on
+     MAX_BUCKETS + 8 buckets in two, on units of d at the 1,024-pair tile
+     and h = N / 2 edges at both draw granules (512 and 131,072), at the
+     entire-model and 2**20-entry widths and on units 4 bytes past a
+     16-byte boundary, inputs holding -0.0, a NaN and zero statistics,
+     grouped and one bucket at a time
   4. the main path: train_cnn on resnet9 with QSGD(16) layerwise and
      entire_model, TernGrad, signSGD, natural, top-k(1%) and random-k(1%)
      layerwise, top-k entire_model, and adaptive threshold layerwise (the
@@ -76,7 +86,10 @@ error:
      the top-k index legs) also as the step's one grouped launch
      (layerwise_step_grouped, the kernel line's time), a layerwise step's
      QSGD encode and natural encode and decode from Python, grouped and
-     per bucket
+     per bucket; the compress-only quantizers as phase 8 calls them (one
+     grouped launch over a layerwise plan_compress call's 11 buckets, the
+     entire-model bucket, the whole-input calls) on keys, beside their
+     byte and operation bounds (hashes counted from the draw lengths)
   6. torch.profiler over five main-path steps each of QSGD(16) and
      top-k(1%) layerwise: wall and device-busy time per step, the
      device's idle share and the top device ops
@@ -103,29 +116,35 @@ error:
      parameters on every rank at the end
   8. the compress-only path (kernels/ops.py) on one worker's resnet9
      gradients: plan_compress for QSGD(16) and TernGrad at layerwise,
-     entire-model and blockwise (65,536) granularity, held to exactly
-     11 / 1 / 1 launches a call and to the same call built with the plain
-     versions on the card; qsgd_compress, terngrad_compress and
-     blockwise_topk(k=5) on the flat gradient and on 2**20 entries;
+     entire-model and blockwise (65,536) granularity (11 / 1 / 1
+     buckets), held to exactly one launch a call (every bucket in one
+     grouped launch) and to the same call built with the plain versions on
+     the card; qsgd_compress, terngrad_compress and blockwise_topk(k=5) on
+     the flat gradient and on 2**20 entries (one launch each; a whole
+     input is one unit);
      rmsnorm at (4096, 3072) bf16; theory.noise_bounds_from_plan for
      QSGD(16) at both granularities and theory.lemma1_check over the
      layer parts
 
-Phase 3 also holds the compress-only kernels against their plain versions
-on the card at every bucket shape, the entire-model gradient and 2**20
-entries: QSGD (levels 4/7/16/64) and TernGrad bitwise with one statistic
-per row and with one scalar statistic, top-k bitwise at k 1/5/16/128, and
-RMSNorm at (4096, 3072) in f32 (within 1e-6 relative) and bf16 (at most
+Phase 3 also holds the other compress-only kernels against their plain
+versions on the card at every bucket shape, the entire-model gradient and
+2**20 entries: top-k bitwise at k 1/5/16/128, and RMSNorm at (4096, 3072) in f32 (within 1e-6 relative) and bf16 (at most
 0.1% of entries one bf16 ulp apart; the two sum the squares in other
 orders) and at (64, 65536) bf16 (the looped kernel), and the RMSNorm
 wrapper refusing a view that does not start on a 16-byte boundary. Phase
 5 times them beside their bounds at the phase-8 shapes, and RMSNorm
 beside torch.nn.functional.rms_norm (`library_ms`, timed only) and a copy
-of the same bytes (`copy_ms`).
+of the same bytes (`copy_ms`). After phase 8, the whole-call rows: a
+layerwise plan_compress (QSGD(16), TernGrad) and the whole-input calls on
+2**20 entries, host ms per call and the kernels one call launches
+(torch.profiler).
 
 Run from the repository root: `python3 chip_smoke.py` (no arguments, one
 card). `python3 chip_smoke.py --nccl` on a machine with 4 cards runs the
-build and phase 7 only, one rank per card over NCCL. Details go to
+build and phase 7 only, one rank per card over NCCL. `python3
+chip_smoke.py --calls DIR` runs only the whole-call rows, on the port of
+the checkout DIR (another commit's tree, unpacked with git archive, for a
+comparison in one call). Details go to
 chiprun_out/chip_smoke.json. The last line is {"ok": true, "device":
 {...}}; the line before it the kernel table, whose launches are, for the
 wire kernels, the main-path runs of phase 4 plus the multi-rank phase 7
@@ -134,6 +153,7 @@ phase 8.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -180,8 +200,6 @@ VOTERS = (1, 2, 3, 4, 5, 8)
 RANKS = 4
 RANK_TIMEOUT = 600.0
 # the compress-only path (phase 8)
-COMPRESS_KERNELS = ("qsgd_compress_rows", "terngrad_compress_rows",
-                    "topk_mask", "rmsnorm")
 COMPRESS_LEVELS = (4, 7, 16, 64)
 TOPK_KS = (1, 5, 16, 128)
 MICRO = 1 << 20              # benchmarks/microbench.py's D
@@ -207,11 +225,21 @@ VOTE_NS = VOTERS + (9, 17, 255)
 VOTE_EDGE_COLS = (1, 2, 3, 4, 5, 6, 7, 127, 128, 129, 130, 255, 256, 1025,
                   4096)
 BLOCK = 65536
-# (int32, fp32) operations per element of the compress-only kernels: QSGD
-# abs, divide, fma (2), floor, sign, two multiplies; TernGrad abs, divide,
-# compare, select, multiply; top-k abs, max, 24 bisection compares and the
-# final compare (fp) with 24 count adds (int); RMSNorm square, add and two
-# multiplies
+# the compress-only quantizers' draw granules: a UnitPlan unit's uniforms
+# span 512 * ceil(d / 512) positions, a whole input's 131,072 * ceil(d /
+# 131,072) (kernels/ops.py draw_length)
+UNIT_DRAW, WHOLE_DRAW = 512, 131072
+# unit dimensions where the compress-only pair walks are most fragile:
+# min(d, N / 2) on both sides of their 256- and 1,024-pair tiles and of h
+# = N / 2 at both granules, d % 4 != 0 beside d % 4 == 0
+COMPRESS_EDGE_DIMS = (1, 2, 3, 255, 256, 257, 511, 512, 513, 1023, 1024,
+                      1025, 2047, 2048, 2049, 2303, 65537)
+# (int32, fp32) operations per element of the compress-only kernels beyond
+# the threefry hashes (THREEFRY_INT_OPS a counter pair, drawn in the QSGD
+# and TernGrad kernels): QSGD abs, divide, fma (2), floor, sign, two
+# multiplies; TernGrad abs, divide, compare, select, multiply; top-k abs,
+# max, 24 bisection compares and the final compare (fp) with 24 count adds
+# (int); RMSNorm square, add and two multiplies
 COMPRESS_OPS = {"qsgd_compress_rows": (0, 8),
                 "terngrad_compress_rows": (0, 5),
                 "topk_mask": (24, 27), "rmsnorm": (0, 4)}
@@ -404,14 +432,30 @@ def check_kernels(shapes, dev):
 # ---- phase 3: the compress-only kernels vs their plain versions -------------
 
 def compress_inputs(shape, seed, dev):
-    """Seeded (n, d) f32 units (every 7th entry 0, some -0.0) and (n, d)
-    uniforms in [0, 1), on the card."""
+    """Seeded (n, d) f32 entries (every 7th 0, some -0.0), on the card."""
     import torch
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(shape, generator=g)
     x[:, ::7] = 0.0
     x[:, 3::11] = -0.0
-    return x.to(dev), torch.rand(shape, generator=g).to(dev)
+    return x.to(dev)
+
+
+def quant_inputs(shape, seed, dev, specials=False):
+    """Seeded (n, d) f32 units (every 7th entry 0), their int32 key words
+    and each unit's l2 norm and max|x| over its finite entries, on the
+    card. Under `specials`: -0.0 entries, one NaN and, at n > 1, a last
+    unit of zeros (statistic 0)."""
+    import torch
+    x, k0, k1 = make_inputs(shape, seed, dev)
+    if specials:
+        x[:, 3::11] = -0.0
+        x[0, min(5, shape[1] - 1)] = float("nan")
+        if shape[0] > 1:
+            x[-1] = 0.0
+    f = torch.nan_to_num(x, nan=0.0)
+    return (x, k0, k1, torch.linalg.vector_norm(f, dim=1),
+            f.abs().amax(dim=1))
 
 
 def rmsnorm_inputs(dtype, seed, dev, shape=RMS_SHAPE):
@@ -438,47 +482,122 @@ def rmsnorm_close(got, want) -> bool:
             and bool((err[off] <= 2.0**-7 * b.abs()[off]).all()))
 
 
-def check_compress_kernels(shapes, dev):
-    """The compress-only kernels vs their plain versions on the card ->
-    max |err| per kernel. At every (n, d) shape: QSGD and TernGrad with
-    one statistic per row on the (n, d) units and with one scalar statistic
-    on the same entries as 512-wide rows, bitwise (the statistic computed
-    once and fed to both); top-k on those rows, bitwise; then RMSNorm at
-    RMS_SHAPE in f32 and bf16 (the registers kernel) and at RMS_WIDE in
-    bf16 (the looped kernel) within the stated tolerance, and the wrapper
-    raising on a view that does not start on a 16-byte boundary."""
+@contextlib.contextmanager
+def walk(per_thread: int):
+    """Inside the block the compress-only kernels take `per_thread` (1 or
+    4) counter pairs a thread at every size: kernels/qsgd.py compress_walk
+    is shown a card that holds more resident threads than any call has
+    pairs (1), or none (4)."""
+    from repro_torch.kernels import qsgd as Q
+    saved = Q._resident_threads
+    Q._resident_threads = lambda device: 2**31 if per_thread == 1 else 0
+    try:
+        yield
+    finally:
+        Q._resident_threads = saved
+
+
+def check_grouped_compress(unit_shapes, em_d, dev):
+    """The grouped compress-only quantizers, the pair walks of
+    csrc/compress.cu drawing their own uniforms (qsgd_compress_buckets at
+    every level of COMPRESS_LEVELS, terngrad_compress_buckets, each on
+    both walks: 1 and 4 pairs a thread), vs the plain twins per bucket,
+    bitwise, and each group's exact launches: the
+    11 resnet9 layerwise buckets of one worker in ONE launch, 40 buckets
+    in two, the COMPRESS_EDGE_DIMS units at the unit granule (3 units a
+    bucket) and as whole inputs (one unit, the whole-input granule), the
+    entire-model and 2**20-entry inputs at both granules, and units 4
+    bytes past a 16-byte boundary (the 4-byte path); inputs hold -0.0, a
+    NaN and a unit whose statistic is 0. Edge and misaligned buckets also
+    one at a time (qsgd_compress_rows / terngrad_compress_rows). -> max
+    |err| of (QSGD, TernGrad)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import qsgd as Q
     from repro_torch.kernels import terngrad as T
-    from repro_torch.kernels import topk_mask as K
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
-    err = {k: 0.0 for k in COMPRESS_KERNELS}
+    groups = {
+        "layerwise": [(s, UNIT_DRAW) for s in unit_shapes],
+        "over_max_buckets": [((1 + i % 3, 17 + 61 * i), UNIT_DRAW)
+                             for i in range(Q.MAX_BUCKETS + 8)],
+        "edges_unit": [((3, d), UNIT_DRAW) for d in COMPRESS_EDGE_DIMS],
+        "edges_whole": [((1, d), WHOLE_DRAW) for d in COMPRESS_EDGE_DIMS],
+        "full_width": [((1, d), g) for d in (em_d, MICRO)
+                       for g in (UNIT_DRAW, WHOLE_DRAW)],
+        "misaligned": [((2, d), UNIT_DRAW) for d in (4, 256, 2048, 4608)]}
+    err = [0.0, 0.0]
 
-    def same(name, got, want, what):
-        err[name] = max(err[name], max_abs_err(got, want))
+    def held(i, name, got, want, what):
+        err[i] = max(err[i], max_abs_err(torch.nan_to_num(got),
+                                         torch.nan_to_num(want)))
         check(bitwise_equal(got, want), f"{name} {what}")
 
+    for gi, (gname, cases) in enumerate(groups.items()):
+        ins = [quant_inputs(s, 2100 + 64 * gi + i, dev, specials=i % 2 == 0)
+               for i, (s, _) in enumerate(cases)]
+        xs = [c[0] for c in ins]
+        if gname == "misaligned":
+            xs = [shift(x) for x in xs]
+        k0s, k1s = [c[1] for c in ins], [c[2] for c in ins]
+        nrms, scs = [c[3] for c in ins], [c[4] for c in ins]
+        draws = [ops.draw_length(s[1], g) for s, g in cases]
+        single = gname in ("edges_unit", "edges_whole", "misaligned")
+        for lv in COMPRESS_LEVELS:
+            want = Q.qsgd_compress_buckets_plain(xs, k0s, k1s, nrms, draws,
+                                                 lv)
+            for pt in (1, 4):
+                with walk(pt):
+                    got = launched(Q.qsgd_compress_rows,
+                                   lambda: Q.qsgd_compress_buckets(
+                                       xs, k0s, k1s, nrms, draws, lv),
+                                   len(cases), gname)
+                    ones = [Q.qsgd_compress_rows(xs[b], k0s[b], k1s[b],
+                                                 nrms[b], draws[b], lv)
+                            for b in range(len(cases))] if single else []
+                for b, (g, w) in enumerate(zip(got, want)):
+                    what = (f"{gname} {tuple(xs[b].shape)} N {draws[b]} "
+                            f"levels {lv}, {pt} a thread")
+                    held(0, "qsgd_compress_buckets", g, w, what)
+                    if single:
+                        held(0, "qsgd_compress_rows", ones[b], w, what)
+        want = T.terngrad_compress_buckets_plain(xs, k0s, k1s, scs, draws)
+        for pt in (1, 4):
+            with walk(pt):
+                got = launched(T.terngrad_compress_rows,
+                               lambda: T.terngrad_compress_buckets(
+                                   xs, k0s, k1s, scs, draws),
+                               len(cases), gname)
+                ones = [T.terngrad_compress_rows(xs[b], k0s[b], k1s[b],
+                                                 scs[b], draws[b])
+                        for b in range(len(cases))] if single else []
+            for b, (g, w) in enumerate(zip(got, want)):
+                what = f"{gname} {tuple(xs[b].shape)} N {draws[b]}, {pt} a thread"
+                held(1, "terngrad_compress_buckets", g, w, what)
+                if single:
+                    held(1, "terngrad_compress_rows", ones[b], w, what)
+    torch.cuda.synchronize()
+    return tuple(err)
+
+
+def check_compress_kernels(shapes, dev):
+    """The other compress-only kernels vs their plain versions on the card
+    -> max |err| per kernel: top-k at every (n, d) shape on its entries as
+    512-wide rows, bitwise; then RMSNorm at RMS_SHAPE in f32 and bf16 (the
+    registers kernel) and at RMS_WIDE in bf16 (the looped kernel) within
+    the stated tolerance, and the wrapper raising on a view that does not
+    start on a 16-byte boundary."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import topk_mask as K
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+    err = {"topk_mask": 0.0, "rmsnorm": 0.0}
+
     for si, shape in enumerate(shapes):
-        x, u = compress_inputs(shape, 800 + si, dev)
-        xt, ut = ops._tile(x)[0], ops._tile(u)[0]
-        stats = {"qsgd": ((x, u, torch.linalg.vector_norm(x, dim=1), "rows"),
-                          (xt, ut, torch.linalg.vector_norm(x), "scalar")),
-                 "terngrad": ((x, u, x.abs().amax(dim=1), "rows"),
-                              (xt, ut, x.abs().amax(), "scalar"))}
-        for xx, uu, st, how in stats["qsgd"]:
-            for lv in COMPRESS_LEVELS:
-                same("qsgd_compress_rows", Q.qsgd_compress_rows(xx, uu, st, lv),
-                     Q.qsgd_compress_rows_plain(xx, uu, st, lv),
-                     f"{tuple(xx.shape)} levels {lv} {how}")
-        for xx, uu, st, how in stats["terngrad"]:
-            same("terngrad_compress_rows",
-                 T.terngrad_compress_rows(xx, uu, st),
-                 T.terngrad_compress_rows_plain(xx, uu, st),
-                 f"{tuple(xx.shape)} {how}")
+        xt = ops._tile(compress_inputs(shape, 800 + si, dev))[0]
         for k in TOPK_KS:
-            same("topk_mask", K.topk_mask(xt, k), K.topk_mask_plain(xt, k),
-                 f"{tuple(xt.shape)} k {k}")
+            got, want = K.topk_mask(xt, k), K.topk_mask_plain(xt, k)
+            err["topk_mask"] = max(err["topk_mask"], max_abs_err(got, want))
+            check(bitwise_equal(got, want), f"topk_mask {tuple(xt.shape)} "
+                  f"k {k}")
     for shape, dtype, variant in ((RMS_SHAPE, torch.float32, "registers"),
                                   (RMS_SHAPE, torch.bfloat16, "registers"),
                                   (RMS_WIDE, torch.bfloat16, "looped")):
@@ -1365,21 +1484,34 @@ def encode_host_ms(layer_shapes, dev):
             x, k, MAIN_LEVELS, MAIN_WIDTH) for x, k in zip(xs, ks)])}
 
 
-def compress_bounds(kernel: str, rows: int, cols: int, stat_words: int = 0,
-                    elt: int = 4):
+def compress_bounds(kernel: str, rows: int, cols: int, elt: int = 4):
     """(bytes moved, int ops, fp ops, byte-bound ms, op-bound ms) of one
-    compress-only launch over (rows, cols): QSGD / TernGrad read x and the
-    noise and write the output (12 B an entry) and read `stat_words`
-    statistics; top-k reads and writes 4 B an entry; RMSNorm reads and
-    writes `elt` B an entry and reads gamma (4 B a column)."""
+    top-k or RMSNorm launch over (rows, cols): top-k reads and writes 4 B
+    an entry; RMSNorm reads and writes `elt` B an entry and reads gamma (4
+    B a column)."""
     if kernel == "rmsnorm":
         nbytes = 2 * elt * rows * cols + 4 * cols
-    elif kernel == "topk_mask":
-        nbytes = 8 * rows * cols
     else:
-        nbytes = 12 * rows * cols + 4 * stat_words
+        nbytes = 8 * rows * cols
     per_int, per_fp = COMPRESS_OPS[kernel]
-    int_ops, fp_ops = rows * cols * per_int, rows * cols * per_fp
+    return _bounded(nbytes, rows * cols * per_int, rows * cols * per_fp)
+
+
+def quant_bounds(kernel: str, buckets):
+    """The same for one grouped QSGD / TernGrad compress-only launch over
+    (n, d, draw) buckets: x read and the output written once (8 B an
+    element), two key words and the statistic read once a unit (12 B),
+    one threefry hash for each of the n * min(d, draw / 2) counter pairs
+    below d, and the quantizer's fp32 operations an element."""
+    elems = sum(n * d for n, d, _ in buckets)
+    hashes = sum(n * min(d, N // 2) for n, d, N in buckets)
+    per_int, per_fp = COMPRESS_OPS[kernel]
+    return _bounded(8 * elems + 12 * sum(n for n, _, _ in buckets),
+                    hashes * THREEFRY_INT_OPS + elems * per_int,
+                    elems * per_fp)
+
+
+def _bounded(nbytes, int_ops, fp_ops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (int_ops / INT32_OPS_PER_S + fp_ops / FP32_OPS_PER_S) * 1e3
     return nbytes, int_ops, fp_ops, t_bytes, t_ops
@@ -1387,14 +1519,18 @@ def compress_bounds(kernel: str, rows: int, cols: int, stat_words: int = 0,
 
 def time_compress_kernels(unit_shapes, total, dev):
     """Rows like time_kernels' for the compress-only kernels at phase 8's
-    shapes: QSGD(16) and TernGrad over the buckets of one layerwise
-    plan_compress call (group compress_layerwise: one statistic per unit),
-    over its entire-model bucket (compress_entire_model) and in the
-    whole-input calls on the flat gradient and on 2**20 entries (one
-    scalar statistic over 512-wide rows: compress_flat, compress_micro);
-    top-k (k=5) in the same two whole-input calls; RMSNorm at RMS_SHAPE in
-    bf16 and f32, beside torch.nn.functional.rms_norm (`library_ms`) and
-    a copy of x (`copy_ms`)."""
+    shapes: QSGD(16) and TernGrad as ONE grouped launch over the 11
+    buckets of one layerwise plan_compress call (group
+    compress_layerwise), over its entire-model bucket
+    (compress_entire_model), and in the whole-input calls on the flat
+    gradient and on 2**20 entries (one unit, the whole-input draw:
+    compress_flat, compress_micro), each on keys (the uniforms drawn in
+    the kernel) beside the plain twins per bucket; QSGD(16) on both
+    walks, forced, from a layerwise call to a whole input of 3 * 2**18
+    entries (compress_walk, `auto` the walk compress_walk picks); top-k (k=5) in the
+    same two whole-input calls; RMSNorm at RMS_SHAPE in bf16 and f32,
+    beside torch.nn.functional.rms_norm (`library_ms`) and a copy of x
+    (`copy_ms`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -1404,10 +1540,9 @@ def time_compress_kernels(unit_shapes, total, dev):
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
     rows = []
 
-    def add(group, kernel, shape, stat_words, kern, plain, elt=4,
-            library=None, **extra):
-        nbytes, iops, fops, t_b, t_o = compress_bounds(kernel, *shape,
-                                                       stat_words, elt)
+    def add(group, kernel, shape, bounded, kern, plain, library=None,
+            **extra):
+        nbytes, iops, fops, t_b, t_o = bounded
         rows.append({**extra,
             "group": group, "kernel": kernel, "leg": "", "shape": list(shape),
             "width": 0, "ms": device_ms(kern), "call_ms": call_ms(kern),
@@ -1417,27 +1552,66 @@ def time_compress_kernels(unit_shapes, total, dev):
             "bytes_ms": t_b, "ops_ms": t_o, "bound_ms": max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations"})
 
-    cases = ([("compress_layerwise", s, False) for s in unit_shapes]
-             + [("compress_entire_model", (1, total), False),
-                ("compress_flat", (1, total), True),
-                ("compress_micro", (1, MICRO), True)])
-    for si, (group, shape, whole) in enumerate(cases):
-        x, u = compress_inputs(shape, 1000 + si, dev)
-        if whole:
-            nrm, sc = torch.linalg.vector_norm(x), x.abs().amax()
-            x, u = ops._tile(x)[0], ops._tile(u)[0]
-        else:
-            nrm, sc = torch.linalg.vector_norm(x, dim=1), x.abs().amax(dim=1)
-        shp = tuple(x.shape)
-        add(group, "qsgd_compress_rows", shp, nrm.numel(),
-            lambda: Q.qsgd_compress_rows(x, u, nrm, MAIN_LEVELS),
-            lambda: Q.qsgd_compress_rows_plain(x, u, nrm, MAIN_LEVELS))
-        add(group, "terngrad_compress_rows", shp, sc.numel(),
-            lambda: T.terngrad_compress_rows(x, u, sc),
-            lambda: T.terngrad_compress_rows_plain(x, u, sc))
-        if whole:
-            add(group, "topk_mask", shp, 0, lambda: K.topk_mask(x, 5),
-                lambda: K.topk_mask_plain(x, 5))
+    cases = (("compress_layerwise", unit_shapes, UNIT_DRAW),
+             ("compress_entire_model", [(1, total)], UNIT_DRAW),
+             ("compress_flat", [(1, total)], WHOLE_DRAW),
+             ("compress_micro", [(1, MICRO)], WHOLE_DRAW))
+    for ci, (group, shapes, granule) in enumerate(cases):
+        ins = [quant_inputs(s, 1000 + 16 * ci + i, dev)
+               for i, s in enumerate(shapes)]
+        xs = [c[0] for c in ins]
+        k0s, k1s = [c[1] for c in ins], [c[2] for c in ins]
+        nrms, scs = [c[3] for c in ins], [c[4] for c in ins]
+        draws = [ops.draw_length(d, granule) for _, d in shapes]
+        buckets = [(n, d, N) for (n, d), N in zip(shapes, draws)]
+        hashes = sum(n * min(d, N // 2) for n, d, N in buckets)
+        info = {"buckets": len(shapes), "hashes": hashes,
+                "per_thread": Q.compress_walk(hashes, dev)}
+        shp = (sum(n for n, _ in shapes), sum(n * d for n, d in shapes))
+        add(group, "qsgd_compress_rows", shp,
+            quant_bounds("qsgd_compress_rows", buckets),
+            lambda: Q.qsgd_compress_buckets(xs, k0s, k1s, nrms, draws,
+                                            MAIN_LEVELS),
+            lambda: Q.qsgd_compress_buckets_plain(xs, k0s, k1s, nrms, draws,
+                                                  MAIN_LEVELS), **info)
+        add(group, "terngrad_compress_rows", shp,
+            quant_bounds("terngrad_compress_rows", buckets),
+            lambda: T.terngrad_compress_buckets(xs, k0s, k1s, scs, draws),
+            lambda: T.terngrad_compress_buckets_plain(xs, k0s, k1s, scs,
+                                                      draws), **info)
+        if granule == WHOLE_DRAW:
+            xt = ops._tile(xs[0])[0]
+            add(group, "topk_mask", tuple(xt.shape),
+                compress_bounds("topk_mask", *xt.shape),
+                lambda: K.topk_mask(xt, 5), lambda: K.topk_mask_plain(xt, 5))
+    # group compress_walk: the QSGD(16) grouped call on both walks, forced,
+    # from a layerwise call's 61,050 pairs to a whole input's 393,216 (the
+    # evidence for compress_walk's switch at one wave of resident threads)
+    walks = (("layerwise", unit_shapes, UNIT_DRAW),
+             ("entire_model", [(1, total)], UNIT_DRAW),
+             *((f"whole_{d}", [(1, d)], WHOLE_DRAW)
+               for d in (1 << 18, 1 << 19, MICRO, 3 << 18)))
+    for ci, (label, shapes, granule) in enumerate(walks):
+        ins = [quant_inputs(s, 1200 + 16 * ci + i, dev)
+               for i, s in enumerate(shapes)]
+        xs = [c[0] for c in ins]
+        k0s, k1s = [c[1] for c in ins], [c[2] for c in ins]
+        nrms = [c[3] for c in ins]
+        draws = [ops.draw_length(d, granule) for _, d in shapes]
+        buckets = [(n, d, N) for (n, d), N in zip(shapes, draws)]
+        hashes = sum(n * min(d, N // 2) for n, d, N in buckets)
+        auto = Q.compress_walk(hashes, dev)
+        for pt in (1, 4):
+            with walk(pt):
+                add("compress_walk", "qsgd_compress_rows",
+                    (sum(n for n, _ in shapes),
+                     sum(n * d for n, d in shapes)),
+                    quant_bounds("qsgd_compress_rows", buckets),
+                    lambda: Q.qsgd_compress_buckets(xs, k0s, k1s, nrms,
+                                                    draws, MAIN_LEVELS),
+                    lambda: Q.qsgd_compress_buckets_plain(
+                        xs, k0s, k1s, nrms, draws, MAIN_LEVELS),
+                    input=label, hashes=hashes, per_thread=pt, auto=auto)
     for dtype, group in ((torch.bfloat16, "rmsnorm_bf16"),
                          (torch.float32, "rmsnorm_f32")):
         x, gamma = rmsnorm_inputs(dtype, 1100, dev)
@@ -1445,8 +1619,9 @@ def time_compress_kernels(unit_shapes, total, dev):
         y = torch.empty_like(x)
         # copy_ms: x copied into y, the same bytes less gamma (information:
         # what this card's copy reaches for the read + write stream)
-        add(group, "rmsnorm", RMS_SHAPE, 0, lambda: rmsnorm(x, gamma),
-            lambda: rmsnorm_plain(x, gamma), elt=x.element_size(),
+        add(group, "rmsnorm", RMS_SHAPE,
+            compress_bounds("rmsnorm", *RMS_SHAPE, x.element_size()),
+            lambda: rmsnorm(x, gamma), lambda: rmsnorm_plain(x, gamma),
             library=lambda: F.rms_norm(x, (RMS_SHAPE[1],), g_lib, 1e-5),
             copy_ms=device_ms(lambda: y.copy_(x)))
     return rows
@@ -1965,8 +2140,9 @@ def multi_rank_path(backend: str = "gloo"):
 # ---- phase 8: the compress-only path ------------------------------------------
 
 def _plain_plan_compress(plan, grads, key, kind):
-    """ops.plan_compress built with the plain versions on the card: the same
-    gathers, keys, noise and statistics, the plain quantizer per bucket."""
+    """ops.plan_compress built with the plain twins on the card: the same
+    gathers, keys, statistics and draw lengths, each bucket through
+    *_compress_buckets_plain (the uniforms from the plain threefry)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import qsgd as Q
@@ -1976,35 +2152,66 @@ def _plain_plan_compress(plan, grads, key, kind):
     out = torch.zeros_like(flat)
     for b in plan.buckets:
         x = plan.gather_bucket(flat, b).contiguous()
-        noise = ops._unit_noise(keys[list(b.unit_ids)], b.dim)
+        k0, k1 = ops._split_keys(keys[list(b.unit_ids)], flat.device)
+        draw = ops.draw_length(b.dim, UNIT_DRAW)
         if kind == "qsgd":
-            y = Q.qsgd_compress_rows_plain(
-                x, noise, torch.linalg.vector_norm(x, dim=1), MAIN_LEVELS)
+            y = Q.qsgd_compress_buckets_plain(
+                [x], [k0], [k1], [torch.linalg.vector_norm(x, dim=1)],
+                [draw], MAIN_LEVELS)[0]
         else:
-            y = T.terngrad_compress_rows_plain(x, noise, x.abs().amax(dim=1))
+            y = T.terngrad_compress_buckets_plain(
+                [x], [k0], [k1], [x.abs().amax(dim=1)], [draw])[0]
         plan.scatter_bucket(out, b, y)
     return plan.unflatten(out)
 
 
 def _plain_whole(kind, x, key):
     """ops.qsgd_compress / terngrad_compress / blockwise_topk(k=5) built
-    with the plain versions on the card."""
+    with the plain twins on the card: a whole input is one unit of d
+    elements with one key, its uniforms drawn over the whole-input
+    granule."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import qsgd as Q
     from repro_torch.kernels import terngrad as T
     from repro_torch.kernels import topk_mask as K
-    xt, d, n = ops._tile(x)
     if kind == "topk":
-        y = K.topk_mask_plain(xt, 5)
-    elif kind == "qsgd":
-        y = Q.qsgd_compress_rows_plain(xt, ops._tile_noise(key, xt, n),
-                                       torch.linalg.vector_norm(x),
-                                       MAIN_LEVELS)
+        xt, d = ops._tile(x)
+        return ops._untile(K.topk_mask_plain(xt, 5), d, x.shape)
+    xu = x.reshape(1, -1)
+    k0, k1 = ops._split_keys(key[None], x.device)
+    draw = ops.draw_length(xu.shape[1], WHOLE_DRAW)
+    if kind == "qsgd":
+        y = Q.qsgd_compress_buckets_plain(
+            [xu], [k0], [k1], [torch.linalg.vector_norm(xu, dim=1)], [draw],
+            MAIN_LEVELS)[0]
     else:
-        y = T.terngrad_compress_rows_plain(xt, ops._tile_noise(key, xt, n),
-                                           x.abs().amax())
-    return ops._untile(y, d, x.shape)
+        y = T.terngrad_compress_buckets_plain(
+            [xu], [k0], [k1], [xu.abs().amax(dim=1)], [draw])[0]
+    return y.reshape(x.shape)
+
+
+def compress_grads(dev):
+    """Phase 8's inputs: the key, one worker's resnet9 gradient tree (random
+    weights from seed 0, one batch of 64), its stacked mask, the flat
+    gradient and 2**20 seeded entries, on the card."""
+    import torch
+    from repro_torch import random as R
+    from repro_torch.configs.resnet9_cifar import RESNET9
+    from repro_torch.convert import tree_leaves, tree_map
+    from repro_torch.core.granularity import stacked_mask
+    from repro_torch.data.synthetic import classification_batch
+    from repro_torch.experiment import worker_grads
+    from repro_torch.models.cnn import init_cnn
+    key = R.key(0)
+    params = init_cnn(RESNET9, key, device=dev)
+    batch = classification_batch(R.fold_in(key, 0), 64, device=dev)
+    wg, _ = worker_grads(RESNET9, params, batch, 1)
+    g = tree_map(lambda t: t[0], wg)
+    flat = torch.cat([t.reshape(-1) for t in tree_leaves(g)])
+    g_cpu = torch.Generator().manual_seed(8)
+    micro = torch.randn(MICRO, generator=g_cpu).to(dev)
+    return key, g, stacked_mask(g), flat, micro
 
 
 def compress_path(dev):
@@ -2013,27 +2220,15 @@ def compress_path(dev):
     (record, launch counts of the whole phase)."""
     import torch
     from repro_torch import kernels
-    from repro_torch import random as R
-    from repro_torch.configs.resnet9_cifar import RESNET9
-    from repro_torch.convert import tree_leaves, tree_map
+    from repro_torch.convert import tree_leaves
     from repro_torch.core import theory
     from repro_torch.core.compressors import QSGD
-    from repro_torch.core.granularity import Granularity, stacked_mask
+    from repro_torch.core.granularity import Granularity
     from repro_torch.core.plan import build_plan
-    from repro_torch.data.synthetic import classification_batch
-    from repro_torch.experiment import worker_grads
     from repro_torch.kernels import ops
+    from repro_torch.kernels.qsgd import MAX_BUCKETS
     from repro_torch.kernels.rmsnorm import rmsnorm_plain
-    from repro_torch.models.cnn import init_cnn
-    key = R.key(0)
-    params = init_cnn(RESNET9, key, device=dev)
-    batch = classification_batch(R.fold_in(key, 0), 64, device=dev)
-    wg, _ = worker_grads(RESNET9, params, batch, 1)
-    g = tree_map(lambda t: t[0], wg)
-    sm = stacked_mask(g)
-    flat = torch.cat([t.reshape(-1) for t in tree_leaves(g)])
-    g_cpu = torch.Generator().manual_seed(8)
-    micro = torch.randn(MICRO, generator=g_cpu).to(dev)
+    key, g, sm, flat, micro = compress_grads(dev)
     rec = {"plan_compress": [], "whole": []}
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2045,16 +2240,23 @@ def compress_path(dev):
         check(got == want, f"{name}: {got} launches, want {want}")
         return out
 
+    # launches a call: plan_compress gathers every bucket and makes ONE
+    # grouped launch per MAX_BUCKETS buckets, ceil(11 / 32) = ceil(1 / 32)
+    # = 1 at each granularity; a whole input is one unit, 1 launch. So the
+    # phase counts 1 + 1 + 1 plan_compress + 2 whole-input = 5 launches of
+    # each of qsgd_compress_rows and terngrad_compress_rows (a launch per
+    # bucket made 11 + 1 + 1 + 2 = 15)
     plans = {}
     for gran in (Granularity("layerwise"), Granularity("entire_model"),
                  Granularity("blockwise", BLOCK)):
         plan = build_plan(g, sm, gran)
         plans[gran.kind] = plan
+        want_launches = -(-plan.num_dispatches // MAX_BUCKETS)
         for kind, name in (("qsgd", "qsgd_compress_rows"),
                            ("terngrad", "terngrad_compress_rows")):
             out = launched(lambda: ops.plan_compress(
                 plan, g, key, kind=kind, levels=MAIN_LEVELS), name,
-                plan.num_dispatches)
+                want_launches)
             want = _plain_plan_compress(plan, g, key, kind)
             for a, b in zip(tree_leaves(out), tree_leaves(want)):
                 check(a.shape == b.shape and bool(torch.isfinite(a).all()),
@@ -2063,7 +2265,8 @@ def compress_path(dev):
                       f"plan_compress {kind} {gran.kind} != plain build")
             rec["plan_compress"].append({
                 "kind": kind, "granularity": gran.kind,
-                "plan": plan.summary(), "launches": plan.num_dispatches})
+                "plan": plan.summary(), "dispatches": plan.num_dispatches,
+                "launches": want_launches})
     check([plans[k].num_dispatches for k in plans] == [11, 1, 1],
           f"plans {[p.summary() for p in plans.values()]}")
     for label, x in (("flat_gradient", flat), ("micro", micro)):
@@ -2102,6 +2305,54 @@ def compress_path(dev):
     rec.update({"seconds": time.perf_counter() - t0, "bounds": bounds_,
                 "lemma1": [lhs, mid, rhs], "lemma1_parts": len(tree_leaves(g))})
     return rec, kernels.launch_counts()
+
+
+def compress_calls(dev):
+    """PERF.md's whole-call rows of the compress-only path: a layerwise
+    ops.plan_compress on phase 8's resnet9 gradients (QSGD(16) and
+    TernGrad) and the whole-input ops.qsgd_compress / terngrad_compress on
+    its 2**20 entries, each as a user calls it. Per call: `host_ms`, the
+    CUDA-event time of 20 calls issued back to back from Python, then
+    synchronized (call_ms: host enqueue, statistics, gathers and
+    scatters included), and the CUDA kernels and memory copies one call
+    puts on the card, counted by torch.profiler. Uses only entry points
+    that every tree of the port has, so `--calls DIR` times another
+    checkout's port the same way."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.granularity import Granularity
+    from repro_torch.core.plan import build_plan
+    from repro_torch.kernels import ops
+    key, g, sm, _, micro = compress_grads(dev)
+    plan = build_plan(g, sm, Granularity("layerwise"))
+    calls = {
+        "plan_compress_layerwise_qsgd": lambda: ops.plan_compress(
+            plan, g, key, kind="qsgd", levels=MAIN_LEVELS),
+        "plan_compress_layerwise_terngrad": lambda: ops.plan_compress(
+            plan, g, key, kind="terngrad"),
+        "qsgd_compress_micro": lambda: ops.qsgd_compress(micro, key,
+                                                         MAIN_LEVELS),
+        "terngrad_compress_micro": lambda: ops.terngrad_compress(micro,
+                                                                 key)}
+    rows = []
+    for name, fn in calls.items():
+        host = call_ms(fn)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev_events = [e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA]
+        copies = sum(1 for e in dev_events
+                     if e.name.startswith(("Memcpy", "Memset")))
+        rows.append({"call": name, "host_ms": host,
+                     "kernels": len(dev_events) - copies,
+                     "copies": copies,
+                     "device_ms": sum(e.time_range.elapsed_us()
+                                      for e in dev_events) / 1e3})
+    return rows
 
 
 
@@ -2222,12 +2473,38 @@ def nccl_only(card: str) -> int:
     return 0
 
 
+def calls_only(card: str, root: Path) -> int:
+    """`--calls DIR`: the whole-call rows (compress_calls) of the port in
+    the checkout DIR (this one, or another tree's, e.g. a parent commit
+    unpacked with git archive), imported from DIR/src."""
+    import torch
+    from repro_torch.kernels import build
+    secs = build.build_all()
+    rows = compress_calls(torch.device("cuda", 0))
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / f"compress_calls_{root.name}.json").write_text(json.dumps({
+        "card": card, "root": str(root), "build_seconds": secs,
+        "compress_calls": rows}, indent=1))
+    for r in rows:
+        print(f"  whole call {r['call']:33s} host_ms={r['host_ms']:.5f} "
+              f"kernels={r['kernels']} copies={r['copies']} "
+              f"device_ms={r['device_ms']:.5f}", flush=True)
+    print(f"{card}")
+    print(json.dumps({"root": str(root), "compress_calls": rows}))
+    return 0
+
+
 def main(argv) -> int:
     nccl = argv == ["--nccl"]
-    if argv and not nccl:
-        print(f"chip_smoke: unknown arguments {argv}; takes none, or --nccl",
-              file=sys.stderr)
+    calls = argv[:1] == ["--calls"] and len(argv) == 2
+    if argv and not (nccl or calls):
+        print(f"chip_smoke: unknown arguments {argv}; takes none, --nccl "
+              f"or --calls DIR", file=sys.stderr)
         return 2
+    if calls:
+        root = Path(argv[1]).resolve()
+        sys.path.insert(0, str(root / "src"))
     try:
         import torch
     except ImportError:
@@ -2260,6 +2537,8 @@ def main(argv) -> int:
                 print(f"  ptxas {src}: {line.strip()}", flush=True)
     if nccl:
         return nccl_only(card)
+    if calls:
+        return calls_only(card, root)
 
     layer_shapes, em_shape = bucket_shapes()
     shapes = layer_shapes + [em_shape, STRESS]
@@ -2321,15 +2600,24 @@ def main(argv) -> int:
           f"boundary, grouped and one at a time; max abs err {verr}",
           flush=True)
     unit_shapes = [(n // WORKERS, d) for n, d in layer_shapes]
+    qerr = check_grouped_compress(unit_shapes, em_shape[1], dev)
+    errs["qsgd_compress_rows"], errs["terngrad_compress_rows"] = qerr
+    print(f"grouped qsgd_compress_buckets (levels {list(COMPRESS_LEVELS)}) "
+          f"/ terngrad_compress_buckets (both pair walks, 1 and 4 pairs a "
+          f"thread, uniforms drawn in the kernel): bitwise equal to the plain twins on the 11 "
+          f"layerwise buckets in one launch, MAX_BUCKETS + 8 buckets in two, "
+          f"units of d in {list(COMPRESS_EDGE_DIMS)} at draw granules "
+          f"{UNIT_DRAW} and {WHOLE_DRAW}, d = {em_shape[1]} and {MICRO} at "
+          f"both, and units 4 bytes past a 16-byte boundary (-0.0, NaN, "
+          f"zero statistics), grouped and one bucket at a time; max abs err "
+          f"{qerr}", flush=True)
     cshapes = layer_shapes + [(1, em_shape[1]), (1, MICRO)]
     cerrs = check_compress_kernels(cshapes, dev)
     errs.update(cerrs)
-    print(f"compress-only kernels vs plain: QSGD (levels "
-          f"{list(COMPRESS_LEVELS)}) and TernGrad bitwise, per-row and "
-          f"scalar statistics, top-k (k {list(TOPK_KS)}) bitwise over "
-          f"{len(cshapes)} shapes; rmsnorm {RMS_SHAPE} f32 and bf16 and "
-          f"{RMS_WIDE} bf16 (looped) within tolerance, a misaligned view "
-          f"refused; max abs err {cerrs}", flush=True)
+    print(f"compress-only kernels vs plain: top-k (k {list(TOPK_KS)}) "
+          f"bitwise over {len(cshapes)} shapes; rmsnorm {RMS_SHAPE} f32 and "
+          f"bf16 and {RMS_WIDE} bf16 (looped) within tolerance, a "
+          f"misaligned view refused; max abs err {cerrs}", flush=True)
 
     runs = main_path_runs(dev)
     n_msgs = check_step_buffers(dev)
@@ -2349,7 +2637,10 @@ def main(argv) -> int:
               f"bytes={r['bytes']}"
               + (f" library_ms={r['library_ms']:.5f}"
                  if r.get("library_ms") is not None else "")
-              + (f" copy_ms={r['copy_ms']:.5f}" if "copy_ms" in r else ""),
+              + (f" copy_ms={r['copy_ms']:.5f}" if "copy_ms" in r else "")
+              + (f" per_thread={r['per_thread']} hashes={r['hashes']}"
+                 if "per_thread" in r else "")
+              + (f" {r['input']} auto={r['auto']}" if "auto" in r else ""),
               flush=True)
     encode_ms = encode_host_ms(layer_shapes, dev)
     print(f"  QSGD encode of a layerwise step, per call from Python (ms): "
@@ -2365,13 +2656,19 @@ def main(argv) -> int:
           f"compress-only path launched wire kernels: {compress_launches}")
     launches.update({k: compress_launches[k] for k in COMPRESS_SOURCES})
     print(f"compress-only path: plan_compress QSGD({MAIN_LEVELS}) and "
-          f"TernGrad at layerwise / entire-model / blockwise({BLOCK}) with "
-          f"11 / 1 / 1 launches a call, == the plain build; whole-input "
+          f"TernGrad at layerwise / entire-model / blockwise({BLOCK}) (11 / "
+          f"1 / 1 buckets) with one launch a call, == the plain build; "
+          f"whole-input "
           f"QSGD, TernGrad and top-k(5) on d = {em_shape[1]} and {MICRO} == "
           f"plain; rmsnorm {RMS_SHAPE} bf16 within tolerance; "
           f"{compress['seconds']:.2f} s, launches "
           f"{ {k: compress_launches[k] for k in COMPRESS_SOURCES} }",
           flush=True)
+    calls = compress_calls(dev)
+    for r in calls:
+        print(f"  whole call {r['call']:33s} host_ms={r['host_ms']:.5f} "
+              f"kernels={r['kernels']} copies={r['copies']} "
+              f"device_ms={r['device_ms']:.5f}", flush=True)
     for gname, b in compress["bounds"].items():
         print(f"  theory QSGD({MAIN_LEVELS}) {gname}: Trace(A) "
               f"{b['trace_A']:.1f}, entire-model bound "
@@ -2401,7 +2698,7 @@ def main(argv) -> int:
         "build_seconds": secs, "main_path": runs, "timings": timings,
         "encode_call_ms": encode_ms, "natural_call_ms": natural_ms,
         "profiles": profiles, "multi_rank": multi,
-        "compress_path": compress,
+        "compress_path": compress, "compress_calls": calls,
         "ptxas": {src: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
                   for src, log in build.BUILD_LOG.items()},

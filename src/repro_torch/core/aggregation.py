@@ -310,14 +310,14 @@ def compressed_allreduce(grads, stacked, cfg: CompressionConfig, group,
     its telemetry / recorder / faults hooks are later slices."""
     if cfg.strategy in STREAM_STRATEGIES:
         raise _not_ported(f"the streaming collective {cfg.strategy!r}",
-                          "item 8 (execute_schedule_stream)")
+                          "item 2 (execute_schedule_stream)")
     if faults is not None:
-        raise _not_ported("fault injection (faults=)", "item 13 (resil/)")
+        raise _not_ported("fault injection (faults=)", "item 7 (resil/)")
     if recorder is not None:
-        raise _not_ported("the trace recorder (recorder=)", "item 12 (obs/)")
+        raise _not_ported("the trace recorder (recorder=)", "item 6 (obs/)")
     if telemetry_plan is not None:
         raise _not_ported("telemetry (telemetry_plan=)",
-                          "item 11 (control/)")
+                          "item 5 (control/)")
     rank, n = dist.get_rank(group), dist.get_world_size(group)
     if n != n_workers:
         raise ValueError(f"n_workers={n_workers} but the group has {n} ranks")

@@ -14,7 +14,10 @@ Wrappers, each with a plain version and a `.launches` counter:
   `fields_pack_buckets` / `fields_unpack_buckets`; and bits, grouped
   likewise, `bits_pack_buckets` / `bits_unpack_buckets`);
 - compress only: `qsgd_compress_rows` (qsgd.py), `terngrad_compress_rows`
-  (terngrad.py), `topk_mask` (topk_mask.py), `rmsnorm` (rmsnorm.py).
+  (terngrad.py), the one-bucket calls of `qsgd_compress_buckets` /
+  `terngrad_compress_buckets` (grouped over up to 32 buckets a launch, the
+  uniforms drawn in the kernel), `topk_mask` (topk_mask.py), `rmsnorm`
+  (rmsnorm.py).
 
 Exported here, as from the JAX package's `repro.kernels`: `qsgd_compress`,
 `terngrad_compress` and `blockwise_topk` (whole inputs) and `rmsnorm`.

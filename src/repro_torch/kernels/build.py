@@ -46,8 +46,10 @@ SIGNATURES = {
     "bits_pack_buckets": [_I, _P, _P, _I, _I, _P],
     "bits_unpack_buckets": [_I, _P, _P, _I, _I, _P],
     "majority_buckets": [_I, _P, _P, _I, _I, _P],
-    "qsgd_compress_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "terngrad_compress_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # count, the pointer array, the size array, blocks, pairs a thread,
+    # levels, 1 / levels
+    "qsgd_compress_buckets": [_I, _P, _P, _I, _I, _I, _F, _I, _P],
+    "terngrad_compress_buckets": [_I, _P, _P, _I, _I, _I, _P],
     "topk_mask": [_P, _P, _I, _I, _I, _P],
     "rmsnorm": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
 }

@@ -3,8 +3,8 @@
 The compress-only path (ops.py:37-198, 665-679): `qsgd_compress`,
 `terngrad_compress` and `blockwise_topk` over a whole input, the
 bucket-level `qsgd_compress_units` / `terngrad_compress_units`,
-`plan_compress` (one kernel launch per UnitPlan bucket) and `rmsnorm`.
-Inputs of any float dtype are computed in f32 and cast back.
+`plan_compress` (one kernel launch for every UnitPlan bucket) and
+`rmsnorm`. Inputs of any float dtype are computed in f32 and cast back.
 
 The bucket entry points of the fused compress+pack kernels: what the wire
 codecs (core/wire.py) call (the reference's ops.py:274-522), each with a
@@ -33,18 +33,17 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import prng
 from repro_torch.kernels.pack import (bits_pack, bits_pack_buckets,
                                       bits_unpack, bits_unpack_buckets,
                                       fields_pack, fields_pack_buckets,
                                       fields_unpack, fields_unpack_buckets)
-from repro_torch.kernels.qsgd import (qsgd_compress_rows, qsgd_pack_buckets,
-                                      qsgd_unpack_buckets)
+from repro_torch.kernels.qsgd import (qsgd_compress_buckets,
+                                      qsgd_pack_buckets, qsgd_unpack_buckets)
 from repro_torch.kernels.ref import words_per_unit, words_to_i32
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_rows
 from repro_torch.kernels.sign import (majority, majority_buckets,
                                       sign_pack_buckets, sign_unpack_buckets)
-from repro_torch.kernels.terngrad import (terngrad_compress_rows,
+from repro_torch.kernels.terngrad import (terngrad_compress_buckets,
                                           terngrad_pack_buckets,
                                           terngrad_unpack_buckets)
 from repro_torch.kernels.topk_mask import BLOCK_C, topk_mask
@@ -71,114 +70,110 @@ __all__ = ["qsgd_compress", "terngrad_compress", "blockwise_topk",
 
 # The reference tiles a flat input into rows of BLOCK_C lanes, rounded up to
 # a multiple of BLOCK_R rows, and draws its noise over that whole tile. Every
-# uniform depends on the number n drawn (prng.py), so the port draws with the
-# same n, but computes only on the rows that hold the input.
+# uniform depends on the number drawn (prng.py), so the port draws with the
+# same length: a whole input of d elements is one unit whose uniforms span
+# WHOLE_DRAW * ceil(d / WHOLE_DRAW) positions, a UnitPlan unit's its rows
+# of BLOCK_C lanes (BLOCK_C * ceil(d / BLOCK_C), reference ops.py:115-120).
 BLOCK_R = 256
+WHOLE_DRAW = BLOCK_R * BLOCK_C
+
+
+def draw_length(d: int, granule: int) -> int:
+    """The reference's draw over d elements padded to whole `granule`s."""
+    return granule * -(-d // granule)
 
 
 def _tile(x: torch.Tensor):
-    """Any-shape x -> ((rows, BLOCK_C) zero-padded rows of the flat input, d,
-    n): d elements, n the size of the reference's (BLOCK_R-rounded) tile."""
+    """Any-shape x -> ((rows, BLOCK_C) zero-padded rows of the flat input,
+    d): the reference's tiles of blockwise top-k, less its BLOCK_R row
+    padding (rows of zeros keep nothing)."""
     d = x.numel()
     rows = -(-d // BLOCK_C)
     xt = F.pad(x.reshape(-1), (0, rows * BLOCK_C - d))
-    return (xt.reshape(rows, BLOCK_C).contiguous(), d,
-            -(-rows // BLOCK_R) * BLOCK_R * BLOCK_C)
+    return xt.reshape(rows, BLOCK_C).contiguous(), d
 
 
 def _untile(xt: torch.Tensor, d: int, shape) -> torch.Tensor:
     return xt.reshape(-1)[:d].reshape(shape)
 
 
-def _tile_noise(key: torch.Tensor, xt: torch.Tensor, n: int) -> torch.Tensor:
-    """jax.random.uniform(key, (n,)) at the positions of the tile rows xt."""
-    k = key.to(xt.device)
-    pos = torch.arange(xt.numel(), device=xt.device).reshape(xt.shape)
-    return prng.uniform_at(k[0], k[1], pos, n)
+def _compress_buckets(kind: str, x2ds, keys_list, granule: int, **kw):
+    """Compress (n, d) buckets, each unit against its own statistic (l2
+    norm for "qsgd", max|x| for "terngrad") with its own (2,) key, the
+    uniforms drawn over draw_length(d, granule): ONE kernel launch for up
+    to MAX_BUCKETS buckets -> the (n, d) f32 outputs."""
+    xfs = [x.to(torch.float32).contiguous() for x in x2ds]
+    ks = [_split_keys(k, xf.device) for k, xf in zip(keys_list, xfs)]
+    draws = [draw_length(xf.shape[1], granule) for xf in xfs]
+    k0s, k1s = [k[0] for k in ks], [k[1] for k in ks]
+    if kind == "qsgd":
+        norms = [torch.linalg.vector_norm(xf, dim=1) for xf in xfs]
+        return qsgd_compress_buckets(xfs, k0s, k1s, norms, draws,
+                                     kw.get("levels", 16))
+    scales = [xf.abs().amax(dim=1) for xf in xfs]
+    return terngrad_compress_buckets(xfs, k0s, k1s, scales, draws)
 
 
 def qsgd_compress(x, key, levels: int = 16) -> torch.Tensor:
     """QSGD quantize+dequantize over the WHOLE input against its one l2
     norm (the caller picks the granularity unit, per the paper); key is a
     (2,) key. One kernel launch."""
-    xf = x.to(torch.float32)
-    norm = torch.linalg.vector_norm(xf.reshape(-1))
-    xt, d, n = _tile(xf)
-    out = qsgd_compress_rows(xt, _tile_noise(key, xt, n), norm, levels)
-    return _untile(out, d, x.shape).to(x.dtype)
+    out = _compress_buckets("qsgd", [x.reshape(1, -1)], [key[None]],
+                            WHOLE_DRAW, levels=levels)[0]
+    return out.reshape(x.shape).to(x.dtype)
 
 
 def terngrad_compress(x, key) -> torch.Tensor:
     """TernGrad quantize+dequantize over the whole input against its one
     max|x|. One kernel launch."""
-    xf = x.to(torch.float32)
-    scale = xf.abs().amax()
-    xt, d, n = _tile(xf)
-    out = terngrad_compress_rows(xt, _tile_noise(key, xt, n), scale)
-    return _untile(out, d, x.shape).to(x.dtype)
+    out = _compress_buckets("terngrad", [x.reshape(1, -1)], [key[None]],
+                            WHOLE_DRAW)[0]
+    return out.reshape(x.shape).to(x.dtype)
 
 
 def blockwise_topk(x, k_per_block: int) -> torch.Tensor:
     """Block-local top-k: each BLOCK_C-element row of the flat input keeps
     its k largest magnitudes (the last row zero-padded, as the reference
     pads it). One kernel launch."""
-    xt, d, _ = _tile(x.to(torch.float32))
+    xt, d = _tile(x.to(torch.float32))
     return _untile(topk_mask(xt, k_per_block), d, x.shape).to(x.dtype)
 
 
 # ---- compress only: UnitPlan buckets ----------------------------------------
 
-def _unit_noise(keys: torch.Tensor, d: int) -> torch.Tensor:
-    """(n, 2) unit keys -> (n, d): row i is jax.random.uniform(keys[i],
-    (rpu * BLOCK_C,))[:d], the span the reference draws for a unit that
-    fills rpu rows of BLOCK_C lanes. The rows of a bucket are its units, so
-    each unit's statistic is one per row (no tiling, no repeated scales)."""
-    rpu = -(-d // BLOCK_C)
-    pos = torch.arange(d, device=keys.device)
-    return prng.uniform_at(keys[:, :1], keys[:, 1:], pos[None, :],
-                           rpu * BLOCK_C)
-
-
 def qsgd_compress_units(x2d, keys, levels: int = 16) -> torch.Tensor:
     """QSGD over a whole bucket: rows of x2d are compression units, each
     against its own l2 norm, keys (n, 2) one key per unit. One launch
-    whatever the number of units."""
-    xf = x2d.to(torch.float32).contiguous()
-    norms = torch.linalg.vector_norm(xf, dim=1)
-    noise = _unit_noise(keys.to(xf.device), xf.shape[1])
-    return qsgd_compress_rows(xf, noise, norms, levels).to(x2d.dtype)
+    whatever the number of units (plan_compress's one-bucket form)."""
+    return _compress_buckets("qsgd", [x2d], [keys], BLOCK_C,
+                             levels=levels)[0].to(x2d.dtype)
 
 
 def terngrad_compress_units(x2d, keys) -> torch.Tensor:
     """TernGrad over a whole bucket (each unit against its own max|x|)."""
-    xf = x2d.to(torch.float32).contiguous()
-    scales = xf.abs().amax(dim=1)
-    noise = _unit_noise(keys.to(xf.device), xf.shape[1])
-    return terngrad_compress_rows(xf, noise, scales).to(x2d.dtype)
-
-
-_UNIT_KERNELS = {
-    "qsgd": lambda x, k, kw: qsgd_compress_units(x, k, kw.get("levels", 16)),
-    "terngrad": lambda x, k, kw: terngrad_compress_units(x, k),
-}
+    return _compress_buckets("terngrad", [x2d], [keys],
+                             BLOCK_C)[0].to(x2d.dtype)
 
 
 def plan_compress(plan, grads, key, kind: str = "qsgd", **kw):
     """Compress a gradient tree through the kernels, driven by a
-    core.plan.UnitPlan: gather each bucket, ONE kernel launch per bucket,
-    scatter back. The unit keys are the plan's (those of plan.execute), but
-    the draws span each unit's rows of BLOCK_C lanes, so the result is the
-    same operator family as plan.execute(comp.sim, ...), not bit for bit
-    the same numbers (as in the reference)."""
-    if kind not in _UNIT_KERNELS:
+    core.plan.UnitPlan: gather every bucket, ONE kernel launch for all of
+    them (up to MAX_BUCKETS a launch), scatter every bucket back. The unit
+    keys are the plan's (those of plan.execute), but the draws span each
+    unit's rows of BLOCK_C lanes, so the result is the same operator
+    family as plan.execute(comp.sim, ...), not bit for bit the same
+    numbers (as in the reference)."""
+    if kind not in ("qsgd", "terngrad"):
         raise ValueError(f"no bucket kernel for {kind!r}; "
-                         f"have {sorted(_UNIT_KERNELS)}")
-    run = _UNIT_KERNELS[kind]
+                         f"have ['qsgd', 'terngrad']")
     flat = plan.flatten(grads)
     keys = plan.unit_keys(key).to(flat.device)
+    ys = _compress_buckets(kind, [plan.gather_bucket(flat, b)
+                                  for b in plan.buckets],
+                           [keys[list(b.unit_ids)] for b in plan.buckets],
+                           BLOCK_C, **kw)
     out = torch.zeros_like(flat)
-    for b in plan.buckets:
-        y = run(plan.gather_bucket(flat, b), keys[list(b.unit_ids)], kw)
+    for b, y in zip(plan.buckets, ys):
         plan.scatter_bucket(out, b, y)
     return plan.unflatten(out)
 

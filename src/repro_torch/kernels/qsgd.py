@@ -12,7 +12,10 @@ table of sizes and first blocks (`grouped_table`) and launched by
 `launch_grouped`, which the other grouped kernels share (kernels/sign.py,
 kernels/terngrad.py, kernels/pack.py's bit unpack). The four grouped
 unpacks (QSGD, TernGrad, bits, signSGD) are one tile walk,
-csrc/unpack_tile.cuh.
+csrc/unpack_tile.cuh. The compress-only quantizers are grouped too
+(`qsgd_compress_buckets`, kernels/terngrad.py `terngrad_compress_buckets`):
+one pair walk, csrc/compress.cu, that draws each unit's uniforms itself
+over the unit's draw length.
 
 Words are (n, words_per_unit(d, width)) int32 tensors holding the uint32
 bit patterns of the payload (the bytes are what the wire carries).
@@ -55,18 +58,6 @@ def _on_card(x: torch.Tensor, *others: torch.Tensor) -> bool:
     return True
 
 
-def stat_column(stat: torch.Tensor, rows: int):
-    """A compress kernel's statistic: (rows,) per row (stride 1) or one
-    scalar () for every row (stride 0) -> (plain-version broadcast form,
-    stride)."""
-    if stat.dim() == 0:
-        return stat, 0
-    if tuple(stat.shape) != (rows,):
-        raise ValueError(f"stat: want () or ({rows},), got "
-                         f"{tuple(stat.shape)}")
-    return stat[:, None], 1
-
-
 def _launch_args(device) -> tuple:
     """The trailing (device index, stream) of every C entry point: PyTorch's
     current stream on `device`."""
@@ -96,8 +87,12 @@ TILE_CODES = 2048
 #: elements a one-bit pack block owns: 64 chunks (words) of 32
 #: (csrc/ballot_pack.cuh kBallotTile, the sign pack's and the bit pack's)
 BALLOT_TILE = 2048
+#: threads of a compress-only block, which owns COMPRESS_THREADS * p
+#: counter pairs of a unit, p = 1 or 4 a thread (csrc/compress.cu kThreads)
+COMPRESS_THREADS = 256
 #: buckets one grouped launch takes (csrc/hash_pack.cuh kPackMaxBuckets,
-#: csrc/unpack_tile.cuh kUnpackMaxBuckets, csrc/sign.cu kMaxBuckets)
+#: csrc/unpack_tile.cuh kUnpackMaxBuckets, csrc/sign.cu kMaxBuckets,
+#: csrc/compress.cu kMaxBuckets)
 MAX_BUCKETS = 32
 #: widest code the unpack kernel stages (csrc/qsgd.cu kMaxUnpackWidth)
 MAX_UNPACK_WIDTH = 31
@@ -119,6 +114,28 @@ def ballot_tiles(d: int) -> int:
     return -(-d // BALLOT_TILE)
 
 
+def compress_tiles(d: int, draw: int, per_thread: int) -> int:
+    """Compress-only blocks per unit of d elements whose uniforms are drawn
+    over `draw` (even) positions: tiles of COMPRESS_THREADS * per_thread
+    of its min(d, draw / 2) counter pairs."""
+    return -(-min(d, draw // 2) // (COMPRESS_THREADS * per_thread))
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_threads(device) -> int:
+    p = torch.cuda.get_device_properties(device)
+    return p.multi_processor_count * p.max_threads_per_multi_processor
+
+
+def compress_walk(pairs: int, device) -> int:
+    """Counter pairs a thread of the compress-only kernels takes in a call
+    of `pairs` pairs: 1 while one pair a thread fits in one wave of the
+    card's resident threads (SMs x threads an SM: the shortest chain a
+    thread), 4 beyond (16-byte accesses, the hashes of a thread
+    overlapping). On an H100 the two walks cross near 2^18 pairs."""
+    return 1 if pairs <= _resident_threads(device) else 4
+
+
 @dataclasses.dataclass(frozen=True)
 class BucketTable:
     """One grouped launch: per bucket its n, d, words per unit, tiles per
@@ -132,20 +149,22 @@ class BucketTable:
     blocks: int
 
 
-def grouped_table(shapes: Sequence[Tuple[int, int]], width: int,
+def grouped_table(shapes: Sequence[Tuple[int, ...]], width: int,
                   tiles_of) -> List[BucketTable]:
     """The launches of a grouped kernel over (n, d) buckets at `width` bits
     a code whose blocks each own one of a unit's tiles_of(d) tiles: one
-    table per MAX_BUCKETS buckets, in order."""
+    table per MAX_BUCKETS buckets, in order. A bucket given as (n, d, *more)
+    has tiles_of(d, *more) tiles (the compress-only kernels' draw
+    length)."""
     tables = []
     for i in range(0, len(shapes), MAX_BUCKETS):
-        group = [(int(n), int(d)) for n, d in shapes[i:i + MAX_BUCKETS]]
-        tiles = tuple(tiles_of(d) for _, d in group)
+        group = [tuple(int(v) for v in s) for s in shapes[i:i + MAX_BUCKETS]]
+        tiles = tuple(tiles_of(*s[1:]) for s in group)
         starts = list(itertools.accumulate(
-            [n * t for (n, _), t in zip(group, tiles)], initial=0))
+            [s[0] * t for s, t in zip(group, tiles)], initial=0))
         tables.append(BucketTable(
-            n=tuple(n for n, _ in group), d=tuple(d for _, d in group),
-            wpu=tuple(words_per_unit(d, width) for _, d in group),
+            n=tuple(s[0] for s in group), d=tuple(s[1] for s in group),
+            wpu=tuple(words_per_unit(s[1], width) for s in group),
             tiles=tiles, block_start=tuple(starts[:-1]), blocks=starts[-1]))
     return tables
 
@@ -163,7 +182,7 @@ def unpack_table(shapes: Sequence[Tuple[int, int]],
 
 
 @functools.lru_cache(maxsize=256)
-def _launches(shapes: Tuple[Tuple[int, int], ...], width: int, tiles_of,
+def _launches(shapes: Tuple[Tuple[int, ...], ...], width: int, tiles_of,
               extra: Tuple[int, ...]):
     """grouped_table's launches with each table's sizes as the C entry
     point's int array (n, d, wpu, tiles, block_start, then each bucket's
@@ -179,12 +198,12 @@ def _launches(shapes: Tuple[Tuple[int, int], ...], width: int, tiles_of,
 def launch_grouped(wrapper, stem: str, entry: str, shapes, tensors,
                    width: int, tiles_of, *args, extra=None) -> None:
     """One launch of the C entry point `entry` of csrc/<stem>.cu per
-    MAX_BUCKETS non-empty (n, d) buckets of `shapes`, each counted in
-    wrapper.launches. `tensors` holds one list per pointer the entry
-    point takes for each bucket, in its order; `extra`, if given, one int
-    per bucket that follows the table's sizes; `args` go between the
-    block count and the (device, stream)."""
-    live = [i for i, (n, d) in enumerate(shapes) if n * d]
+    MAX_BUCKETS non-empty (n, d) buckets of `shapes` (grouped_table's
+    forms), each counted in wrapper.launches. `tensors` holds one list per
+    pointer the entry point takes for each bucket, in its order; `extra`,
+    if given, one int per bucket that follows the table's sizes; `args` go
+    between the block count and the (device, stream)."""
+    live = [i for i, s in enumerate(shapes) if s[0] * s[1]]
     more = () if extra is None else tuple(int(extra[i]) for i in live)
     for g, (table, sizes) in enumerate(_launches(
             tuple(tuple(shapes[i]) for i in live), width, tiles_of, more)):
@@ -205,16 +224,24 @@ def pack_outputs(xs, k0s, k1s, stats, width: int) -> List[torch.Tensor]:
     int32 output, allocated."""
     outs = []
     for i, (x, k0, k1, stat) in enumerate(zip(xs, k0s, k1s, stats)):
-        if x.dim() != 2:
-            raise ValueError(f"x[{i}]: want (n, d), got {tuple(x.shape)}")
-        n, d = x.shape
-        _check(x, "x", torch.float32, (n, d))
-        _check(stat, "stat", torch.float32, (n,))
-        _check(k0, "k0", torch.int32, (n,))
-        _check(k1, "k1", torch.int32, (n,))
+        n, d = _check_units(i, x, k0, k1, stat)
         outs.append(torch.empty((n, words_per_unit(d, width)),
                                 dtype=torch.int32, device=x.device))
     return outs
+
+
+def _check_units(i: int, x, k0, k1, stat) -> Tuple[int, int]:
+    """Bucket i of a grouped stochastic kernel: x (n, d) f32, key words k0
+    / k1 (n,) int32 and statistics stat (n,) f32, all contiguous -> (n,
+    d)."""
+    if x.dim() != 2:
+        raise ValueError(f"x[{i}]: want (n, d), got {tuple(x.shape)}")
+    n, d = x.shape
+    _check(x, "x", torch.float32, (n, d))
+    _check(stat, "stat", torch.float32, (n,))
+    _check(k0, "k0", torch.int32, (n,))
+    _check(k1, "k1", torch.int32, (n,))
+    return n, d
 
 
 def qsgd_pack_buckets(xs, k0s, k1s, nrms, levels: int,
@@ -303,32 +330,85 @@ def qsgd_unpack(words, fac, d: int, levels: int, width: int) -> torch.Tensor:
 qsgd_unpack.launches = 0
 
 
-# ---- compress only (quantize + dequantize, noise given) -----------------------
+# ---- compress only (quantize + dequantize, noise drawn in the kernel) ------
+
+def compress_noise(k0, k1, d: int, draw: int) -> torch.Tensor:
+    """Key words k0 / k1 (n,) int32 -> (n, d) f32: row i is
+    jax.random.uniform(key_i, (draw,))[:d], the uniforms the compress-only
+    kernels draw for themselves."""
+    pos = torch.arange(d, device=k0.device)
+    return prng.uniform_at(ref.words_from_i32(k0)[:, None],
+                           ref.words_from_i32(k1)[:, None], pos[None, :], draw)
+
+
+def compress_outputs(xs, k0s, k1s, stats, draws) -> List[torch.Tensor]:
+    """Check the inputs of a grouped compress-only kernel on the card, as
+    pack_outputs does, and each draw length (even, d <= draw < 2**31) ->
+    each bucket's (n, d) f32 output, allocated."""
+    outs = []
+    for i, (x, k0, k1, stat, draw) in enumerate(zip(xs, k0s, k1s, stats,
+                                                    draws)):
+        n, d = _check_units(i, x, k0, k1, stat)
+        if draw % 2 or not d <= draw < 2**31:
+            raise ValueError(f"draw[{i}]: want an even length >= d = {d}, "
+                             f"got {draw}")
+        outs.append(torch.empty_like(x))
+    return outs
+
+
+def launch_compress(wrapper, entry: str, xs, k0s, k1s, stats, draws,
+                    *args) -> List[torch.Tensor]:
+    """The grouped launches of the compress-only C entry point `entry`
+    (csrc/compress.cu) over the buckets, counted in wrapper.launches, on
+    the walk compress_walk picks for the call's pairs -> their outputs."""
+    outs = compress_outputs(xs, k0s, k1s, stats, draws)
+    per_thread = compress_walk(sum(x.shape[0] * min(x.shape[1], N // 2)
+                                   for x, N in zip(xs, draws)),
+                               xs[0].device)
+    launch_grouped(wrapper, "compress", entry,
+                   [(*x.shape, int(N), per_thread) for x, N in zip(xs, draws)],
+                   (xs, k0s, k1s, stats, outs), 32, compress_tiles,
+                   per_thread, *args, extra=draws)
+    return outs
+
 
 def qsgd_compress_rows_plain(x, noise, stat, levels: int) -> torch.Tensor:
-    return ref.qsgd_ref(x, noise, stat_column(stat, x.shape[0])[0], levels)
+    """The arithmetic of the QSGD compress-only kernel with the noise
+    given: x, noise (n, d) f32 and one statistic per row (n,) f32."""
+    return ref.qsgd_ref(x, noise, stat[:, None], levels)
 
 
-def qsgd_compress_rows(x, noise, stat, levels: int) -> torch.Tensor:
-    """x, noise (R, C) f32 and the l2 norm of each row (R,) or of all rows
-    () f32 -> (R, C) f32 sign(x) * floor(|x| / n * levels + u) * n / levels
-    with n = max(stat, 1e-12) (ref.qsgd_ref)."""
-    if not _on_card(x, noise, stat):
-        return qsgd_compress_rows_plain(x, noise, stat, levels)
-    R, C = x.shape
-    _, stride = stat_column(stat, R)
-    _check(x, "x", torch.float32, (R, C))
-    _check(noise, "noise", torch.float32, (R, C))
-    _check(stat, "stat", torch.float32, stat.shape)
-    out = torch.empty_like(x)
-    if out.numel() == 0:
-        return out
-    build.check(build.library("compress").qsgd_compress_rows(
-        x.data_ptr(), noise.data_ptr(), stat.data_ptr(), out.data_ptr(), R,
-        C, stride, levels, 1.0 / levels,      # ctypes rounds it to f32
-        *_launch_args(x.device)), "qsgd_compress_rows")
-    qsgd_compress_rows.launches += 1
-    return out
+def qsgd_compress_buckets_plain(xs, k0s, k1s, stats, draws,
+                                levels: int) -> List[torch.Tensor]:
+    return [qsgd_compress_rows_plain(
+                x, compress_noise(k0, k1, x.shape[1], N), stat, levels)
+            for x, k0, k1, stat, N in zip(xs, k0s, k1s, stats, draws)]
+
+
+def qsgd_compress_buckets(xs, k0s, k1s, stats, draws,
+                          levels: int) -> List[torch.Tensor]:
+    """QSGD quantize+dequantize over many buckets: bucket i is xs[i] (n, d)
+    f32 units, their key words k0s[i] / k1s[i] (n,) int32, l2 norms
+    stats[i] (n,) f32 and the draw length draws[i] -> (n, d) f32 sign(x) *
+    floor(|x| / s * levels + u) * s / levels with s = max(stat, 1e-12)
+    and u = jax.random.uniform(key, (draw,))[:d] (ref.qsgd_ref). On the
+    card ONE launch per MAX_BUCKETS non-empty buckets, each counted in
+    qsgd_compress_rows.launches, on the walk compress_walk picks. On the
+    CPU, the plain twin per bucket."""
+    if not xs:
+        return []
+    if not _on_card(xs[0], *xs[1:], *k0s, *k1s, *stats):
+        return qsgd_compress_buckets_plain(xs, k0s, k1s, stats, draws,
+                                           levels)
+    return launch_compress(qsgd_compress_rows, "qsgd_compress_buckets", xs,
+                           k0s, k1s, stats, draws, levels,
+                           1.0 / levels)      # ctypes rounds it to f32
+
+
+def qsgd_compress_rows(x, k0, k1, stat, draw: int,
+                       levels: int) -> torch.Tensor:
+    """The one-bucket call of qsgd_compress_buckets: (n, d) f32 units."""
+    return qsgd_compress_buckets([x], [k0], [k1], [stat], [draw], levels)[0]
 
 
 qsgd_compress_rows.launches = 0

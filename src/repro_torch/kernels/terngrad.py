@@ -6,7 +6,9 @@ unpack are grouped over up to MAX_BUCKETS buckets a launch
 (`terngrad_pack_buckets`, `terngrad_unpack_buckets`, with kernels/qsgd.py's
 bucket tables): the pack is the QSGD pack's hash-once tile walk
 (csrc/hash_pack.cuh), the unpack the QSGD unpack's tile walk
-(csrc/unpack_tile.cuh) at width 2."""
+(csrc/unpack_tile.cuh) at width 2. The compress-only ternarize is the QSGD
+compress-only pair walk (csrc/compress.cu) over its own quantizer, grouped
+likewise (`terngrad_compress_buckets`)."""
 from __future__ import annotations
 
 from typing import List
@@ -14,10 +16,10 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build, prng, ref
-from repro_torch.kernels.qsgd import (_check, _launch_args, _on_card,
-                                      launch_grouped, pack_outputs,
-                                      pack_tiles, stat_column,
+from repro_torch.kernels import prng, ref
+from repro_torch.kernels.qsgd import (_check, _on_card, compress_noise,
+                                      launch_compress, launch_grouped,
+                                      pack_outputs, pack_tiles,
                                       unpack_codes_plain, unpack_tiles)
 from repro_torch.kernels.ref import words_per_unit
 
@@ -106,31 +108,42 @@ def terngrad_unpack(words, scale, d: int) -> torch.Tensor:
 terngrad_unpack.launches = 0
 
 
-# ---- compress only (ternarize + dequantize, noise given) ----------------------
+# ---- compress only (ternarize + dequantize, noise drawn in the kernel) ----
 
 def terngrad_compress_rows_plain(x, noise, stat) -> torch.Tensor:
-    return ref.terngrad_ref(x, noise, stat_column(stat, x.shape[0])[0])
+    """The arithmetic of the TernGrad compress-only kernel with the noise
+    given: x, noise (n, d) f32 and one max|x| per row (n,) f32."""
+    return ref.terngrad_ref(x, noise, stat[:, None])
 
 
-def terngrad_compress_rows(x, noise, stat) -> torch.Tensor:
-    """x, noise (R, C) f32 and max|x| of each row (R,) or of all rows ()
-    f32 -> (R, C) f32 sign(x) * [u < |x| / s] * s with s = max(stat,
-    1e-12) (ref.terngrad_ref)."""
-    if not _on_card(x, noise, stat):
-        return terngrad_compress_rows_plain(x, noise, stat)
-    R, C = x.shape
-    _, stride = stat_column(stat, R)
-    _check(x, "x", torch.float32, (R, C))
-    _check(noise, "noise", torch.float32, (R, C))
-    _check(stat, "stat", torch.float32, stat.shape)
-    out = torch.empty_like(x)
-    if out.numel() == 0:
-        return out
-    build.check(build.library("compress").terngrad_compress_rows(
-        x.data_ptr(), noise.data_ptr(), stat.data_ptr(), out.data_ptr(), R,
-        C, stride, *_launch_args(x.device)), "terngrad_compress_rows")
-    terngrad_compress_rows.launches += 1
-    return out
+def terngrad_compress_buckets_plain(xs, k0s, k1s, stats,
+                                    draws) -> List[torch.Tensor]:
+    return [terngrad_compress_rows_plain(
+                x, compress_noise(k0, k1, x.shape[1], N), stat)
+            for x, k0, k1, stat, N in zip(xs, k0s, k1s, stats, draws)]
+
+
+def terngrad_compress_buckets(xs, k0s, k1s, stats,
+                              draws) -> List[torch.Tensor]:
+    """TernGrad ternarize+dequantize over many buckets, bucket i as in
+    kernels/qsgd.py qsgd_compress_buckets with max|x| per unit as stats[i]
+    -> (n, d) f32 sign(x) * [u < |x| / s] * s with s = max(stat, 1e-12)
+    (ref.terngrad_ref). On the card ONE launch per MAX_BUCKETS non-empty
+    buckets, each counted in terngrad_compress_rows.launches, on the walk
+    compress_walk picks. On the CPU, the plain twin per bucket."""
+    if not xs:
+        return []
+    if not _on_card(xs[0], *xs[1:], *k0s, *k1s, *stats):
+        return terngrad_compress_buckets_plain(xs, k0s, k1s, stats, draws)
+    return launch_compress(terngrad_compress_rows,
+                           "terngrad_compress_buckets", xs, k0s, k1s, stats,
+                           draws)
+
+
+def terngrad_compress_rows(x, k0, k1, stat, draw: int) -> torch.Tensor:
+    """The one-bucket call of terngrad_compress_buckets: (n, d) f32
+    units."""
+    return terngrad_compress_buckets([x], [k0], [k1], [stat], [draw])[0]
 
 
 terngrad_compress_rows.launches = 0

@@ -348,8 +348,9 @@ def test_compress_wrappers_reject_a_device_without_a_kernel():
     from repro_torch.kernels.topk_mask import topk_mask
     x = torch.zeros((2, 512), device="meta")
     s = torch.zeros((2,), device="meta")
-    calls = [lambda: qsgd_compress_rows(x, x, s, 16),
-             lambda: terngrad_compress_rows(x, x, s),
+    k = torch.zeros((2,), dtype=torch.int32, device="meta")
+    calls = [lambda: qsgd_compress_rows(x, k, k, s, 512, 16),
+             lambda: terngrad_compress_rows(x, k, k, s, 512),
              lambda: topk_mask(x, 5), lambda: rmsnorm(x, s)]
     for call in calls:
         with pytest.raises(ValueError, match="no kernel"):

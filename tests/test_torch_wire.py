@@ -219,13 +219,13 @@ def test_unported_compressors_name_the_queue():
     for strategy in ("ring", "rs_stream"):
         cfg = CompressionConfig(qw=make_compressor("qsgd"),
                                 strategy=strategy)
-        with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
+        with pytest.raises(NotImplementedError, match=r"Queue 1, item 2 \("):
             compressed_allreduce(g, {"w": False}, cfg, None, R.key(0), 2,
                                  wire=True)
     cfg = CompressionConfig(qw=make_compressor("qsgd"), strategy="allgather")
-    for kw, queue in (({"faults": object()}, "item 13"),
-                      ({"recorder": object()}, "item 12"),
-                      ({"telemetry_plan": object()}, "item 11")):
+    for kw, queue in (({"faults": object()}, r"item 7 \("),
+                      ({"recorder": object()}, r"item 6 \("),
+                      ({"telemetry_plan": object()}, r"item 5 \(")):
         with pytest.raises(NotImplementedError, match=f"Queue 1, {queue}"):
             compressed_allreduce(g, {"w": False}, cfg, None, R.key(0), 2,
                                  wire=True, **kw)
