@@ -89,7 +89,10 @@ error:
      per bucket; the compress-only quantizers as phase 8 calls them (one
      grouped launch over a layerwise plan_compress call's 11 buckets, the
      entire-model bucket, the whole-input calls) on keys, beside their
-     byte and operation bounds (hashes counted from the draw lengths)
+     byte and operation bounds (hashes counted from the draw lengths);
+     top-k as blockwise_topk calls it (topk_mask_flat, k=5) on the flat
+     gradient and on 2**20 entries, and on 237, 2,048 and 8,192 rows in
+     f32 and bf16 and on 2**20 entries of sparse rows (topk_rows)
   6. torch.profiler over five main-path steps each of QSGD(16) and
      top-k(1%) layerwise: wall and device-busy time per step, the
      device's idle share and the top device ops
@@ -128,16 +131,22 @@ error:
 
 Phase 3 also holds the other compress-only kernels against their plain
 versions on the card at every bucket shape, the entire-model gradient and
-2**20 entries: top-k bitwise at k 1/5/16/128, and RMSNorm at (4096, 3072) in f32 (within 1e-6 relative) and bf16 (at most
+2**20 entries: top-k bitwise at k 1/5/16/128 on 512-wide rows, and as
+flat inputs (topk_mask_flat, the tail row padded in the kernel) in f32
+and bf16 at k 0/1/5/16/128/511/512/600 on d = 1, 511, 513, 121,002 and
+2**20, on rows of special values (zeros, ties, +-inf, NaN, -0.0, tiny,
+huge) and on a view one element past a 16-byte boundary; and RMSNorm at
+(4096, 3072) in f32 (within 1e-6 relative) and bf16 (at most
 0.1% of entries one bf16 ulp apart; the two sum the squares in other
 orders) and at (64, 65536) bf16 (the looped kernel), and the RMSNorm
 wrapper refusing a view that does not start on a 16-byte boundary. Phase
 5 times them beside their bounds at the phase-8 shapes, and RMSNorm
 beside torch.nn.functional.rms_norm (`library_ms`, timed only) and a copy
 of the same bytes (`copy_ms`). After phase 8, the whole-call rows: a
-layerwise plan_compress (QSGD(16), TernGrad) and the whole-input calls on
-2**20 entries, host ms per call and the kernels one call launches
-(torch.profiler).
+layerwise plan_compress (QSGD(16), TernGrad), the whole-input calls on
+2**20 entries and blockwise_topk(k=5) on the flat gradient and on 2**20
+entries in f32 and bf16 and on 2**20 entries of sparse rows, host ms per
+call and the kernels one call launches (torch.profiler).
 
 Run from the repository root: `python3 chip_smoke.py` (no arguments, one
 card). `python3 chip_smoke.py --nccl` on a machine with 4 cards runs the
@@ -202,6 +211,14 @@ RANK_TIMEOUT = 600.0
 # the compress-only path (phase 8)
 COMPRESS_LEVELS = (4, 7, 16, 64)
 TOPK_KS = (1, 5, 16, 128)
+# the top-k checks on flat inputs: k from none kept to more than a row, d
+# on both sides of a 512-entry row (the tail row's padding in the kernel)
+TOPK_EDGE_KS = (0, 1, 5, 16, 128, 511, 512, 600)
+TOPK_FLAT_DIMS = (1, 511, 513, 121002, 1 << 20)
+# rows of 512 timed at 237 (resnet9's flat gradient), 2,048 (2**20
+# entries) and 8,192
+TOPK_ROWS = (237, 2048, 8192)
+TOPK_SPARSE = 4              # nonzeros a row of the sparse top-k input
 MICRO = 1 << 20              # benchmarks/microbench.py's D
 RMS_SHAPE = (4096, 3072)     # phi4-mini's d_model (configs/phi4_mini_3_8b.py)
 # rows too wide for the registers kernel (past 512 threads x 8 vectors)
@@ -266,6 +283,8 @@ def bitwise_equal(a, b) -> bool:
         return False
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
     return bool(torch.equal(a, b))
 
 
@@ -578,26 +597,85 @@ def check_grouped_compress(unit_shapes, em_d, dev):
     return tuple(err)
 
 
+def topk_special_rows(dev):
+    """(16, 512) f32 rows where the top-k bisection is most fragile: zeros
+    and equal values (every count 512, the 10-bit field full), ties at the
+    threshold, +-inf, a NaN, all -0.0, 1e-30 magnitudes, subnormals,
+    magnitudes of 2^126 and more (counted whole at every step), a dense
+    cluster and a row mostly zeros (the [lo, hi) list filled late or
+    never)."""
+    import torch
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((16, 512), generator=g)
+    x[1] = 0.0
+    x[2, ::3] = 1.5
+    x[3] *= 1e-30
+    x[4, 7] = float("nan")
+    x[5, 9] = float("inf")
+    x[6, 3] = -float("inf")
+    x[7] = -0.0
+    x[8] = 2.0
+    x[9, ::2] = -3.0
+    x[10] = 1e-45 * torch.sign(x[10])
+    x[11] = 3e38 * torch.sign(x[11])
+    x[12, 5] = 2.0**126
+    x[13] = 1 + torch.arange(512) * 1e-7
+    x[14, :300] = 0.0
+    x[15] = torch.rand(512, generator=g) * 0.01 + 0.99
+    return x.to(dev)
+
+
+def topk_sparse_inputs(rows, seed, dev):
+    """Seeded (rows * 512,) f32 entries, TOPK_SPARSE nonzeros in each row
+    of 512 (a sparse gradient's rows): at k = 5 a row's zeros stay in
+    [lo, hi) to the end, so the top-k kernel counts the whole row at all
+    24 steps, its slowest case."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    at = torch.rand((rows, 512), generator=g).argsort(1)[:, :TOPK_SPARSE]
+    x = torch.zeros((rows, 512)).scatter_(
+        1, at, torch.randn((rows, TOPK_SPARSE), generator=g))
+    return x.reshape(-1).to(dev)
+
+
 def check_compress_kernels(shapes, dev):
     """The other compress-only kernels vs their plain versions on the card
-    -> max |err| per kernel: top-k at every (n, d) shape on its entries as
-    512-wide rows, bitwise; then RMSNorm at RMS_SHAPE in f32 and bf16 (the
-    registers kernel) and at RMS_WIDE in bf16 (the looped kernel) within
-    the stated tolerance, and the wrapper raising on a view that does not
-    start on a 16-byte boundary."""
+    -> max |err| per kernel: top-k bitwise at every (n, d) shape on its
+    entries as 512-wide rows (topk_mask) at TOPK_KS, and as a flat input
+    (topk_mask_flat, the tail row padded in the kernel) at TOPK_EDGE_KS in
+    f32 and bf16 on d in TOPK_FLAT_DIMS, on the special rows and on a view
+    one element past a 16-byte boundary (the 2- and 4-byte path); then
+    RMSNorm at RMS_SHAPE in f32 and bf16 (the registers kernel) and at
+    RMS_WIDE in bf16 (the looped kernel) within the stated tolerance, and
+    the wrapper raising on a view that does not start on a 16-byte
+    boundary."""
     import torch
-    from repro_torch.kernels import ops
     from repro_torch.kernels import topk_mask as K
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
     err = {"topk_mask": 0.0, "rmsnorm": 0.0}
 
+    def held(got, want, what):
+        err["topk_mask"] = max(err["topk_mask"], max_abs_err(
+            torch.nan_to_num(got), torch.nan_to_num(want)))
+        check(bitwise_equal(got, want), f"topk_mask {what}")
+
     for si, shape in enumerate(shapes):
-        xt = ops._tile(compress_inputs(shape, 800 + si, dev))[0]
+        xt = K._tile(compress_inputs(shape, 800 + si, dev))[0]
         for k in TOPK_KS:
-            got, want = K.topk_mask(xt, k), K.topk_mask_plain(xt, k)
-            err["topk_mask"] = max(err["topk_mask"], max_abs_err(got, want))
-            check(bitwise_equal(got, want), f"topk_mask {tuple(xt.shape)} "
-                  f"k {k}")
+            held(K.topk_mask(xt, k), K.topk_mask_plain(xt, k),
+                 f"{tuple(xt.shape)} k {k}")
+    flats = [(f"d {d}", compress_inputs((1, d), 820 + i, dev).reshape(-1))
+             for i, d in enumerate(TOPK_FLAT_DIMS)]
+    flats.append(("special rows", topk_special_rows(dev).reshape(-1)))
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = [(what, x.to(dtype)) for what, x in flats]
+        x = compress_inputs((1, 121003), 830, dev).reshape(-1).to(dtype)
+        cases.append(("view one element past a 16-byte boundary", x[1:]))
+        check(x[1:].data_ptr() % 16 == x.element_size(), "aligned view")
+        for what, x in cases:
+            for k in TOPK_EDGE_KS:
+                held(K.topk_mask_flat(x, k), K.topk_mask_flat_plain(x, k),
+                     f"flat {what} {dtype} k {k}")
     for shape, dtype, variant in ((RMS_SHAPE, torch.float32, "registers"),
                                   (RMS_SHAPE, torch.bfloat16, "registers"),
                                   (RMS_WIDE, torch.bfloat16, "looped")):
@@ -1484,15 +1562,16 @@ def encode_host_ms(layer_shapes, dev):
             x, k, MAIN_LEVELS, MAIN_WIDTH) for x, k in zip(xs, ks)])}
 
 
-def compress_bounds(kernel: str, rows: int, cols: int, elt: int = 4):
+def compress_bounds(kernel: str, rows: int, cols: int, elt: int = 4,
+                    entries=None):
     """(bytes moved, int ops, fp ops, byte-bound ms, op-bound ms) of one
-    top-k or RMSNorm launch over (rows, cols): top-k reads and writes 4 B
-    an entry; RMSNorm reads and writes `elt` B an entry and reads gamma (4
-    B a column)."""
+    top-k or RMSNorm launch over (rows, cols): each reads and writes `elt`
+    B an entry (f32: 4), RMSNorm also gamma (4 B a column). `entries`: the
+    live entries of a flat top-k input, whose tail row is padded in the
+    kernel: its bytes count those alone, its operations the whole tile."""
+    nbytes = 2 * elt * (rows * cols if entries is None else entries)
     if kernel == "rmsnorm":
-        nbytes = 2 * elt * rows * cols + 4 * cols
-    else:
-        nbytes = 8 * rows * cols
+        nbytes += 4 * cols
     per_int, per_fp = COMPRESS_OPS[kernel]
     return _bounded(nbytes, rows * cols * per_int, rows * cols * per_fp)
 
@@ -1527,10 +1606,12 @@ def time_compress_kernels(unit_shapes, total, dev):
     compress_flat, compress_micro), each on keys (the uniforms drawn in
     the kernel) beside the plain twins per bucket; QSGD(16) on both
     walks, forced, from a layerwise call to a whole input of 3 * 2**18
-    entries (compress_walk, `auto` the walk compress_walk picks); top-k (k=5) in the
-    same two whole-input calls; RMSNorm at RMS_SHAPE in bf16 and f32,
-    beside torch.nn.functional.rms_norm (`library_ms`) and a copy of x
-    (`copy_ms`)."""
+    entries (compress_walk, `auto` the walk compress_walk picks); top-k
+    (k=5) as topk_mask_flat in the same two whole-input calls, and on
+    TOPK_ROWS rows in f32 and bf16 and on 2**20 entries of sparse rows
+    (topk_rows); RMSNorm at RMS_SHAPE in
+    bf16 and f32, beside torch.nn.functional.rms_norm (`library_ms`) and a
+    copy of x (`copy_ms`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -1580,10 +1661,15 @@ def time_compress_kernels(unit_shapes, total, dev):
             lambda: T.terngrad_compress_buckets_plain(xs, k0s, k1s, scs,
                                                       draws), **info)
         if granule == WHOLE_DRAW:
-            xt = ops._tile(xs[0])[0]
-            add(group, "topk_mask", tuple(xt.shape),
-                compress_bounds("topk_mask", *xt.shape),
-                lambda: K.topk_mask(xt, 5), lambda: K.topk_mask_plain(xt, 5))
+            # top-k as blockwise_topk calls it: the flat input, its tail
+            # row padded in the kernel (no padded lane is loaded or stored)
+            xf = xs[0].reshape(-1)
+            rows_ = -(-xf.numel() // 512)
+            add(group, "topk_mask", (rows_, 512),
+                compress_bounds("topk_mask", rows_, 512,
+                                entries=xf.numel()),
+                lambda: K.topk_mask_flat(xf, 5),
+                lambda: K.topk_mask_flat_plain(xf, 5))
     # group compress_walk: the QSGD(16) grouped call on both walks, forced,
     # from a layerwise call's 61,050 pairs to a whole input's 393,216 (the
     # evidence for compress_walk's switch at one wave of resident threads)
@@ -1612,6 +1698,20 @@ def time_compress_kernels(unit_shapes, total, dev):
                     lambda: Q.qsgd_compress_buckets_plain(
                         xs, k0s, k1s, nrms, draws, MAIN_LEVELS),
                     input=label, hashes=hashes, per_thread=pt, auto=auto)
+    # group topk_rows: top-k (k=5) on TOPK_ROWS rows of 512 in f32 and
+    # bf16 (leg), the one walk the kernel keeps; and on 2**20 entries of
+    # sparse rows (leg sparse), the kernel's slowest case
+    for ri, rows_ in enumerate(TOPK_ROWS):
+        x32 = compress_inputs((rows_, 512), 1300 + ri, dev).reshape(-1)
+        legs = [(x32, "f32"), (x32.to(torch.bfloat16), "bf16")]
+        if rows_ * 512 == MICRO:
+            legs.append((topk_sparse_inputs(rows_, 1310, dev), "sparse"))
+        for x, leg in legs:
+            add("topk_rows", "topk_mask", (rows_, 512),
+                compress_bounds("topk_mask", rows_, 512, x.element_size()),
+                lambda: K.topk_mask_flat(x, 5),
+                lambda: K.topk_mask_flat_plain(x, 5))
+            rows[-1]["leg"] = leg
     for dtype, group in ((torch.bfloat16, "rmsnorm_bf16"),
                          (torch.float32, "rmsnorm_f32")):
         x, gamma = rmsnorm_inputs(dtype, 1100, dev)
@@ -2176,8 +2276,7 @@ def _plain_whole(kind, x, key):
     from repro_torch.kernels import terngrad as T
     from repro_torch.kernels import topk_mask as K
     if kind == "topk":
-        xt, d = ops._tile(x)
-        return ops._untile(K.topk_mask_plain(xt, 5), d, x.shape)
+        return K.topk_mask_flat_plain(x, 5)
     xu = x.reshape(1, -1)
     k0, k1 = ops._split_keys(key[None], x.device)
     draw = ops.draw_length(xu.shape[1], WHOLE_DRAW)
@@ -2310,12 +2409,14 @@ def compress_path(dev):
 def compress_calls(dev):
     """PERF.md's whole-call rows of the compress-only path: a layerwise
     ops.plan_compress on phase 8's resnet9 gradients (QSGD(16) and
-    TernGrad) and the whole-input ops.qsgd_compress / terngrad_compress on
-    its 2**20 entries, each as a user calls it. Per call: `host_ms`, the
+    TernGrad), the whole-input ops.qsgd_compress / terngrad_compress on
+    its 2**20 entries and ops.blockwise_topk (k=5) on its flat gradient
+    and on the 2**20 entries in f32 and bf16 and on 2**20 entries of
+    sparse rows, each as a user calls it. Per call: `host_ms`, the
     CUDA-event time of 20 calls issued back to back from Python, then
-    synchronized (call_ms: host enqueue, statistics, gathers and
-    scatters included), and the CUDA kernels and memory copies one call
-    puts on the card, counted by torch.profiler. Uses only entry points
+    synchronized (call_ms: host enqueue, statistics, gathers and scatters
+    included), and the CUDA kernels and memory copies one call puts on
+    the card, counted by torch.profiler. Uses only entry points
     that every tree of the port has, so `--calls DIR` times another
     checkout's port the same way."""
     import torch
@@ -2324,8 +2425,10 @@ def compress_calls(dev):
     from repro_torch.core.granularity import Granularity
     from repro_torch.core.plan import build_plan
     from repro_torch.kernels import ops
-    key, g, sm, _, micro = compress_grads(dev)
+    key, g, sm, flat, micro = compress_grads(dev)
     plan = build_plan(g, sm, Granularity("layerwise"))
+    flat16, micro16 = flat.to(torch.bfloat16), micro.to(torch.bfloat16)
+    sparse = topk_sparse_inputs(MICRO // 512, 1310, dev)
     calls = {
         "plan_compress_layerwise_qsgd": lambda: ops.plan_compress(
             plan, g, key, kind="qsgd", levels=MAIN_LEVELS),
@@ -2334,7 +2437,12 @@ def compress_calls(dev):
         "qsgd_compress_micro": lambda: ops.qsgd_compress(micro, key,
                                                          MAIN_LEVELS),
         "terngrad_compress_micro": lambda: ops.terngrad_compress(micro,
-                                                                 key)}
+                                                                 key),
+        "blockwise_topk_flat": lambda: ops.blockwise_topk(flat, 5),
+        "blockwise_topk_micro": lambda: ops.blockwise_topk(micro, 5),
+        "blockwise_topk_flat_bf16": lambda: ops.blockwise_topk(flat16, 5),
+        "blockwise_topk_micro_bf16": lambda: ops.blockwise_topk(micro16, 5),
+        "blockwise_topk_sparse": lambda: ops.blockwise_topk(sparse, 5)}
     rows = []
     for name, fn in calls.items():
         host = call_ms(fn)
@@ -2615,7 +2723,10 @@ def main(argv) -> int:
     cerrs = check_compress_kernels(cshapes, dev)
     errs.update(cerrs)
     print(f"compress-only kernels vs plain: top-k (k {list(TOPK_KS)}) "
-          f"bitwise over {len(cshapes)} shapes; rmsnorm {RMS_SHAPE} f32 and "
+          f"bitwise over {len(cshapes)} shapes, and flat (k "
+          f"{list(TOPK_EDGE_KS)}, f32 and bf16) on d in "
+          f"{list(TOPK_FLAT_DIMS)}, special rows and a view one element "
+          f"off a 16-byte boundary; rmsnorm {RMS_SHAPE} f32 and "
           f"bf16 and {RMS_WIDE} bf16 (looped) within tolerance, a "
           f"misaligned view refused; max abs err {cerrs}", flush=True)
 

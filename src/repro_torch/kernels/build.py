@@ -29,9 +29,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # C signatures: every pointer, pointer array and the stream as void*, ints
-# (sizes and the CUDA device index) as int, f32 scalars as float
+# (sizes and the CUDA device index) as int, a flat element count as long
+# long, f32 scalars as float
 SIGNATURES = {
     # count, the pointer array, the size array, blocks, levels, width
     "qsgd_pack_buckets": [_I, _P, _P, _I, _I, _I, _I, _P],
@@ -50,7 +52,8 @@ SIGNATURES = {
     # levels, 1 / levels
     "qsgd_compress_buckets": [_I, _P, _P, _I, _I, _I, _F, _I, _P],
     "terngrad_compress_buckets": [_I, _P, _P, _I, _I, _I, _P],
-    "topk_mask": [_P, _P, _I, _I, _I, _P],
+    # x, out, elements, k, element bytes
+    "topk_mask_flat": [_P, _P, _L, _I, _I, _I, _P],
     "rmsnorm": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
 }
 

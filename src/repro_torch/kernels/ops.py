@@ -31,7 +31,6 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.pack import (bits_pack, bits_pack_buckets,
                                       bits_unpack, bits_unpack_buckets,
@@ -46,7 +45,8 @@ from repro_torch.kernels.sign import (majority, majority_buckets,
 from repro_torch.kernels.terngrad import (terngrad_compress_buckets,
                                           terngrad_pack_buckets,
                                           terngrad_unpack_buckets)
-from repro_torch.kernels.topk_mask import BLOCK_C, topk_mask
+from repro_torch.kernels.topk_mask import BLOCK_C, topk_mask_flat
+from repro_torch.kernels.topk_mask import KERNEL_DTYPES as TOPK_DTYPES
 
 __all__ = ["qsgd_compress", "terngrad_compress", "blockwise_topk",
            "qsgd_compress_units", "terngrad_compress_units", "plan_compress",
@@ -81,20 +81,6 @@ WHOLE_DRAW = BLOCK_R * BLOCK_C
 def draw_length(d: int, granule: int) -> int:
     """The reference's draw over d elements padded to whole `granule`s."""
     return granule * -(-d // granule)
-
-
-def _tile(x: torch.Tensor):
-    """Any-shape x -> ((rows, BLOCK_C) zero-padded rows of the flat input,
-    d): the reference's tiles of blockwise top-k, less its BLOCK_R row
-    padding (rows of zeros keep nothing)."""
-    d = x.numel()
-    rows = -(-d // BLOCK_C)
-    xt = F.pad(x.reshape(-1), (0, rows * BLOCK_C - d))
-    return xt.reshape(rows, BLOCK_C).contiguous(), d
-
-
-def _untile(xt: torch.Tensor, d: int, shape) -> torch.Tensor:
-    return xt.reshape(-1)[:d].reshape(shape)
 
 
 def _compress_buckets(kind: str, x2ds, keys_list, granule: int, **kw):
@@ -134,9 +120,12 @@ def terngrad_compress(x, key) -> torch.Tensor:
 def blockwise_topk(x, k_per_block: int) -> torch.Tensor:
     """Block-local top-k: each BLOCK_C-element row of the flat input keeps
     its k largest magnitudes (the last row zero-padded, as the reference
-    pads it). One kernel launch."""
-    xt, d = _tile(x.to(torch.float32))
-    return _untile(topk_mask(xt, k_per_block), d, x.shape).to(x.dtype)
+    pads it). One kernel launch: topk_mask_flat takes f32 and bf16 as
+    they are and pads the last row itself; other dtypes are cast to f32
+    and back."""
+    if x.dtype not in TOPK_DTYPES:
+        return topk_mask_flat(x.float().contiguous(), k_per_block).to(x.dtype)
+    return topk_mask_flat(x.contiguous(), k_per_block)
 
 
 # ---- compress only: UnitPlan buckets ----------------------------------------
