@@ -75,7 +75,9 @@ error:
      versions (QSGD / TernGrad on the card's own statistics; signSGD,
      natural and top-k against the whole path run on the CPU); one
      error-feedback aggregation each for QSGD and top-k through the
-     kernels equals the sim path
+     kernels equals the sim path; two steps of optim.apply_updates
+     (SGD, momentum, Nesterov, Adam, with and without weight decay) on
+     resnet9's parameters on the card equal the CPU's bit for bit
   5. timings of each kernel and its plain version at the main-path shapes
      and the stress shape, beside the byte and operation bounds: device
      time from CUDA-event timed replays of a CUDA graph of 20 calls
@@ -109,14 +111,26 @@ error:
      one call a granularity, fused (one majority launch) = non-fused
      (one bits_unpack, count, one bits_pack) = plain, bucket by bucket;
      (c) one step's buffers of the per-unit codecs (fused=False: one
-     pack and one unpack launch a granularity) = the fused buffers; each
-     of (a)-(c) held to exact launch counts; (d)
-     train_cnn_ranks, 20 resnet9 steps (batch 64, 16 a rank) for
-     allgather-wire QSGD(16) and signSGD
-     and simulated-wire QSGD(16): seconds, test loss, collective bytes a
-     step against comm_report, exact launch counts (the allgather receive
-     leg decodes a step's gathered buckets in one launch), equal
-     parameters on every rank at the end
+     pack and one unpack launch a granularity) = the fused buffers; (e)
+     the streaming strategies, compressed_allreduce(strategy="ring" /
+     "rs_stream", wire=True) for QSGD(16) (on entries of {0, +-1/8,
+     +-1/4}, whose norms both devices sum exactly) / TernGrad / signSGD /
+     natural / top-k(1%), layerwise and entire-model, fusion 0 and 64
+     KiB, hop chunks whole and 64 B: each call bitwise the same call on
+     CPU copies of its inputs on the same gloo group (so every kernel on
+     the path against its plain twin), the same on every rank, ring
+     bitwise the allgather wire result, exact hops, ring and
+     reduce-scatter bytes (staged bytes printed); each of (a)-(c) and
+     (e) held to exact launch counts; (d) train_cnn_ranks, 20 resnet9
+     steps (batch 64, 16 a rank; cuDNN's deterministic algorithms) for
+     allgather-wire QSGD(16) and signSGD, simulated-wire QSGD(16) and
+     ring QSGD(16): seconds, test
+     loss, collective bytes a step against comm_report (the ring's
+     against its message layouts), exact launch counts (the allgather
+     receive leg decodes a step's gathered buckets in one launch; the
+     ring a message's own payload and each hop's chunk in one), equal
+     parameters on every rank at the end, and the ring run's test loss
+     and parameters bitwise the allgather QSGD(16) run's
   8. the compress-only path (kernels/ops.py) on one worker's resnet9
      gradients: plan_compress for QSGD(16) and TernGrad at layerwise,
      entire-model and blockwise (65,536) granularity (11 / 1 / 1
@@ -1223,6 +1237,46 @@ def check_step_buffers(dev):
     return n_msgs
 
 
+OPTIMIZERS = ({"name": "sgd"}, {"name": "sgd", "weight_decay": 5e-4},
+              {"name": "momentum"},
+              {"name": "momentum", "nesterov": True, "weight_decay": 5e-4},
+              {"name": "adam"}, {"name": "adam", "weight_decay": 5e-4})
+
+
+def check_optimizers(dev):
+    """optim.apply_updates on resnet9's parameters (random weights from
+    seed 0, seeded gradients): two steps of each optimizer on the card
+    give the CPU's bits (every step is elementwise: the fmas and Adam's
+    f64 square root as on the CPU, its bias corrections host scalars).
+    -> optimizers checked."""
+    import torch
+    from repro_torch import random as R
+    from repro_torch.configs.resnet9_cifar import RESNET9
+    from repro_torch.convert import tree_leaves, tree_map
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.optim import OptConfig, apply_updates, init_opt_state
+    params = init_cnn(RESNET9, R.key(0), device=dev)
+    gen = torch.Generator().manual_seed(3)
+    grads = [tree_map(lambda p: torch.randn(p.shape, generator=gen)
+                      .to(dev), params) for _ in range(2)]
+    for kw in OPTIMIZERS:
+        cfg = OptConfig(lr=0.05, **kw)
+        sides = []
+        for where in (dev, torch.device("cpu")):
+            p = tree_map(lambda t: t.to(where), params)
+            st = init_opt_state(cfg, p)
+            for i, g in enumerate(grads):
+                p, st = apply_updates(cfg, p, tree_map(lambda t: t.to(where),
+                                                       g), st,
+                                      torch.tensor(0.05 * (i + 1)))
+            sides.append(torch.cat([t.reshape(-1).cpu()
+                                    for t in tree_leaves(p)]))
+        check(bool(torch.isfinite(sides[0]).all())
+              and bitwise_equal(sides[0], sides[1]),
+              f"optimizer {kw}: the card's update != the CPU's")
+    return len(OPTIMIZERS)
+
+
 # ---- phase 5: timing ---------------------------------------------------------
 
 def _median_event_ms(run, count, repeats):
@@ -2039,10 +2093,169 @@ def gate_unit_codecs(rank, n, dev, params, wg):
     return msgs
 
 
+# the kernels a wire codec packs and unpacks with (fused codecs)
+CODEC_KERNELS = {"qsgd": ("qsgd_pack", "qsgd_unpack"),
+                 "terngrad": ("terngrad_pack", "terngrad_unpack"),
+                 "signsgd": ("sign_pack", "sign_unpack"),
+                 "natural": ("fields_pack", "fields_unpack"),
+                 "topk": ("fields_pack", "fields_unpack")}
+# the allgather wire path's receive leg decodes with the per-unit codec
+GATHER_UNPACK = {"signsgd": "bits_unpack"}
+STREAM_CHUNKS = (None, 64.0)
+STREAM_FUSIONS = (0.0, 65536.0)
+
+
+def stream_plan(cfg, g, sm, n, chunk):
+    """The layouts a streaming call of cfg on g moves and its exact costs
+    on each rank: -> (layouts, launches, hops, ring bytes each way,
+    reduce-scatter bytes each way). A call encodes each message in one
+    grouped pack launch and decodes, per message, its own payload in one
+    grouped unpack launch and every arriving chunk in one: packs M,
+    unpacks sum over messages of (1 + (n - 1) x its chunks); the ring
+    moves (n - 1) x each message's bytes; rs_stream reduce-scatters each
+    bucket's (units, ceil(d / n)) f32 slices, n - 1 each way."""
+    from repro_torch.core.plan import build_plan
+    from repro_torch.core.schedule import build_schedule
+    from repro_torch.core.wire import (_shard_dim, layout_chunks,
+                                       message_layouts, shard_message_layouts,
+                                       wire_codec)
+    sched = build_schedule(build_plan(g, sm, cfg.granularity),
+                           cfg.fusion_bytes or 0.0)
+    codec = wire_codec(cfg.qw)
+    layouts = (message_layouts(sched, codec) if cfg.strategy == "ring"
+               else shard_message_layouts(sched, codec, n))
+    chunks = [len(layout_chunks(lay, chunk)) for lay in layouts]
+    pack, unpack = CODEC_KERNELS[cfg.qw.name]
+    launches = {pack: len(layouts),
+                unpack: sum(1 + (n - 1) * c for c in chunks)}
+    rs = (0 if cfg.strategy == "ring" else
+          sum((n - 1) * 4 * b.n * _shard_dim(b.dim, n)
+              for b in sched.plan.buckets))
+    return (layouts, launches, (n - 1) * sum(chunks),
+            (n - 1) * sum(lay.total_nbytes for lay in layouts), rs)
+
+
+def _launched(before):
+    from repro_torch import kernels
+    after = kernels.launch_counts()
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def _dyadic_like(tree, seed):
+    """Entries of {0, +-1/8, +-1/4} in the shapes of `tree`: every sum of
+    their squares, and of the squares of a rank-order mean of 4 such
+    trees, is exact in any order at resnet9's size (below 2**24 units of
+    2**-10), so QSGD's unit norms are the same on the card and the CPU.
+    On other inputs the two devices sum the squares in other orders
+    (ROADMAP.md Queue 3 item 1)."""
+    import torch
+    from repro_torch.convert import tree_map
+    gen = torch.Generator().manual_seed(seed)
+    return tree_map(lambda t: (torch.randint(-2, 3, t.shape, generator=gen)
+                               * 0.125).to(t.device), tree)
+
+
+def gate_stream(rank, n, dev, params, wg):
+    """(e): compressed_allreduce(strategy="ring" / "rs_stream", wire=True)
+    on this rank's resnet9 gradients (QSGD on _dyadic_like entries of
+    their shapes): 5 compressors x layerwise / entire-model x fusion 0 /
+    64 KiB x chunks None / 64 B. Each call is bitwise the same call on CPU
+    copies of its inputs on the same gloo group (the plain versions: every
+    kernel on the path against its twin), the same on every rank, and
+    under ring bitwise the allgather wire result of the same ranks; exact
+    launches (stream_plan), hops and bytes. -> (calls, per-call
+    records)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch import random as R
+    from repro_torch.convert import tree_map
+    from repro_torch.core import collectives
+    from repro_torch.core.aggregation import (CompressionConfig,
+                                              compressed_allreduce)
+    from repro_torch.core.granularity import Granularity, stacked_mask
+    key = R.key(7)
+    sm = stacked_mask(params)
+    # the CPU copies' calls need a group that moves host tensors (under
+    # --nccl a gloo group beside the NCCL one)
+    cpu_group = (None if dist.get_backend() == "gloo"
+                 else dist.new_group(backend="gloo"))
+    recs = []
+    for comp in _comps():
+        g = (_dyadic_like(params, 100 + rank) if comp.name == "qsgd"
+             else tree_map(lambda t: t[rank], wg))
+        g_cpu = tree_map(lambda t: t.cpu(), g)
+        for gran in ("layerwise", "entire_model"):
+            for fusion in STREAM_FUSIONS:
+                base = CompressionConfig(qw=comp, fusion_bytes=fusion,
+                                         granularity=Granularity(gran))
+                before = kernels.launch_counts()
+                ag, _ = compressed_allreduce(
+                    g, sm, dataclasses.replace(base, strategy="allgather"),
+                    None, key, n, wire=True)
+                pack = CODEC_KERNELS[comp.name][0]
+                unpack = GATHER_UNPACK.get(comp.name, "fields_unpack")
+                got = _launched(before)
+                check(got == {pack: 1, unpack: 1}, f"{comp.name} {gran} "
+                      f"fusion {fusion} allgather: launches {got}")
+                for strategy in ("ring", "rs_stream"):
+                    cfg = dataclasses.replace(base, strategy=strategy)
+                    for chunk in STREAM_CHUNKS:
+                        what = (f"{comp.name} {gran} fusion {fusion} "
+                                f"{strategy} chunks {chunk}")
+                        layouts, want, hops, nbytes, rs = stream_plan(
+                            cfg, g, sm, n, chunk)
+                        collectives.reset_counts()
+                        before = kernels.launch_counts()
+                        t0 = time.perf_counter()
+                        out, _ = compressed_allreduce(
+                            g, sm, cfg, None, key, n, wire=True,
+                            stream_chunk_bytes=chunk)
+                        torch.cuda.synchronize()
+                        secs = time.perf_counter() - t0
+                        got = _launched(before)
+                        ring = collectives.counts("ring_shift")
+                        red = collectives.counts("reduce_scatter")
+                        check(got == want, f"{what}: launches {got} != "
+                              f"{want}")
+                        check((ring["calls"], ring["sent_bytes"],
+                               ring["recv_bytes"]) == (hops, nbytes, nbytes),
+                              f"{what}: ring moved {ring}, want {hops} hops "
+                              f"of {nbytes} B")
+                        check((red["sent_bytes"], red["recv_bytes"])
+                              == (rs, rs), f"{what}: reduce-scatter {red}")
+                        cpu, _ = compressed_allreduce(
+                            g_cpu, sm, cfg, cpu_group, key, n, wire=True,
+                            stream_chunk_bytes=chunk)
+                        check(bitwise_equal(_flat(out).cpu(), _flat(cpu)),
+                              f"{what}: card != the CPU copy's call")
+                        check(_equal_on_all_ranks(_flat(out)),
+                              f"{what}: ranks disagree")
+                        if strategy == "ring":
+                            check(bitwise_equal(_flat(out), _flat(ag)),
+                                  f"{what}: != the allgather wire path")
+                        recs.append({
+                            "comp": comp.name, "gran": gran,
+                            "fusion": fusion, "strategy": strategy,
+                            "chunk": chunk, "messages": len(layouts),
+                            "hops": hops, "ring_bytes": nbytes,
+                            "rs_bytes": rs, "launches": got,
+                            "staged_bytes": ring["staged_bytes"]
+                            + red["staged_bytes"], "seconds": secs})
+    torch.cuda.synchronize()
+    return len(recs), recs
+
+
 def train_ranks(rank, n, dev):
     """(d): train_cnn_ranks, STEPS resnet9 steps per run, batch 64 over the
     ranks; exact launch counts, collective bytes a step against
-    comm_report, equal parameters on every rank. -> per-run records."""
+    comm_report (the ring's against its layouts, beside comm_report of
+    allgather), equal parameters on every rank, and the ring run's test
+    loss and parameters bitwise the allgather QSGD run's. -> per-run
+    records."""
+    import dataclasses
     import torch
     from repro_torch import kernels
     from repro_torch.core import collectives
@@ -2058,53 +2271,81 @@ def train_ranks(rank, n, dev):
     # rows with the per-unit codec in one decode_rows_buckets call (one
     # fields_unpack, or bits_unpack for signSGD, a step); simulated
     # decodes every bucket locally in one grouped launch (qsgd_unpack 1)
-    # and averages the decoded values
+    # and averages the decoded values. The ring runs the per-bucket
+    # schedule (11 messages, each one chunk): a pack a message (11) and a
+    # qsgd_unpack for its own payload and for each of its n - 1 = 3 hops
+    # (11 x 4 = 44), over 33 ring_shift calls a step
     runs = [("allgather_qsgd16_layerwise", QSGD(levels=MAIN_LEVELS),
              "allgather", {"qsgd_pack": 1, "fields_unpack": 1}),
             ("allgather_signsgd_layerwise", SignSGD(), "allgather",
              {"sign_pack": 1, "bits_unpack": 1}),
             ("simulated_qsgd16_layerwise", QSGD(levels=MAIN_LEVELS),
-             "simulated", {"qsgd_pack": 1, "qsgd_unpack": 1})]
-    out = []
+             "simulated", {"qsgd_pack": 1, "qsgd_unpack": 1}),
+            ("ring_qsgd16_layerwise", QSGD(levels=MAIN_LEVELS), "ring",
+             {"qsgd_pack": 11, "qsgd_unpack": 44})]
+    out, finals = [], {}
     for name, comp, strategy, per_step in runs:
         cfg = CompressionConfig(qw=comp, strategy=strategy,
                                 granularity=Granularity("layerwise"))
         kernels.reset_launch_counts()
         collectives.reset_counts()
         torch.cuda.synchronize()
+        # cuDNN's default convolution backward adds in a run-dependent
+        # order; deterministic algorithms make two runs comparable bit for
+        # bit (the ring run against the allgather run)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
         t0 = time.perf_counter()
-        acc, loss, params = train_cnn_ranks("resnet9", cfg, steps=STEPS,
-                                            batch=64, device=dev)
-        torch.cuda.synchronize()
+        try:
+            acc, loss, params = train_cnn_ranks("resnet9", cfg, steps=STEPS,
+                                                batch=64, device=dev)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = False
         secs = time.perf_counter() - t0
         counts = kernels.launch_counts()
         coll = collectives.counts()
         want = {k: per_step.get(k, 0) * STEPS for k in counts}
         check(counts == want, f"{name}: launches {counts} != {want}")
-        plan = build_plan(params, stacked_mask(params),
-                          Granularity("layerwise"))
-        rep = comm_report(cfg, plan, n, measured=True)
+        sm = stacked_mask(params)
+        plan = build_plan(params, sm, Granularity("layerwise"))
+        rep = comm_report(dataclasses.replace(cfg, strategy="allgather")
+                          if strategy == "ring" else cfg, plan, n,
+                          measured=True)
         sent, recv = coll["sent_bytes"] / STEPS, coll["recv_bytes"] / STEPS
-        check(8 * sent == rep.uplink_bits_per_worker,
-              f"{name}: {sent} B sent a step, comm_report "
-              f"{rep.uplink_bits_per_worker / 8}")
-        down = (rep.downlink_bits_per_worker if strategy == "allgather"
-                else (n - 1) * rep.uplink_bits_per_worker)
+        if strategy == "ring":
+            _, _, hops, nbytes, _ = stream_plan(cfg, params, sm, n, None)
+            up = down = 8 * nbytes
+            calls = hops
+        else:
+            up = rep.uplink_bits_per_worker
+            down = (rep.downlink_bits_per_worker if strategy == "allgather"
+                    else (n - 1) * rep.uplink_bits_per_worker)
+            calls = 11
+        check(8 * sent == up, f"{name}: {sent} B sent a step, want "
+              f"{up / 8}")
         check(8 * recv == down, f"{name}: {recv} B received a step, want "
               f"{down / 8}")
-        check(coll["calls"] == 11 * STEPS, f"{name}: {coll['calls']} calls")
+        check(coll["calls"] == calls * STEPS,
+              f"{name}: {coll['calls']} calls")
         check(math.isfinite(loss) and math.isfinite(acc),
               f"{name}: test loss {loss}")
         check(_equal_on_all_ranks(_flat(params)),
               f"{name}: parameters differ across ranks")
+        finals[name] = (loss, _flat(params))
         out.append({"run": name, "steps": STEPS, "seconds": secs,
                     "test_loss": loss, "test_accuracy": acc,
                     "launches": counts, "sent_bytes_per_step": sent,
                     "recv_bytes_per_step": recv,
+                    "staged_bytes_per_step": coll["staged_bytes"] / STEPS,
                     "comm_report_up_bytes": rep.uplink_bits_per_worker / 8,
                     "comm_report_down_bytes":
                         rep.downlink_bits_per_worker / 8,
                     "collective_ms_per_step": coll["seconds"] / STEPS * 1e3})
+    ring, ag = finals["ring_qsgd16_layerwise"], \
+        finals["allgather_qsgd16_layerwise"]
+    check(ring[0] == ag[0] and bitwise_equal(ring[1], ag[1]),
+          "ring QSGD(16): test loss or parameters != the allgather run's")
     return out
 
 
@@ -2157,19 +2398,38 @@ def gather_timing(rank, n, dev, nbytes_list):
 # (b) encodes the buckets of each granularity in one call (sign_pack 2) and
 # votes on all of them in one fused call (majority 2) and one non-fused
 # call (bits_unpack 2, bits_pack 2).
+# (e) runs, per compressor, 4 (granularity, fusion) layouts x {ring,
+# rs_stream} x chunks {None, 64 B} = 16 streaming calls and 4 allgather
+# wire calls (one pack, one gathered-rows unpack: fields_unpack, or
+# bits_unpack for signSGD). A streaming call packs each of its M messages
+# in one launch and unpacks, per message, its own payload and each of the
+# n - 1 = 3 hops' chunks in one launch each (stream_plan): M + hops
+# unpacks. M is 11 (layerwise, fusion 0), 4 (layerwise, 64 KiB) and 1
+# (entire-model), so 4 x (11 + 4 + 1 + 1) = 68 packs a compressor, + 4
+# allgather = 72. Hops over the 16 calls: 33 x 4 (layerwise, fusion 0:
+# one bucket a message, one chunk) + 3 x 8 (entire-model) = 156, plus at
+# 64 KiB ring / rs_stream with whole and 64-byte chunks QSGD 12 + 24 + 12
+# + 24, TernGrad 12 + 24 + 12 + 18, signSGD 12 + 21 + 12 + 18, natural 12
+# + 27 + 12 + 24, top-k 12 + 18 + 12 + 18; unpacks 68 + hops: QSGD 68 +
+# 228 = 296, TernGrad 290, signSGD 287, natural 299, top-k 284.
+# fields_pack 72 natural + 72 top-k = 144; fields_unpack 299 + 284 + 4 x 4
+# allgather (QSGD, TernGrad, natural, top-k) = 599; bits_unpack 4.
 GATE_LAUNCHES = {
     "fixed_gradients": {"qsgd_pack": 9, "qsgd_unpack": 6,
                         "terngrad_pack": 7, "terngrad_unpack": 4,
                         "sign_pack": 7, "sign_unpack": 4, "fields_pack": 16,
                         "fields_unpack": 24, "bits_unpack": 3},
     "majority": {"sign_pack": 2, "majority": 2, "bits_unpack": 2,
-                 "bits_pack": 2}}
+                 "bits_pack": 2},
+    "stream": {"qsgd_pack": 72, "qsgd_unpack": 296, "terngrad_pack": 72,
+               "terngrad_unpack": 290, "sign_pack": 72, "sign_unpack": 287,
+               "fields_pack": 144, "fields_unpack": 599, "bits_unpack": 4}}
 
 
 def rank_phase(rank, n, dev):
     """Phase 7 on one rank: each gate driven with the launch counters set
-    to 0 just before it and read just after, gates (a) and (b) held to
-    GATE_LAUNCHES (gate (c) checks its own)."""
+    to 0 just before it and read just after, gates (a), (b) and (e) held
+    to GATE_LAUNCHES (gate (c) checks its own; (e) each call too)."""
     import torch
     from repro_torch import kernels
     torch.backends.cudnn.allow_tf32 = False
@@ -2178,7 +2438,8 @@ def rank_phase(rank, n, dev):
     res = {}
     for name, gate in (("fixed_gradients", gate_fixed_gradients),
                        ("majority", gate_majority),
-                       ("unit_codecs", gate_unit_codecs)):
+                       ("unit_codecs", gate_unit_codecs),
+                       ("stream", gate_stream)):
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         count = gate(rank, n, dev, params, wg)
@@ -2186,8 +2447,10 @@ def rank_phase(rank, n, dev):
         if name in GATE_LAUNCHES:
             want = {k: GATE_LAUNCHES[name].get(k, 0) for k in counts}
             check(counts == want, f"{name}: launches {counts} != {want}")
-        res[name] = {"count": count, "seconds": time.perf_counter() - t0,
-                     "launches": counts}
+        res[name] = {"seconds": time.perf_counter() - t0, "launches": counts}
+        if isinstance(count, tuple):
+            count, res[name]["records"] = count
+        res[name]["count"] = count
     res["train"] = train_ranks(rank, n, dev)
     res["gather_ms"] = gather_timing(rank, n, dev,
                                      (4_096, 60_512, 484_008, 4_194_304))
@@ -2203,8 +2466,9 @@ def multi_rank_path(backend: str = "gloo"):
                     timeout=RANK_TIMEOUT)
     secs = time.perf_counter() - t0
     r0 = res[0]
-    where = ("on cuda:0 over gloo (CUDA tensors straight into gloo, no "
-             "staging copy in the port)" if backend == "gloo"
+    where = ("on cuda:0 over gloo (CUDA tensors straight into gloo's "
+             "all_gather; its send / recv staged through pinned host "
+             "buffers by the port)" if backend == "gloo"
              else "one card each over nccl")
     print(f"multi-rank: {RANKS} ranks {where}, {secs:.1f} s", flush=True)
     print(f"  (a) {r0['fixed_gradients']['count']} compressed_allreduce "
@@ -2214,13 +2478,30 @@ def multi_rank_path(backend: str = "gloo"):
           f"== plain", flush=True)
     print(f"  (c) {r0['unit_codecs']['count']} messages: fused=False buffers "
           f"== fused", flush=True)
+    st = r0["stream"]
+    print(f"  (e) {st['count']} ring / rs_stream calls bitwise equal to the "
+          f"same calls on CPU copies (the plain versions) and on every "
+          f"rank, ring == allgather wire, exact launches, hops and bytes; "
+          f"{st['seconds']:.1f} s, launches "
+          f"{ {k: v for k, v in st['launches'].items() if v} }", flush=True)
+    for rec in st["records"]:
+        print(f"    (e) {rec['comp']:8s} {rec['gran']:12s} fusion "
+              f"{rec['fusion']:7.0f} {rec['strategy']:9s} chunks "
+              f"{str(rec['chunk']):5s}: {rec['messages']:2d} messages, "
+              f"{rec['hops']:3d} hops, ring {rec['ring_bytes']} B and "
+              f"reduce-scatter {rec['rs_bytes']} B each way, staged "
+              f"{rec['staged_bytes']} B, {rec['seconds'] * 1e3:.2f} ms, "
+              f"launches {rec['launches']}", flush=True)
     for run in r0["train"]:
         print(f"  (d) {run['run']}: {run['steps']} steps in "
               f"{run['seconds']:.3f} s (rank 0), test loss "
               f"{run['test_loss']:.6f}, sent {run['sent_bytes_per_step']:.0f}"
               f" B / received {run['recv_bytes_per_step']:.0f} B a step "
-              f"(comm_report up {run['comm_report_up_bytes']:.0f} B, down "
-              f"{run['comm_report_down_bytes']:.0f} B), collectives "
+              f"(comm_report"
+              f"{' of allgather' if run['run'].startswith('ring') else ''} up "
+              f"{run['comm_report_up_bytes']:.0f} B, down "
+              f"{run['comm_report_down_bytes']:.0f} B), staged "
+              f"{run['staged_bytes_per_step']:.0f} B a step, collectives "
               f"{run['collective_ms_per_step']:.3f} ms a step, launches "
               f"{ {k: v for k, v in run['launches'].items() if v} }",
               flush=True)
@@ -2228,7 +2509,8 @@ def multi_rank_path(backend: str = "gloo"):
           f"{r0['gather_ms']}", flush=True)
     launches = {}
     for r in res:
-        for phase in ("fixed_gradients", "majority", "unit_codecs"):
+        for phase in ("fixed_gradients", "majority", "unit_codecs",
+                      "stream"):
             for k, v in r[phase]["launches"].items():
                 launches[k] = launches.get(k, 0) + v
         for run in r["train"]:
@@ -2735,6 +3017,9 @@ def main(argv) -> int:
     print(f"one-step wire buffers: {n_msgs} messages equal the plain build; "
           f"EF aggregation (QSGD, top-k) through the kernels equals the sim "
           f"path", flush=True)
+    n_opt = check_optimizers(dev)
+    print(f"optim.apply_updates: {n_opt} optimizers x 2 steps on resnet9's "
+          f"parameters, the card's bits == the CPU's", flush=True)
 
     timings = time_kernels(layer_shapes, em_shape, dev)
     timings += time_compress_kernels(unit_shapes, em_shape[1], dev)

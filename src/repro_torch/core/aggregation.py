@@ -21,9 +21,17 @@ by rank-order arithmetic (core/collectives.py). Strategies:
   rs_compress_ag reduce-scatter the dense gradient, compress the owned
                  shard, all_gather the compressed shards.
   shared_random  Random-k with the shared unit key: only the k values move.
+  ring           wire-only: the allgather wire path's packed message
+                 buffers moved hop by hop around the ranks, each hop's
+                 chunks decoded the hop they arrive
+                 (wire.execute_schedule_stream); bit-identical to
+                 allgather with wire=True.
+  rs_stream      wire-only: compress -> reduce-scatter -> allgather, each
+                 rank encoding only the shard it owns and the packed shards
+                 riding the ring.
 
-The streaming collectives (ring / rs_stream), fault injection, the trace
-recorder and telemetry are later slices and raise NotImplementedError.
+Fault injection, the trace recorder and telemetry are later slices and
+raise NotImplementedError (wire.not_ported).
 
 `aggregate_simulated_workers` is the paper-repro harness: worker
 gradients carry a leading worker axis n on one device. The per-worker
@@ -35,7 +43,9 @@ folded into each unit key instead). With wire=True every worker's
 compressed units travel as real packed message buffers (core/wire.py),
 bit-identical to the sim path. The worker mean is summed in worker order,
 ((w0 + w1) + w2) + ... then divided by n, so it does not depend on a
-reduction kernel's order.
+reduction kernel's order; with `alive` it is the reference's tensordot
+with the survivor weights, which XLA's CPU dot computes as a worker-order
+fma chain, w0 g0 then fma(w_i, g_i, acc), and so does the port.
 """
 from __future__ import annotations
 
@@ -47,7 +57,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.convert import tree_leaves, tree_map
-from repro_torch.core.collectives import all_gather, rank_mean, rank_sum
+from repro_torch.core.collectives import (all_gather, rank_mean, rank_sum,
+                                          reduce_scatter)
 from repro_torch.core.compressors import (Compressor, Identity, RandomK,
                                           _f32, _k_of)
 from repro_torch.core.granularity import Granularity
@@ -55,13 +66,14 @@ from repro_torch.core.plan import UnitPlan, build_plan
 from repro_torch.core.schedule import CommSchedule, build_schedule
 from repro_torch.core.wire import (execute_schedule_wire,
                                    execute_schedule_wire_with_state,
-                                   wire_codec)
+                                   not_ported, wire_codec)
+from repro_torch.kernels.ref import fma_f32
 from repro_torch.random import fold_in
 
 STRATEGIES = ("dense", "simulated", "allgather", "rs_compress_ag",
               "shared_random", "ring", "rs_stream")
 
-#: strategies executed by the streaming ring collective (a later slice)
+#: strategies executed by the streaming ring collective (wire=True only)
 STREAM_STRATEGIES = ("ring", "rs_stream")
 
 _MASTER_FOLD = 0x5EED
@@ -96,9 +108,26 @@ class CompressionConfig:
                 f"fusion_bytes must be >= 0 or None, got {self.fusion_bytes!r}")
 
 
+def no_compression() -> CompressionConfig:
+    return CompressionConfig(strategy="dense")
+
+
 def worker_mean(g: torch.Tensor) -> torch.Tensor:
     """Mean over the leading worker axis, summed in worker order."""
     return rank_sum(g) / g.shape[0]
+
+
+def _survivor_mean(g: torch.Tensor, alive) -> torch.Tensor:
+    """The reference's tensordot(alive / sum(alive), g) over the leading
+    worker axis, as XLA's CPU dot computes it: w0 * g0, then
+    fma(w_i, g_i, acc) in worker order (f32)."""
+    w = torch.tensor([float(bool(a)) for a in alive], dtype=torch.float32)
+    w = (w / w.sum()).to(g.device)
+    g32 = g.to(torch.float32)
+    acc = w[0] * g32[0]
+    for i in range(1, g32.shape[0]):
+        acc = fma_f32(g32[i], w[i], acc)
+    return acc.to(g.dtype)
 
 
 def _master(cfg: CompressionConfig):
@@ -217,8 +246,7 @@ def _unit_rs_compress_ag(cfg, group, wkey, rank: int, n: int):
         xp = _wire(F.pad(x, (0, (-d) % n)), cfg)
         ds = xp.shape[1] // n
         # reduce-scatter: this rank owns the rank-order sum of its chunk
-        g = all_gather(xp, group)[:, :, rank * ds:(rank + 1) * ds]
-        shard = rank_sum(g).to(x.dtype) / n
+        shard = reduce_scatter(xp, group).to(x.dtype) / n
         # positions >= d are padding: pinned to zero before encode, and
         # the decoded tail forced back to zero before the trim
         own = (rank * ds + torch.arange(ds, device=x.device)) < d
@@ -287,17 +315,25 @@ def _executor(plan: UnitPlan, cfg: CompressionConfig,
     return plan
 
 
-def _not_ported(what: str, queue: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                               f"Queue 1, {queue})")
+def _not_ported_hooks(telemetry_plan, faults, recorder=None) -> None:
+    """The reference's hooks that later slices port raise here."""
+    if faults is not None:
+        raise not_ported("fault injection (faults=)", "item 7 (resil/)")
+    if recorder is not None:
+        raise not_ported("the trace recorder (recorder=)", "item 6 (obs/)")
+    if telemetry_plan is not None:
+        raise not_ported("telemetry (telemetry_plan=)", "item 5 (control/)")
 
 
 def compressed_allreduce(grads, stacked, cfg: CompressionConfig, group,
                          key: torch.Tensor, n_workers: int, ef_state=None,
                          plan: Optional[UnitPlan] = None,
                          schedule: Optional[CommSchedule] = None,
-                         telemetry_plan=None, wire: bool = False,
-                         recorder=None, faults=None, alive=None):
+                         telemetry_plan=None,
+                         telemetry_entire_model: bool = True,
+                         wire: bool = False, recorder=None,
+                         stream_chunk_bytes: Optional[float] = None,
+                         faults=None, alive=None):
     """Aggregate this rank's gradient tree with bidirectional compression
     across the ranks of `group` (a torch.distributed process group, None
     for the default one) -> (grads_hat, new_ef_state), identical on every
@@ -305,19 +341,19 @@ def compressed_allreduce(grads, stacked, cfg: CompressionConfig, group,
     every rank. `wire=True` materializes Q_W as real packed message
     buffers (per-bucket messages unless cfg.fusion_bytes or `schedule`
     says otherwise); under allgather their bucket regions cross the
-    collective. `alive` (strategy='dense' only) renormalizes the mean over
-    the ranks whose flag is set. The reference's streaming strategies and
-    its telemetry / recorder / faults hooks are later slices."""
-    if cfg.strategy in STREAM_STRATEGIES:
-        raise _not_ported(f"the streaming collective {cfg.strategy!r}",
-                          "item 2 (execute_schedule_stream)")
-    if faults is not None:
-        raise _not_ported("fault injection (faults=)", "item 7 (resil/)")
-    if recorder is not None:
-        raise _not_ported("the trace recorder (recorder=)", "item 6 (obs/)")
-    if telemetry_plan is not None:
-        raise _not_ported("telemetry (telemetry_plan=)",
-                          "item 5 (control/)")
+    collective. Strategies ring / rs_stream need wire=True and run the
+    schedule through the streaming collective
+    (CommSchedule.execute_streaming); `stream_chunk_bytes` sets their hop
+    granularity (None: whole messages). `alive` (strategy='dense' only)
+    renormalizes the mean over the ranks whose flag is set. The
+    reference's telemetry / recorder / faults hooks are later slices
+    (`telemetry_entire_model` is read only with `telemetry_plan`)."""
+    if cfg.strategy in STREAM_STRATEGIES and not wire:
+        raise ValueError(
+            f"strategy {cfg.strategy!r} is the streaming collective over "
+            f"PACKED wire buffers — pass wire=True (the unpacked payload "
+            f"records have no single buffer to ring-permute)")
+    _not_ported_hooks(telemetry_plan, faults, recorder)
     rank, n = dist.get_rank(group), dist.get_world_size(group)
     if n != n_workers:
         raise ValueError(f"n_workers={n_workers} but the group has {n} ranks")
@@ -363,6 +399,17 @@ def compressed_allreduce(grads, stacked, cfg: CompressionConfig, group,
         codec = _wire_codec_for(cfg)
         sched = (ex if isinstance(ex, CommSchedule)
                  else build_schedule(plan, 0.0))
+        if cfg.strategy in STREAM_STRATEGIES:
+            kw = dict(wire=codec, group=group, n_workers=n,
+                      mode="ring" if cfg.strategy == "ring" else "rs",
+                      wire_key=wkey, chunk_bytes=stream_chunk_bytes)
+            if cfg.error_feedback:
+                agg, ef, _bufs = sched.execute_streaming_with_state(
+                    _master(cfg), grads, ef_state, key, **kw)
+                return agg, ef
+            agg, _bufs = sched.execute_streaming(_master(cfg), grads, key,
+                                                 **kw)
+            return agg, ef_state
         post = _wire_post(cfg, group, codec)
         if cfg.error_feedback:
             agg, ef, _bufs = execute_schedule_wire_with_state(
@@ -390,27 +437,44 @@ def compressed_allreduce(grads, stacked, cfg: CompressionConfig, group,
 
 def aggregate_simulated_workers(worker_grads, stacked,
                                 cfg: CompressionConfig, key: torch.Tensor,
-                                ef_state=None, wire: bool = False):
+                                ef_state=None,
+                                plan: Optional[UnitPlan] = None,
+                                schedule: Optional[CommSchedule] = None,
+                                telemetry_plan=None,
+                                telemetry_entire_model: bool = True,
+                                wire: bool = False, faults=None,
+                                alive=None):
     """Single-device realization of Algorithm 1: `worker_grads` leaves
     carry a leading worker axis n. Returns (grads_hat, new_ef_state).
-    cfg.fusion_bytes streams the worker pass through a CommSchedule
-    (bit-identical). `wire=True` materializes each worker's compression
-    pass as real bit-packed message buffers (per-bucket messages unless
-    cfg.fusion_bytes says otherwise); the master Q_M pass stays dense.
-    A codec that is not sim-exact raises ValueError under wire=True."""
+    `plan` (built from the per-worker tree) skips re-deriving the unit
+    partition; `schedule` or cfg.fusion_bytes streams the worker pass
+    through a CommSchedule (bit-identical), a schedule's plan taking
+    precedence over `plan`. `wire=True` materializes each worker's
+    compression pass as real bit-packed message buffers (per-bucket
+    messages unless a schedule says otherwise); the master Q_M pass stays
+    dense. A codec that is not sim-exact raises ValueError under
+    wire=True. `alive` (n host-side flags) renormalizes the mean over the
+    surviving workers, and a dead worker's EF residual stays at its old
+    value (its payload never reached the reduce). The reference's
+    telemetry and fault hooks are later slices (`telemetry_entire_model`
+    is read only with `telemetry_plan`)."""
+    _not_ported_hooks(telemetry_plan, faults)
     n = tree_leaves(worker_grads)[0].shape[0]
-    per_worker = tree_map(lambda x: torch.empty(x.shape[1:], dtype=x.dtype,
-                                                device="meta"), worker_grads)
-    plan = build_plan(per_worker, stacked, cfg.granularity)
-    ex = (plan if cfg.fusion_bytes is None
-          else build_schedule(plan, cfg.fusion_bytes))
+    if plan is None and schedule is not None:
+        plan = schedule.plan
+    if plan is None:
+        per_worker = tree_map(lambda x: torch.empty(
+            x.shape[1:], dtype=x.dtype, device="meta"), worker_grads)
+        plan = build_plan(per_worker, stacked, cfg.granularity)
+    ex = _executor(plan, cfg, schedule)
     wkeys = fold_in(key[None], torch.arange(n))        # (n, 2) worker keys
     if wire:
         codec = _wire_codec_for(
             cfg if cfg.strategy == "simulated"
             else dataclasses.replace(cfg, strategy="simulated"),
             allgather_available=False)
-        sched = build_schedule(plan, cfg.fusion_bytes or 0.0)
+        sched = (ex if isinstance(ex, CommSchedule)
+                 else build_schedule(plan, 0.0))
 
     if cfg.error_feedback:
         if ef_state is None:
@@ -425,6 +489,11 @@ def aggregate_simulated_workers(worker_grads, stacked,
                 return q, e - q
             compressed, new_ef = ex.execute_with_state(fn_ef, worker_grads,
                                                        ef_state, wkeys)
+        if alive is not None:
+            amask = torch.tensor([bool(a) for a in alive])
+            new_ef = tree_map(lambda nm, om: torch.where(
+                amask.to(nm.device).reshape((n,) + (1,) * (nm.dim() - 1)),
+                nm, om), new_ef, ef_state)
     else:
         if wire:
             compressed, _bufs = execute_schedule_wire(sched, codec,
@@ -433,7 +502,10 @@ def aggregate_simulated_workers(worker_grads, stacked,
             compressed = ex.execute(cfg.qw.sim, worker_grads, wkeys)
         new_ef = ef_state
 
-    mean = tree_map(worker_mean, compressed)
+    if alive is None:
+        mean = tree_map(worker_mean, compressed)
+    else:
+        mean = tree_map(lambda g: _survivor_mean(g, alive), compressed)
     if type(cfg.qm) is Identity:
         # Q_M = identity: the master pass returns its input bit for bit,
         # so skip its dispatches (and the per-unit master-key folds)

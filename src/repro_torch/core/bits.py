@@ -50,6 +50,19 @@ def _wire_bits(cfg: CompressionConfig) -> int:
     return 16 if cfg.wire_dtype == "bfloat16" else 32
 
 
+def measured_bits_from_payloads(payloads) -> int:
+    """The wire truth: 8x the element count of real encoded buffers (uint8
+    tensors, or any nest of dicts, lists and tuples of them). On bare
+    per-unit payloads this is the accounted payload bits plus the
+    documented word-padding slack; fused message buffers also carry their
+    uint32 header table (wire.message_layouts)."""
+    if isinstance(payloads, dict):
+        return sum(measured_bits_from_payloads(v) for v in payloads.values())
+    if isinstance(payloads, (list, tuple)):
+        return sum(measured_bits_from_payloads(v) for v in payloads)
+    return 8 * payloads.numel()
+
+
 def comm_report(cfg: CompressionConfig,
                 unit_dims: Union[UnitPlan, Sequence[int]],
                 n_workers: int,

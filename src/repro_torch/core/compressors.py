@@ -444,3 +444,7 @@ def make_compressor(name: str, **kwargs: Any) -> Compressor:
         raise ValueError(f"unknown compressor {name!r}; have "
                          f"{sorted(_REGISTRY)}")
     return _REGISTRY[name](**kwargs)
+
+
+def available_compressors():
+    return sorted(_REGISTRY)

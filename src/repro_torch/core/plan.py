@@ -53,6 +53,11 @@ class Bucket:
         return len(self.unit_ids)
 
     @property
+    def contiguous(self) -> bool:
+        """True when the bucket's units tile one contiguous run."""
+        return len(self.runs) == 1
+
+    @property
     def nbytes(self) -> int:
         """Dense f32 bytes of the bucket's units."""
         return 4 * self.n * self.dim
@@ -82,8 +87,16 @@ class UnitPlan:
         return len(self.unit_dims)
 
     @property
+    def num_exec_units(self) -> int:
+        return len(self.exec_dims)
+
+    @property
     def num_dispatches(self) -> int:
         return len(self.buckets)
+
+    @property
+    def num_leaves(self) -> int:
+        return len(self.leaf_shapes)
 
     def readiness_order(self) -> Tuple[int, ...]:
         return tuple(sorted(range(len(self.buckets)),
@@ -389,3 +402,8 @@ def build_plan(tree, stacked, gran: Granularity) -> UnitPlan:
     if gran.kind != "layerwise":
         marks = (False,) * len(leaves)  # irrelevant: canonicalize cache key
     return _build_plan(tuple(tree_paths(tree)), shapes, dtypes, marks, gran)
+
+
+def plan_unit_dims(tree, stacked, gran: Granularity) -> List[int]:
+    """Accounting dims via the plan (== granularity.unit_dims)."""
+    return list(build_plan(tree, stacked, gran).unit_dims)

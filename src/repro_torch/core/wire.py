@@ -55,8 +55,16 @@ the header, [n_buckets, fletcher32, offsets...], over every byte after it
 (4 bytes a message; payloads and numerics unchanged); verify_message
 checks it and parse_message_header validates a header's structure.
 
-Fault injection, the trace recorder and the streaming collectives are
-later slices (ROADMAP.md Queue 1).
+Streaming collectives: execute_schedule_stream moves each message buffer
+hop by hop around the ranks of a process group (collectives.ring_shift,
+in chunks of whole bucket regions, layout_chunks) instead of one blocking
+all_gather, and decodes every arriving chunk the hop it arrives into
+slotted (n, n_units, d) accumulators (WireCodec.decode_accumulate*).
+Under mode="rs" each rank encodes only the shard it owns after a dense
+reduce-scatter (shard_message_layouts).
+
+Fault injection and the trace recorder are later slices (ROADMAP.md
+Queue 1, items 7 and 6): `faults=` and `recorder=` raise not_ported.
 """
 from __future__ import annotations
 
@@ -66,8 +74,11 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.convert import tree_map
+from repro_torch.core import collectives
 from repro_torch.core.compressors import (QSGD, AdaptiveThreshold,
                                           Compressor, Identity,
                                           NaturalCompression, RandomK,
@@ -139,7 +150,27 @@ def fletcher32(buf: torch.Tensor) -> torch.Tensor:
     return (s2 << 16) | s1
 
 
+def not_ported(what: str, queue: str) -> NotImplementedError:
+    """The error of a reference feature a later slice ports."""
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
+                               f"Queue 1, {queue})")
+
+
 # ---- value-record legs: f32, or the bf16 wire cast -------------------------
+# The to_f32 / to_bf16 idiom: the wire carries bf16 (a deliberate lossy
+# cast), compute stays f32.
+
+def to_f32(t):
+    """bf16 leaves of a tree (or one tensor) -> f32, others untouched."""
+    return tree_map(lambda x: x.to(torch.float32)
+                    if x.dtype == torch.bfloat16 else x, t)
+
+
+def to_bf16(t):
+    """f32 leaves of a tree (or one tensor) -> bf16, others untouched."""
+    return tree_map(lambda x: x.to(torch.bfloat16)
+                    if x.dtype == torch.float32 else x, t)
+
 
 def _value_nbytes(k: int, wire_dtype: str) -> int:
     """Bytes of one unit's k-value record leg: raw f32, or bf16 rounded
@@ -205,6 +236,10 @@ class WireCodec:
         """decode(encode(x)) == sim(x) bit for bit — never true for the
         lossy bf16 value cast."""
         return self.wire_dtype == "float32"
+
+    @property
+    def name(self) -> str:
+        return self.comp.name
 
     def nbytes(self, d: int) -> int:
         raise NotImplementedError
@@ -280,6 +315,49 @@ class WireCodec:
                              es)
         return [self.decode_ef_batch(p, e, d)
                 for p, e, d in zip(payloads_list, es, dims)]
+
+    # ---- per-hop streaming (ring collectives) ----------------------------
+    # One hop delivers one source rank's payload rows; the receiver decodes
+    # them the hop they arrive and writes them into an (n, n_units, d)
+    # accumulator at the SOURCE rank's slot, never into a running sum: the
+    # final worker mean then reduces the same array in the same rank order
+    # as the allgather path's gathered decode, which is what keeps the ring
+    # bit-identical to it (a sum in arrival order would associate the f32
+    # adds differently on every rank).
+
+    def decode_accumulate(self, payloads, acc, slot: int, d: int):
+        """Decode (n_units, nbytes(d)) rows from rank `slot` into
+        acc[slot] of the (n, n_units, d) accumulator; returns acc."""
+        return self.decode_accumulate_buckets([payloads], [acc], slot,
+                                              [d])[0]
+
+    def decode_accumulate_ef(self, payloads, e2d, acc, slot: int, d: int):
+        """The own payload's decode-accumulate under error feedback: also
+        returns the residual m = e - xhat (decode_ef_batch), the local
+        encode-leg EF discipline of the allgather wire path."""
+        accs, ms = self.decode_accumulate_ef_buckets([payloads], [e2d],
+                                                     [acc], slot, [d])
+        return accs[0], ms[0]
+
+    def decode_accumulate_buckets(self, payloads_list, accs, slot: int,
+                                  dims) -> list:
+        """decode_accumulate of several buckets from one source rank: one
+        decode_buckets call (one grouped unpack launch), then each
+        bucket's rows written at `slot`. Returns accs."""
+        for acc, xhat in zip(accs, self.decode_buckets(payloads_list, dims)):
+            acc[slot] = xhat
+        return accs
+
+    def decode_accumulate_ef_buckets(self, payloads_list, es, accs,
+                                     slot: int, dims):
+        """decode_accumulate_ef of several buckets in one
+        decode_ef_buckets call -> (accs, [m_i])."""
+        ms = []
+        for acc, (xhat, m) in zip(accs, self.decode_ef_buckets(
+                payloads_list, es, dims)):
+            acc[slot] = xhat
+            ms.append(m)
+        return accs, ms
 
 
 def _ef_pairs(xhats, es) -> list:
@@ -726,10 +804,14 @@ class MessageLayout:
     #: [n_buckets, fletcher32] words)
     checksum_span_start = 8
 
+    @property
+    def payload_nbytes(self) -> int:
+        return self.total_nbytes - self.header_nbytes
 
-@functools.lru_cache(maxsize=256)
-def message_layouts(schedule, codec: WireCodec) -> Tuple[MessageLayout, ...]:
-    """Static layouts of every fused message of (schedule, codec)."""
+
+def _layouts(schedule, codec: WireCodec, unit_dim) -> Tuple[MessageLayout,
+                                                             ...]:
+    """Layouts of every message, bucket b's units `unit_dim(b.dim)` wide."""
     plan = schedule.plan
     outs = []
     for msg in schedule.messages:
@@ -738,13 +820,51 @@ def message_layouts(schedule, codec: WireCodec) -> Tuple[MessageLayout, ...]:
         offs, unb = [], []
         for bi in msg.bucket_ids:
             b = plan.buckets[bi]
-            nb = codec.nbytes(b.dim)
+            nb = codec.nbytes(unit_dim(b.dim))
             offs.append(off)
             unb.append(nb)
             off += b.n * nb
         outs.append(MessageLayout(msg.bucket_ids, tuple(offs), tuple(unb),
                                   header, off, checksum=codec.integrity))
     return tuple(outs)
+
+
+@functools.lru_cache(maxsize=256)
+def message_layouts(schedule, codec: WireCodec) -> Tuple[MessageLayout, ...]:
+    """Static layouts of every fused message of (schedule, codec)."""
+    return _layouts(schedule, codec, lambda d: d)
+
+
+def _shard_dim(d: int, n_workers: int) -> int:
+    """Owned-shard length of a d-entry unit on n workers (ceil; the last
+    worker's shard is short when n does not divide d: the true per-worker
+    sizes are min(ds, d - w * ds), which bits.comm_report charges)."""
+    return -(-d // n_workers)
+
+
+@functools.lru_cache(maxsize=256)
+def shard_message_layouts(schedule, codec: WireCodec,
+                          n_workers: int) -> Tuple[MessageLayout, ...]:
+    """message_layouts for the rs-stream path: each bucket's unit payload
+    is sized on the OWNED SHARD (ceil(d / n) entries), since under
+    compress -> reduce-scatter -> allgather each worker encodes only the
+    shard it owns."""
+    return _layouts(schedule, codec, lambda d: _shard_dim(d, n_workers))
+
+
+@functools.lru_cache(maxsize=1024)
+def layout_chunks(layout: MessageLayout,
+                  chunk_bytes: Optional[float]) -> Tuple[Tuple, ...]:
+    """Static chunk table of one message buffer: (bucket_positions,
+    byte_start, byte_stop) tuples, runs of whole bucket regions grouped
+    under `chunk_bytes` (ops.chunk_runs), so every chunk decodes with
+    whole-bucket unpack launches the hop it arrives. Chunk 0 carries the
+    header bytes along (receivers use the static layout)."""
+    ends = layout.offsets[1:] + (layout.total_nbytes,)
+    runs = ops.chunk_runs([e - o for o, e in zip(layout.offsets, ends)],
+                          chunk_bytes)
+    return tuple((run, 0 if run[0] == 0 else layout.offsets[run[0]],
+                  ends[run[-1]]) for run in runs)
 
 
 def _u32_bytes(words, B: int, device) -> torch.Tensor:
@@ -929,3 +1049,163 @@ def _execute_wire(schedule, codec, grads, state, key, post, wire_key,
     if state is None:
         return tree, tuple(buffers)
     return tree, plan._assemble(*mout, batched), tuple(buffers)
+
+
+# ---- streaming collectives: the chunked ring across ranks -------------------
+
+def execute_schedule_stream(schedule, codec: WireCodec,
+                            post: Optional[Callable], grads, state, key, *,
+                            group=None, n_workers: int, mode: str = "ring",
+                            wire_key: Optional[Callable] = None,
+                            chunk_bytes: Optional[float] = None,
+                            recorder=None, faults=None):
+    """Stream a CommSchedule through the chunked ring across the ranks of
+    `group` (the reference's wire.py:1234-1529).
+
+    The twin of execute_schedule_wire: per fused message the packed uint8
+    buffer moves hop by hop around the ranks (n - 1 collectives.ring_shift
+    steps of each chunk of layout_chunks(layout, chunk_bytes)) instead of
+    one blocking all_gather, and every arriving chunk is decoded the hop
+    it arrives, all its buckets in one decode_accumulate_buckets call (one
+    grouped unpack launch), into slotted (n, n_units, d) accumulators at
+    the source rank (rank - h) mod n. Messages run in schedule order as a
+    depth-2 pipeline: prepare(m + 1) (gather, the rs reduce-scatter, one
+    encode_buckets call, the buffer) is issued before finish(m) (the own
+    decode, with EF, the hops, then the mean and `post`). Eager PyTorch
+    keeps program order, so no barrier is needed.
+
+    mode="ring": every rank's full-unit payload circulates; the mean over
+    the rank axis of each accumulator (aggregation.worker_mean's order)
+    then `post(xm2d, unit_keys)` (None: the mean) gives the allgather wire
+    path's bits for every codec.
+
+    mode="rs": each bucket's dense units, padded to n * ceil(d / n), are
+    reduce-scattered (collectives.reduce_scatter, rank-order sums, / n),
+    the padding of the own shard masked to +0.0, and only the own shard is
+    encoded (shard_message_layouts); the packed shards circulate and the
+    gathered shards, concatenated and trimmed to d, are the mean. Under
+    error feedback only the owned slice of each residual row is live.
+
+    Error feedback (state given): e = x + m is encoded and m' = e -
+    decode(own payload), local to the encode leg, as on the allgather wire
+    path. `wire_key` maps unit keys before encode (the rank fold). Returns
+    (tree, buffers), or (tree, m_tree, buffers) with state; the buffers
+    are this rank's own messages."""
+    if faults is not None:
+        raise not_ported("fault injection (faults=)", "item 7 (resil/)")
+    if recorder is not None:
+        raise not_ported("the trace recorder (recorder=)", "item 6 (obs/)")
+    if mode not in ("ring", "rs"):
+        raise ValueError(f"mode must be 'ring' or 'rs', got {mode!r}")
+    rank, n = dist.get_rank(group), dist.get_world_size(group)
+    if n != n_workers:
+        raise ValueError(f"n_workers={n_workers} but the group has {n} ranks")
+    if key.dim() != 1:
+        raise ValueError("the streaming collectives take one (2,) key: each "
+                         "rank holds one gradient tree")
+    with_state = state is not None
+    plan = schedule.plan
+    leaves, _ = plan._inputs(grads, key)
+    dev = leaves[0].device
+    need = plan.needs_flat
+    flat = plan._flat(leaves) if need else None
+    if with_state:
+        sleaves, _ = plan._inputs(state, key)
+        mflat = plan._flat(sleaves) if need else None
+    keys = plan._keys(key, dev)
+    out = ([None] * len(leaves), plan._new_flat(leaves) if need else None)
+    mout = ([None] * len(leaves), plan._new_flat(leaves) if need else None)
+    layouts = (message_layouts(schedule, codec) if mode == "ring"
+               else shard_message_layouts(schedule, codec, n))
+    buffers = []
+
+    def prepare(msg, layout):
+        bs = [plan.buckets[bi] for bi in msg.bucket_ids]
+        xs = [plan._gather_runs(leaves, flat, b) for b in bs]
+        ms = ([plan._gather_runs(sleaves, mflat, b) for b in bs]
+              if with_state else [None] * len(bs))
+        if mode == "ring":
+            dims = [b.dim for b in bs]
+            es = [x + m for x, m in zip(xs, ms)] if with_state else xs
+            mps = [None] * len(bs)
+        else:
+            dims = [_shard_dim(b.dim, n) for b in bs]
+            es, mps = [], []
+            for b, x, m, ds in zip(bs, xs, ms, dims):
+                pad = n * ds - b.dim
+                shard = collectives.reduce_scatter(F.pad(x, (0, pad)),
+                                                   group) / n
+                # the padding enters as exact zeros; the mask pins that
+                # nothing phantom reaches encode
+                own = (rank * ds + torch.arange(ds, device=dev)) < b.dim
+                shard = torch.where(own, shard, 0.0)
+                if with_state:
+                    mp = F.pad(m, (0, pad))
+                    es.append(shard + mp[:, rank * ds:(rank + 1) * ds])
+                    mps.append(mp)
+                else:
+                    es.append(shard)
+                    mps.append(None)
+        kbs = [plan._bucket_keys(keys, b) for b in bs]
+        wkbs = kbs if wire_key is None else [wire_key(k) for k in kbs]
+        mats = codec.encode_buckets(es, wkbs)
+        buf = _message_buffer(layout, [p.reshape(1, -1) for p in mats])[0]
+        buffers.append(buf)
+        return dict(bs=bs, layout=layout, buf=buf, es=es, mps=mps,
+                    dims=dims, kbs=kbs)
+
+    def finish(p):
+        bs, layout, buf, dims = p["bs"], p["layout"], p["buf"], p["dims"]
+        accs = [torch.zeros((n, b.n, d), dtype=torch.float32, device=dev)
+                for b, d in zip(bs, dims)]
+        own = [_bucket_region(buf[None], layout, j, b.n)
+               for j, b in enumerate(bs)]
+        if with_state:
+            accs, mns = codec.decode_accumulate_ef_buckets(own, p["es"], accs,
+                                                           rank, dims)
+        else:
+            accs = codec.decode_accumulate_buckets(own, accs, rank, dims)
+        chunks = layout_chunks(layout, chunk_bytes)
+        cur = [buf[s:e] for _, s, e in chunks]
+        for h in range(1, n):
+            src = (rank - h) % n
+            for c, (run, start, _) in enumerate(chunks):
+                cur[c] = collectives.ring_shift(cur[c], group)
+                pays = [cur[c][layout.offsets[j] - start:
+                               layout.offsets[j] - start
+                               + bs[j].n * layout.unit_nbytes[j]]
+                        .reshape(bs[j].n, layout.unit_nbytes[j])
+                        for j in run]
+                codec.decode_accumulate_buckets(
+                    pays, [accs[j] for j in run], src, [dims[j] for j in run])
+        for j, b in enumerate(bs):
+            if mode == "ring":
+                xm = collectives.rank_sum(accs[j]) / n
+            else:
+                xm = accs[j].permute(1, 0, 2).reshape(b.n, -1)[:, :b.dim]
+            plan._scatter_runs(*out, b, xm if post is None
+                               else post(xm, p["kbs"][j]))
+            if with_state:
+                if mode == "ring":
+                    m_new = mns[j]
+                else:
+                    ds = dims[j]
+                    m_new = p["mps"][j].clone()
+                    m_new[:, rank * ds:(rank + 1) * ds] = mns[j]
+                    m_new = m_new[:, :b.dim]
+                plan._scatter_runs(*mout, b, m_new)
+
+    # the depth-2 pipeline: message m + 1's compute leg is issued before
+    # message m's collective leg
+    pending = None
+    for msg, layout in zip(schedule.messages, layouts):
+        prepared = prepare(msg, layout)
+        if pending is not None:
+            finish(pending)
+        pending = prepared
+    if pending is not None:
+        finish(pending)
+    tree = plan._assemble(*out, False)
+    if with_state:
+        return tree, plan._assemble(*mout, False), tuple(buffers)
+    return tree, tuple(buffers)

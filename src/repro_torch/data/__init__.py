@@ -1,1 +1,3 @@
-"""Synthetic data of the port."""
+"""Synthetic data of the port (the JAX package's data/ exports that the
+port has so far)."""
+from repro_torch.data.synthetic import classification_batch

@@ -32,7 +32,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.resnet9_cifar import ALEXNET, MLP, RESNET9, CNNConfig
 from repro_torch.convert import (tree_leaves, tree_map, tree_paths,
                                  tree_unflatten)
-from repro_torch.core.aggregation import (CompressionConfig,
+from repro_torch.core.aggregation import (STREAM_STRATEGIES,
+                                          CompressionConfig,
                                           aggregate_simulated_workers,
                                           compressed_allreduce, worker_mean)
 from repro_torch.core.compressors import make_compressor
@@ -124,7 +125,8 @@ def train_cnn_ranks(model: str, comp: CompressionConfig, *, group=None,
     global batch of `batch` split over the ranks; aggregation is
     compressed_allreduce(comp), with error feedback when comp asks for
     it, through real wire payloads wherever the strategy carries them
-    (allgather, and simulated with a sim-exact codec). Returns
+    (allgather, the streaming ring / rs_stream, and simulated with a
+    sim-exact codec). Returns
     (final_test_accuracy, final_test_loss, params), the same on every
     rank."""
     dev = resolve_device(device)
@@ -141,7 +143,7 @@ def train_cnn_ranks(model: str, comp: CompressionConfig, *, group=None,
     ef = (tree_map(torch.zeros_like, params) if comp.error_feedback
           else None)
     stacked = stacked_mask(params)
-    wire = comp.strategy == "allgather" or (
+    wire = comp.strategy in ("allgather",) + STREAM_STRATEGIES or (
         comp.strategy == "simulated"
         and wire_codec(comp.qw, wire_dtype=comp.wire_dtype).exact_sim)
     sched = piecewise_linear(lr_peak, steps, max(1, steps // 8))

@@ -62,7 +62,7 @@ __all__ = ["qsgd_compress", "terngrad_compress", "blockwise_topk",
            "fields_unpack_units", "fields_unpack_units_buckets",
            "pack_fields", "unpack_fields", "pack_words",
            "pack_words_buckets", "unpack_words", "unpack_words_buckets",
-           "majority_words", "majority_words_buckets",
+           "majority_words", "majority_words_buckets", "chunk_runs",
            "pack_bytes_moved", "unpack_bytes_moved", "majority_bytes_moved"]
 
 
@@ -380,6 +380,42 @@ def majority_words_buckets(words_list) -> list:
     workers -> [(W_i,) majority-vote words]; ONE kernel launch for up to
     MAX_BUCKETS buckets (kernels/sign.py majority_buckets)."""
     return majority_buckets([w.contiguous() for w in words_list])
+
+
+# ---- chunk-granular dispatch (the streaming collective's unit of wire motion)
+
+def chunk_runs(sizes, chunk_bytes):
+    """Partition consecutive payload regions into dispatch chunks (the
+    reference's ops.py:542).
+
+    `sizes` are per-region byte counts (one fused message's per-bucket
+    payload regions, in buffer order); the return value is a tuple of
+    runs, tuples of region indices covering 0..len(sizes)-1 in order. A
+    run accumulates consecutive regions until its bytes reach
+    `chunk_bytes`, then closes (build_schedule's greedy rule one level
+    down). `chunk_bytes` None, NaN or inf means one chunk for the whole
+    message; 0 one chunk per region. Regions are never split, so every
+    chunk decodes with whole-bucket unpack launches the hop it arrives.
+    """
+    sizes = [int(s) for s in sizes]
+    if not sizes:
+        return ()
+    if chunk_bytes is None or chunk_bytes != chunk_bytes or \
+            chunk_bytes == float("inf"):
+        return (tuple(range(len(sizes))),)
+    cb = float(chunk_bytes)
+    if cb < 0:
+        raise ValueError(f"chunk_bytes must be >= 0, got {chunk_bytes!r}")
+    runs, cur, cur_bytes = [], [], 0
+    for i, s in enumerate(sizes):
+        cur.append(i)
+        cur_bytes += s
+        if cur_bytes >= cb:
+            runs.append(tuple(cur))
+            cur, cur_bytes = [], 0
+    if cur:
+        runs.append(tuple(cur))
+    return tuple(runs)
 
 
 # ---- bytes moved: what each kernel must read and write for one bucket ------

@@ -25,12 +25,14 @@ def sign(x: torch.Tensor) -> torch.Tensor:
 
 # ---- compress-only oracles (kernels/ref.py:16-58) ---------------------------
 
-def fma_f32(a, b: int, c) -> torch.Tensor:
-    """fl32(a * b + c) rounded once (fmaf), for f32 tensors a, c and a small
-    integer b. The product is exact in f64; the f64 sum is made
-    round-to-odd (TwoSum error, then a step to the odd neighbour when
-    inexact), so rounding it to f32 rounds the exact sum correctly."""
-    p = a.to(torch.float64) * float(b)
+def fma_f32(a, b, c) -> torch.Tensor:
+    """fl32(a * b + c) rounded once (fmaf), for f32 tensors a, c and b an
+    f32 tensor (broadcast) or a small integer. The product is exact in
+    f64; the f64 sum is made round-to-odd (TwoSum error, then a step to the
+    odd neighbour when inexact), so rounding it to f32 rounds the exact sum
+    correctly."""
+    p = a.to(torch.float64) * (b.to(torch.float64)
+                               if isinstance(b, torch.Tensor) else float(b))
     c = c.to(torch.float64)
     s = p + c
     t = s - p

@@ -208,9 +208,10 @@ def test_natural_message_buffers_within_tolerance(gran):
 
 
 def test_unported_compressors_name_the_queue():
-    """What this slice leaves out names its queue: the streaming
-    collectives and compressed_allreduce's fault, recorder and telemetry
-    hooks (checked before any collective runs, so no process group)."""
+    """What the port leaves out names its queue: compressed_allreduce's
+    fault, recorder and telemetry hooks; and a streaming strategy without
+    wire=True raises the reference's ValueError (all checked before any
+    collective runs, so no process group)."""
     from repro_torch import random as R
     from repro_torch.core.aggregation import (CompressionConfig,
                                               compressed_allreduce)
@@ -219,9 +220,8 @@ def test_unported_compressors_name_the_queue():
     for strategy in ("ring", "rs_stream"):
         cfg = CompressionConfig(qw=make_compressor("qsgd"),
                                 strategy=strategy)
-        with pytest.raises(NotImplementedError, match=r"Queue 1, item 2 \("):
-            compressed_allreduce(g, {"w": False}, cfg, None, R.key(0), 2,
-                                 wire=True)
+        with pytest.raises(ValueError, match="pass wire=True"):
+            compressed_allreduce(g, {"w": False}, cfg, None, R.key(0), 2)
     cfg = CompressionConfig(qw=make_compressor("qsgd"), strategy="allgather")
     for kw, queue in (({"faults": object()}, r"item 7 \("),
                       ({"recorder": object()}, r"item 6 \("),
