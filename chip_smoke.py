@@ -143,6 +143,24 @@ error:
      QSGD(16) at both granularities and theory.lemma1_check over the
      layer parts
 
+  9. the LM train path (repro_torch.models, experiment.train_lm): (a) the
+     seven attention archs' smoke configs (dense GQA / MQA, MLA, MoE,
+     interleaved MoE with sliding windows, VLM), Model.loss and every
+     gradient leaf on the card within tolerance of the port's CPU run; (b)
+     train_lm at phi4-mini-3.8b's full width (d_model 3072, vocab 200,064,
+     24 / 8 heads of 128, d_ff 8192, bf16; depth cut to 2 layers), 4
+     workers of 2 sequences of 512 tokens, 3 steps each of QSGD(16)
+     layerwise and entire-model and top-k(1%) layerwise, held to exactly
+     one pack and one unpack launch a step, finite losses, seconds and
+     peak memory printed; (c) one full-width step's wire buffers a worker
+     equal to comm_report(measured) plus the message headers, and on the
+     614,596,608-entry embedding / head bucket and the 1,430,535,168-entry
+     entire model the kernels' QSGD words and decodes bitwise the plain
+     versions' (evaluated over spans of positions: the plain arithmetic
+     cannot hold such a unit at once), the top-k index leg's pack and
+     unpack bitwise, each beside its byte bound (group lm_full_width);
+     (d) torch.profiler over one full-width QSGD(16) layerwise step
+
 Phase 3 also holds the other compress-only kernels against their plain
 versions on the card at every bucket shape, the entire-model gradient and
 2**20 entries: top-k bitwise at k 1/5/16/128 on 512-wide rows, and as
@@ -171,8 +189,8 @@ comparison in one call). Details go to
 chiprun_out/chip_smoke.json. The last line is {"ok": true, "device":
 {...}}; the line before it the kernel table, whose launches are, for the
 wire kernels, the main-path runs of phase 4 plus the multi-rank phase 7
-summed over its ranks, and for the compress-only kernels the runs of
-phase 8.
+summed over its ranks plus phase 9(b), and for the compress-only kernels
+the runs of phase 8.
 """
 from __future__ import annotations
 
@@ -1787,8 +1805,6 @@ def profile_steps(dev, qw, steps=5):
     busy time (sum of the device events, one stream), idle share and the
     top device ops."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch import random as R
     from repro_torch.configs.resnet9_cifar import RESNET9
     from repro_torch.convert import tree_map
@@ -1810,12 +1826,23 @@ def profile_steps(dev, qw, steps=5):
                                     R.fold_in(key, 10_000 + i), lr)
     for i in range(2):
         step(i)
+    return {"compressor": qw.name,
+            **device_profile(lambda: [step(i) for i in range(2, steps + 2)],
+                             steps)}
+
+
+def device_profile(run, steps: int):
+    """torch.profiler over run() (`steps` steps, after the caller's warm-up):
+    wall and device-busy ms a step (the sum of the device events, one
+    stream), the device's idle share and the top device ops."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(2, steps + 2):
-            step(i)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -1825,13 +1852,406 @@ def profile_steps(dev, qw, steps=5):
                                + e.time_range.elapsed_us() / 1e3)
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"compressor": qw.name, "steps": steps,
-            "wall_ms_per_step": wall_ms / steps,
+    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
             "device_busy_ms_per_step": busy_ms / steps,
             "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
             "device_events": sum(1 for e in prof.events()
                                  if e.device_type == DeviceType.CUDA),
             "top_device_ms_per_step": [(n[:80], t / steps) for n, t in top]}
+
+# ---- phase 9: the LM train path (phi4-mini at full width) -------------------
+
+# the seven attention archs whose smoke configs phase 9(a) runs
+LM_ARCHS = ("llama3-405b", "phi4-mini-3.8b", "granite-20b", "minicpm3-4b",
+            "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
+            "internvl2-2b")
+# phase 9(b)-(d): 4 workers of 2 sequences of 512 tokens, 3 steps a run,
+# at an LR small enough for phi4-mini's random full-width init
+LM_BATCH, LM_SEQ, LM_STEPS, LM_LR = 8, 512, 3, 0.01
+# positions of a unit the plain QSGD pack and unpack take at a time
+LM_SPAN = 1 << 23
+
+
+def lm_full_width():
+    """phi4-mini-3.8b at its published width, depth cut to 2 layers, bf16:
+    d_model 3072, vocab 200,064, 24 heads over 8 kv heads of 128, d_ff
+    8192 (1,430,535,168 parameters)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("phi4-mini-3.8b"), n_layers=2)
+
+
+def lm_runs_spec():
+    """(name, worker compressor, granularity, launches a step) of phase
+    9(b). A step encodes every bucket in one call and decodes them in one:
+    QSGD's 12 layerwise buckets (21 units, <= MAX_BUCKETS) and its one
+    entire-model bucket pack in 1 qsgd_pack and unpack in 1 qsgd_unpack
+    launch; top-k's index legs in 1 fields_pack and 1 fields_unpack."""
+    from repro_torch.core.compressors import QSGD, TopK
+    qsgd = {"qsgd_pack": 1, "qsgd_unpack": 1}
+    return [("qsgd16_layerwise", QSGD(levels=MAIN_LEVELS), "layerwise", qsgd),
+            ("qsgd16_entire_model", QSGD(levels=MAIN_LEVELS), "entire_model",
+             qsgd),
+            ("topk1_layerwise", TopK(ratio=SPARSE_RATIO), "layerwise",
+             {"fields_pack": 1, "fields_unpack": 1})]
+
+
+def lm_token_batches(vocab: int, dev, seed: int = 1):
+    """Batches of LM_BATCH uniform random sequences of LM_SEQ + 1 tokens
+    on the card (targets the next token): at vocab 200,064 the Markov
+    chain of lm_batches would need a (vocab, vocab) matrix, 160 GB in f32."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    while True:
+        s = torch.randint(0, vocab, (LM_BATCH, LM_SEQ + 1), generator=g,
+                          device=dev)
+        yield {"tokens": s[:, :-1], "targets": s[:, 1:]}
+
+
+def _free_card():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_lm_smoke(dev):
+    """9(a): the seven attention archs' smoke configs, Model.loss and every
+    gradient leaf on the card against the port's CPU run on the same params
+    and batch: the loss within 1e-5 relative and each leaf within 1e-4 of
+    its max |g| (the f32 tolerances the CPU tests hold against the
+    reference; TF32 and reduced-precision bf16 reductions off)."""
+    import torch
+    from repro_torch import random as R
+    from repro_torch.configs import get_smoke
+    from repro_torch.convert import tree_leaves, tree_paths, tree_unflatten
+    from repro_torch.data import lm_batches, patches_stub
+    from repro_torch.models import DistConfig, Model
+    rows = []
+    for arch in LM_ARCHS:
+        cfg = get_smoke(arch)
+        m = Model(cfg, DistConfig())
+        params = m.init(R.key(0), device="cpu")
+        batch = next(lm_batches(cfg.vocab, 4, 24, seed=1, device="cpu"))
+        if cfg.arch_type == "vlm":
+            batch["patch_embeds"] = patches_stub(
+                R.key(3), 4, cfg.frontend_seq, cfg.d_model, device="cpu")
+        out = []
+        for d in ("cpu", dev):
+            leaves = [l.to(d).requires_grad_(True)
+                      for l in tree_leaves(params)]
+            loss = m.loss(tree_unflatten(tree_paths(params), leaves),
+                          {k: v.to(d) for k, v in batch.items()}, None)
+            grads = torch.autograd.grad(loss, leaves)
+            out.append((loss.item(), [g.cpu() for g in grads]))
+        (l_cpu, g_cpu), (l_card, g_card) = out
+        rel = abs(l_card - l_cpu) / abs(l_cpu)
+        err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                  for a, b in zip(g_card, g_cpu))
+        check(math.isfinite(l_card) and rel <= 1e-5 and err <= 1e-4,
+              f"LM smoke {arch}: loss {l_card} vs CPU {l_cpu} ({rel:.2e}), "
+              f"gradient error {err:.2e} of max |g|")
+        rows.append({"arch": arch, "loss_card": l_card, "loss_cpu": l_cpu,
+                     "loss_rel_err": rel, "grad_err_of_max": err,
+                     "leaves": len(g_card)})
+    return rows
+
+
+def lm_runs(dev):
+    """9(b): train_lm at phi4-mini's full width (lm_full_width), 4 workers,
+    LM_STEPS steps each of QSGD(16) layerwise and entire-model and top-k(1%)
+    layerwise: exact launches, finite losses, seconds and peak memory."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.aggregation import CompressionConfig
+    from repro_torch.core.granularity import Granularity
+    from repro_torch.experiment import train_lm
+    cfg = lm_full_width()
+    out = []
+    for name, comp, gran, per_step in lm_runs_spec():
+        c = CompressionConfig(qw=comp, granularity=Granularity(gran))
+        _free_card()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        first, last, secs, params = train_lm(
+            cfg, c, steps=LM_STEPS, workers=WORKERS, lr=LM_LR, batch=LM_BATCH,
+            seq=LM_SEQ, seed=0, device=dev,
+            data=lm_token_batches(cfg.vocab, dev))
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        want = {k: per_step.get(k, 0) * LM_STEPS for k in counts}
+        check(counts == want, f"LM {name}: launches {counts} != {want}")
+        check(math.isfinite(first) and math.isfinite(last),
+              f"LM {name}: losses {first} -> {last}")
+        peak = torch.cuda.max_memory_allocated(dev)
+        del params
+        print(f"LM full width {name}: {LM_STEPS} steps in {secs:.3f} s "
+              f"({secs / LM_STEPS:.3f} s a step; init and data "
+              f"{total - secs:.3f} s), loss {first:.6f} -> {last:.6f}, "
+              f"peak {peak / 2**30:.2f} GiB, launches {counts}", flush=True)
+        out.append({"run": name, "steps": LM_STEPS, "seconds": secs,
+                    "seconds_per_step": secs / LM_STEPS,
+                    "setup_seconds": total - secs, "first_loss": first,
+                    "last_loss": last, "peak_bytes": peak,
+                    "launches": counts})
+    return out
+
+
+def _largest_bucket(plan, sched, codec, bufs):
+    """(bucket, its (B * n, nbytes) payload rows in the step's buffers) of
+    the plan's bucket with the most entries a unit."""
+    from repro_torch.core.wire import _bucket_region, message_layouts
+    bi = max(range(len(plan.buckets)), key=lambda i: plan.buckets[i].dim)
+    for msg, layout, buf in zip(sched.messages,
+                                message_layouts(sched, codec), bufs):
+        if bi in msg.bucket_ids:
+            j = msg.bucket_ids.index(bi)
+            b = plan.buckets[bi]
+            return b, _bucket_region(buf, layout, j, b.n)
+    fail(f"bucket {bi} in no message")
+
+
+def _timed(fn):
+    """(fn(), device-synchronized seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _big_row(kernel, leg, n, d, width, ms, plain_ms):
+    nbytes, iops, fops, t_b, t_o = bounds(kernel, n, d, width)
+    return {"group": "lm_full_width", "kernel": kernel, "leg": leg,
+            "shape": [n, d], "width": width, "ms": ms, "call_ms": ms,
+            "plain_ms": plain_ms, "bytes": nbytes, "int_ops": iops,
+            "fp_ops": fops, "bytes_ms": t_b, "ops_ms": t_o,
+            "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def check_qsgd_unit(name, x, keys, rows, dev):
+    """The QSGD(16) payload rows a step built with the kernel (4-byte norm,
+    then the words) against the plain pack over LM_SPAN-position spans of
+    the same units, norms and keys, bitwise; the kernel's decode against
+    the plain decode the same way. -> (timing rows, spans checked)."""
+    import torch
+    from repro_torch.core.wire import _split
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import qsgd as Q
+    n, d = x.shape
+    nrm, words = _split(rows)
+    check(bitwise_equal(nrm, torch.linalg.vector_norm(x, dim=1) + 1e-12),
+          f"{name}: payload norms != vector_norm + 1e-12")
+    k0, k1 = ops._split_keys(keys, dev)
+    wpc = MAIN_WIDTH                     # words a 32-position chunk spans
+
+    def plain_pack():
+        for lo in range(0, d, LM_SPAN):
+            want = Q.qsgd_pack_plain(x, k0, k1, nrm, MAIN_LEVELS, MAIN_WIDTH,
+                                     lo, min(lo + LM_SPAN, d))
+            w0 = lo // 32 * wpc
+            check(torch.equal(words[:, w0:w0 + want.shape[1]], want),
+                  f"{name}: qsgd_pack words != plain in span {lo}")
+    _, pack_s = _timed(plain_pack)
+    fac = nrm / MAIN_LEVELS
+    xhat = Q.qsgd_unpack_buckets([words], [fac], [d], MAIN_LEVELS,
+                                 MAIN_WIDTH)[0]
+
+    def plain_unpack():
+        for lo in range(0, d, LM_SPAN):
+            hi = min(lo + LM_SPAN, d)
+            w0 = lo // 32 * wpc
+            want = Q.qsgd_unpack_plain(
+                words[:, w0:w0 + -(-(hi - lo) * wpc // 32)], fac, hi - lo,
+                MAIN_LEVELS, MAIN_WIDTH)
+            check(bitwise_equal(xhat[:, lo:hi].contiguous(), want),
+                  f"{name}: qsgd_unpack != plain in span {lo}")
+    _, unpack_s = _timed(plain_unpack)
+    del xhat
+    pack = lambda: Q.qsgd_pack_buckets([x], [k0], [k1], [nrm], MAIN_LEVELS,
+                                       MAIN_WIDTH)
+    unpack = lambda: Q.qsgd_unpack_buckets([words], [fac], [d], MAIN_LEVELS,
+                                           MAIN_WIDTH)
+    out = [_big_row("qsgd_pack", name, n, d, MAIN_WIDTH,
+                    call_ms(pack, reps=3, repeats=3), pack_s * 1e3),
+           _big_row("qsgd_unpack", name, n, d, MAIN_WIDTH,
+                    call_ms(unpack, reps=3, repeats=3), unpack_s * 1e3)]
+    return out, -(-d // LM_SPAN)
+
+
+def check_index_leg(name, x, rows, comp, dev):
+    """The top-k index leg of a step's payload rows (values first, then the
+    packed indices) against the plain field pack of the same units'
+    top-k indices, and the kernel's unpack against the plain unpack,
+    bitwise -> timing rows."""
+    import torch
+    from repro_torch.core.compressors import _k_of, index_bits
+    from repro_torch.core.wire import _u8_rows_to
+    from repro_torch.kernels import pack as P
+    n, d = x.shape
+    k, width = _k_of(comp.ratio, d), index_bits(d)
+    idx = comp.encode(x, None)["idx"].contiguous()
+    words = _u8_rows_to(rows[:, 4 * k:], torch.int32)
+    want, pack_s = _timed(lambda: P.fields_pack_plain(idx, width))
+    check(torch.equal(words, want), f"{name}: index leg != plain pack")
+    got = P.fields_unpack_buckets([words], [k], [width])[0]
+    plain, unpack_s = _timed(lambda: P.fields_unpack_plain(words, k, width))
+    check(torch.equal(got, plain) and torch.equal(got, idx),
+          f"{name}: fields_unpack != plain / the indices")
+    pack = lambda: P.fields_pack_buckets([idx], [width])
+    unpack = lambda: P.fields_unpack_buckets([words], [k], [width])
+    return [_big_row("fields_pack", name, n, k, width,
+                     call_ms(pack, reps=3, repeats=3), pack_s * 1e3),
+            _big_row("fields_unpack", name, n, k, width,
+                     call_ms(unpack, reps=3, repeats=3), unpack_s * 1e3)]
+
+
+def lm_step_buffers(dev):
+    """9(c): one full-width step's wire buffers (the worker gradients of
+    step 0 of a train_lm run, aggregate_simulated_workers's per-bucket
+    schedule and keys) for QSGD(16) layerwise, top-k(1%) layerwise and
+    QSGD(16) entire-model: bytes a worker against comm_report(measured)
+    and message_wire_bits; on the largest unit of each (the 614,596,608-
+    entry embedding and head bucket, the 1,430,535,168-entry model) the
+    kernels' buffers bitwise the plain versions' -> (byte rows, timing
+    rows, spans checked)."""
+    import torch
+    from repro_torch import random as R
+    from repro_torch.convert import tree_leaves
+    from repro_torch.core.aggregation import CompressionConfig
+    from repro_torch.core.bits import comm_report
+    from repro_torch.core.granularity import Granularity
+    from repro_torch.core.plan import build_plan
+    from repro_torch.core.schedule import build_schedule, message_wire_bits
+    from repro_torch.core.wire import (execute_schedule_wire, message_layouts,
+                                       wire_codec)
+    from repro_torch.experiment import lm_worker_grads
+    from repro_torch.models import DistConfig, Model
+    _free_card()
+    model = Model(lm_full_width(), DistConfig())
+    params = model.init(R.key(0), device=dev)
+    batch = next(lm_token_batches(model.cfg.vocab, dev))
+    key = R.fold_in(R.key(2), 0)
+    wg, _ = lm_worker_grads(model, params, batch, key, WORKERS)
+    del params, batch
+    wkeys = R.fold_in(key[None], torch.arange(WORKERS))
+    shapes = model.param_shapes()
+    byte_rows, rows, spans = [], [], 0
+    for name, comp, gran, _ in (lm_runs_spec()[0], lm_runs_spec()[2],
+                                lm_runs_spec()[1]):
+        _free_card()
+        plan = build_plan(shapes, model.stacked(), Granularity(gran))
+        sched = build_schedule(plan, 0.0)
+        codec = wire_codec(comp)
+        _, bufs = execute_schedule_wire(sched, codec, wg, wkeys)
+        layouts = message_layouts(sched, codec)
+        total = sum(buf.shape[1] for buf in bufs)
+        header = sum(l.header_nbytes for l in layouts)
+        rep = comm_report(CompressionConfig(qw=comp, strategy="allgather",
+                                            granularity=Granularity(gran)),
+                          plan, WORKERS, measured=True)
+        mwb = sum(message_wire_bits(sched, bucket_bits=[
+            b.n * codec.wire_bits(b.dim) for b in plan.buckets]))
+        check(total == sum(l.total_nbytes for l in layouts)
+              and 8 * (total - header) == rep.uplink_bits_per_worker == mwb,
+              f"LM {name}: {total} B a worker ({header} B headers), "
+              f"comm_report {rep.uplink_bits_per_worker / 8} B, "
+              f"message_wire_bits {mwb / 8} B")
+        byte_rows.append({"run": name, "messages": sched.num_messages,
+                          "bytes_per_worker": total, "header_bytes": header,
+                          "comm_report_bytes":
+                              rep.uplink_bits_per_worker / 8})
+        print(f"LM full width {name}: one step's wire {total} B a worker "
+              f"in {sched.num_messages} messages ({header} B headers) = "
+              f"comm_report {rep.uplink_bits_per_worker / 8:.0f} B + "
+              f"headers", flush=True)
+        b, region = _largest_bucket(plan, sched, codec, bufs)
+        leaves = tree_leaves(wg)
+        flat = plan._flat(leaves) if plan.needs_flat else None
+        if gran == "entire_model":   # the last use of the gradients
+            del wg, leaves
+            _free_card()
+            leaves = None
+        x = plan._gather_runs(leaves, flat, b)
+        keys = plan._bucket_keys(plan._keys(wkeys, dev), b)
+        if comp.name == "qsgd":
+            r, s = check_qsgd_unit(name, x, keys, region, dev)
+            rows += r
+            spans += s
+        else:
+            rows += check_index_leg(name, x, region, comp, dev)
+        del bufs, region, x, flat
+        for r in rows[-2:]:
+            print(f"  {r['group']} {r['kernel']:13s} {r['leg']:20s} "
+                  f"{str(r['shape']):20s} w{r['width']:<2d} ms={r['ms']:.4f} "
+                  f"plain_ms={r['plain_ms']:.1f} bound_ms={r['bound_ms']:.4f} "
+                  f"({r['bound_by']}) x{r['ms'] / r['bound_ms']:.2f}",
+                  flush=True)
+    _free_card()
+    return byte_rows, rows, spans
+
+
+def profile_lm_step(dev):
+    """9(d): torch.profiler over one full-width QSGD(16) layerwise step
+    (after a warm-up step)."""
+    from repro_torch import random as R
+    from repro_torch.core.aggregation import CompressionConfig
+    from repro_torch.experiment import lm_train_step
+    from repro_torch.models import DistConfig, Model
+    _free_card()
+    model = Model(lm_full_width(), DistConfig())
+    params = model.init(R.key(0), device=dev)
+    data = lm_token_batches(model.cfg.vocab, dev)
+    batches = [next(data) for _ in range(2)]
+    comp = CompressionConfig(qw=lm_runs_spec()[0][1])
+
+    def step(i):
+        nonlocal params
+        params, _ = lm_train_step(model, comp, params, batches[i],
+                                  R.fold_in(R.key(2), i), LM_LR,
+                                  workers=WORKERS)
+    step(0)
+    prof = device_profile(lambda: step(1), 1)
+    del params
+    _free_card()
+    return {"compressor": "qsgd", **prof}
+
+
+def lm_phase(dev):
+    """Phase 9 -> (its record, its main-path launches per kernel)."""
+    t0 = time.perf_counter()
+    smoke = check_lm_smoke(dev)
+    print(f"LM smoke (7 attention archs): loss and every gradient leaf on "
+          f"the card within tolerance of the CPU run; worst loss rel err "
+          f"{max(r['loss_rel_err'] for r in smoke):.2e}, worst gradient "
+          f"err {max(r['grad_err_of_max'] for r in smoke):.2e} of max |g|",
+          flush=True)
+    runs = lm_runs(dev)
+    byte_rows, rows, spans = lm_step_buffers(dev)
+    print(f"LM full width: the kernels' QSGD buffers and decodes bitwise "
+          f"the plain versions' on the embedding bucket and the entire "
+          f"model ({spans} spans of {LM_SPAN} positions), the top-k index "
+          f"leg's pack and unpack bitwise", flush=True)
+    prof = profile_lm_step(dev)
+    print(f"LM profile (one full-width QSGD(16) layerwise step): wall "
+          f"{prof['wall_ms_per_step']:.1f} ms, device busy "
+          f"{prof['device_busy_ms_per_step']:.1f} ms, idle share "
+          f"{prof['idle_share']}, {prof['device_events']} device events",
+          flush=True)
+    for name, t in prof["top_device_ms_per_step"]:
+        print(f"  device {t:.3f} ms  {name}", flush=True)
+    launches = {}
+    for r in runs:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return ({"seconds": time.perf_counter() - t0, "smoke": smoke,
+             "runs": runs, "wire_bytes": byte_rows, "timings": rows,
+             "profile": prof}, launches)
+
 
 # ---- phase 7: the multi-rank path (runs inside each rank process) ----------
 
@@ -2918,6 +3338,7 @@ def main(argv) -> int:
           f"python {sys.version.split()[0]}", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     secs = build.build_all()
     print(f"build: {secs:.2f} s into {build.build_dir()}", flush=True)
@@ -3074,6 +3495,10 @@ def main(argv) -> int:
           f"{compress['lemma1_parts']} layer parts): lhs {compress['lemma1'][0]:.6g} <= "
           f"mid {compress['lemma1'][1]:.6g} <= rhs "
           f"{compress['lemma1'][2]:.6g}", flush=True)
+    lm, lm_launches = lm_phase(dev)
+    for k, v in lm_launches.items():
+        launches[k] += v
+    timings += lm["timings"]
     summary = kernel_line(timings, launches, errs)
     from repro_torch.core.compressors import QSGD, TopK
     profiles = [profile_steps(dev, qw) for qw in (
@@ -3098,7 +3523,8 @@ def main(argv) -> int:
         "ptxas": {src: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
                   for src, log in build.BUILD_LOG.items()},
-        "multi_rank_seconds": multi_secs, "summary": summary}, indent=1))
+        "multi_rank_seconds": multi_secs, "lm": lm, "summary": summary},
+        indent=1))
     print(f"total {total:.1f} s", flush=True)
     print(f"{card}")
     print(json.dumps(summary))

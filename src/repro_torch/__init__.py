@@ -8,9 +8,11 @@ CommSchedule, the fused and per-unit wire codecs with Fletcher-32
 integrity and the signSGD majority vote, the collectives, Algorithm-1
 aggregation on simulated workers and across ranks in
 `compressed_allreduce`, and the bits accounting), `launch/mesh.py` (rank
-processes and their process group), `models/cnn.py`, `data/synthetic.py`,
-`optim/schedules.py` and `experiment.py` (the paper's train_cnn
-experiment, on simulated workers or across ranks).
+processes and their process group), `models/` (the paper's CNNs and the
+LM families' train path on one device), `configs/` (the arch registry),
+`data/synthetic.py`, `optim/` and `experiment.py` (the paper's train_cnn
+experiment, on simulated workers or across ranks, and train_lm, the
+quickstart's Algorithm 1 on the LMs).
 
 Every entry point takes `device=` and defaults to "cuda"; asking for the
 card on a machine without one raises instead of running on the CPU.

@@ -51,9 +51,19 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tensor_from_numpy(a) -> torch.Tensor:
+    """A numpy array -> a CPU tensor of the same dtype and bits. A bf16
+    array (ml_dtypes.bfloat16, which torch.from_numpy refuses) goes
+    through its uint16 bit patterns."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def params_from_jax(np_tree, device="cuda") -> dict:
     """A JAX parameter tree (leaves as numpy arrays, e.g. via
     jax.tree_util.tree_map(np.asarray, params)) -> the port's dict of
-    float tensors in the SAME layout, on `device`."""
+    tensors in the SAME layout and dtype (bf16 included), on `device`."""
     dev = resolve_device(device)
-    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(dev), np_tree)
+    return tree_map(lambda a: tensor_from_numpy(a).to(dev), np_tree)

@@ -52,10 +52,27 @@ def index_bits(d: int) -> int:
     return max(1, (d - 1).bit_length()) if d > 1 else 1
 
 
+#: elements a top-k sort takes at a time (at least one row): the sort's
+#: f32 values and int64 indices of 2**27 entries take 1.5 GB, so a
+#: 614,596,608-entry bucket row (a full-width LM embedding) sorts alone
+#: instead of beside every other row of its bucket
+SORT_ELEMS = 1 << 27
+
+
+def _row_chunks(x2d: torch.Tensor):
+    """The rows of x2d in chunks of at most SORT_ELEMS elements (at least
+    one row each)."""
+    return x2d.split(max(1, SORT_ELEMS // max(1, x2d.shape[1])))
+
+
 def _top_idx(v: torch.Tensor, k: int) -> torch.Tensor:
     """Per row, the indices of the k largest values, ties in index order
-    (lax.top_k's order) -> (n, k) int64."""
-    return torch.sort(v, dim=1, descending=True, stable=True)[1][:, :k]
+    (lax.top_k's order) -> (n, k) int64. A stable sort of each chunk of
+    rows (_row_chunks), whose first k columns are copied out before the
+    next chunk sorts."""
+    return torch.cat([torch.sort(c, dim=1, descending=True,
+                                 stable=True)[1][:, :k].clone()
+                      for c in _row_chunks(v)])
 
 
 def _keep(x2d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -192,7 +209,8 @@ class TopK(Compressor):
     unbiased: bool = False
 
     def _indices(self, x2d) -> torch.Tensor:
-        return _top_idx(x2d.abs(), _k_of(self.ratio, x2d.shape[1]))
+        k = _k_of(self.ratio, x2d.shape[1])
+        return torch.cat([_top_idx(c.abs(), k) for c in _row_chunks(x2d)])
 
     def encode(self, x2d, keys):
         idx = self._indices(x2d)

@@ -28,7 +28,6 @@ import math
 from typing import Callable, List, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.convert import tree_leaves, tree_paths, tree_unflatten
 from repro_torch.core.granularity import Granularity
@@ -146,11 +145,17 @@ class UnitPlan:
         return self.unit_keys(key.reshape(-1, 2)).to(device)
 
     def _flat(self, leaves) -> torch.Tensor:
+        """(B, exec_total) f32: the leaves cast into their slices (no f32
+        copy of a leaf beside the vector), the padding zero."""
         B = leaves[0].shape[0]
-        flat = torch.cat([l.reshape(B, -1).to(torch.float32)
-                          for l in leaves], dim=1)
-        if self.exec_total > self.total:
-            flat = F.pad(flat, (0, self.exec_total - self.total))
+        flat = torch.empty((B, self.exec_total), dtype=torch.float32,
+                           device=leaves[0].device)
+        off = 0
+        for l in leaves:
+            n = l[0].numel()
+            flat[:, off:off + n].copy_(l.reshape(B, -1))
+            off += n
+        flat[:, off:].zero_()
         return flat
 
     def _new_flat(self, leaves):
@@ -165,15 +170,21 @@ class UnitPlan:
     def _gather_runs(self, leaves, flat, b: Bucket) -> torch.Tensor:
         """-> (B * b.n, dim): worker-major rows of the bucket's units."""
         B = (flat if flat is not None else leaves[0]).shape[0]
-        mats = []
-        for start, k, li in b.runs:
+
+        def run(start, k, li):
             if li >= 0 and leaves is not None:
-                mats.append(leaves[li].reshape(B, k, b.dim)
-                            .to(torch.float32))
-            else:
-                mats.append(flat[:, start:start + k * b.dim]
-                            .reshape(B, k, b.dim))
-        x = mats[0] if len(mats) == 1 else torch.cat(mats, dim=1)
+                return leaves[li].reshape(B, k, b.dim)
+            return flat[:, start:start + k * b.dim].reshape(B, k, b.dim)
+        if len(b.runs) == 1:
+            x = run(*b.runs[0]).to(torch.float32)
+        else:           # each run cast into its rows: no f32 copy beside
+            x = torch.empty((B, b.n, b.dim), dtype=torch.float32,
+                            device=(flat if flat is not None
+                                    else leaves[0]).device)
+            row = 0
+            for start, k, li in b.runs:
+                x[:, row:row + k].copy_(run(start, k, li))
+                row += k
         return x.reshape(B * b.n, b.dim)
 
     def _scatter_runs(self, out_leaves, out_flat, b: Bucket,

@@ -999,8 +999,6 @@ def _execute_wire(schedule, codec, grads, state, key, post, wire_key,
         sleaves, _ = plan._inputs(state, key)
         mflat = plan._flat(sleaves) if need else None
     keys = plan._keys(key, leaves[0].device)
-    out = ([None] * len(leaves), plan._new_flat(leaves) if need else None)
-    mout = ([None] * len(leaves), plan._new_flat(leaves) if need else None)
     # every bucket's encode input and key for the whole schedule, encoded
     # in one call (one pack launch under the grouped codecs), then message
     # by message
@@ -1012,26 +1010,32 @@ def _execute_wire(schedule, codec, grads, state, key, post, wire_key,
               for e, b in zip(es, bs)]
     kbs = [plan._bucket_keys(keys, b) for b in bs]
     wkbs = kbs if wire_key is None else [wire_key(k) for k in kbs]
-    pays = iter(codec.encode_buckets(es, wkbs))
-    # every message buffer, then every bucket's region of its buffer
+    pays = codec.encode_buckets(es, wkbs)
+    if state is None:   # only the EF decode reads the encode inputs again
+        es = flat = None
+    # every message buffer, then every bucket's region of its buffer; each
+    # payload is let go once it is in its buffer
     buffers, regions = [], []
     for msg, layout in zip(schedule.messages,
                            message_layouts(schedule, codec)):
-        buf = _message_buffer(layout, [next(pays).reshape(B, -1)
-                                       for _ in msg.bucket_ids])
+        mats = [pays.pop(0).reshape(B, -1) for _ in msg.bucket_ids]
+        buf = _message_buffer(layout, mats)
+        del mats
         buffers.append(buf if batched else buf[0])
         regions += [_bucket_region(buf, layout, j, plan.buckets[bi].n)
                     for j, bi in enumerate(msg.bucket_ids)]
     # decode every bucket of the step in one call (one unpack launch under
     # every fused codec with a kernel and every per-unit codec),
     # then post in bucket order, so collectives inside post keep their
-    # order, and scatter
+    # order, and scatter, each bucket's rows let go once scattered
     dims = [b.dim for b in bs]
     if state is not None:
+        mout = ([None] * len(leaves), plan._new_flat(leaves) if need else None)
         dec = codec.decode_ef_buckets(regions, es, dims)
         for b, (_, mn) in zip(bs, dec):
             plan._scatter_runs(*mout, b, mn)
         xhats = [x for x, _ in dec]
+        del dec
     elif decode_local:
         xhats = codec.decode_buckets(regions, dims)
     else:
@@ -1043,8 +1047,11 @@ def _execute_wire(schedule, codec, grads, state, key, post, wire_key,
     else:
         ys = [post(pay, xhat, kb, d)
               for pay, xhat, kb, d in zip(regions, xhats, kbs, dims)]
-    for b, y in zip(bs, ys):
-        plan._scatter_runs(*out, b, y)
+    ys, xhats = list(ys), None
+    out = ([None] * len(leaves), plan._new_flat(leaves) if need else None)
+    for i, b in enumerate(bs):
+        plan._scatter_runs(*out, b, ys[i])
+        ys[i] = None
     tree = plan._assemble(*out, batched)
     if state is None:
         return tree, tuple(buffers)

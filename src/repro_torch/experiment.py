@@ -18,12 +18,20 @@ process group (launch/mesh.py starts them): rank r takes shard r of every
 global batch, and the ranks aggregate with compressed_allreduce, so every
 rank applies the same update.
 
-Float32 convolutions and matmuls run in full precision: train_cnn turns
-TF32 off (cuDNN would otherwise convolve in TF32 on the card).
+`train_lm` is the repo's quickstart (examples/quickstart.py:23-52) on the
+port: a causal LM of any attention family (models/model.py) trained by
+Algorithm 1 over simulated workers, each worker's gradient from its
+contiguous batch shard, the update p - lr * g; the aggregation goes
+through real wire payloads where the codec is sim-exact, as in train_cnn.
+
+Float32 convolutions and matmuls run in full precision: train_cnn and
+train_lm turn TF32 off (cuDNN would otherwise convolve in TF32 on the
+card), and train_lm also cuBLAS's reduced-precision bf16 reductions.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import time
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -39,8 +47,12 @@ from repro_torch.core.aggregation import (STREAM_STRATEGIES,
 from repro_torch.core.compressors import make_compressor
 from repro_torch.core.granularity import Granularity, stacked_mask
 from repro_torch.core.wire import wire_codec
-from repro_torch.data.synthetic import classification_batch
+from repro_torch.data.synthetic import (classification_batch, lm_batches,
+                                        patches_stub)
 from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.dist import DistConfig
+from repro_torch.models.model import Model
 from repro_torch.optim.schedules import piecewise_linear
 from repro_torch.random import fold_in
 from repro_torch.random import key as make_key
@@ -90,6 +102,14 @@ def train_step(cfg: CNNConfig, comp: Optional[CompressionConfig], params,
     return params, vel, losses.mean()
 
 
+def _full_precision() -> None:
+    """Full-precision f32 and bf16 matmuls on the card: no TF32 (cuBLAS,
+    cuDNN) and no reduced-precision bf16 reductions."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
 def train_cnn(model: str, comp: Optional[CompressionConfig], *,
               steps: int = 120, batch: int = 64, workers: int = 4,
               lr_peak: Optional[float] = None, momentum: float = 0.9,
@@ -97,8 +117,7 @@ def train_cnn(model: str, comp: Optional[CompressionConfig], *,
               device="cuda") -> Tuple[float, float]:
     """Returns (final_test_accuracy, final_test_loss)."""
     dev = resolve_device(device)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    _full_precision()
     cfg = MODELS[model]
     lr_peak = LR[model] if lr_peak is None else lr_peak
     key = make_key(seed)
@@ -130,8 +149,7 @@ def train_cnn_ranks(model: str, comp: CompressionConfig, *, group=None,
     (final_test_accuracy, final_test_loss, params), the same on every
     rank."""
     dev = resolve_device(device)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    _full_precision()
     rank, n = dist.get_rank(group), dist.get_world_size(group)
     if batch % n:
         raise ValueError(f"batch {batch} does not split over {n} ranks")
@@ -179,3 +197,94 @@ def compare_granularities(model: str, qname: str, *, steps=120, seed=0,
     out["baseline"], _ = train_cnn(model, None, steps=steps, seed=seed,
                                    nesterov=nesterov, device=device)
     return out
+
+
+# ---- the causal LMs: examples/quickstart.py's experiment ---------------------
+
+def lm_worker_grads(model: Model, params: Dict, batch: Dict,
+                    key: torch.Tensor, workers: int):
+    """Per-worker gradients of model.loss over `workers` contiguous shards
+    of every batch entry -> (tree with a leading worker axis, (workers,)
+    f32 losses). Each worker's gradients are copied into the stacked
+    leaves as soon as they exist, so one worker's set lives at a time."""
+    paths = tree_paths(params)
+    leaves = tree_leaves(params)
+    per = batch["tokens"].shape[0] // workers
+    stacked = [torch.empty((workers,) + tuple(l.shape), dtype=l.dtype,
+                           device=l.device) for l in leaves]
+    losses = []
+    for w in range(workers):
+        shard = {k: v[w * per:(w + 1) * per] for k, v in batch.items()}
+        p = [l.detach().requires_grad_(True) for l in leaves]
+        loss = model.loss(tree_unflatten(paths, p), shard, key)
+        for out, g in zip(stacked, torch.autograd.grad(loss, p)):
+            out[w].copy_(g)
+        losses.append(loss.detach())
+    return tree_unflatten(paths, stacked), torch.stack(losses)
+
+
+def lm_train_step(model: Model, comp: Optional[CompressionConfig], params,
+                  batch, key, lr: float, *, workers: int = 4,
+                  wire: Optional[bool] = None):
+    """One Algorithm-1 step of quickstart's `step` -> (params, mean worker
+    loss): the worker gradients under `key`, aggregate_simulated_workers
+    (comp None: the plain worker mean), then p - lr * g. `wire` None takes
+    the wire path wherever the codec is sim-exact."""
+    wg, losses = lm_worker_grads(model, params, batch, key, workers)
+    if comp is None:
+        g = tree_map(worker_mean, wg)
+    else:
+        if wire is None:
+            wire = wire_codec(comp.qw, wire_dtype=comp.wire_dtype).exact_sim
+        g, _ = aggregate_simulated_workers(wg, model.stacked(), comp, key,
+                                           wire=wire)
+    del wg
+    return tree_map(lambda p, gg: p - lr * gg, params, g), losses.mean()
+
+
+def lm_batch(cfg: ModelConfig, data, key, batch: int, device):
+    """The next batch of `data`, with the VLM's patch embeddings (drawn
+    from `key`) beside the tokens."""
+    b = next(data)
+    if cfg.arch_type == "vlm":
+        b["patch_embeds"] = patches_stub(key, batch, cfg.frontend_seq,
+                                         cfg.d_model, device=device)
+    return b
+
+
+def train_lm(cfg: ModelConfig, comp: Optional[CompressionConfig], *,
+             steps: int = 40, workers: int = 4, lr: float = 0.3,
+             batch: int = 8, seq: int = 32, seed: int = 0, device="cuda",
+             data: Optional[Iterator[Dict]] = None):
+    """examples/quickstart.py's `train` on the port: params from
+    key(seed), batches from lm_batches(cfg.vocab, batch, seq, seed + 1),
+    the loss of each batch under key(9) before step i, whose key is
+    fold_in(key(2), i). `data` replaces the batch stream (dicts of
+    (batch, seq) "tokens" / "targets" on the device): the Markov chain's
+    (vocab, vocab) matrix does not fit a host at a full-width vocab.
+    Returns (first loss, last loss, seconds, params); the seconds cover
+    the steps (init and data excluded), synchronized."""
+    dev = resolve_device(device)
+    _full_precision()
+    model = Model(cfg, DistConfig())
+    params = model.init(make_key(seed), device=dev)
+    if data is None:
+        data = lm_batches(cfg.vocab, batch, seq, seed=seed + 1, device=dev)
+    loss_key = make_key(9)
+    first = last = None
+    seconds = 0.0
+    for i in range(steps):
+        b = lm_batch(cfg, data, fold_in(make_key(seed + 1), i), batch, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            last = float(model.loss(params, b, loss_key))
+        first = last if first is None else first
+        params, _ = lm_train_step(model, comp, params, b,
+                                  fold_in(make_key(2), i), lr,
+                                  workers=workers)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds += time.perf_counter() - t0
+    return first, last, seconds, params

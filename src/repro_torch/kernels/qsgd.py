@@ -66,16 +66,26 @@ def _launch_args(device) -> tuple:
 
 # ---- pack -----------------------------------------------------------------
 
-def qsgd_pack_plain(x, k0, k1, nrm, levels: int, width: int) -> torch.Tensor:
+def qsgd_pack_plain(x, k0, k1, nrm, levels: int, width: int, lo: int = 0,
+                    hi=None) -> torch.Tensor:
+    """The words of positions [lo, hi) of each (n, d) unit (default all
+    of it): words [lo * width / 32, ceil(hi * width / 32)), with lo a
+    multiple of 32 and hi one or d. A unit too large for the plain
+    arithmetic at once (int64 temporaries of every position) packs in
+    such spans; its uniforms depend only on the position."""
     n, d = x.shape
-    dp = -(-d // 32) * 32
-    pos = torch.arange(dp, device=x.device)
+    hi = d if hi is None else hi
+    if lo % 32 or not lo <= hi <= d or (hi % 32 and hi != d):
+        raise ValueError(f"span [{lo}, {hi}) of a {d}-entry unit")
+    dp = lo + -(-(hi - lo) // 32) * 32
+    pos = torch.arange(lo, dp, device=x.device)
     u = prng.uniform_at(ref.words_from_i32(k0)[:, None],
                         ref.words_from_i32(k1)[:, None], pos[None, :], d)
-    codes = ref.qsgd_codes_ref(F.pad(x, (0, dp - d)), u, nrm[:, None], levels)
+    codes = ref.qsgd_codes_ref(F.pad(x[:, lo:hi], (0, dp - hi)), u,
+                               nrm[:, None], levels)
     codes = torch.where(pos < d, codes, 0)           # zero word padding
-    words = ref.pack_fields_tile(codes, width)[:, :words_per_unit(d, width)]
-    return ref.words_to_i32(words)
+    nw = words_per_unit(hi, width) - lo * width // 32
+    return ref.words_to_i32(ref.pack_fields_tile(codes, width)[:, :nw])
 
 
 #: pairs of counters a pack block hashes for itself (csrc/qsgd.cu

@@ -19,19 +19,13 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.resnet9_cifar import CNNConfig
-
-
-def _generator(key: torch.Tensor) -> torch.Generator:
-    """A CPU generator seeded from a key's two words. Initial weights need
-    not match JAX (tests convert JAX params with params_from_jax)."""
-    k = key.tolist()
-    return torch.Generator().manual_seed((int(k[0]) << 32) | int(k[1]))
+from repro_torch.random import generator
 
 
 def init_cnn(cfg: CNNConfig, key: torch.Tensor, device="cuda") -> Dict:
     """He-initialised params from `key` (random.key data), on `device`."""
     dev = resolve_device(device)
-    g = _generator(key)
+    g = generator(key)   # need not match JAX (tests convert its params)
 
     def normal(std, *shape):
         return (std * torch.randn(shape, generator=g)).to(dev)

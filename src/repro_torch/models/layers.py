@@ -1,0 +1,177 @@
+"""Shared neural layers of the train path (the JAX package's
+models/layers.py:25-189): norms, RoPE, MLPs, the chunked-attention oracle,
+GQA head expansion, padding-head masks and sinusoidal positions.
+
+Plain torch, as the reference is jnp: the model's norms round as the
+reference's do (`rsqrt(ms + eps)` cast to x's dtype before both
+multiplies), which in bf16 is another function than the RMSNorm kernel's
+all-f32 arithmetic, so the kernel is not used here.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.dist import (NEG_INF, DistConfig, fdot, region_in,
+                                     region_out)
+
+
+# ---- norms ----------------------------------------------------------------
+
+def _mean_f32(x: torch.Tensor) -> torch.Tensor:
+    """The f32 mean over the last dim as the reference's jitted jnp.mean
+    gives it: the f32 sum times the f32 reciprocal of the count (a Python
+    scalar meets an f32 tensor as an f32, and needs no host-to-device
+    copy, which would wait for the card)."""
+    return x.to(torch.float32).sum(dim=-1, keepdim=True) * (1.0 / x.shape[-1])
+
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """The mean of the f32 squares; the inverse root cast to x's dtype
+    before x * inv * gamma, each product rounded to x's dtype."""
+    ms = _mean_f32(torch.square(x.to(torch.float32)))
+    inv = torch.rsqrt(ms + eps).to(x.dtype)
+    return x * inv * gamma.to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    mu = _mean_f32(x)
+    var = _mean_f32(torch.square(x.to(torch.float32))) - torch.square(mu)
+    inv = torch.rsqrt(torch.clamp_min(var, 0.0) + eps)
+    out = (x - mu.to(x.dtype)) * inv.to(x.dtype)
+    return out * gamma.to(x.dtype) + beta.to(x.dtype)
+
+
+def apply_norm(p: dict, name: str, x: torch.Tensor, cfg,
+               dist=None) -> torch.Tensor:
+    """The norm `name` of params p (`{name}_g`, and `{name}_b` for
+    layernorm) on x."""
+    if cfg.norm == "layernorm":
+        return layernorm(x, p[f"{name}_g"], p[f"{name}_b"], cfg.norm_eps)
+    return rmsnorm(x, p[f"{name}_g"], cfg.norm_eps)
+
+
+# ---- RoPE (split-half convention) -------------------------------------------
+
+def rope_freqs(half: int, theta: float, device=None) -> torch.Tensor:
+    """(half,) f32 frequencies theta ** (-i / half) as the reference's
+    jitted code gives them: XLA turns the divide by the constant into a
+    multiply by the f32 reciprocal, then takes the power, which equals the
+    f64 power rounded to f32 (bitwise for theta 1e4, 5e5, 1e6 at half 8,
+    12, 16, 24, 56 and 64; tests/test_torch_lm_model.py)."""
+    e = -torch.arange(half, dtype=torch.float32, device=device) * (1.0 / half)
+    return torch.pow(float(theta), e.to(torch.float64)).to(torch.float32)
+
+
+def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, dh) with pos broadcastable to (..., S)."""
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(half, theta, x.device)
+    ang = pos[..., None].to(torch.float32) * freqs      # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                  # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half].to(torch.float32), x[..., half:].to(torch.float32)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+# ---- MLP ------------------------------------------------------------------
+
+def mlp(p: dict, x: torch.Tensor, cfg, dist: DistConfig,
+        fd=None) -> torch.Tensor:
+    fd = fd or {}
+    xi = region_in(x, dist)
+    if cfg.mlp == "swiglu":
+        h = F.silu(fdot(xi, p["w_gate"], fd.get("w_gate"), dist)) * \
+            fdot(xi, p["w_in"], fd.get("w_in"), dist)
+    else:
+        h = F.gelu(fdot(xi, p["w_in"], fd.get("w_in"), dist),
+                   approximate="tanh")
+    return region_out(fdot(h, p["w_out"], fd.get("w_out"), dist), dist)
+
+
+# ---- memory-bounded attention: the pure-torch oracle -------------------------
+
+def attention_mask(qpos: torch.Tensor, kpos: torch.Tensor, Sk: int,
+                   causal: bool, window) -> torch.Tensor:
+    """(qc, kc) bool: key valid (< Sk), causal, and within a window > 0
+    (a window <= 0 disables it; it may be a number or a tensor)."""
+    m = kpos[None, :] < Sk
+    if causal:
+        m = m & (kpos[None, :] <= qpos[:, None])
+    diff = qpos[:, None] - kpos[None, :]
+    if isinstance(window, torch.Tensor):
+        return m & ((diff < window) | (window <= 0))
+    return m & (diff < window) if window > 0 else m
+
+
+def chunked_attention(q, k, v, *, causal: bool, window=0, q_offset: int = 0,
+                      q_chunk: int = 1024, kv_chunk: int = 1024):
+    """q (B,Sq,H,dh); k,v (B,Sk,H,dh|dv), heads already matched. A running
+    softmax over kv chunks (masked scores -1e30), per q chunk; the oracle
+    that flash_attention is tested against."""
+    B, Sq, H, dh = q.shape
+    dv = v.shape[-1]
+    Sk = k.shape[1]
+    qc, kc = min(q_chunk, Sq), min(kv_chunk, Sk)
+    scale = 1.0 / torch.sqrt(torch.tensor(float(dh)))
+    outs = []
+    for qs in range(0, Sq + (-Sq) % qc, qc):
+        qi = q[:, qs:qs + qc].to(torch.float32).transpose(1, 2)
+        qi = F.pad(qi, (0, 0, 0, qc - qi.shape[2]))          # (B,H,qc,dh)
+        qpos = q_offset + qs + torch.arange(qc, device=q.device)
+        m = torch.full((B, H, qc), NEG_INF, device=q.device)
+        l = torch.zeros((B, H, qc), device=q.device)
+        acc = torch.zeros((B, H, qc, dv), device=q.device)
+        for ks in range(0, Sk + (-Sk) % kc, kc):
+            ki = F.pad(k[:, ks:ks + kc].to(torch.float32).transpose(1, 2),
+                       (0, 0, 0, kc - min(kc, Sk - ks)))
+            vi = F.pad(v[:, ks:ks + kc].to(torch.float32).transpose(1, 2),
+                       (0, 0, 0, kc - min(kc, Sk - ks)))
+            kpos = ks + torch.arange(kc, device=q.device)
+            s = torch.einsum("bhqd,bhkd->bhqk", qi, ki) * scale
+            s = torch.where(attention_mask(qpos, kpos, Sk, causal, window),
+                            s, NEG_INF)
+            m_new = torch.maximum(m, s.max(dim=-1).values)
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd",
+                                                       p, vi)
+            m = m_new
+        outs.append(acc / torch.clamp_min(l[..., None], 1e-30))
+    out = torch.cat(outs, dim=2).transpose(1, 2)[:, :Sq]
+    return out.to(q.dtype)
+
+
+def expand_kv(k: torch.Tensor, n_q_heads_local: int, tp_rank: int,
+              n_heads: int, n_kv: int) -> torch.Tensor:
+    """Full kv heads (B,S,Hkv,dh) -> the local q heads' kv (B,S,Hl,dh) by
+    GQA grouping; padded q heads clip to the last kv head."""
+    group = max(1, n_heads // max(1, n_kv))
+    q_global = tp_rank * n_q_heads_local + torch.arange(n_q_heads_local,
+                                                        device=k.device)
+    kv_idx = torch.clamp(q_global // group, 0, n_kv - 1)
+    return k.index_select(2, kv_idx)
+
+
+def head_mask(o: torch.Tensor, cfg, dist: DistConfig,
+              axis: int) -> torch.Tensor:
+    """Zero the outputs of padding heads (global id >= n_heads)."""
+    Hl = o.shape[axis]
+    m = (torch.arange(Hl, device=o.device) < cfg.n_heads).to(o.dtype)
+    shape = [1] * o.dim()
+    shape[axis] = Hl
+    return o * m.reshape(shape)
+
+
+def sinusoid_positions(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal absolute position embeddings, (...,) -> (..., d) f32."""
+    half = d // 2
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=pos.device)
+                      * (torch.log(torch.tensor(10000.0)) / max(1, half - 1)))
+    ang = pos[..., None].to(torch.float32) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

@@ -1,0 +1,112 @@
+"""Parameter trees with per-leaf metadata (the JAX package's
+models/params.py, one device).
+
+Every architecture declares its parameters through ParamBuilder, attaching
+per-leaf logical axes ("tp", "fsdp" or None, kept so the declaration is
+the reference's; the sharding they drive is ROADMAP Queue 1 item 4).
+From one declaration come the shapes (meta tensors), the init, the
+stacked-layer mask (compression granularity) and the tp_grad_sync mask.
+Leaves are (nested) dicts of tensors in the JAX layout; a stacked leaf
+carries the layer count L as its leading dim.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.random import fold_in, generator
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """A config's dtype string -> torch dtype."""
+    if name not in DTYPES:
+        raise ValueError(f"unknown dtype {name!r}; have {sorted(DTYPES)}")
+    return DTYPES[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafMeta:
+    axes: Tuple[Optional[str], ...]   # logical axis per GLOBAL dim
+    stacked: bool = False             # leading dim is a layer stack
+    tp_grad_sync: bool = False        # needs grad psum over dist.tp
+    init: str = "normal"              # normal | zeros | ones
+    fan_in_dim: Optional[int] = None  # dim index used for 1/sqrt(fan_in) scale
+    scale: float = 1.0
+
+    def fsdp_dim(self) -> Optional[int]:
+        return self.axes.index("fsdp") if "fsdp" in self.axes else None
+
+
+def _nested_set(d: Dict, path: str, value: Any):
+    keys = path.split("/")
+    for k in keys[:-1]:
+        d = d.setdefault(k, {})
+    d[keys[-1]] = value
+
+
+class ParamBuilder:
+    def __init__(self, dtype: str = "bfloat16"):
+        self.dtype = torch_dtype(dtype)
+        self._shapes: Dict[str, Tuple[int, ...]] = {}
+        self._meta: Dict[str, LeafMeta] = {}
+
+    def add(self, path: str, shape: Tuple[int, ...],
+            axes: Tuple[Optional[str], ...], *, stacked: bool = False,
+            tp_grad_sync: bool = False, init: str = "normal",
+            fan_in_dim: Optional[int] = None, scale: float = 1.0):
+        if len(axes) != len(shape):
+            raise ValueError(f"{path}: {len(axes)} axes for shape {shape}")
+        self._shapes[path] = tuple(int(s) for s in shape)
+        self._meta[path] = LeafMeta(tuple(axes), stacked, tp_grad_sync, init,
+                                    fan_in_dim, scale)
+        return self
+
+    def _tree(self, value) -> Dict:
+        out: Dict = {}
+        for p in self._shapes:
+            _nested_set(out, p, value(p))
+        return out
+
+    def shapes(self) -> Dict:
+        """Meta-device tensors of every leaf's shape and dtype."""
+        return self._tree(lambda p: torch.empty(
+            self._shapes[p], dtype=self.dtype, device="meta"))
+
+    def meta(self) -> Dict:
+        return self._tree(lambda p: self._meta[p])
+
+    def stacked_mask(self) -> Dict:
+        return self._tree(lambda p: self._meta[p].stacked)
+
+    def tp_sync_mask(self) -> Dict:
+        return self._tree(lambda p: self._meta[p].tp_grad_sync)
+
+    def init(self, key: torch.Tensor, device="cuda") -> Dict:
+        """Materialize every leaf on `device`: leaf i (declaration order)
+        drawn from a generator on the device seeded by fold_in(key, i),
+        std = scale / sqrt(fan_in), in f32 then cast. Not bitwise the
+        reference's draws (tests convert JAX params)."""
+        dev = resolve_device(device)
+        out: Dict = {}
+        for i, (p, shape) in enumerate(self._shapes.items()):
+            m = self._meta[p]
+            if m.init == "zeros":
+                val = torch.zeros(shape, dtype=self.dtype, device=dev)
+            elif m.init == "ones":
+                val = torch.ones(shape, dtype=self.dtype, device=dev)
+            else:
+                fan_dim = m.fan_in_dim
+                if fan_dim is None:
+                    fan_dim = len(shape) - 2 if len(shape) >= 2 else 0
+                std = m.scale / math.sqrt(max(1, shape[fan_dim]))
+                g = generator(fold_in(key, i), dev)
+                val = torch.randn(shape, generator=g, device=dev).mul_(
+                    std).to(self.dtype)
+            _nested_set(out, p, val)
+        return out

@@ -26,6 +26,14 @@ def key(seed: int, device="cpu") -> torch.Tensor:
                         device=device)
 
 
+def generator(key: torch.Tensor, device="cpu") -> torch.Generator:
+    """A torch.Generator on `device` seeded from a key's two words, for
+    draws that need not be jax's (initial weights, synthetic data)."""
+    k = key.tolist()
+    return torch.Generator(device=device).manual_seed(
+        (int(k[0]) << 32) | int(k[1]))
+
+
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """jax.random.fold_in: threefry2x32(key, [0, data]). Broadcasts keys
     (..., 2) against integer `data` (int or tensor) -> (..., 2)."""

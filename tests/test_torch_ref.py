@@ -38,9 +38,10 @@ _REF_MODULES = ("repro.core", "repro.core.wire", "repro.core.plan",
 
 
 @contextlib.contextmanager
-def reference():
+def reference(*extra):
     """The JAX package's modules (attribute names: the last dotted part),
-    usable inside the block under jax.threefry_partitionable(False)."""
+    those of _REF_MODULES and the `extra` dotted names, usable inside the
+    block under jax.threefry_partitionable(False)."""
     from jax.interpreters import batching
     cls = type(batching.primitive_batchers)
     had = "__contains__" in cls.__dict__
@@ -48,7 +49,7 @@ def reference():
     cls.__contains__ = lambda self, p: True
     try:
         mods = {m.rsplit(".", 1)[-1]: importlib.import_module(m)
-                for m in _REF_MODULES}
+                for m in _REF_MODULES + extra}
     finally:
         if had:
             cls.__contains__ = old
