@@ -161,6 +161,25 @@ error:
      unpack bitwise, each beside its byte bound (group lm_full_width);
      (d) torch.profiler over one full-width QSGD(16) layerwise step
 
+ 10. the serving path (repro_torch.launch.serve, Model.prefill /
+     decode_step): (a) the ten archs' smoke configs in f32, phi4-mini
+     with an 8-token ring under an 11-token prompt and llama3 with an
+     int8 KV cache: prefill and two chained decode steps on the card
+     within 1e-5 of max |logit| of the same calls on the CPU, slot_pos
+     bitwise; (b) phi4-mini-3.8b whole (32 layers, bf16,
+     4,450,618,368 parameters) served at batch 8, 512 uniform prompt
+     tokens made on the card, 64 generated tokens: prefill ms, decode ms
+     a token (CUDA events over the 63 decode steps), tokens/s, peak
+     memory and the cache's exact bytes (603,979,776 of k / v and 73,728
+     of slot_pos); (c) mamba2-1.3b whole (48 layers, bf16) the same way,
+     its SSM cache exactly 815,333,376 B; (d) zamba2-7b at full width
+     cut to 9 layers (one group of 6 and the 3-layer tail) the same
+     way, and whisper-base whole at batch 8, 64 prompt and 16 generated
+     tokens; each of (b)-(d) then checks the decode of the prompt's last
+     token after a prefill of the others against the full prompt's
+     prefill (see serve_full); (e) torch.profiler over one phi4-mini
+     decode step. The wire kernels' launch counters do not move
+
 Phase 3 also holds the other compress-only kernels against their plain
 versions on the card at every bucket shape, the entire-model gradient and
 2**20 entries: top-k bitwise at k 1/5/16/128 on 512-wide rows, and as
@@ -2253,6 +2272,245 @@ def lm_phase(dev):
              "profile": prof}, launches)
 
 
+# ---- phase 10: the serving path -------------------------------------------------
+
+# 10(a): prompts of the smoke runs (the ring case's prompt is longer than
+# its 8-token window)
+SERVE_SMOKE_BATCH, SERVE_SMOKE_PROMPT, SERVE_RING_PROMPT = 2, 12, 11
+# 10(b)-(d): 8 prompts of 512 uniform tokens, 64 generated tokens;
+# whisper-base 8 prompts of 64 and 16 generated tokens
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 64
+WHISPER_PROMPT, WHISPER_GEN = 64, 16
+# the consistency check at full width (serve_full): the decode of the
+# prompt's last token after a prefill of the others against the last
+# logits of the whole prompt's prefill, in f32 within SERVE_F32_TOL of max
+# |logit| (the logic), and in bf16 within SERVE_BF16_NOISE x the bf16
+# prefill's own distance from the f32 prefill (bf16's rounding on that
+# model and input)
+SERVE_F32_TOL = 1e-4
+SERVE_BF16_NOISE = 2.0
+# the declared leaves of phi4-mini at 32 layers (ModelConfig.param_count(),
+# an analytic count, says 4,450,811,904: it counts 63 more norm vectors)
+PHI4_PARAMS = 4_450_618_368
+# k and v: 32 layers x 8 x 8 kv heads x 576 positions x 128 x 2 B; slot_pos
+# 32 x 576 int32
+PHI4_CACHE_BYTES = 603_979_776 + 32 * 576 * 4
+# ssm 48 x 8 x 64 x 64 x 128 x 4 B, conv_x 48 x 8 x 3 x 4,096 x 2 B,
+# conv_bc 48 x 8 x 3 x 256 x 2 B
+MAMBA2_CACHE_BYTES = 815_333_376
+
+
+def serve_smoke_cases():
+    """(name, config, prompt) of 10(a): the ten archs' smoke configs in
+    f32, phi4-mini with an 8-token ring and llama3 with an int8 cache."""
+    import dataclasses
+    from repro_torch.configs import ARCH_NAMES, get_smoke
+    phi4, llama3 = get_smoke("phi4-mini-3.8b"), get_smoke("llama3-405b")
+    return ([(a, get_smoke(a), SERVE_SMOKE_PROMPT) for a in ARCH_NAMES]
+            + [("phi4-mini-3.8b ring", dataclasses.replace(
+                phi4, sliding_window=8, swa_pattern=0), SERVE_RING_PROMPT),
+               ("llama3-405b int8", dataclasses.replace(
+                   llama3, kv_cache_dtype="int8"), SERVE_SMOKE_PROMPT)])
+
+
+def _slot_leaves(cache):
+    """The int32 leaves of a cache (every slot_pos), on the CPU."""
+    import torch
+    from repro_torch.convert import map_tree
+    out = []
+    map_tree(lambda t: out.append(t.cpu()) if t.dtype == torch.int32
+             else None, cache)
+    return out
+
+
+def check_serve_smoke(dev):
+    """10(a): each case's prefill and two chained decode steps on the card
+    against the same calls on the CPU (same params, prompt and tokens):
+    logits within 1e-5 of max |logit| (f32, TF32 off), slot_pos bitwise."""
+    import torch
+    from repro_torch import random as R
+    from repro_torch.convert import tree_map
+    from repro_torch.launch import serve
+    from repro_torch.models import DistConfig, Model
+    cpu = torch.device("cpu")
+    rows = []
+    for name, cfg, S in serve_smoke_cases():
+        m = Model(cfg, DistConfig())
+        params = m.init(R.key(0), device=cpu)
+        batch = serve.make_batch(cfg, SERVE_SMOKE_BATCH, S, 1, cpu)
+        g = torch.Generator().manual_seed(2)
+        toks = [torch.randint(0, cfg.vocab, (SERVE_SMOKE_BATCH,),
+                              generator=g) for _ in range(2)]
+        runs = []
+        for d in (cpu, dev):
+            p = tree_map(lambda t: t.to(d), params)
+            logits, cache = m.prefill(
+                p, {k: v.to(d) for k, v in batch.items()}, cache_len=S + 2)
+            out = [logits.cpu()]
+            for t, tok in enumerate(toks):
+                logits, cache = m.decode_step(p, tok.to(d), S + t, cache)
+                out.append(logits.cpu())
+            runs.append((out, _slot_leaves(cache)))
+        (l_cpu, s_cpu), (l_card, s_card) = runs
+        errs = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(l_card, l_cpu)]
+        slots = len(s_cpu) == len(s_card) and all(
+            torch.equal(a, b) for a, b in zip(s_card, s_cpu))
+        check(all(math.isfinite(e) and e <= 1e-5 for e in errs) and slots,
+              f"serve smoke {name}: card vs CPU logit errors {errs} of max "
+              f"|logit| (prefill, steps 1 and 2), slot_pos equal {slots}")
+        rows.append({"case": name, "prompt": S, "logit_err_of_max": errs,
+                     "slot_pos_equal": slots})
+    return rows
+
+
+def _decode_vs_prefill(m, params, batch, prompt):
+    """(the prompt's prefill's last logits, the decode of its last token
+    after a prefill of the others), f32, on the card."""
+    import torch
+    with torch.inference_mode():
+        full, _ = m.prefill(params, batch)
+        _, cache = m.prefill(params, dict(batch,
+                                          tokens=batch["tokens"][:, :-1]),
+                             cache_len=prompt)
+        step, _ = m.decode_step(params, batch["tokens"][:, -1], prompt - 1,
+                                cache)
+    return full.float(), step.float()
+
+
+def serve_full(dev, card, name, cfg, batch, prompt, gen, want_params=None,
+               want_cache=None, profile=False):
+    """10(b)-(e): launch/serve.py's generate on the card (random params
+    from key(0), uniform prompt tokens drawn on the card, after one warm-up
+    prefill and decode step at the same shapes): prefill ms, decode ms a
+    token (CUDA events over the gen - 1 steps), tokens/s, peak memory and
+    the cache's bytes; with `profile`, torch.profiler over one more decode
+    step; then the consistency check, in bf16 and on an f32 copy of the
+    params -> its record."""
+    import dataclasses
+    import torch
+    from repro_torch import random as R
+    from repro_torch.convert import map_tree, tree_leaves, tree_map
+    from repro_torch.launch import serve
+    from repro_torch.models import DistConfig, Model
+    _free_card()
+    m = Model(cfg, DistConfig())
+    n_params = sum(t.numel() for t in tree_leaves(m.param_shapes()))
+    check(want_params in (None, n_params),
+          f"serve {name}: {n_params} parameters declared, want {want_params}")
+    params, init_s = _timed(lambda: m.init(R.key(0), device=dev))
+    b = serve.make_batch(cfg, batch, prompt, 0, dev)
+    serve.generate(m, params, b, 2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = serve.generate(m, params, b, gen)
+    peak = torch.cuda.max_memory_allocated(dev)
+    tokens = res["tokens"]
+    # argmax runs over the padded vocab, as in the reference
+    check(tuple(tokens.shape) == (batch, gen) and int(tokens.min()) >= 0
+          and int(tokens.max()) < m.vocab_padded,
+          f"serve {name}: generated tokens {tuple(tokens.shape)} or their "
+          f"range [{int(tokens.min())}, {int(tokens.max())}] wrong")
+    sizes = []
+    map_tree(lambda t: sizes.append(t.numel() * t.element_size()),
+             res["cache"])
+    cache_bytes = sum(sizes)
+    check(want_cache in (None, cache_bytes),
+          f"serve {name}: cache {cache_bytes} B, want {want_cache}")
+    rec = {"run": name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "params": n_params, "param_count": cfg.param_count(),
+           "batch": batch, "prompt": prompt, "gen": gen,
+           "init_seconds": init_s, "prefill_ms": res["prefill_ms"],
+           "decode_ms": res["decode_ms"],
+           "decode_ms_per_token": res["decode_ms_per_token"],
+           "tokens_per_s": res["tokens_per_s"], "peak_bytes": peak,
+           "cache_bytes": cache_bytes, "card": card}
+    if profile:
+        tok = tokens[:, -1]
+        with torch.inference_mode():
+            rec["profile"] = device_profile(lambda: m.decode_step(
+                params, tok, prompt + gen - 1, res["cache"]), 1)
+    del res
+    _free_card()
+    full, step = _decode_vs_prefill(m, params, b, prompt)
+    params32 = tree_map(lambda t: t.to(torch.float32), params)
+    del params
+    _free_card()
+    full32, step32 = _decode_vs_prefill(
+        Model(dataclasses.replace(cfg, dtype="float32"), DistConfig()),
+        params32, b, prompt)
+    del params32
+    _free_card()
+    top = float(full32.abs().max())
+    err32 = float((step32 - full32).abs().max()) / top
+    err = float((step - full).abs().max()) / top
+    noise = float((full - full32).abs().max()) / top
+    rec.update(consistency_err_of_max=err, consistency_f32_err_of_max=err32,
+               bf16_prefill_err_of_max=noise,
+               consistency_argmax_agree=float(
+                   (step.argmax(-1) == full.argmax(-1)).float().mean()))
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (full, step, full32, step32))
+    check(finite and err32 <= SERVE_F32_TOL
+          and err <= SERVE_BF16_NOISE * noise,
+          f"serve {name}: decode of token {prompt - 1} after a "
+          f"{prompt - 1}-token prefill vs the {prompt}-token prefill: f32 "
+          f"{err32:.3e} of max |logit| (tolerance {SERVE_F32_TOL}); bf16 "
+          f"{err:.3e}, the bf16 prefill {noise:.3e} off the f32 one "
+          f"(tolerance {SERVE_BF16_NOISE} x that); finite {finite}")
+    print(f"serve {name} ({cfg.n_layers} layers, {cfg.dtype}, {n_params:,} "
+          f"parameters; batch {batch}, prompt {prompt}, {gen} tokens): "
+          f"prefill {rec['prefill_ms']:.3f} ms, decode "
+          f"{rec['decode_ms_per_token']:.3f} ms/token over {gen - 1} steps, "
+          f"{rec['tokens_per_s']:.1f} tokens/s, peak {peak} B "
+          f"({peak / 2**30:.2f} GiB), cache {cache_bytes} B, init "
+          f"{init_s:.2f} s; decode vs prefill {err:.3e} of max |logit| in "
+          f"bf16 (the bf16 prefill {noise:.3e} off the f32 one; argmax "
+          f"agree {rec['consistency_argmax_agree']:.3f}), {err32:.3e} in "
+          f"f32 [{card}]", flush=True)
+    return rec
+
+
+def serve_phase(dev, card):
+    """Phase 10 -> its record. The serving path launches none of the wire
+    kernels: their counters are the same before and after."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    before = kernels.launch_counts()
+    smoke = check_serve_smoke(dev)
+    print(f"serve smoke ({len(smoke)} cases: the ten archs, the phi4 ring, "
+          f"the llama3 int8 cache): prefill and two decode steps on the card "
+          f"within 1e-5 of the CPU's max |logit|, worst "
+          f"{max(max(r['logit_err_of_max']) for r in smoke):.2e}; slot_pos "
+          f"bitwise [{card}]", flush=True)
+    runs = [serve_full(dev, card, "phi4-mini-3.8b",
+                       get_config("phi4-mini-3.8b"), SERVE_BATCH,
+                       SERVE_PROMPT, SERVE_GEN, want_params=PHI4_PARAMS,
+                       want_cache=PHI4_CACHE_BYTES, profile=True),
+            serve_full(dev, card, "mamba2-1.3b", get_config("mamba2-1.3b"),
+                       SERVE_BATCH, SERVE_PROMPT, SERVE_GEN,
+                       want_cache=MAMBA2_CACHE_BYTES),
+            serve_full(dev, card, "zamba2-7b", dataclasses.replace(
+                get_config("zamba2-7b"), n_layers=9), SERVE_BATCH,
+                SERVE_PROMPT, SERVE_GEN),
+            serve_full(dev, card, "whisper-base", get_config("whisper-base"),
+                       SERVE_BATCH, WHISPER_PROMPT, WHISPER_GEN)]
+    prof = runs[0]["profile"]
+    print(f"serve profile (one phi4-mini decode step, batch {SERVE_BATCH}): "
+          f"wall {prof['wall_ms_per_step']:.3f} ms, device busy "
+          f"{prof['device_busy_ms_per_step']:.3f} ms, idle share "
+          f"{prof['idle_share']}, {prof['device_events']} device events "
+          f"[{card}]", flush=True)
+    for op, t in prof["top_device_ms_per_step"]:
+        print(f"  device {t:.4f} ms  {op}", flush=True)
+    after = kernels.launch_counts()
+    check(after == before, f"the serving path launched wire kernels: "
+          f"{before} -> {after}")
+    return {"seconds": time.perf_counter() - t0, "smoke": smoke,
+            "runs": runs}
+
+
 # ---- phase 7: the multi-rank path (runs inside each rank process) ----------
 
 def _flat(tree):
@@ -3498,6 +3756,7 @@ def main(argv) -> int:
     lm, lm_launches = lm_phase(dev)
     for k, v in lm_launches.items():
         launches[k] += v
+    serve = serve_phase(dev, card)
     timings += lm["timings"]
     summary = kernel_line(timings, launches, errs)
     from repro_torch.core.compressors import QSGD, TopK
@@ -3523,7 +3782,8 @@ def main(argv) -> int:
         "ptxas": {src: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
                   for src, log in build.BUILD_LOG.items()},
-        "multi_rank_seconds": multi_secs, "lm": lm, "summary": summary},
+        "multi_rank_seconds": multi_secs, "lm": lm, "serve": serve,
+        "summary": summary},
         indent=1))
     print(f"total {total:.1f} s", flush=True)
     print(f"{card}")

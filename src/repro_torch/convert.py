@@ -1,5 +1,5 @@
-"""Parameter trees: JAX-layout numpy arrays -> the port's tensors, and the
-dict flatten order JAX uses.
+"""Parameter and cache trees: JAX-layout numpy arrays -> the port's
+tensors, and the dict flatten order JAX uses.
 
 JAX flattens a dict in SORTED key order, and that order is part of the
 wire contract: it fixes unit ids, PRNG fold tables and bucket order
@@ -67,3 +67,25 @@ def params_from_jax(np_tree, device="cuda") -> dict:
     tensors in the SAME layout and dtype (bf16 included), on `device`."""
     dev = resolve_device(device)
     return tree_map(lambda a: tensor_from_numpy(a).to(dev), np_tree)
+
+
+def map_tree(fn: Callable, tree, *rest):
+    """fn over corresponding leaves of same-structured trees of dicts,
+    tuples and None (a decode cache: interleaved MoE's pair of half-depth
+    caches, a hybrid without a tail)."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, tuple):
+        return tuple(map_tree(fn, t, *(r[i] for r in rest))
+                     for i, t in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
+def cache_from_jax(np_tree, device="cuda"):
+    """A reference decode cache (Model.prefill's or decode_step's, leaves
+    as numpy arrays) -> the port's cache: the same tree, layout, dtypes
+    and bits, on `device`."""
+    dev = resolve_device(device)
+    return map_tree(lambda a: tensor_from_numpy(a).to(dev), np_tree)

@@ -3,8 +3,9 @@
 Language modelling: sequences from a fixed random first-order Markov
 chain over the vocab (`make_markov`, numpy's default_rng as the
 reference's, so the matrix is bitwise the reference's), sampled by
-Gumbel-max (`markov_lm_batch`, `lm_batches`); vision stub: projected patch
-embeddings (`patches_stub`). Classification: CIFAR-shaped smooth class
+Gumbel-max (`markov_lm_batch`, `lm_batches`); vision and audio stubs:
+projected patch embeddings (`patches_stub`) and frame embeddings
+(`frames_stub`). Classification: CIFAR-shaped smooth class
 prototypes + pixel noise (data/synthetic.py:65-86). Same shapes and recipes
 as the reference; every draw but the Markov matrix comes from a
 torch.Generator seeded by the key's words, so the numbers differ from
@@ -98,4 +99,14 @@ def patches_stub(key: torch.Tensor, batch: int, patches: int, d_model: int,
     dev = resolve_device(device)
     g = generator(key, dev)
     return 0.02 * torch.randn((batch, patches, d_model), generator=g,
+                              device=dev)
+
+
+def frames_stub(key: torch.Tensor, batch: int, frames: int, d_model: int,
+                device="cuda") -> torch.Tensor:
+    """Audio frontend stub: (batch, frames, d_model) f32 precomputed frame
+    embeddings, 0.02 x standard normal (not the reference's draws)."""
+    dev = resolve_device(device)
+    g = generator(key, dev)
+    return 0.02 * torch.randn((batch, frames, d_model), generator=g,
                               device=dev)

@@ -1,0 +1,170 @@
+"""Serving launcher on one device: prefill a batch of prompts and decode N
+tokens greedily (the JAX package's launch/serve.py).
+
+Runs on the card unless `--device cpu` is given. The params come from
+`Model.init(key(seed))` and the prompts are uniform tokens drawn on the
+device (a torch.Generator seeded from the key: not the reference's draws);
+a VLM gets patch embeddings, an audio model frame embeddings, from the
+same key. Times are CUDA events on the card (host clocks on the CPU).
+
+Example:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
+      --smoke --device cpu --batch 8 --prompt 24 --gen 16
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch import random as R
+from repro_torch import resolve_device
+from repro_torch.configs.registry import ARCH_NAMES, get_config, get_smoke
+from repro_torch.core.wire import not_ported
+from repro_torch.data import frames_stub, patches_stub
+from repro_torch.models import DistConfig, Model
+
+ITEM_4 = "item 4 (launch/mesh.py, launch/engine.py)"
+ITEM_6 = "item 6 (obs/)"
+
+
+def pack_request(token: torch.Tensor, pos) -> torch.Tensor:
+    """Serving wire format: one decode request as one uint8 buffer, the
+    uint32 words [batch, pos, token_0, ..., token_{B-1}] as little-endian
+    bytes (the reference's bytes), on the token's device."""
+    if sys.byteorder != "little":
+        raise RuntimeError("pack_request assumes a little-endian host")
+    dev = token.device
+    head = torch.stack([torch.full((), token.shape[0], dtype=torch.int32,
+                                   device=dev),
+                        torch.as_tensor(pos, dtype=torch.int32).to(dev)])
+    return torch.cat([head, token.to(torch.int32)]).view(torch.uint8)
+
+
+def unpack_request(buf: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Inverse of pack_request -> {"token": int32 (B,), "pos": int32 0-d}."""
+    words = buf.reshape(-1).view(torch.int32)
+    return {"token": words[2:], "pos": words[1]}
+
+
+class _Clock:
+    """Elapsed ms between start() and stop(): CUDA events on the card,
+    the host clock on the CPU."""
+
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+
+    def start(self):
+        if self.cuda:
+            self.t0 = torch.cuda.Event(enable_timing=True)
+            self.t0.record()
+        else:
+            self.t0 = time.perf_counter()
+
+    def stop(self) -> float:
+        if self.cuda:
+            t1 = torch.cuda.Event(enable_timing=True)
+            t1.record()
+            t1.synchronize()
+            return self.t0.elapsed_time(t1)
+        return (time.perf_counter() - self.t0) * 1e3
+
+
+def make_batch(cfg, batch: int, prompt: int, seed: int, dev) -> Dict:
+    """The launcher's inputs: uniform prompt tokens (batch, prompt) drawn on
+    the device, plus patch or frame embeddings for a VLM or audio model."""
+    key = R.key(seed)
+    g = R.generator(key, dev)
+    out = {"tokens": torch.randint(0, cfg.vocab, (batch, prompt),
+                                   generator=g, device=dev)}
+    if cfg.arch_type == "vlm":
+        out["patch_embeds"] = patches_stub(key, batch, cfg.frontend_seq,
+                                           cfg.d_model, device=dev)
+    if cfg.arch_type == "audio":
+        out["frames"] = frames_stub(key, batch, cfg.frontend_seq,
+                                    cfg.d_model, device=dev)
+    return out
+
+
+def generate(model: Model, params, batch: Dict, gen: int,
+             forced: Optional[torch.Tensor] = None,
+             keep_logits: bool = False) -> Dict:
+    """Prefill, then gen - 1 greedy decode steps (gen tokens in all). The
+    first decode request is round-tripped through pack_request /
+    unpack_request outside the timed region, as the reference does.
+    forced (B, gen): feed forced[:, t] as the token after step t instead of
+    the argmax (teacher forcing). -> {"tokens" (B, gen), "prefill_ms",
+    "decode_ms" (the gen - 1 steps), "decode_ms_per_token", "tokens_per_s"
+    (batch x decode steps over decode time), "cache", and "logits" (one
+    (B, V) tensor a step) when keep_logits}."""
+    dev = batch["tokens"].device
+    Bsz, S = batch["tokens"].shape
+    clock = _Clock(dev)
+    with torch.inference_mode():
+        clock.start()
+        logits, cache = model.prefill(params, batch, cache_len=S + gen)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        prefill_ms = clock.stop()
+        out, kept = [tok], [logits] if keep_logits else []
+        nxt = forced[:, 0] if forced is not None else tok
+        req = unpack_request(pack_request(nxt, S))
+        token, pos = req["token"], int(req["pos"])
+        clock.start()
+        for t in range(gen - 1):
+            logits, cache = model.decode_step(params, token, pos, cache)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            out.append(tok)
+            if keep_logits:
+                kept.append(logits)
+            token = forced[:, t + 1] if forced is not None else tok
+            pos += 1
+        decode_ms = clock.stop()
+    steps = max(1, gen - 1)
+    res = {"tokens": torch.stack(out, dim=1), "prefill_ms": prefill_ms,
+           "decode_ms": decode_ms, "decode_ms_per_token": decode_ms / steps,
+           "tokens_per_s": Bsz * steps / (decode_ms / 1e3)
+           if decode_ms > 0 else float("inf"), "cache": cache}
+    if keep_logits:
+        res["logits"] = kept
+    return res
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="granite-20b", choices=ARCH_NAMES)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt", type=int, default=24)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--data", type=int, default=1)
+    ap.add_argument("--model", type=int, default=1)
+    ap.add_argument("--greedy", action="store_true", default=True)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu")
+    ap.add_argument("--trace-out", default="")
+    ap.add_argument("--metrics-out", default="")
+    args = ap.parse_args(argv)
+    if args.data > 1 or args.model > 1:
+        raise not_ported("serve --data / --model > 1 (a device mesh)",
+                         ITEM_4)
+    if args.trace_out or args.metrics_out:
+        raise not_ported("serve --trace-out / --metrics-out", ITEM_6)
+    dev = resolve_device(args.device)
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    model = Model(cfg, DistConfig())
+    params = model.init(R.key(args.seed), device=dev)
+    batch = make_batch(cfg, args.batch, args.prompt, args.seed, dev)
+    res = generate(model, params, batch, args.gen)
+    print(f"arch={cfg.name} device={dev} batch={args.batch}")
+    print(f"prefill({args.prompt} tok): {res['prefill_ms']:.0f} ms   "
+          f"decode: {res['decode_ms_per_token']:.1f} ms/token")
+    print("sample continuation:", res["tokens"][0].tolist())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

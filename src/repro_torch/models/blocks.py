@@ -1,37 +1,53 @@
-"""Transformer blocks of the train path (the JAX package's models/blocks.py:
-gqa_attention, _mla_qkv, mla_attention and decoder_block). The decode
-cache (`collect_cache > 0`) and the encoder-decoder cross-attention
-(`memory=`) belong to the serving and audio paths (ROADMAP Queue 1, item
-3b) and raise.
+"""Transformer blocks, the train / prefill path and the one-token decode
+path (the JAX package's models/blocks.py), on one device.
+
+`collect_cache > 0` (prefill) also returns the layer's decode cache of
+that length: the first collect_cache positions of k / v (int8 with
+per-vector scales when cfg.kv_cache_dtype == "int8"), or MLA's latent
+c_kv and shared rope key, with slot_pos (-1 past the prompt). As in the
+reference, a pure sliding-window arch's ring cache is filled with
+positions 0 .. window-1 even when the prompt is longer (ROADMAP Queue 3).
+The decode functions write the new token into the cache they are given,
+IN PLACE, and return it.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core.wire import not_ported
 from repro_torch.models.dist import (DistConfig, fdot, region_in, region_out,
-                                     tp_shared)
+                                     tp_region_in, tp_region_out, tp_shared)
 from repro_torch.models.flash import flash_attention
-from repro_torch.models.layers import (apply_norm, expand_kv, head_mask, mlp,
-                                       rmsnorm, rope)
+from repro_torch.models.layers import (NEG_INF, apply_norm, cache_write,
+                                       expand_kv, head_mask, inv_sqrt_f32,
+                                       mlp, quantize_kv, rmsnorm, rope,
+                                       splitkv_decode)
 from repro_torch.models.moe import moe_ffn
 
-ITEM_3B = "item 3b (SSM, hybrid, audio and serving)"
+
+def _collect(t: torch.Tensor, S: int, clen: int) -> torch.Tensor:
+    """(B,S,...) -> its first clen positions, zero-padded past S."""
+    pad = [0, 0] * (t.dim() - 2) + [0, max(0, clen - S)]
+    return F.pad(t, pad)[:, :clen]
 
 
-def _no_cache(collect_cache: int) -> None:
-    if collect_cache:
-        raise not_ported("the decode cache (collect_cache > 0)", ITEM_3B)
+def _slot_pos(S: int, clen: int, device) -> torch.Tensor:
+    spos = torch.arange(clen, dtype=torch.int32, device=device)
+    return torch.where(spos < S, spos, -1)
+
+
+def _pos_vec(pos: int, device) -> torch.Tensor:
+    """The decode position as a (1, 1) tensor (a fill, no host copy)."""
+    return torch.full((1, 1), pos, dtype=torch.int32, device=device)
 
 
 def gqa_attention(p: Dict, x: torch.Tensor, cfg, dist: DistConfig, *,
                   causal=True, window=0, pos_offset=0, use_rope=True,
                   prefix="", collect_cache: int = 0, tp_size: int = 1):
     """x (B,S,d) -> ((B,S,d) attention residual branch, norm included;
-    None)."""
-    _no_cache(collect_cache)
+    the layer's cache of length collect_cache, or None)."""
     dh = cfg.d_head
     h = apply_norm(p, f"{prefix}attn_norm", x, cfg, dist)
     hq = region_in(h, dist)
@@ -49,7 +65,88 @@ def gqa_attention(p: Dict, x: torch.Tensor, cfg, dist: DistConfig, *,
     ve = expand_kv(v, Hl, 0, cfg.n_heads, cfg.n_kv_heads)
     o = flash_attention(q, ke, ve, window, causal, pos_offset)
     o = head_mask(o, cfg, dist, axis=2)
-    return region_out(o.reshape(B, S, -1) @ p[f"{prefix}wo"], dist), None
+    out = region_out(o.reshape(B, S, -1) @ p[f"{prefix}wo"], dist)
+    cache = None
+    if collect_cache:
+        clen = collect_cache // tp_size
+        kt = _collect(k, S, clen).transpose(1, 2)       # (B,Hkv,clen,dh)
+        vt = _collect(v, S, clen).transpose(1, 2)
+        spos = _slot_pos(S, clen, x.device)
+        if cfg.kv_cache_dtype == "int8":
+            kq, ksc = quantize_kv(kt)
+            vq, vsc = quantize_kv(vt)
+            cache = {"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc,
+                     "slot_pos": spos}
+        else:
+            cache = {"k": kt, "v": vt, "slot_pos": spos}
+    return out, cache
+
+
+def gqa_cross_attention(p: Dict, x: torch.Tensor, memory: torch.Tensor, cfg,
+                        dist: DistConfig) -> torch.Tensor:
+    """Cross-attention (whisper's decoder): q from x, k / v from the
+    encoder memory (B,M,d), recomputed at every call as the reference
+    does."""
+    dh = cfg.d_head
+    h = apply_norm(p, "cross_norm", x, cfg, dist)
+    hq = region_in(h, dist)
+    B, S, _ = hq.shape
+    mq = tp_region_in(memory, dist.tp)
+    q = hq @ p["cwq"]
+    Hl = q.shape[-1] // dh
+    q = q.reshape(B, S, Hl, dh)
+    M = memory.shape[1]
+    k = (mq @ tp_shared(p["cwk"], dist.tp)).reshape(B, M, -1, dh)
+    v = (mq @ tp_shared(p["cwv"], dist.tp)).reshape(B, M, -1, dh)
+    ke = expand_kv(k, Hl, 0, cfg.n_heads, cfg.n_kv_heads)
+    ve = expand_kv(v, Hl, 0, cfg.n_heads, cfg.n_kv_heads)
+    o = flash_attention(q, ke, ve, 0, False, 0)
+    o = head_mask(o, cfg, dist, axis=2)
+    return region_out(o.reshape(B, S, -1) @ p["cwo"], dist)
+
+
+def gqa_attention_decode(p: Dict, x: torch.Tensor, cache: Dict, pos: int,
+                         cfg, dist: DistConfig, *, window=0, use_rope=True,
+                         prefix="", fd=None):
+    """One-token attention: x (B,1,d); cache {k, v (B,Hkv,Ss,dh), slot_pos
+    (Ss,)} (+ k_scale / v_scale for int8), written in place -> (out, cache)."""
+    fd = fd or {}
+    B = x.shape[0]
+    dh = cfg.d_head
+    h = apply_norm(p, f"{prefix}attn_norm", x, cfg)
+    hq = tp_region_in(h, dist.tp)
+    q = fdot(hq, p[f"{prefix}wq"], fd.get(f"{prefix}wq"), dist)
+    Hl = q.shape[-1] // dh
+    q = q.reshape(B, 1, Hl, dh)
+    k = fdot(hq, tp_shared(p[f"{prefix}wk"], dist.tp),
+             fd.get(f"{prefix}wk"), dist).reshape(B, 1, -1, dh)
+    v = fdot(hq, tp_shared(p[f"{prefix}wv"], dist.tp),
+             fd.get(f"{prefix}wv"), dist).reshape(B, 1, -1, dh)
+    if use_rope:
+        pv = _pos_vec(pos, x.device)
+        q = rope(q, pv, cfg.rope_theta)
+        k = rope(k, pv, cfg.rope_theta)
+    q1, k1, v1 = q[:, 0], k[:, 0], v[:, 0]
+    ring = (cfg.sliding_window if (cfg.sliding_window > 0
+                                   and cfg.swa_pattern == 0) else 0)
+    spos = cache["slot_pos"]
+    scales = {}
+    if cfg.kv_cache_dtype == "int8":
+        k1, k1s = quantize_kv(k1)
+        v1, v1s = quantize_kv(v1)
+        cache_write(cache["k_scale"], spos, k1s, pos, dist, ring_size=ring)
+        cache_write(cache["v_scale"], spos, v1s, pos, dist, ring_size=ring)
+        scales = {"k_scale": cache["k_scale"], "v_scale": cache["v_scale"]}
+    cache_write(cache["k"], spos, k1, pos, dist, ring_size=ring)
+    cache_write(cache["v"], spos, v1, pos, dist, ring_size=ring)
+    o = splitkv_decode(q1, cache["k"], cache["v"], spos, pos, dist=dist,
+                       n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                       window=window, **scales)
+    o = head_mask(o, cfg, dist, axis=1)
+    out = tp_region_out(
+        fdot(o.reshape(B, 1, -1).to(x.dtype), p[f"{prefix}wo"],
+             fd.get(f"{prefix}wo"), dist), dist.tp)
+    return out, cache
 
 
 def _mla_qkv(p, hq, cfg, dist, pos, fd=None):
@@ -75,8 +172,7 @@ def _mla_qkv(p, hq, cfg, dist, pos, fd=None):
 def mla_attention(p: Dict, x: torch.Tensor, cfg, dist: DistConfig, *,
                   pos_offset=0, collect_cache: int = 0, tp_size: int = 1):
     """Multi-head latent attention (MiniCPM3 / DeepSeek style), causal:
-    -> ((B,S,d), None)."""
-    _no_cache(collect_cache)
+    -> ((B,S,d), the latent cache of length collect_cache or None)."""
     nope, rdim, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     h = apply_norm(p, "attn_norm", x, cfg, dist)
     hq = region_in(h, dist)
@@ -89,27 +185,78 @@ def mla_attention(p: Dict, x: torch.Tensor, cfg, dist: DistConfig, *,
     q = torch.cat([q_nope, q_rope], dim=-1)
     o = flash_attention(q, k, vv, 0, True, pos_offset)
     o = head_mask(o, cfg, dist, axis=2)
-    return region_out(o.reshape(B, S, -1) @ p["wo"], dist), None
+    out = region_out(o.reshape(B, S, -1) @ p["wo"], dist)
+    cache = None
+    if collect_cache:
+        clen = collect_cache // tp_size
+        cache = {"ckv": _collect(c_kv, S, clen)[:, None],
+                 "krope": _collect(k_rope[:, :, 0, :], S, clen)[:, None],
+                 "slot_pos": _slot_pos(S, clen, x.device)}
+    return out, cache
+
+
+def mla_attention_decode(p: Dict, x: torch.Tensor, cache: Dict, pos: int,
+                         cfg, dist: DistConfig, fd=None):
+    """Absorbed MLA decode against the latent cache {ckv (B,1,Ss,r), krope
+    (B,1,Ss,rdim), slot_pos (Ss,)}, written in place -> (out, cache). The
+    score scale 1 / sqrt(nope + rdim) is a multiply by its f32 value, as
+    XLA compiles the reference's divide."""
+    B = x.shape[0]
+    nope, rdim, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    r_lat = cfg.kv_lora_rank
+    h = apply_norm(p, "attn_norm", x, cfg)
+    hq = tp_region_in(h, dist.tp)
+    q_nope, q_rope, c_kv, k_rope, Hl = _mla_qkv(
+        p, hq, cfg, dist, _pos_vec(pos, x.device), fd=fd)
+    # absorb k_up into q: q_eff_h = q_nope_h . W_kup_h^T, in latent space
+    wk = p["wk_up"].reshape(r_lat, Hl, nope)
+    q_eff = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].to(torch.float32),
+                         wk.to(torch.float32))           # (B,Hl,r)
+    qr = q_rope[:, 0].to(torch.float32)                  # (B,Hl,rdim)
+    spos = cache["slot_pos"]
+    ck, _ = cache_write(cache["ckv"], spos, c_kv, pos, dist)
+    kr, _ = cache_write(cache["krope"], spos, k_rope[:, 0], pos, dist)
+    q_all = torch.cat([q_eff, qr], dim=-1)               # (B,H,r+rdim)
+    lat = torch.cat([ck[:, 0], kr[:, 0]], dim=-1)        # (B,Ss,r+rdim)
+    s = torch.einsum("bhr,bsr->bhs", q_all, lat.to(torch.float32)) \
+        * inv_sqrt_f32(nope + rdim)
+    valid = (spos >= 0) & (spos <= pos)
+    s = torch.where(valid[None, None, :], s, NEG_INF)
+    m = torch.clamp_min(s.amax(dim=-1), 2 * NEG_INF)
+    pr = torch.exp(s - m[..., None])
+    den = pr.sum(dim=-1)
+    num = torch.einsum("bhs,bsr->bhr", pr, ck[:, 0].to(torch.float32))
+    ctx = num / torch.clamp_min(den[..., None], 1e-30)   # (B,H,r) latent
+    wv = p["wv_up"].reshape(r_lat, Hl, vdim)
+    o = torch.einsum("bhr,rhv->bhv", ctx, wv.to(torch.float32))
+    o = head_mask(o, cfg, dist, axis=1)
+    fd = fd or {}
+    out = tp_region_out(
+        fdot(o.reshape(B, 1, -1).to(x.dtype), p["wo"], fd.get("wo"), dist),
+        dist.tp)
+    return out, cache
 
 
 def decoder_block(p: Dict, x: torch.Tensor, cfg, dist: DistConfig, *,
                   window=0, pos_offset=0, causal=True, use_rope=True,
                   memory: Optional[torch.Tensor] = None,
                   collect_cache: int = 0, tp_size: int = 1):
-    """Generic transformer block -> (x, aux_loss f32 scalar, None)."""
-    if memory is not None:
-        raise not_ported("cross-attention to an encoder memory (memory=)",
-                         ITEM_3B)
+    """Generic transformer block -> (x, aux_loss f32 scalar, cache|None);
+    `memory` (B,M,d) adds cross-attention to an encoder's output."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    cache = None
     if cfg.attention == "mla":
-        a, _ = mla_attention(p, x, cfg, dist, pos_offset=pos_offset,
-                             collect_cache=collect_cache, tp_size=tp_size)
+        a, cache = mla_attention(p, x, cfg, dist, pos_offset=pos_offset,
+                                 collect_cache=collect_cache, tp_size=tp_size)
         x = x + a
     elif cfg.attention != "none":
-        a, _ = gqa_attention(p, x, cfg, dist, causal=causal, window=window,
-                             pos_offset=pos_offset, use_rope=use_rope,
-                             collect_cache=collect_cache, tp_size=tp_size)
+        a, cache = gqa_attention(p, x, cfg, dist, causal=causal,
+                                 window=window, pos_offset=pos_offset,
+                                 use_rope=use_rope,
+                                 collect_cache=collect_cache, tp_size=tp_size)
         x = x + a
+    if memory is not None:
+        x = x + gqa_cross_attention(p, x, memory, cfg, dist)
     h = apply_norm(p, "mlp_norm", x, cfg, dist)
     if cfg.n_experts:
         B, S, d = h.shape
@@ -117,4 +264,30 @@ def decoder_block(p: Dict, x: torch.Tensor, cfg, dist: DistConfig, *,
         x = x + out.reshape(B, S, d)
     else:
         x = x + mlp(p, h, cfg, dist)
-    return x, aux, None
+    return x, aux, cache
+
+
+def decoder_block_decode(p: Dict, x: torch.Tensor, cache: Dict, pos: int,
+                         cfg, dist: DistConfig, *, window=0,
+                         memory: Optional[torch.Tensor] = None, fd=None):
+    """One-token decoder_block, the cache written in place -> (x, cache).
+    MoE routes the B tokens of the step on their own, so its capacity is
+    the step's, as in the reference."""
+    if cfg.attention == "mla":
+        a, cache = mla_attention_decode(p, x, cache, pos, cfg, dist, fd=fd)
+        x = x + a
+    elif cfg.attention != "none":
+        a, cache = gqa_attention_decode(p, x, cache, pos, cfg, dist,
+                                        window=window, use_rope=cfg.use_rope,
+                                        fd=fd)
+        x = x + a
+    if memory is not None:
+        x = x + gqa_cross_attention(p, x, memory, cfg, dist)
+    h = apply_norm(p, "mlp_norm", x, cfg)
+    if cfg.n_experts:
+        B, S, d = h.shape
+        out, _ = moe_ffn(p, h.reshape(B * S, d), cfg, dist, fd=fd)
+        x = x + out.reshape(B, S, d)
+    else:
+        x = x + mlp(p, h, cfg, dist, fd=fd)
+    return x, cache

@@ -9,7 +9,12 @@ probabilities outlives its step. Masked scores are -1e30, not -inf: a
 fully masked row gets uniform weights, never NaN. Masking: causal, a
 sliding window (a number or tensor; <= 0 disables it) and the global
 position of q[0] (`q_offset`); S need not be a multiple of the chunk
-(rows and keys are zero-padded to it, padded keys masked). All
+(rows and keys are zero-padded to it, padded keys masked). Queries and
+keys are blocked by min(chunk, Sq) and min(chunk, Sk): the reference takes
+one block size, min(chunk, Sq, Sk), which for one decode query against a
+1,500-frame encoder memory would be 1,500 blocks of one key, cheap in a
+lax.scan and not in a Python loop (the online softmax's rounding differs,
+its function does not). All
 arithmetic in f32; the output, dq, dk and dv in the inputs' dtypes.
 layers.chunked_attention is the oracle the tests hold it against.
 """
@@ -44,11 +49,11 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, window, causal, q_offset, chunk):
         B, Sq, H, dh = q.shape
         Sk = k.shape[1]
-        c = min(chunk, Sq, Sk)
+        cq, ck = min(chunk, Sq), min(chunk, Sk)
         scale = 1.0 / torch.sqrt(torch.tensor(float(dh)))
-        qb, kb, vb = _blocks(q, c), _blocks(k, c), _blocks(v, c)
-        qpos = _positions(qb.shape[0], c, q_offset, q.device)
-        kpos = _positions(kb.shape[0], c, 0, q.device)
+        qb, kb, vb = _blocks(q, cq), _blocks(k, ck), _blocks(v, ck)
+        qpos = _positions(qb.shape[0], cq, q_offset, q.device)
+        kpos = _positions(kb.shape[0], ck, 0, q.device)
         obs, lses = [], []
         for qi, qp in zip(qb, qpos):
             m = torch.full(qi.shape[:-1], NEG_INF, device=q.device)
@@ -72,21 +77,21 @@ class FlashAttention(torch.autograd.Function):
         ob, lse = torch.stack(obs), torch.stack(lses)
         out = _unblocks(ob, Sq).to(q.dtype)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.window, ctx.causal, ctx.q_offset, ctx.c = (window, causal,
-                                                       q_offset, c)
+        ctx.window, ctx.causal, ctx.q_offset = window, causal, q_offset
+        ctx.cq, ctx.ck = cq, ck
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        window, causal, c = ctx.window, ctx.causal, ctx.c
+        window, causal, cq, ck = ctx.window, ctx.causal, ctx.cq, ctx.ck
         dh = q.shape[-1]
         Sq, Sk = q.shape[1], k.shape[1]
         scale = 1.0 / torch.sqrt(torch.tensor(float(dh)))
-        qb, kb, vb = _blocks(q, c), _blocks(k, c), _blocks(v, c)
-        gb, ob = _blocks(g, c), _blocks(out, c)
-        qpos = _positions(qb.shape[0], c, ctx.q_offset, q.device)
-        kpos = _positions(kb.shape[0], c, 0, q.device)
+        qb, kb, vb = _blocks(q, cq), _blocks(k, ck), _blocks(v, ck)
+        gb, ob = _blocks(g, cq), _blocks(out, cq)
+        qpos = _positions(qb.shape[0], cq, ctx.q_offset, q.device)
+        kpos = _positions(kb.shape[0], ck, 0, q.device)
         delta = (gb * ob).sum(dim=-1)                    # (nq,B,H,c)
         dk = torch.zeros_like(kb)
         dv = torch.zeros_like(vb)

@@ -1,6 +1,7 @@
-"""Shared neural layers of the train path (the JAX package's
-models/layers.py:25-189): norms, RoPE, MLPs, the chunked-attention oracle,
-GQA head expansion, padding-head masks and sinusoidal positions.
+"""Shared neural layers (the JAX package's models/layers.py): norms, RoPE,
+MLPs, the chunked-attention oracle, GQA head expansion, padding-head
+masks, sinusoidal positions, and the decode cache's int8 quantization,
+split-KV decode attention and cache writes on one device.
 
 Plain torch, as the reference is jnp: the model's norms round as the
 reference's do (`rsqrt(ms + eps)` cast to x's dtype before both
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ref import fma_f32
 from repro_torch.models.dist import (NEG_INF, DistConfig, fdot, region_in,
                                      region_out)
 
@@ -175,3 +177,79 @@ def sinusoid_positions(pos: torch.Tensor, d: int) -> torch.Tensor:
                       * (torch.log(torch.tensor(10000.0)) / max(1, half - 1)))
     ang = pos[..., None].to(torch.float32) * freqs
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# ---- the decode cache: int8 quantization, split-KV attention, writes ---------
+
+# f32(1 / 127), the multiplier XLA makes of quantize_kv's divide by 127
+_INV_127 = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))
+
+
+def quantize_kv(x: torch.Tensor):
+    """Per-vector int8 quantization over the last dim (one token's k or v
+    (B,Hkv,dh), or a prefill's (B,Hkv,S,dh)) -> (q int8, scale f32). As the
+    reference's jitted code: max |x| / 127 + 1e-12 is one fma of max |x|,
+    f32(1 / 127) and 1e-12, then round half to even."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1)
+    scale = fma_f32(amax, _INV_127, torch.full_like(amax, 1e-12))
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def inv_sqrt_f32(n: int) -> float:
+    """The f32 value of 1 / sqrt(f32(n)), each step rounded to f32."""
+    return float(1.0 / torch.sqrt(torch.tensor(float(n))))
+
+
+def splitkv_decode(q_local: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, slot_pos: torch.Tensor, pos: int, *,
+                   dist: DistConfig, n_heads: int, n_kv: int, window: int = 0,
+                   k_scale: torch.Tensor = None,
+                   v_scale: torch.Tensor = None) -> torch.Tensor:
+    """One-token attention against the cache, one device (the reference's
+    sequence shards, all_gather, pmax and psum are the one-shard case).
+
+    q_local (B,H,dh); k_cache / v_cache (B,Hkv,Ss,dh) (int8 with k_scale /
+    v_scale (B,Hkv,Ss)); slot_pos (Ss,) int32, -1 empty; pos the current
+    position (int). -> (B,H,dh). A q head's group of the kv heads is a
+    reshape, not the reference's gather of every q head's kv copy (the same
+    products, without an (B,H,Ss,dh) f32 copy of the cache), so the q
+    heads must be a multiple of the kv heads, as in every config."""
+    B, H, dh = q_local.shape
+    Hkv = k_cache.shape[1]
+    group = max(1, n_heads // max(1, n_kv))
+    if H != Hkv * group:
+        raise ValueError(f"{H} q heads are not {group} for each of {Hkv} "
+                         f"kv heads")
+    k = k_cache.to(torch.float32)
+    v = v_cache.to(torch.float32)
+    if k_scale is not None:          # int8 cache: per-vector scales
+        k = k * k_scale[..., None]
+        v = v * v_scale[..., None]
+    q = q_local.to(torch.float32).reshape(B, Hkv, group, dh)
+    s = torch.matmul(q, k.transpose(-1, -2)) * inv_sqrt_f32(dh)
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    if window > 0:
+        valid = valid & (slot_pos > pos - window)
+    s = torch.where(valid, s, NEG_INF)
+    m = torch.clamp_min(s.amax(dim=-1), 2 * NEG_INF)
+    p = torch.exp(s - m[..., None])
+    den = p.sum(dim=-1)
+    o = torch.matmul(p, v) / torch.clamp_min(den[..., None], 1e-30)
+    return o.reshape(B, H, dh).to(q_local.dtype)
+
+
+def cache_write(cache: torch.Tensor, slot_pos: torch.Tensor,
+                new: torch.Tensor, pos: int, dist: DistConfig,
+                ring_size: int = 0):
+    """Write one token's entry `new` (the cache without its slot dim 2)
+    into slot pos (pos % ring_size for the ring of a pure sliding-window
+    arch) IN PLACE, and slot_pos[slot] = pos; -> (cache, slot_pos), the
+    same tensors. The reference rebuilds both; on one device its owner
+    test leaves a slot past the cache's end unwritten, and so does this."""
+    slot = pos % ring_size if ring_size > 0 else pos
+    if slot < cache.shape[2]:
+        cache.select(2, slot).copy_(new)
+        slot_pos[slot] = pos
+    return cache, slot_pos

@@ -1,16 +1,23 @@
-"""Model assembly: parameter declaration for every architecture family and
-the train forward of the attention families on one device (the JAX
-package's models/model.py).
+"""Model assembly: parameter declaration, the train loss, prefill and
+decode of every architecture family, and the cache layouts, on one device
+(the JAX package's models/model.py).
 
 `declare_params` ports every branch, so shapes, stacked masks and
 UnitPlans equal the reference's for all ten archs. `Model.loss` runs the
-dense (GQA / MQA / MLA), MoE (interleaved too) and VLM families; the SSM,
-hybrid and audio losses, prefill / decode and the caches are ROADMAP Queue
-1 item 3b and raise. Layers run in a Python loop over the stacked leaves
-(the reference's lax.scan), each under torch.utils.checkpoint when
-`remat` (the reference's jax.checkpoint with nothing saveable); the
+dense (GQA / MQA / MLA), MoE (interleaved too), VLM, SSM, hybrid and
+audio families; `prefill`, `decode_step` and `init_cache` serve all of
+them. Layers run in a Python loop over the stacked leaves (the reference's
+lax.scan), each under torch.utils.checkpoint when `remat` and gradients
+are on (the reference's jax.checkpoint with nothing saveable); the
 reference's optimization barrier, a guard against XLA hoisting, has no
 counterpart.
+
+Caches keep the reference's stacked layout (a leading layer dim, the
+leaves of `cache_shapes`), so a reference cache converts leaf for leaf
+(convert.cache_from_jax). `decode_step` writes the new token into that
+cache IN PLACE, through per-layer views, and returns it: the reference
+rebuilds the cache functionally, which here would copy it whole at every
+token. Prefill and decode run under torch.inference_mode.
 """
 from __future__ import annotations
 
@@ -20,15 +27,15 @@ from typing import Dict, Optional
 import torch
 import torch.utils.checkpoint as checkpoint
 
-from repro_torch.core.wire import not_ported
+from repro_torch import resolve_device
+from repro_torch.convert import map_tree
 from repro_torch.models import blocks as B
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.dist import (DistConfig, tp_region_in, vp_embed,
                                      vp_xent_chunked)
 from repro_torch.models.layers import apply_norm, sinusoid_positions
-from repro_torch.models.params import LeafMeta, ParamBuilder
-
-ITEM_3B = B.ITEM_3B
+from repro_torch.models.mamba2 import mamba2_block, mamba2_decode
+from repro_torch.models.params import LeafMeta, ParamBuilder, torch_dtype
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -234,11 +241,40 @@ def declare_params(cfg: ModelConfig, tp_size: int) -> ParamBuilder:
 # the Model
 # ==========================================================================
 
+def _layers(p_blocks: Dict):
+    """The stacked leaves of p_blocks as one dict of views a layer."""
+    names = list(p_blocks)
+    return [dict(zip(names, leaves))
+            for leaves in zip(*(p_blocks[k].unbind(0) for k in names))]
+
+
+def _split_ab(g: Dict):
+    """An interleaved unit's a_ (dense) and b_ (MoE) halves."""
+    return ({k[2:]: v for k, v in g.items() if k.startswith("a_")},
+            {k[2:]: v for k, v in g.items() if k.startswith("b_")})
+
+
+def _stack(caches):
+    """Per-layer caches -> one cache with a leading layer dim (the
+    reference's scan output)."""
+    return map_tree(lambda *ts: torch.stack(ts), *caches)
+
+
+def _row(cache, i: int):
+    """Layer i's views of a stacked cache."""
+    return map_tree(lambda t: t[i], cache)
+
+
+def _ssm_cache(out_state):
+    (cx, cbc), ss = out_state
+    return {"conv_x": cx, "conv_bc": cbc, "ssm": ss}
+
+
 class Model:
-    """One architecture's parameters and train loss on one device. Params
-    are nested dicts of tensors in the JAX layout (stacked leaves lead
-    with the layer count), so UnitPlan ids, PRNG folds and bucket order
-    equal the reference's."""
+    """One architecture's parameters, train loss and serving path on one
+    device. Params are nested dicts of tensors in the JAX layout (stacked
+    leaves lead with the layer count), so UnitPlan ids, PRNG folds and
+    bucket order equal the reference's."""
 
     def __init__(self, cfg: ModelConfig, dist: DistConfig,
                  mesh_axis_sizes: Optional[Dict[str, int]] = None):
@@ -302,75 +338,348 @@ class Model:
                             self.dist.tp, cfg.vocab)
         return s / (Bt * S_tot)
 
-    # ---- decoder stack (train) -----------------------------------------
+    def _logits(self, params, x):
+        """(B,S,d) -> (B,S,V) logits in the model's dtype."""
+        return tp_region_in(x, self.dist.tp) @ self._head_weight(params)
+
+    def _positions(self, x, pos0: int):
+        """x + the sinusoidal positions pos0 .. pos0+S-1 (no RoPE)."""
+        pos = pos0 + torch.arange(x.shape[1], device=x.device)
+        return x + sinusoid_positions(pos, self.cfg.d_model).to(x.dtype)[None]
+
+    # ---- stacks (train / prefill) ----------------------------------------
     def _run_stack(self, p_blocks, x, *, block_kind: str, pos_offset=0,
-                   causal=True, remat=True):
-        """x through every stacked layer of p_blocks -> (x, aux f32)."""
+                   causal=True, memory=None, collect_cache=0, remat=True):
+        """x through every stacked layer of p_blocks -> (x, aux f32, the
+        stacked cache or None). block_kind "decoder" or "ssm"."""
         cfg = self.cfg
-        if block_kind != "decoder":
-            raise not_ported(f"the {block_kind} stack", ITEM_3B)
         dist = self.dist
-        interleaved = cfg.n_experts and cfg.moe_every > 1
-        names = list(p_blocks)
-        layers = zip(*(p_blocks[k].unbind(0) for k in names))
+        if block_kind not in ("decoder", "ssm"):
+            raise ValueError(block_kind)
+        interleaved = (block_kind == "decoder" and cfg.n_experts
+                       and cfg.moe_every > 1)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
         def apply(g, x, idx):
             if interleaved:
-                ga = {k[2:]: v for k, v in g.items() if k.startswith("a_")}
-                gb = {k[2:]: v for k, v in g.items() if k.startswith("b_")}
+                ga, gb = _split_ab(g)
                 cfg_a = dataclasses.replace(cfg, n_experts=0)
-                x, aux_a, _ = B.decoder_block(
+                x, aux_a, ca = B.decoder_block(
                     ga, x, cfg_a, dist, window=self._layer_window(2 * idx),
                     pos_offset=pos_offset, causal=causal,
-                    use_rope=cfg.use_rope, tp_size=self.tp_size)
-                x, aux_b, _ = B.decoder_block(
+                    use_rope=cfg.use_rope, collect_cache=collect_cache,
+                    tp_size=self.tp_size)
+                x, aux_b, cb = B.decoder_block(
                     gb, x, cfg, dist, window=self._layer_window(2 * idx + 1),
                     pos_offset=pos_offset, causal=causal,
-                    use_rope=cfg.use_rope, tp_size=self.tp_size)
-                return x, aux_a + aux_b
-            x, aux, _ = B.decoder_block(
-                g, x, cfg, dist, window=self._layer_window(idx),
-                pos_offset=pos_offset, causal=causal, use_rope=cfg.use_rope,
-                tp_size=self.tp_size)
-            return x, aux
+                    use_rope=cfg.use_rope, collect_cache=collect_cache,
+                    tp_size=self.tp_size)
+                return x, aux_a + aux_b, ((ca, cb) if collect_cache
+                                          else None)
+            if block_kind == "decoder":
+                return B.decoder_block(
+                    g, x, cfg, dist, window=self._layer_window(idx),
+                    pos_offset=pos_offset, causal=causal,
+                    use_rope=cfg.use_rope, memory=memory,
+                    collect_cache=collect_cache, tp_size=self.tp_size)
+            h = apply_norm(g, "norm_in", x, cfg, dist)
+            if collect_cache:
+                out, state = mamba2_block(g, h, cfg, dist, return_state=True)
+                return x + out, zero, _ssm_cache(state)
+            return x + mamba2_block(g, h, cfg, dist), zero, None
 
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for idx, leaves in enumerate(layers):
-            g = dict(zip(names, leaves))
+        aux = zero
+        caches = []
+        for idx, g in enumerate(_layers(p_blocks)):
             if remat and torch.is_grad_enabled():
-                x, aux_l = checkpoint.checkpoint(apply, g, x, idx,
-                                                 use_reentrant=False)
+                x, aux_l, cache = checkpoint.checkpoint(
+                    apply, g, x, idx, use_reentrant=False)
             else:
-                x, aux_l = apply(g, x, idx)
+                x, aux_l, cache = apply(g, x, idx)
             aux = aux + aux_l
-        return x, aux
+            caches.append(cache)
+        return x, aux, (_stack(caches) if collect_cache else None)
+
+    # ---- hybrid (zamba2) stack ------------------------------------------
+    def _run_hybrid(self, params, x, *, collect_cache=0, remat=True):
+        """Groups of attn_every Mamba2 layers, each followed by the shared
+        attention block, then the tail layers -> (x, cache or None)."""
+        cfg, dist = self.cfg, self.dist
+        k_per = cfg.attn_every
+        Gn = cfg.n_layers // k_per
+        layers = _layers(params["blocks"])
+        cfg_a = dataclasses.replace(cfg, n_experts=0)
+
+        def group(x, gidx):
+            mcaches = []
+            for g in layers[gidx * k_per:(gidx + 1) * k_per]:
+                h = apply_norm(g, "norm_in", x, cfg, dist)
+                if collect_cache:
+                    out, state = mamba2_block(g, h, cfg, dist,
+                                              return_state=True)
+                    mcaches.append(_ssm_cache(state))
+                else:
+                    out = mamba2_block(g, h, cfg, dist)
+                x = x + out
+            x, _, acache = B.decoder_block(
+                params["shared"], x, cfg_a, dist, window=cfg.sliding_window,
+                causal=True, use_rope=cfg.use_rope,
+                collect_cache=collect_cache, tp_size=self.tp_size)
+            return x, ((_stack(mcaches), acache) if collect_cache else None)
+
+        caches = []
+        for gidx in range(Gn):
+            if remat and torch.is_grad_enabled():
+                x, c = checkpoint.checkpoint(group, x, gidx,
+                                             use_reentrant=False)
+            else:
+                x, c = group(x, gidx)
+            caches.append(c)
+        tail = None
+        if "tail_blocks" in params:
+            x, _, tail = self._run_stack(params["tail_blocks"], x,
+                                         block_kind="ssm",
+                                         collect_cache=collect_cache,
+                                         remat=remat)
+        if not collect_cache:
+            return x, None
+        return x, {"mamba": _stack([m for m, _ in caches]),
+                   "attn": _stack([a for _, a in caches]), "tail": tail}
 
     # ---- top-level forward: train loss ----------------------------------
+    def _embed_input(self, params, batch):
+        """Token embeddings, the VLM's patch embeddings over the first
+        positions, and sinusoidal positions when the arch has no RoPE."""
+        cfg = self.cfg
+        x = self._embed(params, batch["tokens"])
+        if cfg.arch_type == "vlm":
+            patches = batch["patch_embeds"].to(x.dtype)
+            x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
+        if not cfg.use_rope:
+            x = self._positions(x, 0)
+        return x
+
     def loss(self, params, batch, key=None, comp=None, remat: bool = True):
         """Mean next-token cross-entropy + 0.01 x the MoE aux loss. `key`
         and `comp` are the reference's (they drive its FSDP gradient hook,
         which one device does not have)."""
         cfg = self.cfg
-        if cfg.arch_type not in ("dense", "moe", "vlm"):
-            raise not_ported(f"the {cfg.arch_type} family's loss", ITEM_3B)
-        tokens = batch["tokens"]
-        x = self._embed(params, tokens)
-        if cfg.arch_type == "vlm":
-            patches = batch["patch_embeds"].to(x.dtype)
-            x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
-        if not cfg.use_rope:
-            pos = torch.arange(x.shape[1], device=x.device)
-            x = x + sinusoid_positions(pos, cfg.d_model).to(x.dtype)[None]
-        x, aux = self._run_stack(params["blocks"], x, block_kind="decoder",
-                                 remat=remat)
+        if cfg.arch_type == "audio":
+            return self._loss_audio(params, batch, remat)
+        x = self._embed_input(params, batch)
+        if cfg.arch_type in ("dense", "moe", "vlm"):
+            x, aux, _ = self._run_stack(params["blocks"], x,
+                                        block_kind="decoder", remat=remat)
+        elif cfg.arch_type == "ssm":
+            x, aux, _ = self._run_stack(params["blocks"], x,
+                                        block_kind="ssm", remat=remat)
+        elif cfg.arch_type == "hybrid":
+            x, _ = self._run_hybrid(params, x, remat=remat)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        else:
+            raise ValueError(cfg.arch_type)
         return self._lm_loss(params, x, batch["targets"]) + 0.01 * aux
 
-    # ---- the serving path: ROADMAP Queue 1 item 3b -----------------------
-    def prefill(self, *args, **kwargs):
-        raise not_ported("Model.prefill", ITEM_3B)
+    def _loss_audio(self, params, batch, remat):
+        mem = self._encode_audio(params, batch["frames"], remat)
+        x = self._positions(self._embed(params, batch["tokens"]), 0)
+        x, _, _ = self._run_stack(params["decoder_blocks"], x,
+                                  block_kind="decoder", memory=mem,
+                                  remat=remat)
+        return self._lm_loss(params, x, batch["targets"])
 
-    def decode_step(self, *args, **kwargs):
-        raise not_ported("Model.decode_step", ITEM_3B)
+    def _encode_audio(self, params, frames, remat):
+        """The encoder over the frame embeddings (non-causal) -> memory."""
+        cfg = self.cfg
+        x = frames.to(torch_dtype(cfg.dtype)) + params["enc_pos"][None]
+        x, _, _ = self._run_stack(params["encoder_blocks"], x,
+                                  block_kind="decoder", causal=False,
+                                  remat=remat)
+        return apply_norm(params, "enc_final_norm", x, cfg)
 
-    def init_cache(self, *args, **kwargs):
-        raise not_ported("Model.init_cache", ITEM_3B)
+    # ---- prefill ---------------------------------------------------------
+    @torch.inference_mode()
+    def prefill(self, params, batch, key=None, remat: bool = True,
+                cache_len: int = None):
+        """Forward over the prompt -> (last position's logits (B,V), cache).
+        cache_len: the cache's capacity (>= the prompt, so generated tokens
+        have slots); defaults to the prompt length. `key` and `remat` are
+        the reference's (no gradient runs here)."""
+        cfg = self.cfg
+        S = batch["tokens"].shape[1]
+        clen = self.cache_len(cache_len or S)
+        if cfg.arch_type == "audio":
+            mem = self._encode_audio(params, batch["frames"], remat)
+            x = self._positions(self._embed(params, batch["tokens"]), 0)
+            x, _, caches = self._run_stack(
+                params["decoder_blocks"], x, block_kind="decoder",
+                memory=mem, collect_cache=clen)
+            caches = {"self": caches, "memory": mem}
+        else:
+            x = self._embed_input(params, batch)
+            if cfg.arch_type in ("dense", "moe", "vlm"):
+                x, _, caches = self._run_stack(
+                    params["blocks"], x, block_kind="decoder",
+                    collect_cache=clen)
+            elif cfg.arch_type == "ssm":
+                x, _, caches = self._run_stack(
+                    params["blocks"], x, block_kind="ssm", collect_cache=clen)
+            elif cfg.arch_type == "hybrid":
+                x, caches = self._run_hybrid(params, x, collect_cache=clen)
+            else:
+                raise ValueError(cfg.arch_type)
+        x = apply_norm(params, "final_norm", x[:, -1:], cfg)
+        return self._logits(params, x)[:, 0], caches
+
+    # ---- decode ----------------------------------------------------------
+    @torch.inference_mode()
+    def decode_step(self, params, token: torch.Tensor, pos, cache,
+                    memory: Optional[torch.Tensor] = None):
+        """token (B,) int; pos the position of token, a Python int or a
+        0-d tensor (read once; on the card that waits for it, so a serving
+        loop advances a host int). Writes the token into `cache` in place
+        -> (logits (B,V), cache)."""
+        cfg, dist = self.cfg, self.dist
+        pos = int(pos)
+        x = self._embed(params, token[:, None])
+        if not cfg.use_rope:
+            x = self._positions(x, pos)
+
+        if cfg.arch_type in ("dense", "moe", "vlm", "audio"):
+            audio = cfg.arch_type == "audio"
+            p_blocks = params["decoder_blocks" if audio else "blocks"]
+            mem = cache["memory"] if audio else memory
+            layer_caches = cache["self"] if audio else cache
+            interleaved = cfg.n_experts and cfg.moe_every > 1
+            cfg_a = dataclasses.replace(cfg, n_experts=0)
+            for idx, g in enumerate(_layers(p_blocks)):
+                c = _row(layer_caches, idx)
+                if interleaved:
+                    ga, gb = _split_ab(g)
+                    x, _ = B.decoder_block_decode(
+                        ga, x, c[0], pos, cfg_a, dist,
+                        window=self._layer_window(2 * idx))
+                    x, _ = B.decoder_block_decode(
+                        gb, x, c[1], pos, cfg, dist,
+                        window=self._layer_window(2 * idx + 1))
+                else:
+                    x, _ = B.decoder_block_decode(
+                        g, x, c, pos, cfg, dist,
+                        window=self._layer_window(idx), memory=mem)
+        elif cfg.arch_type == "ssm":
+            x = self._decode_ssm(params["blocks"], x, cache)
+        elif cfg.arch_type == "hybrid":
+            x = self._decode_hybrid(params, x, pos, cache)
+        else:
+            raise ValueError(cfg.arch_type)
+        x = apply_norm(params, "final_norm", x, cfg)
+        return self._logits(params, x)[:, 0], cache
+
+    def _decode_ssm(self, p_blocks, x, cache):
+        """One token through stacked Mamba2 layers, states in place."""
+        cfg, dist = self.cfg, self.dist
+        for idx, g in enumerate(_layers(p_blocks)):
+            c = _row(cache, idx)
+            h = apply_norm(g, "norm_in", x, cfg)
+            out, _ = mamba2_decode(g, h, (c["conv_x"], c["conv_bc"]),
+                                   c["ssm"], cfg, dist)
+            x = x + out
+        return x
+
+    def _decode_hybrid(self, params, x, pos, cache):
+        cfg, dist = self.cfg, self.dist
+        k_per = cfg.attn_every
+        Gn = cfg.n_layers // k_per
+        cfg_a = dataclasses.replace(cfg, n_experts=0)
+        layers = _layers(params["blocks"])
+        for gidx in range(Gn):
+            mc = _row(cache["mamba"], gidx)
+            for j, g in enumerate(layers[gidx * k_per:(gidx + 1) * k_per]):
+                c = _row(mc, j)
+                h = apply_norm(g, "norm_in", x, cfg)
+                out, _ = mamba2_decode(g, h, (c["conv_x"], c["conv_bc"]),
+                                       c["ssm"], cfg, dist)
+                x = x + out
+            x, _ = B.decoder_block_decode(
+                params["shared"], x, _row(cache["attn"], gidx), pos, cfg_a,
+                dist, window=cfg.sliding_window)
+        if cache.get("tail") is not None:
+            x = self._decode_ssm(params["tail_blocks"], x, cache["tail"])
+        return x
+
+    # ---- cache layouts ----------------------------------------------------
+    def cache_len(self, seq_len: int) -> int:
+        """Slots a layer's cache holds: a pure sliding-window arch keeps a
+        ring of at most its window."""
+        cfg = self.cfg
+        if cfg.sliding_window > 0 and cfg.swa_pattern == 0:
+            return min(seq_len, cfg.sliding_window)
+        return seq_len
+
+    def _attn_cache_sds(self, L, batch, clen, dtype):
+        cfg = self.cfg
+
+        def sd(shape, dt):
+            return torch.empty(shape, dtype=dt, device="meta")
+        if cfg.attention == "mla":
+            return {"ckv": sd((L, batch, 1, clen, cfg.kv_lora_rank), dtype),
+                    "krope": sd((L, batch, 1, clen, cfg.qk_rope_dim), dtype),
+                    "slot_pos": sd((L, clen), torch.int32)}
+        int8 = cfg.kv_cache_dtype == "int8"
+        kdt = torch.int8 if int8 else dtype
+        kv = (L, batch, cfg.n_kv_heads, clen, cfg.d_head)
+        out = {"k": sd(kv, kdt), "v": sd(kv, kdt),
+               "slot_pos": sd((L, clen), torch.int32)}
+        if int8:
+            out["k_scale"] = sd(kv[:-1], torch.float32)
+            out["v_scale"] = sd(kv[:-1], torch.float32)
+        return out
+
+    def _ssm_cache_sds(self, lead, batch, dtype):
+        cfg = self.cfg
+        d_in = cfg.ssm_expand * cfg.d_model
+        nh = d_in // cfg.ssm_head_dim
+        N, K, G = cfg.ssm_state, cfg.ssm_conv, cfg.ssm_groups
+
+        def sd(shape, dt):
+            return torch.empty(lead + shape, dtype=dt, device="meta")
+        return {"conv_x": sd((batch, K - 1, d_in), dtype),
+                "conv_bc": sd((batch, K - 1, 2 * G * N), dtype),
+                "ssm": sd((batch, nh, cfg.ssm_head_dim, N), torch.float32)}
+
+    def cache_shapes(self, seq_len: int, batch: int):
+        """The cache's tree as meta tensors (the reference's
+        ShapeDtypeStructs): shapes and dtypes, no storage."""
+        cfg = self.cfg
+        dtype = torch_dtype(cfg.dtype)
+        clen = self.cache_len(seq_len)
+        L = cfg.n_layers
+        if cfg.arch_type in ("dense", "moe", "vlm"):
+            if cfg.n_experts and cfg.moe_every > 1:
+                return (self._attn_cache_sds(L // 2, batch, clen, dtype),
+                        self._attn_cache_sds(L // 2, batch, clen, dtype))
+            return self._attn_cache_sds(L, batch, clen, dtype)
+        if cfg.arch_type == "ssm":
+            return self._ssm_cache_sds((L,), batch, dtype)
+        if cfg.arch_type == "hybrid":
+            Gn = L // cfg.attn_every
+            tail = L - Gn * cfg.attn_every
+            return {"mamba": self._ssm_cache_sds((Gn, cfg.attn_every), batch,
+                                                 dtype),
+                    "attn": self._attn_cache_sds(Gn, batch, clen, dtype),
+                    "tail": (self._ssm_cache_sds((tail,), batch, dtype)
+                             if tail else None)}
+        if cfg.arch_type == "audio":
+            return {"self": self._attn_cache_sds(L, batch, clen, dtype),
+                    "memory": torch.empty((batch, cfg.frontend_seq,
+                                           cfg.d_model), dtype=dtype,
+                                          device="meta")}
+        raise ValueError(cfg.arch_type)
+
+    def init_cache(self, seq_len: int, batch: int, device="cuda"):
+        """An empty cache on `device`: zeros, slot_pos = -1 (slot_pos are
+        a cache's only int32 leaves)."""
+        dev = resolve_device(device)
+        return map_tree(lambda s: torch.full(
+            s.shape, -1 if s.dtype == torch.int32 else 0, dtype=s.dtype,
+            device=dev), self.cache_shapes(seq_len, batch))

@@ -460,39 +460,33 @@ def test_params_from_jax_bf16_bitwise():
 # ---- what this slice leaves out ------------------------------------------------
 
 def test_unported_paths_name_their_queue_item():
-    from repro_torch import random as R
-    from repro_torch.configs import get_smoke
-    from repro_torch.models import DistConfig, Model
-    from repro_torch.models import blocks
+    from repro_torch.launch import serve
+    from repro_torch.models import DistConfig
     for kw in ({"tp": "model"}, {"fsdp": "data", "dp": ("data",)},
                {"sp": True}):
         with pytest.raises(NotImplementedError, match=r"Queue 1, item 4 \("):
             DistConfig(**kw)
     with pytest.raises(ValueError, match="last dp axis"):
         DistConfig(fsdp="data")
-    for arch in ("mamba2-1.3b", "zamba2-7b", "whisper-base"):
-        m = Model(get_smoke(arch), DistConfig())
-        with pytest.raises(NotImplementedError, match=r"item 3b \("):
-            m.loss({}, {}, R.key(0))
-    m = Model(get_smoke("llama3-405b"), DistConfig())
-    for call in (m.prefill, m.decode_step, m.init_cache):
-        with pytest.raises(NotImplementedError, match=r"item 3b \("):
-            call()
-    x = torch.zeros((1, 2, 128))
-    with pytest.raises(NotImplementedError, match=r"item 3b \("):
-        blocks.decoder_block({}, x, get_smoke("llama3-405b"), DistConfig(),
-                             memory=x)
-    with pytest.raises(NotImplementedError, match=r"item 3b \("):
-        blocks.gqa_attention({}, x, get_smoke("llama3-405b"), DistConfig(),
-                             collect_cache=4)
-    with pytest.raises(NotImplementedError, match=r"item 3b \("):
-        m._run_stack({}, x, block_kind="ssm")
+    base = ["--arch", "phi4-mini-3.8b", "--smoke", "--device", "cpu"]
+    for extra in (["--data", "2"], ["--model", "2"]):
+        with pytest.raises(NotImplementedError, match=r"Queue 1, item 4 \("):
+            serve.main(base + extra)
+    for extra in (["--trace-out", "t.json"], ["--metrics-out", "m.jsonl"]):
+        with pytest.raises(NotImplementedError, match=r"Queue 1, item 6 \("):
+            serve.main(base + extra)
 
 
 def test_model_refuses_cuda_without_a_card():
     from repro_torch import random as R
     from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve
     from repro_torch.models import DistConfig, Model
     assert not torch.cuda.is_available()
+    m = Model(get_smoke("llama3-405b"), DistConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        Model(get_smoke("llama3-405b"), DistConfig()).init(R.key(0))
+        m.init(R.key(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        m.init_cache(8, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "llama3-405b", "--smoke"])

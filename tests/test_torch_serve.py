@@ -1,0 +1,406 @@
+"""The port's serving path on one device (models/layers.py's cache
+functions, the blocks' cache and decode paths, Model.prefill /
+decode_step / init_cache, launch/serve.py) against the jitted reference,
+on the CPU.
+
+Params come from the reference's init (params_from_jax), inputs from
+numpy seeds; a reference cache enters the port through cache_from_jax.
+
+Tolerances (ROADMAP Queue 3, item 12), with the largest errors seen:
+  - quantize_kv, cache_write (contiguous and ring, slot_pos included),
+    pack_request's bytes: bitwise;
+  - splitkv_decode (f32 and int8 caches, windows) and MLA decode on the
+    reference's cache: within 1e-6 relative plus 1e-6 of max |o| (seen
+    2.8e-7 of max |o|);
+  - all ten archs' smoke configs, phi4-mini with an 8-token ring and
+    llama3 with an int8 cache: prefill logits within 1e-5 of max |logit|
+    (seen 4.1e-6, zamba2), every k / v / latent / SSM cache leaf within
+    1e-5 of its max (seen 4.1e-6), slot_pos bitwise; two decode steps each
+    from the reference's own cache within 1e-5 (seen 9.1e-7); the same two
+    steps chained from the port's own prefill within 1e-4 (logits 2.2e-6,
+    cache 4.1e-6);
+  - the serve loop, teacher-forced on the reference's greedy tokens: each
+    step's logits within 1e-4 of max |logit| (seen 8.2e-7).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_ref import jkey, reference
+
+SERVE_MODULES = ("repro.models.model", "repro.models.layers",
+                 "repro.models.blocks", "repro.configs.registry",
+                 "repro.models.config", "repro.launch.serve")
+ARCHS = ["qwen3-moe-235b-a22b", "llama3-405b", "phi4-mini-3.8b", "zamba2-7b",
+         "whisper-base", "internvl2-2b", "granite-20b", "minicpm3-4b",
+         "mamba2-1.3b", "llama4-maverick-400b-a17b"]
+CASES = [(a, None) for a in ARCHS] + [("phi4-mini-3.8b", "ring"),
+                                      ("llama3-405b", "int8")]
+B, S = 2, 12
+
+
+def serve_reference():
+    return reference(*SERVE_MODULES)
+
+
+def _variant(jcfg, variant):
+    if variant == "ring":   # a pure sliding window shorter than the prompt
+        return dataclasses.replace(jcfg, sliding_window=8, swa_pattern=0)
+    if variant == "int8":
+        return dataclasses.replace(jcfg, kv_cache_dtype="int8")
+    return jcfg
+
+
+def _port(jcfg):
+    from repro_torch.models import DistConfig, Model
+    from repro_torch.models.config import ModelConfig
+    return Model(ModelConfig(**dataclasses.asdict(jcfg)), DistConfig())
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _f32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(torch.float32).numpy()
+    return np.asarray(a, np.float32)
+
+
+def _close_to_max(got, want, frac, what=""):
+    got, want = _f32(got), _f32(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    bound = frac * max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max())
+    assert err <= bound, (what, err, bound)
+
+
+def _cache_close(got, want, frac, what):
+    """Every leaf of a port cache against a reference cache (numpy):
+    slot_pos and int8 leaves bitwise, the rest within frac of their max."""
+    from repro_torch.convert import map_tree
+
+    def one(g, w):
+        w = np.asarray(w)
+        assert tuple(g.shape) == w.shape, (what, g.shape, w.shape)
+        if g.dtype in (torch.int32, torch.int8):
+            assert np.array_equal(g.numpy(), w), what
+        else:
+            _close_to_max(g, w, frac, what)
+    map_tree(one, got, want)
+
+
+def _batch(jcfg, seed, S_):
+    rng = np.random.default_rng(seed)
+    b = {"tokens": rng.integers(0, jcfg.vocab, (B, S_)).astype(np.int32)}
+    if jcfg.arch_type == "vlm":
+        b["patch_embeds"] = (0.02 * rng.standard_normal(
+            (B, jcfg.frontend_seq, jcfg.d_model))).astype(np.float32)
+    if jcfg.arch_type == "audio":
+        b["frames"] = (0.02 * rng.standard_normal(
+            (B, jcfg.frontend_seq, jcfg.d_model))).astype(np.float32)
+    return b
+
+
+# ---- layers: int8 quantization, cache writes, split-KV decode -----------------
+
+def test_quantize_kv_bitwise():
+    from repro_torch.models import layers
+    rng = np.random.default_rng(0)
+    xs = [rng.standard_normal((3, 4, 32)).astype(np.float32),
+          (rng.standard_normal((2, 2, 5, 24)) * 1e-3).astype(np.float32),
+          np.round(rng.standard_normal((2, 3, 16)) * 4).astype(np.float32)]
+    xs[0][0, 0] = 0.0                              # an all-zero vector
+    xs[2][1, 2, :8] = 127.0 / 254.0 * 3            # halfway cases
+    with serve_reference() as ref:
+        for x in xs:
+            wq, ws = jax.jit(ref.layers.quantize_kv)(x)
+            q, s = layers.quantize_kv(torch.from_numpy(x))
+            assert q.dtype == torch.int8 and s.dtype == torch.float32
+            assert np.array_equal(q.numpy(), np.asarray(wq))
+            assert np.array_equal(s.numpy().view(np.uint32),
+                                  np.asarray(ws).view(np.uint32))
+
+
+@pytest.mark.parametrize("ring", [0, 4])
+def test_cache_write_bitwise(ring):
+    """Eight writes of one token each into a 5-slot cache: the contiguous
+    layout leaves positions past its end unwritten, the ring wraps."""
+    from repro_torch.models import layers
+    from repro_torch.models.dist import DistConfig
+    rng = np.random.default_rng(ring)
+    Ss = 4 if ring else 5
+    cache = rng.standard_normal((2, 3, Ss, 8)).astype(np.float32)
+    spos = np.full((Ss,), -1, np.int32)
+    news = rng.standard_normal((8, 2, 3, 8)).astype(np.float32)
+    with serve_reference() as ref:
+        write = jax.jit(lambda c, s, n, p: ref.layers.cache_write(
+            c, s, n, p, ref.model.DistConfig(), ring_size=ring))
+        wc, ws = jnp.asarray(cache), jnp.asarray(spos)
+        tc, ts = torch.from_numpy(cache.copy()), torch.from_numpy(spos.copy())
+        for pos in range(8):
+            wc, ws = write(wc, ws, news[pos], jnp.int32(pos))
+            c2, s2 = layers.cache_write(tc, ts, torch.from_numpy(news[pos]),
+                                        pos, DistConfig(), ring_size=ring)
+            assert c2 is tc and s2 is ts          # in place
+            assert np.array_equal(tc.numpy(), np.asarray(wc)), pos
+            assert np.array_equal(ts.numpy(), np.asarray(ws)), pos
+
+
+@pytest.mark.parametrize("int8,window,n_kv", [(False, 0, 2), (False, 5, 1),
+                                               (True, 0, 2), (True, 3, 4)])
+def test_splitkv_decode_matches_reference(int8, window, n_kv):
+    from repro_torch.models import layers
+    from repro_torch.models.dist import DistConfig
+    rng = np.random.default_rng(n_kv + 10 * window)
+    Bq, H, dh, Ss, pos = 3, 4, 16, 12, 9
+    q = rng.standard_normal((Bq, H, dh)).astype(np.float32)
+    k = rng.standard_normal((Bq, n_kv, Ss, dh)).astype(np.float32)
+    v = rng.standard_normal((Bq, n_kv, Ss, dh)).astype(np.float32)
+    spos = np.where(np.arange(Ss) <= pos, np.arange(Ss), -1).astype(np.int32)
+    spos[3] = -1                                   # an empty slot
+    kw = {}
+    with serve_reference() as ref:
+        if int8:
+            kq, ks = jax.jit(ref.layers.quantize_kv)(k)
+            vq, vs = jax.jit(ref.layers.quantize_kv)(v)
+            k, v = np.array(kq), np.array(vq)
+            kw = {"k_scale": np.array(ks), "v_scale": np.array(vs)}
+        want = jax.jit(lambda q, k, v, s, p, **kw: ref.layers.splitkv_decode(
+            q, k, v, s, p, dist=ref.model.DistConfig(), n_heads=H,
+            n_kv=n_kv, window=window, **kw))(q, k, v, spos, jnp.int32(pos),
+                                             **kw)
+    got = layers.splitkv_decode(
+        *map(torch.from_numpy, (q, k, v, spos)), pos, dist=DistConfig(),
+        n_heads=H, n_kv=n_kv, window=window,
+        **{n: torch.from_numpy(a) for n, a in kw.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6 * float(np.abs(want).max()))
+
+
+def test_mla_decode_on_reference_cache():
+    """minicpm3's absorbed MLA decode, layer 0 of the smoke config, on a
+    reference prefill's latent cache."""
+    from repro_torch.convert import cache_from_jax, params_from_jax
+    from repro_torch.models import blocks
+    from repro_torch.models.dist import DistConfig
+    rng = np.random.default_rng(4)
+    with serve_reference() as ref:
+        jcfg = ref.registry.get_smoke("minicpm3-4b")
+        jm = ref.model.Model(jcfg, ref.model.DistConfig())
+        p0 = jax.tree_util.tree_map(lambda w: w[0], jm.init(jkey(0))["blocks"])
+        x = rng.standard_normal((B, S, jcfg.d_model)).astype(np.float32)
+        _, jc = jax.jit(lambda p, x: ref.blocks.mla_attention(
+            p, x, jcfg, ref.model.DistConfig(), collect_cache=S + 1))(p0, x)
+        x1 = rng.standard_normal((B, 1, jcfg.d_model)).astype(np.float32)
+        want, wc = jax.jit(lambda p, x, c, pos: ref.blocks.mla_attention_decode(
+            p, x, c, pos, jcfg, ref.model.DistConfig()))(p0, x1, jc,
+                                                          jnp.int32(S))
+    cfg = _port(jcfg).cfg
+    tp = params_from_jax(_np(p0), device="cpu")
+    tc = cache_from_jax(_np(jc), device="cpu")
+    got, gc = blocks.mla_attention_decode(tp, torch.from_numpy(x1), tc, S,
+                                          cfg, DistConfig())
+    assert gc is tc
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6 * float(np.abs(want).max()))
+    _cache_close(gc, _np(wc), 1e-6, "mla cache")
+
+
+# ---- the model: prefill and two decode steps, every arch -------------------------
+
+@pytest.fixture(scope="module")
+def reference_serving():
+    """Every CASES reference run, jitted once for the module: (config,
+    params, batch, prompt length, decode tokens, prefill (logits, cache),
+    then (logits, cache) after each decode step), caches as numpy."""
+    out = {}
+    with serve_reference() as ref:
+        for arch, variant in CASES:
+            jcfg = _variant(ref.registry.get_smoke(arch), variant)
+            S_ = 11 if variant == "ring" else S
+            jm = ref.model.Model(jcfg, ref.model.DistConfig())
+            jp = jm.init(jkey(0))
+            b = _batch(jcfg, 1, S_)
+            rng = np.random.default_rng(2)
+            toks = [rng.integers(0, jcfg.vocab, (B,)).astype(np.int32)
+                    for _ in range(2)]
+            pre = jax.jit(lambda p, b: jm.prefill(p, b, jkey(1),
+                                                  cache_len=S_ + 2))
+            dec = jax.jit(jm.decode_step)
+            steps = [pre(jp, b)]
+            for t, tok in enumerate(toks):
+                steps.append(dec(jp, tok, jnp.int32(S_ + t), steps[-1][1]))
+            out[(arch, variant)] = (jcfg, _np(jp), b, S_, toks,
+                                    [(np.asarray(l), _np(c))
+                                     for l, c in steps])
+    return out
+
+
+@pytest.mark.parametrize("arch,variant", CASES)
+def test_prefill_and_decode_match_reference(arch, variant, reference_serving):
+    from repro_torch.convert import cache_from_jax, params_from_jax
+    jcfg, jp, b, S_, toks, steps = reference_serving[(arch, variant)]
+    m = _port(jcfg)
+    tp = params_from_jax(jp, device="cpu")
+    logits, cache = m.prefill(tp, {k: torch.from_numpy(v)
+                                   for k, v in b.items()}, cache_len=S_ + 2)
+    _close_to_max(logits, steps[0][0], 1e-5, "prefill logits")
+    _cache_close(cache, steps[0][1], 1e-5, "prefill cache")
+    for t, tok in enumerate(toks):
+        # from the reference's own cache
+        l_ref, c_ref = m.decode_step(tp, torch.from_numpy(tok), S_ + t,
+                                     cache_from_jax(steps[t][1], "cpu"))
+        _close_to_max(l_ref, steps[t + 1][0], 1e-5, f"step {t} (ref cache)")
+        _cache_close(c_ref, steps[t + 1][1], 1e-5, f"step {t} cache")
+        # chained from the port's own prefill
+        logits, cache = m.decode_step(tp, torch.from_numpy(tok),
+                                      torch.tensor(S_ + t), cache)
+        _close_to_max(logits, steps[t + 1][0], 1e-4, f"step {t} (chained)")
+    _cache_close(cache, steps[-1][1], 1e-4, "chained cache")
+
+
+def test_ring_cache_reproduces_the_reference(reference_serving):
+    """A pure sliding-window model (phi4 smoke, window 8) prefilled with
+    11 tokens keeps positions 0..7 in its ring, not the last 8, in the
+    reference and in the port (ROADMAP Queue 3): the next step's logits
+    then differ from a full prefill's by about the logits' own size. The
+    port reproduces the reference on purpose."""
+    from repro_torch.convert import params_from_jax
+    jcfg, jp, b, S_, toks, steps = reference_serving[("phi4-mini-3.8b",
+                                                      "ring")]
+    assert S_ == 11
+    assert np.array_equal(steps[0][1]["slot_pos"],
+                          np.tile(np.arange(8), (2, 1)))
+    m = _port(jcfg)
+    tp = params_from_jax(jp, device="cpu")
+    tb = {k: torch.from_numpy(v) for k, v in b.items()}
+    _, cache = m.prefill(tp, tb, cache_len=S_ + 2)
+    assert torch.equal(cache["slot_pos"],
+                       torch.arange(8, dtype=torch.int32).repeat(2, 1))
+    step, _ = m.decode_step(tp, torch.from_numpy(toks[0]), S_, cache)
+    full, _ = m.prefill(tp, {"tokens": torch.cat(
+        [tb["tokens"], torch.from_numpy(toks[0])[:, None]], 1)})
+    _close_to_max(step, steps[1][0], 1e-5, "ring step")
+    gap = float((step - full).abs().max())
+    assert gap > 0.5 * float(full.abs().max()), gap
+    # without the window the step equals the full prefill's last logits
+    m0 = _port(dataclasses.replace(jcfg, sliding_window=0))
+    _, c0 = m0.prefill(tp, tb, cache_len=S_ + 2)
+    s0, _ = m0.decode_step(tp, torch.from_numpy(toks[0]), S_, c0)
+    f0, _ = m0.prefill(tp, {"tokens": torch.cat(
+        [tb["tokens"], torch.from_numpy(toks[0])[:, None]], 1)})
+    _close_to_max(s0, f0, 1e-5, "no window")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cache_shapes_and_init_cache_match_reference(arch):
+    from repro_torch.convert import map_tree
+    with serve_reference() as ref:
+        for jcfg in (ref.registry.get_smoke(arch),
+                     _variant(ref.registry.get_smoke(arch), "int8"),
+                     ref.registry.get_config(arch)):
+            jm = ref.model.Model(jcfg, ref.model.DistConfig())
+            m = _port(jcfg)
+            want = jm.cache_shapes(40, 3)
+            got = m.cache_shapes(40, 3)
+            assert jax.tree_util.tree_structure(
+                jax.tree_util.tree_map(lambda s: 0, want)) == \
+                jax.tree_util.tree_structure(map_tree(lambda s: 0, got))
+            for g, w in zip(jax.tree_util.tree_leaves(got),
+                            jax.tree_util.tree_leaves(want)):
+                assert tuple(g.shape) == w.shape and g.device.type == "meta"
+                assert g.dtype == {"int8": torch.int8, "int32": torch.int32,
+                                   "float32": torch.float32,
+                                   "bfloat16": torch.bfloat16}[w.dtype.name]
+        jcfg = ref.registry.get_smoke(arch)
+        jcache = _np(ref.model.Model(jcfg, ref.model.DistConfig())
+                     .init_cache(9, 2))
+    _cache_close(_port(jcfg).init_cache(9, 2, device="cpu"), jcache, 0.0,
+                 "init_cache")
+
+
+def test_full_width_cache_bytes():
+    """The caches chip_smoke phase 10 serves at full width: phi4-mini at
+    8 x (512 + 64) positions and mamba2-1.3b at batch 8 (meta tensors)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import DistConfig, Model
+
+    def nbytes(tree):
+        return {k: v.numel() * v.element_size() for k, v in tree.items()}
+    phi = nbytes(Model(get_config("phi4-mini-3.8b"), DistConfig())
+                 .cache_shapes(576, 8))
+    assert phi["k"] + phi["v"] == 603_979_776
+    assert phi["slot_pos"] == 32 * 576 * 4
+    mam = nbytes(Model(get_config("mamba2-1.3b"), DistConfig())
+                 .cache_shapes(576, 8))
+    assert mam == {"ssm": 48 * 8 * 64 * 64 * 128 * 4,
+                   "conv_x": 48 * 8 * 3 * 4096 * 2,
+                   "conv_bc": 48 * 8 * 3 * 256 * 2}
+    assert sum(mam.values()) == 815_333_376
+
+
+# ---- the serve launcher ------------------------------------------------------------
+
+def test_pack_request_bytes_equal_reference():
+    from repro_torch.launch import serve
+    rng = np.random.default_rng(6)
+    tok = rng.integers(0, 200_064, (5,)).astype(np.int32)
+    with serve_reference() as ref:
+        want = np.asarray(ref.serve.pack_request(jnp.asarray(tok),
+                                                 jnp.int32(513)))
+    for pos in (513, torch.tensor(513)):
+        got = serve.pack_request(torch.from_numpy(tok), pos)
+        assert got.dtype == torch.uint8
+        assert np.array_equal(got.numpy(), want)
+    back = serve.unpack_request(got)
+    assert torch.equal(back["token"], torch.from_numpy(tok))
+    assert int(back["pos"]) == 513
+
+
+def test_serve_main_runs_on_the_cpu(capsys):
+    from repro_torch.launch import serve
+    assert serve.main(["--arch", "phi4-mini-3.8b", "--smoke", "--device",
+                       "cpu", "--batch", "2", "--prompt", "6",
+                       "--gen", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "arch=phi4-smoke device=cpu batch=2" in out
+    assert "ms/token" in out and "sample continuation" in out
+
+
+def test_serve_teacher_forced_matches_reference():
+    """The serve loop (prefill, the wire round trip, greedy decode) on the
+    reference's params and prompts, fed the reference's own greedy
+    tokens: each step's logits within 1e-4 of max |logit|."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch import serve
+    gen, S_ = 5, 7
+    with serve_reference() as ref:
+        jcfg = ref.registry.get_smoke("phi4-mini-3.8b")
+        jm = ref.model.Model(jcfg, ref.model.DistConfig())
+        jp = jm.init(jkey(3))
+        b = _batch(jcfg, 5, S_)
+        logits, cache = jax.jit(lambda p, b: jm.prefill(
+            p, b, jkey(1), cache_len=S_ + gen))(jp, b)
+        dec = jax.jit(jm.decode_step)
+        want = [np.asarray(logits)]
+        toks = [np.asarray(jnp.argmax(logits, -1)).astype(np.int32)]
+        for t in range(gen - 1):
+            logits, cache = dec(jp, jnp.asarray(toks[-1]),
+                                jnp.int32(S_ + t), cache)
+            want.append(np.asarray(logits))
+            toks.append(np.asarray(jnp.argmax(logits, -1)).astype(np.int32))
+    m = _port(jcfg)
+    res = serve.generate(m, params_from_jax(_np(jp), device="cpu"),
+                         {"tokens": torch.from_numpy(b["tokens"])}, gen,
+                         forced=torch.from_numpy(np.stack(toks, 1)),
+                         keep_logits=True)
+    assert res["tokens"].shape == (B, gen)
+    assert len(res["logits"]) == gen
+    for t, (g, w) in enumerate(zip(res["logits"], want)):
+        _close_to_max(g, w, 1e-4, f"step {t}")
+    assert res["prefill_ms"] > 0 and res["decode_ms_per_token"] > 0

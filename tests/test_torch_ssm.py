@@ -1,0 +1,188 @@
+"""The port's SSM, hybrid and audio families (models/mamba2.py, the hybrid
+stack, the audio encoder-decoder, frames_stub) against the jitted
+reference, on the CPU. Their prefill and decode are held in
+tests/test_torch_serve.py.
+
+Tolerances (ROADMAP Queue 3, items 11 and 12), with the largest errors
+seen:
+  - segsum: -inf exactly above the diagonal, the finite entries within
+    1e-6 of their max (XLA's cumsum associates differently; seen 6.2e-8),
+    _causal_conv within 1e-6 of max |y| (f32; seen 7.0e-8), its state
+    bitwise;
+  - ssd_chunked within 1e-5 of max |y| and of max |state| against the
+    reference and against the token-by-token recurrence (mamba2_decode's
+    update), the padding branch (S = 12, chunk 8; S = 5 < chunk) and an
+    initial state included (seen 1.4e-7 and 2.1e-7);
+  - Model.loss of the SSM, hybrid and audio smoke configs within 1e-5
+    relative (seen 1.4e-7) and every gradient leaf within 1e-4 of its max
+    |g| (seen 2.2e-5, zamba2's conv_x).
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from test_torch_ref import jkey, reference
+
+SSM_MODULES = ("repro.models.model", "repro.models.layers",
+               "repro.models.mamba2", "repro.configs.registry",
+               "repro.models.config")
+LOSS_ARCHS = ["mamba2-1.3b", "zamba2-7b", "whisper-base"]
+B, S = 4, 24
+
+
+def ssm_reference():
+    return reference(*SSM_MODULES)
+
+
+def _close_to_max(got, want, frac, what=""):
+    got = got.detach().to(torch.float32).numpy()
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    bound = frac * max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max())
+    assert err <= bound, (what, err, bound)
+
+
+def test_segsum_and_causal_conv():
+    from repro_torch.models import mamba2
+    rng = np.random.default_rng(0)
+    x = -np.abs(rng.standard_normal((2, 3, 8))).astype(np.float32)
+    xc = rng.standard_normal((2, 7, 12)).astype(np.float32)
+    w = rng.standard_normal((12, 4)).astype(np.float32)
+    st = rng.standard_normal((2, 3, 12)).astype(np.float32)
+    with ssm_reference() as ref:
+        want = np.asarray(jax.jit(ref.mamba2.segsum)(x))
+        wy, ws = jax.jit(ref.mamba2._causal_conv)(xc, w, st)
+        wy0, ws0 = jax.jit(ref.mamba2._causal_conv)(xc, w)
+    got = mamba2.segsum(torch.from_numpy(x)).numpy()
+    assert np.array_equal(np.isinf(got), np.isinf(want))
+    fin = np.isfinite(want)
+    _close_to_max(torch.from_numpy(got[fin]), want[fin], 1e-6, "segsum")
+    for state, (y_w, s_w) in ((torch.from_numpy(st), (wy, ws)),
+                              (None, (wy0, ws0))):
+        y, s = mamba2._causal_conv(torch.from_numpy(xc), torch.from_numpy(w),
+                                   state)
+        _close_to_max(y, y_w, 1e-6, "conv y")
+        assert np.array_equal(s.numpy(), np.asarray(s_w))
+
+
+def _recurrence(xh, dt, A, Bm, Cm, D, state):
+    """The token-by-token SSM recurrence (mamba2_decode's update):
+    state = exp(dt A) state + dt B x; y = C . state + D x."""
+    ys = []
+    for t in range(xh.shape[1]):
+        g = torch.exp(dt[:, t] * A[None, :])
+        upd = (dt[:, t, :, None] * xh[:, t])[..., None] * Bm[:, t, None,
+                                                                None, :]
+        state = g[..., None, None] * state + upd
+        y = torch.einsum("bn,bhpn->bhp", Cm[:, t], state)
+        ys.append(y + D[None, :, None] * xh[:, t])
+    return torch.stack(ys, dim=1), state
+
+
+@pytest.mark.parametrize("S_,chunk,init", [(16, 8, False), (12, 8, False),
+                                           (12, 8, True), (5, 8, True)])
+def test_ssd_chunked_matches_reference_and_recurrence(S_, chunk, init):
+    from repro_torch.models import mamba2
+    rng = np.random.default_rng(S_ + int(init))
+    Bz, H, P, N = 2, 3, 4, 5
+    xh = rng.standard_normal((Bz, S_, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((Bz, S_, H)))).astype(
+        np.float32)
+    A = -np.exp(rng.standard_normal(H) * 0.5).astype(np.float32)
+    Bm, Cm = (rng.standard_normal((Bz, S_, N)).astype(np.float32)
+              for _ in range(2))
+    D = rng.standard_normal(H).astype(np.float32)
+    s0 = (rng.standard_normal((Bz, H, P, N)).astype(np.float32)
+          if init else None)
+    with ssm_reference() as ref:
+        wy, ws = jax.jit(ref.mamba2.ssd_chunked, static_argnums=6)(
+            xh, dt, A, Bm, Cm, D, chunk, s0)
+    t = [torch.from_numpy(a) for a in (xh, dt, A, Bm, Cm, D)]
+    ts0 = torch.from_numpy(s0) if init else None
+    y, state = mamba2.ssd_chunked(*t, chunk, init_state=ts0)
+    _close_to_max(y, wy, 1e-5, "y")
+    _close_to_max(state, ws, 1e-5, "state")
+    ry, rs = _recurrence(*t, ts0 if init else torch.zeros((Bz, H, P, N)))
+    _close_to_max(y, ry.numpy(), 1e-5, "y vs recurrence")
+    _close_to_max(state, rs.numpy(), 1e-5, "state vs recurrence")
+
+
+@pytest.fixture(scope="module")
+def reference_losses():
+    """The SSM, hybrid and audio smoke losses and gradients, jitted."""
+    out = {}
+    with ssm_reference() as ref:
+        for arch in LOSS_ARCHS:
+            jcfg = ref.registry.get_smoke(arch)
+            jm = ref.model.Model(jcfg, ref.model.DistConfig())
+            jp = jm.init(jkey(0))
+            rng = np.random.default_rng(1)
+            b = {"tokens": rng.integers(0, jcfg.vocab, (B, S)).astype(
+                np.int32),
+                 "targets": rng.integers(0, jcfg.vocab, (B, S)).astype(
+                     np.int32)}
+            if jcfg.arch_type == "audio":
+                b["frames"] = (0.02 * rng.standard_normal(
+                    (B, jcfg.frontend_seq, jcfg.d_model))).astype(np.float32)
+            jl, jg = jax.jit(jax.value_and_grad(
+                lambda p, b: jm.loss(p, b, jkey(1))))(jp, b)
+            out[arch] = (jcfg, jax.tree_util.tree_map(np.asarray, jp), b,
+                         float(jl), [np.asarray(g) for g in
+                                     jax.tree_util.tree_leaves(jg)])
+    return out
+
+
+@pytest.mark.parametrize("arch", LOSS_ARCHS)
+def test_loss_and_gradients_match_reference(arch, reference_losses):
+    from repro_torch.convert import (params_from_jax, tree_leaves,
+                                     tree_paths, tree_unflatten)
+    from repro_torch.models import DistConfig, Model
+    from repro_torch.models.config import ModelConfig
+    jcfg, jp, b, jl, jg = reference_losses[arch]
+    m = Model(ModelConfig(**dataclasses.asdict(jcfg)), DistConfig())
+    tp = params_from_jax(jp, device="cpu")
+    leaves = [l.requires_grad_(True) for l in tree_leaves(tp)]
+    loss = m.loss(tree_unflatten(tree_paths(tp), leaves),
+                  {k: torch.from_numpy(v) for k, v in b.items()})
+    grads = torch.autograd.grad(loss, leaves)
+    np.testing.assert_allclose(loss.item(), jl, rtol=1e-5)
+    assert len(grads) == len(jg)
+    for path, g, want in zip(tree_paths(tp), grads, jg):
+        _close_to_max(g, want, 1e-4, "/".join(path))
+
+
+def test_loss_without_remat_is_bitwise():
+    """remat recomputes the same ops on the hybrid's groups and the
+    SSM tail: gradients bitwise with and without it."""
+    from repro_torch import random as R
+    from repro_torch.configs import get_smoke
+    from repro_torch.convert import tree_leaves, tree_paths, tree_unflatten
+    from repro_torch.models import DistConfig, Model
+    cfg = get_smoke("zamba2-7b")
+    m = Model(cfg, DistConfig())
+    p = m.init(R.key(1), device="cpu")
+    assert "tail_blocks" in p
+    rng = np.random.default_rng(2)
+    b = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 10)))
+         for k in ("tokens", "targets")}
+    out = []
+    for remat in (True, False):
+        leaves = [l.clone().requires_grad_(True) for l in tree_leaves(p)]
+        loss = m.loss(tree_unflatten(tree_paths(p), leaves), b, remat=remat)
+        out.append(torch.autograd.grad(loss, leaves))
+    assert all(torch.equal(a, c) for a, c in zip(*out))
+
+
+def test_frames_stub():
+    from repro_torch import random as R
+    from repro_torch.data import frames_stub
+    a = frames_stub(R.key(4), 2, 24, 16, device="cpu")
+    assert a.shape == (2, 24, 16) and a.dtype == torch.float32
+    assert torch.equal(a, frames_stub(R.key(4), 2, 24, 16, device="cpu"))
+    assert 0.01 < float(a.std()) < 0.03
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        frames_stub(R.key(4), 2, 24, 16)
