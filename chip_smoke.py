@@ -180,6 +180,26 @@ error:
      prefill (see serve_full); (e) torch.profiler over one phi4-mini
      decode step. The wire kernels' launch counters do not move
 
+ 11. the data-parallel Engine, checkpoints and the train CLI
+     (launch/engine.py, ckpt/, launch/train.py) on 2 gloo ranks sharing
+     cuda:0: (a) the CLI's main path, llama3 smoke in f32, QSGD(16)
+     layerwise over the simulated wire, 4 steps with a checkpoint every 2,
+     its losses within 1e-5 relative of the same call with --device cpu,
+     exact launches a rank and equal states on both ranks; the Engine's
+     steps over the simulated wire, allgather and the ring bitwise its
+     simulated records (params, momentum, losses); (b) the run resumed
+     from its step-2 checkpoint in a fresh run_ranks bitwise the
+     uninterrupted 4-step run, and the card's step-4 file loaded bitwise
+     on the CPU; (c) the Engine at phi4-mini's full width (2 layers,
+     bf16, 1,430,535,168 parameters), each rank 2 x 512 uniform tokens a
+     step, QSGD(16) over the allgather wire layerwise and entire-model:
+     each unprofiled step's ms (CUDA events), one step split into
+     forward / backward, aggregation (gloo's host ms inside it) and
+     update, one profiled layerwise step (the pack and decode kernels'
+     device ms), each rank's peak memory beside memory_estimate, wire
+     bytes a step and rank exactly comm_report's, finite losses, exact
+     launches
+
 Phase 3 also holds the other compress-only kernels against their plain
 versions on the card at every bucket shape, the entire-model gradient and
 2**20 entries: top-k bitwise at k 1/5/16/128 on 512-wide rows, and as
@@ -208,14 +228,15 @@ comparison in one call). Details go to
 chiprun_out/chip_smoke.json. The last line is {"ok": true, "device":
 {...}}; the line before it the kernel table, whose launches are, for the
 wire kernels, the main-path runs of phase 4 plus the multi-rank phase 7
-summed over its ranks plus phase 9(b), and for the compress-only kernels
-the runs of phase 8.
+summed over its ranks plus phase 9(b) plus phase 11 summed over its
+ranks, and for the compress-only kernels the runs of phase 8.
 """
 from __future__ import annotations
 
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1850,10 +1871,11 @@ def profile_steps(dev, qw, steps=5):
                              steps)}
 
 
-def device_profile(run, steps: int):
+def device_profile(run, steps: int, match=()):
     """torch.profiler over run() (`steps` steps, after the caller's warm-up):
     wall and device-busy ms a step (the sum of the device events, one
-    stream), the device's idle share and the top device ops."""
+    stream), the device's idle share and the top device ops; with `match`,
+    the device ms a step of the events whose names hold each substring."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1873,6 +1895,8 @@ def device_profile(run, steps: int):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
             "device_busy_ms_per_step": busy_ms / steps,
+            "matched_ms": {m: sum(t for n, t in by_name.items() if m in n)
+                           / steps for m in match},
             "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
             "device_events": sum(1 for e in prof.events()
                                  if e.device_type == DeviceType.CUDA),
@@ -2509,6 +2533,497 @@ def serve_phase(dev, card):
           f"{before} -> {after}")
     return {"seconds": time.perf_counter() - t0, "smoke": smoke,
             "runs": runs}
+
+
+# ---- phase 11: the data-parallel Engine, checkpoints and the train CLI ------
+
+ENGINE_RANKS = 2
+# 11(a)-(b): the train CLI on 2 gloo ranks sharing cuda:0, llama3 smoke in
+# f32, QSGD(16) layerwise over the wire, 8 x 32 tokens a step, a
+# checkpoint every 2 steps
+CLI_STEPS = 4
+CLI = ["--arch", "llama3-405b", "--smoke", "--data", str(ENGINE_RANKS),
+       "--backend", "gloo", "--compressor", "qsgd", "--levels",
+       str(MAIN_LEVELS), "--granularity", "layerwise", "--wire", "--batch",
+       "8", "--seq", "32", "--lr", "0.05", "--steps", str(CLI_STEPS)]
+# launches a step and rank. llama3 smoke's layerwise plan has 5 buckets
+# (21 units, <= MAX_BUCKETS): the simulated wire step packs all 5 in one
+# qsgd_pack launch and decodes its own payloads in one qsgd_unpack; the
+# allgather step packs in one launch and decodes every rank's gathered
+# rows in one decode_rows_buckets call (one fields_unpack); the ring runs
+# the per-bucket schedule, a pack a message (5) and a qsgd_unpack for its
+# own payload and each of its n - 1 = 1 hops (5 x 2 = 10)
+CLI_LAUNCHES = {"qsgd_pack": 1, "qsgd_unpack": 1}
+VARIANT_STEPS = 3
+VARIANTS = (("records", False, None, {}),
+            ("wire", True, None, {"qsgd_pack": 1, "qsgd_unpack": 1}),
+            ("allgather", True, "allgather",
+             {"qsgd_pack": 1, "fields_unpack": 1}),
+            ("ring", True, "ring", {"qsgd_pack": 5, "qsgd_unpack": 10}))
+# 11(c): phi4-mini at full width (lm_full_width: 2 layers, bf16), each
+# rank 2 x 512 uniform tokens a step, QSGD(16) over the allgather wire;
+# each step packs every bucket in one qsgd_pack launch and decodes the
+# gathered rows in one fields_unpack (its 5 layerwise buckets, or 1)
+FULL_ROWS, FULL_STEPS = 2, 3
+FULL_LAUNCHES = {"qsgd_pack": 1, "fields_unpack": 1}
+# steps a granularity runs: FULL_STEPS timed, one split in its stages,
+# one whose decode is checked, and for layerwise one profiled
+FULL_BATCHES = 2 * (FULL_STEPS + 2) + 1
+DIGEST_CHUNK = 1 << 24
+
+
+def _rank_launches(results):
+    """Kernel launches summed over the ranks' records."""
+    out = {}
+    for r in results:
+        for k, v in r["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _want_launches(per_step, steps, names):
+    return {k: per_step.get(k, 0) * steps for k in names}
+
+
+def engine_variants(rank, n, dev):
+    """11(a) on the Engine itself: VARIANT_STEPS steps of llama3 smoke in
+    f32 with QSGD(16) layerwise as simulated records, over the simulated
+    wire, allgather and the ring, launch counters reset before each run
+    and read after it -> {variant: record}."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch import random as R
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.aggregation import CompressionConfig
+    from repro_torch.core.compressors import QSGD
+    from repro_torch.experiment import _full_precision
+    from repro_torch.launch.engine import Engine
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import OptConfig
+    _full_precision()
+    cfg = get_smoke("llama3-405b")
+    comp = CompressionConfig(qw=QSGD(levels=MAIN_LEVELS))
+    g = torch.Generator().manual_seed(3)
+    data = [torch.randint(0, cfg.vocab, (8, 33), generator=g)
+            for _ in range(VARIANT_STEPS)]
+    out = {}
+    for name, wire, collective, per_step in VARIANTS:
+        eng = Engine(cfg, make_host_mesh(data=n), comp=comp,
+                     opt=OptConfig("momentum", lr=0.05), device=dev)
+        params, state = eng.init_state(0)
+        step = eng.build_train_step(wire=wire, collective=collective)
+        kernels.reset_launch_counts()
+        losses = []
+        for i, s in enumerate(data):
+            s = s.to(dev)
+            params, state, m = step(params, state, {"tokens": s[:, :-1],
+                                                    "targets": s[:, 1:]}, i)
+            losses.append(float(m["loss"]))
+        counts = kernels.launch_counts()
+        want = _want_launches(per_step, VARIANT_STEPS, SOURCES)
+        check({k: counts[k] for k in SOURCES} == want,
+              f"engine {name}: launches {counts} != {want}")
+        out[name] = {"losses": losses, "launches": counts,
+                     "params": _flat(params).cpu().numpy(),
+                     "m": _flat(state["m"]).cpu().numpy()}
+        del params, state
+    return out
+
+
+def _full_batches(vocab: int, dev, steps: int):
+    """The global batches of 11(c): ENGINE_RANKS x FULL_ROWS uniform
+    sequences of LM_SEQ + 1 tokens a step, drawn on the card from one
+    seed (the same on every rank)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(11)
+    out = []
+    for _ in range(steps):
+        s = torch.randint(0, vocab, (ENGINE_RANKS * FULL_ROWS, LM_SEQ + 1),
+                          generator=g, device=dev)
+        out.append({"tokens": s[:, :-1], "targets": s[:, 1:]})
+    return out
+
+
+def _digest(tensors) -> list:
+    """A 64-bit digest of each tensor's bits, on the card: the sum over
+    its entries of a mix of the entry's bits and its index (wrapping
+    int64 arithmetic), DIGEST_CHUNK entries at a time."""
+    import torch
+    out = []
+    for t in tensors:
+        x = t.detach().reshape(-1)
+        if x.is_floating_point():
+            x = x.view({2: torch.int16, 4: torch.int32}[x.element_size()])
+        h = torch.zeros((), dtype=torch.int64, device=x.device)
+        for lo in range(0, x.numel(), DIGEST_CHUNK):
+            v = x[lo:lo + DIGEST_CHUNK].to(torch.int64)
+            v = v * 6364136223846793005 + torch.arange(
+                lo, lo + v.numel(), dtype=torch.int64,
+                device=x.device) * 1442695040888963407
+            v = (v ^ (v >> 29)) * 6364136223846793005
+            h += (v ^ (v >> 32)).sum()
+        out.append(int(h))
+    return out
+
+
+def _capture_unpack(cap: dict):
+    """Swap ops' fields_unpack_buckets for one that runs the kernel and
+    keeps its input words, fields, widths and its output's digest in
+    `cap` -> a function that puts the kernel's entry point back."""
+    from repro_torch.kernels import ops
+    orig = ops.fields_unpack_buckets
+
+    def capture(words_list, ks, widths):
+        got = orig(words_list, ks, widths)
+        cap.update(words=list(words_list), ks=[int(k) for k in ks],
+                   widths=list(widths), digest=_digest(got))
+        return got
+    ops.fields_unpack_buckets = capture
+
+    def restore():
+        ops.fields_unpack_buckets = orig
+    return restore
+
+
+def check_gathered_decode(name, cap):
+    """A step's one fields_unpack launch over every rank's gathered QSGD
+    payload rows (`cap`, from _capture_unpack): the kernel launched again
+    on the same words at the same grouped shape (its output's digest the
+    step's launch's) against the plain unpack over LM_SPAN-position spans
+    of each bucket, bitwise -> (spans checked, the plain unpack's ms)."""
+    import torch
+    from repro_torch.kernels import pack as P
+    got = P.fields_unpack_buckets(cap["words"], cap["ks"], cap["widths"])
+    check(_digest(got) == cap["digest"],
+          f"{name}: fields_unpack launched again != the step's launch")
+    spans, plain_s = 0, 0.0
+    for b, (words, k, w, out) in enumerate(zip(cap["words"], cap["ks"],
+                                               cap["widths"], got)):
+        rows = max(1, LM_SPAN // min(k, LM_SPAN))
+        for lo in range(0, k, LM_SPAN):        # LM_SPAN is a multiple of 32
+            hi = min(lo + LM_SPAN, k)
+            w0, nw = lo // 32 * w, -(-(hi - lo) * w // 32)
+            for r in range(0, words.shape[0], rows):
+                want, s = _timed(lambda: P.fields_unpack_plain(
+                    words[r:r + rows, w0:w0 + nw], hi - lo, w))
+                plain_s += s
+                check(torch.equal(out[r:r + rows, lo:hi], want),
+                      f"{name}: fields_unpack != plain in bucket {b}, rows "
+                      f"{r}:, positions {lo}:{hi}")
+                spans += 1
+    return spans, plain_s * 1e3
+
+
+def engine_full_width(rank, n, dev):
+    """11(c) on one rank: the Engine on phi4-mini at full width (2 layers,
+    bf16), QSGD(16) over the allgather wire, layerwise then entire-model:
+    FULL_STEPS unprofiled steps each timed by CUDA events, one step timed
+    in its three stages (forward / backward, aggregation with gloo's host
+    seconds inside it, update), one step whose fields_unpack launch over
+    the gathered rows is held against the plain unpack (check_gathered_
+    decode), and for layerwise one profiled step (the pack and decode
+    kernels' device time); peak memory outside the checked steps (which
+    keep the gathered words), exact wire bytes against comm_report,
+    finite losses, and a digest of each param and momentum leaf after
+    each granularity's run, for the ranks to be held equal."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import collectives
+    from repro_torch.core.aggregation import CompressionConfig
+    from repro_torch.core.bits import comm_report
+    from repro_torch.core.compressors import QSGD
+    from repro_torch.core.granularity import Granularity
+    from repro_torch.experiment import _full_precision
+    from repro_torch.launch.engine import Engine
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch import random as R
+    from repro_torch.convert import tree_leaves
+    from repro_torch.models import InputShape
+    from repro_torch.optim import OptConfig, init_opt_state
+    _full_precision()
+    cfg = lm_full_width()
+    eng = Engine(cfg, make_host_mesh(data=n), opt=OptConfig("momentum",
+                                                            lr=LM_LR),
+                 device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    # draws on the card (Engine.init_state draws on the CPU)
+    params = eng.model.init(R.key(0), device=dev)
+    state = init_opt_state(eng.opt, params)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    est = eng.memory_estimate(InputShape("train", LM_SEQ,
+                                         n * FULL_ROWS, "train"))
+    batches = _full_batches(cfg.vocab, dev, FULL_BATCHES)
+    out = {"params": n_params, "estimate": est, "runs": []}
+    peaks, check_peaks = [], []
+    i = 0
+    for gran in ("layerwise", "entire_model"):
+        comp = CompressionConfig(qw=QSGD(levels=MAIN_LEVELS),
+                                 strategy="allgather",
+                                 granularity=Granularity(gran))
+        step = eng.build_train_step(comp=comp, wire=True,
+                                    collective="allgather")
+        plan = eng.comm_plans(comp)[0]
+        rep = comm_report(comp, plan, n, measured=True)
+        kernels.reset_launch_counts()
+        collectives.reset_counts()
+        ms, losses = [], []
+        for _ in range(FULL_STEPS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            params, state, m = step(params, state, batches[i], i)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+            losses.append(float(m["loss"]))
+            i += 1
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss, grads = step.grads(params, batches[i], i)
+        ev[1].record()
+        g0 = collectives.counts("all_gather")["seconds"]
+        agg = step.aggregate(grads, i)
+        ev[2].record()
+        ev[2].synchronize()
+        gloo_s = collectives.counts("all_gather")["seconds"] - g0
+        del grads
+        params, state, m = step.update(params, state, loss, agg, i)
+        ev[3].record()
+        ev[3].synchronize()
+        del agg
+        losses.append(float(m["loss"]))
+        i += 1
+        steps = FULL_STEPS + 2
+        prof = None
+        if gran == "layerwise":
+            b_i = batches[i]
+
+            def one(b_i=b_i, i=i):
+                nonlocal params, state
+                params, state, _ = step(params, state, b_i, i)
+            prof = device_profile(one, 1, match=("qsgd_pack",
+                                                 "fields_unpack"))
+            i += 1
+            steps += 1
+        # the checked step keeps its words past the decode: its peak apart
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        cap = {}
+        restore = _capture_unpack(cap)
+        try:
+            params, state, m = step(params, state, batches[i], i)
+        finally:
+            restore()
+        losses.append(float(m["loss"]))
+        i += 1
+        counts = kernels.launch_counts()
+        want = _want_launches(FULL_LAUNCHES, steps, SOURCES)
+        check({k: counts[k] for k in SOURCES} == want,
+              f"full width {gran}: launches {counts} != {want}")
+        coll = collectives.counts("all_gather")
+        sent = coll["sent_bytes"] / steps
+        check(8 * sent == rep.uplink_bits_per_worker,
+              f"full width {gran}: {sent} B sent a step, comm_report "
+              f"{rep.uplink_bits_per_worker / 8} B")
+        check(all(math.isfinite(v) for v in losses),
+              f"full width {gran}: losses {losses}")
+        spans, plain_ms = check_gathered_decode(f"full width {gran}", cap)
+        decoded = {"buckets": len(cap["ks"]), "spans": spans,
+                   "shapes": [[int(w.shape[0]), k] for w, k in
+                              zip(cap["words"], cap["ks"])],
+                   "plain_ms": plain_ms}
+        del cap
+        check_peaks.append(torch.cuda.max_memory_allocated(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+        digest = {"params": _digest(tree_leaves(params)),
+                  "m": _digest(tree_leaves(state["m"]))}
+        out["runs"].append({
+            "run": f"qsgd16_{gran}", "step_ms": ms, "losses": losses,
+            "split_ms": {"forward_backward": ev[0].elapsed_time(ev[1]),
+                         "aggregation": ev[1].elapsed_time(ev[2]),
+                         "gloo_host": gloo_s * 1e3,
+                         "update": ev[2].elapsed_time(ev[3])},
+            "sent_bytes_per_step": sent,
+            "recv_bytes_per_step": coll["recv_bytes"] / steps,
+            "gather_calls_per_step": coll["calls"] / steps,
+            "comm_report_bytes": rep.uplink_bits_per_worker / 8,
+            "buckets": len(plan.buckets), "steps": steps,
+            "launches": counts, "profile": prof, "decode_check": decoded,
+            "digest": digest})
+    out["peak_bytes"] = max(peaks)
+    out["check_peak_bytes"] = max(check_peaks)
+    out["launches"] = {}
+    for run in out["runs"]:
+        for k, v in run["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+    return out
+
+
+def engine_ranks(rank, n, dev):
+    """11(a)'s Engine variants, then 11(c), in one spawn of the ranks."""
+    variants = engine_variants(rank, n, dev)
+    _free_card()
+    t0 = time.perf_counter()
+    full = engine_full_width(rank, n, dev)
+    full["seconds"] = time.perf_counter() - t0
+    return {"variants": variants, "full_width": full}
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _states_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        a[k].tobytes() == b[k].tobytes() for k in a)
+
+
+def engine_phase(dev):
+    """Phase 11 -> (its record, its main-path launches per kernel)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.ckpt import host_state, load_checkpoint
+    from repro_torch.convert import tree_leaves
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    _free_card()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        full, killed = Path(tmp) / "full", Path(tmp) / "killed"
+        # (a) the CLI on the card, then the same call on the CPU
+        card = train.run(CLI + ["--device", "cuda", "--ckpt-dir", str(full),
+                                "--ckpt-every", "2"], collect=True)
+        cpu = train.run(CLI + ["--device", "cpu"], collect=True)
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(card[0]["losses"], cpu[0]["losses"]))
+        check(len(card[0]["losses"]) == CLI_STEPS and rel <= 1e-5,
+              f"engine CLI: card losses {card[0]['losses']} vs CPU "
+              f"{cpu[0]['losses']} ({rel:.2e})")
+        for r in card:
+            want = _want_launches(CLI_LAUNCHES, CLI_STEPS, SOURCES)
+            check({k: r["launches"][k] for k in SOURCES} == want,
+                  f"engine CLI: launches {r['launches']} != {want}")
+            check(r["wire"]["calls"] == 5 * CLI_STEPS,
+                  f"engine CLI: {r['wire']['calls']} all_gather calls")
+        check(_states_equal(card[0]["state"], card[1]["state"]),
+              "engine CLI: ranks' states differ")
+        # (b) resume from the step-2 checkpoint in a fresh run_ranks
+        killed.mkdir()
+        shutil.copy(full / "ckpt_00000002_s0.npz", killed)
+        resumed = train.run(CLI + ["--device", "cuda", "--ckpt-dir",
+                                   str(killed), "--resume"], collect=True)
+        check(resumed[0]["start"] == 2
+              and resumed[0]["losses"] == card[0]["losses"][2:]
+              and _states_equal(resumed[0]["state"], card[0]["state"]),
+              "engine resume: not bitwise the uninterrupted run")
+        _, back = load_checkpoint(str(full / "ckpt_00000004_s0.npz"),
+                                  _nested(card[0]["state"]))
+        check(all(t.device.type == "cpu" for t in tree_leaves(back))
+              and _states_equal(host_state(back), card[0]["state"]),
+              "engine checkpoint: the card's file does not load bitwise on "
+              "the CPU")
+    for res in (card, resumed):
+        for k, v in _rank_launches(res).items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"engine (a): train CLI on {ENGINE_RANKS} gloo ranks on cuda:0, "
+          f"llama3 smoke f32, QSGD({MAIN_LEVELS}) layerwise wire, "
+          f"{CLI_STEPS} steps: losses {card[0]['losses']}, the CPU's within "
+          f"{rel:.2e}; launches a rank {_nonzero(card[0]['launches'])}",
+          flush=True)
+    print(f"engine (b): resumed at step 2 from the card's checkpoint in a "
+          f"fresh run_ranks: params and momentum bitwise the uninterrupted "
+          f"run; the card's step-4 file loads bitwise on the CPU",
+          flush=True)
+    _free_card()
+    # two full-width ranks hold about 75 GB between them: their caching
+    # allocators grow segments in place rather than leave split blocks
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = run_ranks(engine_ranks, ENGINE_RANKS, backend="gloo",
+                          device="cuda", timeout=RANK_TIMEOUT)
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    var = [r["variants"] for r in ranks]
+    fw = [r["full_width"] for r in ranks]
+    v0 = var[0]
+    for a, b in (("wire", "records"), ("allgather", "wire"),
+                 ("ring", "allgather")):
+        check(v0[a]["losses"] == v0[b]["losses"]
+              and v0[a]["params"].tobytes() == v0[b]["params"].tobytes()
+              and v0[a]["m"].tobytes() == v0[b]["m"].tobytes(),
+              f"engine {a} != {b}")
+    check(all(r[k]["params"].tobytes() == v0[k]["params"].tobytes()
+              for r in var for k in v0), "engine variants: ranks differ")
+    for r in var:
+        for v in r.values():
+            for k, c in v["launches"].items():
+                launches[k] = launches.get(k, 0) + c
+    print(f"engine (a): Engine steps over the simulated wire, allgather and "
+          f"the ring bitwise the simulated records ({VARIANT_STEPS} steps, "
+          f"params and momentum, every rank); launches a rank "
+          f"{ {n: _nonzero(v['launches']) for n, v in v0.items()} }",
+          flush=True)
+    fw_secs = fw[0]["seconds"]
+    for r in fw:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    f0 = fw[0]
+    for j, run in enumerate(f0["runs"]):
+        check(all(r["runs"][j]["digest"] == run["digest"] for r in fw),
+              f"full width {run['run']}: the ranks' params or momentum "
+              f"differ")
+        print(f"engine (c) full width {run['run']}: {f0['params']} params, "
+              f"{ENGINE_RANKS} ranks x {FULL_ROWS} x {LM_SEQ} tokens; step "
+              f"ms {[round(t, 1) for t in run['step_ms']]}; split "
+              f"{ {k: round(v, 1) for k, v in run['split_ms'].items()} }; "
+              f"wire {run['sent_bytes_per_step']:.0f} B sent a step and "
+              f"rank (comm_report {run['comm_report_bytes']:.0f}), "
+              f"{run['recv_bytes_per_step']:.0f} B received, "
+              f"{run['gather_calls_per_step']:.0f} all_gathers; losses "
+              f"{[round(v, 4) for v in run['losses']]}", flush=True)
+        if run["profile"]:
+            p = run["profile"]
+            print(f"  profiled step: wall {p['wall_ms_per_step']:.1f} ms, "
+                  f"device busy {p['device_busy_ms_per_step']:.1f} ms, "
+                  f"idle {p['idle_share']}, matched {p['matched_ms']}",
+                  flush=True)
+        dc = run["decode_check"]
+        print(f"  one step's fields_unpack over the gathered rows "
+              f"({dc['buckets']} buckets, (rows, fields) {dc['shapes']}) "
+              f"bitwise the plain unpack over {dc['spans']} spans "
+              f"(plain {dc['plain_ms']:.1f} ms) on every rank; params and "
+              f"momentum the same on both ranks (a digest a leaf)",
+              flush=True)
+    print(f"engine (c): peak {[r['peak_bytes'] for r in fw]} B a rank "
+          f"outside the checked steps ({[r['check_peak_bytes'] for r in fw]}"
+          f" B in them), memory_estimate total "
+          f"{f0['estimate']['total']:.0f} B; {fw_secs:.1f} s", flush=True)
+    return ({"seconds": time.perf_counter() - t0,
+             "cli": {"card": [{k: v for k, v in r.items() if k != "state"}
+                              for r in card],
+                     "cpu_losses": cpu[0]["losses"], "loss_rel_err": rel},
+             "variants": {k: {"losses": v["losses"],
+                              "launches": v["launches"]}
+                          for k, v in v0.items()},
+             "full_width": fw,
+             "full_width_seconds": fw_secs}, launches)
+
+
+def _nested(flat: dict) -> dict:
+    out: dict = {}
+    for k, v in flat.items():
+        node = out
+        parts = k.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return out
+
 
 
 # ---- phase 7: the multi-rank path (runs inside each rank process) ----------
@@ -3495,8 +4010,8 @@ def kernel_line(timings, launches, errs):
     plan_compress call of QSGD(16) / TernGrad, top-k (k=5)
     on the flat gradient, RMSNorm at (4096, 3072) bf16 with the time of
     torch.nn.functional.rms_norm as `library_ms`). `launches` are each
-    kernel's launches on its path (phases 4 + 7, or phase 8), every one
-    above 0."""
+    kernel's launches on its path (phases 4, 7, 9 and 11, or phase 8),
+    every one above 0."""
     out = []
     groups = [(n, v, LINE_GROUP.get(n, "layerwise_step"))
               for n, v in {**SOURCES, **COMPRESS_SOURCES}.items()]
@@ -3757,6 +4272,9 @@ def main(argv) -> int:
     for k, v in lm_launches.items():
         launches[k] += v
     serve = serve_phase(dev, card)
+    engine, engine_launches = engine_phase(dev)
+    for k, v in engine_launches.items():
+        launches[k] += v
     timings += lm["timings"]
     summary = kernel_line(timings, launches, errs)
     from repro_torch.core.compressors import QSGD, TopK
@@ -3783,6 +4301,7 @@ def main(argv) -> int:
                         if "registers" in ln or "spill" in ln]
                   for src, log in build.BUILD_LOG.items()},
         "multi_rank_seconds": multi_secs, "lm": lm, "serve": serve,
+        "engine": engine,
         "summary": summary},
         indent=1))
     print(f"total {total:.1f} s", flush=True)

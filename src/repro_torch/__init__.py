@@ -7,9 +7,11 @@ pack/unpack and majority-vote kernels and their wrappers), `core/`
 CommSchedule, the fused and per-unit wire codecs with Fletcher-32
 integrity and the signSGD majority vote, the collectives, Algorithm-1
 aggregation on simulated workers and across ranks in
-`compressed_allreduce`, and the bits accounting), `launch/mesh.py` (rank
-processes and their process group), `models/` (the paper's CNNs and the
-LM families' train path on one device), `configs/` (the arch registry),
+`compressed_allreduce`, and the bits accounting), `launch/` (rank
+processes, their process group and data meshes; the data-parallel Engine
+and the train CLI across ranks; comm scheduling; the serve CLI), `ckpt/`
+(checkpoints in the reference's file format), `models/` (the paper's
+CNNs and the LM families on one device), `configs/` (the arch registry),
 `data/synthetic.py`, `optim/` and `experiment.py` (the paper's train_cnn
 experiment, on simulated workers or across ranks, and train_lm, the
 quickstart's Algorithm 1 on the LMs).

@@ -113,8 +113,11 @@ def no_compression() -> CompressionConfig:
 
 
 def worker_mean(g: torch.Tensor) -> torch.Tensor:
-    """Mean over the leading worker axis, summed in worker order."""
-    return rank_sum(g) / g.shape[0]
+    """Mean over the leading worker axis, summed in worker order (the sum
+    of two or more workers divided in place: one buffer, not two)."""
+    if g.shape[0] == 1:
+        return g[0] / 1
+    return rank_sum(g).div_(g.shape[0])
 
 
 def _survivor_mean(g: torch.Tensor, alive) -> torch.Tensor:
@@ -289,14 +292,20 @@ def _wire_post(cfg, group, codec):
             return master(xm, ukeys)
         return post
 
-    # allgather: the packed uint8 payload rows cross the collective
+    # allgather: the packed uint8 payload rows cross the collective; the
+    # gathered rows go once decoded and each bucket's decoded rows once
+    # averaged
     def post_buckets(payloads, xhats, ukeys_list, dims):
-        gathered = [all_gather(p, group) for p in payloads]
-        decs = codec.decode_rows_buckets(
-            [g.reshape(-1, g.shape[-1]) for g in gathered], dims)
-        return [master(worker_mean(dec.reshape(g.shape[0], -1, d)), ukeys)
-                for g, dec, ukeys, d in zip(gathered, decs, ukeys_list,
-                                            dims)]
+        n = dist.get_world_size(group)
+        rows = [all_gather(p, group).reshape(-1, p.shape[-1])
+                for p in payloads]
+        decs = codec.decode_rows_buckets(rows, dims)
+        del rows
+        out = []
+        for i, (ukeys, d) in enumerate(zip(ukeys_list, dims)):
+            dec, decs[i] = decs[i], None
+            out.append(master(worker_mean(dec.reshape(n, -1, d)), ukeys))
+        return out
 
     def post(payload, xhat, ukeys, d):
         return post_buckets([payload], [xhat], [ukeys], [d])[0]

@@ -160,6 +160,28 @@ def not_ported(what: str, queue: str) -> NotImplementedError:
 # The to_f32 / to_bf16 idiom: the wire carries bf16 (a deliberate lossy
 # cast), compute stays f32.
 
+# columns of a bucket's codes _dequantize converts at a time
+DEQUANT_SPAN = 1 << 22
+
+
+def _dequantize(codes: list, offset: int, scales: list) -> list:
+    """(c - offset) * scale per bucket, in f32, written over the bucket's
+    own int32 codes DEQUANT_SPAN columns at a time (each slice converted
+    before it is overwritten), so a step's decode holds no second copy of
+    its rows. c - offset is a small integer, exact in f32, so the
+    subtraction in f32 gives the bits of the int32 one."""
+    out = []
+    for i, scale in enumerate(scales):
+        c, codes[i] = codes[i], None
+        x = c.view(torch.float32)
+        for s in range(0, c.shape[-1], DEQUANT_SPAN):
+            cols = slice(s, s + DEQUANT_SPAN)
+            x[:, cols] = (c[:, cols].to(torch.float32) - offset) \
+                * scale[:, None]
+        out.append(x)
+    return out
+
+
 def to_f32(t):
     """bf16 leaves of a tree (or one tensor) -> f32, others untouched."""
     return tree_map(lambda x: x.to(torch.float32)
@@ -422,9 +444,8 @@ class QSGDCodec(WireCodec):
         splits = [_split(p) for p in payloads_list]
         codes = ops.fields_unpack_units_buckets(
             [w for _, w in splits], dims, [self.entry_bits] * len(dims))
-        return [(c - self.comp.levels).to(torch.float32)
-                * (nrm / self.comp.levels)[:, None]
-                for (nrm, _), c in zip(splits, codes)]
+        return _dequantize(codes, self.comp.levels,
+                           [nrm / self.comp.levels for nrm, _ in splits])
 
     def encode_batch(self, x2d, keys):
         if not self.fused:
@@ -497,8 +518,7 @@ class TernGradCodec(WireCodec):
         splits = [_split(p) for p in payloads_list]
         codes = ops.fields_unpack_units_buckets(
             [w for _, w in splits], dims, [2] * len(dims))
-        return [(c - 1).to(torch.float32) * s[:, None]
-                for (s, _), c in zip(splits, codes)]
+        return _dequantize(codes, 1, [s for s, _ in splits])
 
     def encode_batch(self, x2d, keys):
         if not self.fused:

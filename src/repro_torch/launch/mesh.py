@@ -1,6 +1,5 @@
-"""Rank processes for the collectives (the port's counterpart of the JAX
-package's launch/mesh.py, whose mesh axes become a torch.distributed
-process group).
+"""Rank processes and meshes (the port's counterpart of the JAX package's
+launch/mesh.py, whose mesh axes become torch.distributed process groups).
 
 `run_ranks(fn, n, backend=..., device=...)` starts n processes with
 torch.multiprocessing (start method spawn: CUDA cannot fork), opens the
@@ -20,20 +19,35 @@ outlasts `timeout` seconds is terminated and raises TimeoutError, and the
 process group's own timeout turns a collective that never completes into
 an error inside the ranks. `fn` must be importable (a module-level
 function) and return picklable host data (numbers, numpy arrays).
+
+A `Mesh` is the reference's mesh as a small object: its axis names, its
+shape and the process group of each axis, over the group run_ranks
+opened. `make_host_mesh(data, model, pod)` / `make_mesh(shape, axes)`
+build one; the port's meshes are data-only (model 1, no pod: the tensor-
+and pod-parallel axes are ROADMAP Queue 1 item 4b), so the data axis is
+the whole default group. A mesh built where no process group is open
+describes shapes only (an Engine's plans, batch shapes, memory
+estimate); its collectives need the group.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import math
 import queue
 import socket
 import time
 import traceback
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from repro_torch.core.wire import not_ported
+
 BACKENDS = ("gloo", "nccl")
+ITEM_4B = "item 4b (TP, FSDP and SP)"
 
 
 def _free_port() -> int:
@@ -63,7 +77,8 @@ def _check(backend: str, device: str, n: int) -> None:
             raise RuntimeError("device='cuda' but torch sees no CUDA device")
         if backend == "nccl" and cards < n:
             raise ValueError(f"nccl needs one card per rank: {n} ranks, "
-                             f"{cards} card(s); use gloo to share a card")
+                             f"{cards} card(s); use backend gloo "
+                             f"(--backend gloo) to share a card")
 
 
 def _rank_main(fn, rank, n, backend, device, port, args, out, pg_timeout):
@@ -126,3 +141,67 @@ def run_ranks(fn, n: int, *, backend: str, device: str, args=(),
                 p.join(5.0)
         out.close()
     return [results[r] for r in range(n)]
+
+
+# ---- meshes -----------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """Axis names, their sizes, and the process group each axis reduces
+    over (None: the default group)."""
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    groups: Dict[str, Optional[object]] = dataclasses.field(
+        default_factory=dict, compare=False)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    def group(self, axis: str):
+        return self.groups.get(axis)
+
+
+def make_mesh(shape, axes) -> Mesh:
+    """A mesh of the given shape over axes from ("pod", "data", "model"):
+    data-parallel only (model 1, no pod axis), its data axis the default
+    group. Where a process group is open its size must be the mesh's."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in "
+                         f"length")
+    sizes = dict(zip(axes, shape))
+    unknown = set(axes) - {"pod", "data", "model"}
+    if unknown:
+        raise ValueError(f"mesh axes {sorted(unknown)}: the engine knows "
+                         f"pod, data and model")
+    if "pod" in sizes:
+        raise not_ported("a pod axis (multi-pod meshes)", ITEM_4B)
+    if sizes.get("model", 1) > 1:
+        raise not_ported("a model axis of size > 1 (tensor parallelism)",
+                         ITEM_4B)
+    mesh = Mesh(axes, shape, {"data": None})
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() != mesh.size:
+        raise ValueError(f"mesh {sizes} needs {mesh.size} ranks, the "
+                         f"process group has {dist.get_world_size()}")
+    return mesh
+
+
+def make_host_mesh(data: int = 1, model: int = 1,
+                   pod: Optional[int] = None) -> Mesh:
+    """The reference's small test mesh: (data, model) over the ranks
+    run_ranks started (the reference's host CPU devices)."""
+    if pod:
+        return make_mesh((pod, data, model), ("pod", "data", "model"))
+    return make_mesh((data, model), ("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's 16 x 16 (x 2 pods) TPU mesh, for its dry run."""
+    raise not_ported("the production TPU mesh (the dry run's)",
+                     "item 9 (launch/dryrun.py)")
+
+
+def axis_sizes(mesh: Mesh) -> dict:
+    return dict(zip(mesh.axis_names, mesh.shape))

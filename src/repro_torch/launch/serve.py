@@ -25,10 +25,10 @@ from repro_torch import resolve_device
 from repro_torch.configs.registry import ARCH_NAMES, get_config, get_smoke
 from repro_torch.core.wire import not_ported
 from repro_torch.data import frames_stub, patches_stub
+from repro_torch.launch.engine import ITEM_6
+from repro_torch.launch.mesh import ITEM_4B
 from repro_torch.models import DistConfig, Model
 
-ITEM_4 = "item 4 (launch/mesh.py, launch/engine.py)"
-ITEM_6 = "item 6 (obs/)"
 
 
 def pack_request(token: torch.Tensor, pos) -> torch.Tensor:
@@ -150,7 +150,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.data > 1 or args.model > 1:
         raise not_ported("serve --data / --model > 1 (a device mesh)",
-                         ITEM_4)
+                         ITEM_4B)
     if args.trace_out or args.metrics_out:
         raise not_ported("serve --trace-out / --metrics-out", ITEM_6)
     dev = resolve_device(args.device)

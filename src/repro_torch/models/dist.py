@@ -4,7 +4,7 @@ JAX package's models/dist.py).
 The reference's helpers take a mesh axis and degrade to single-device
 semantics when it is None. The port has the None case only: a DistConfig
 naming a tensor-parallel, FSDP or sequence-parallel axis raises (ROADMAP
-Queue 1, item 4), and the boundary ops below are identities, kept so the
+Queue 1, item 4b), and the boundary ops below are identities, kept so the
 model code reads as the reference's. Vocab-parallel embedding and
 cross-entropy are the one-shard case: offset 0, the padded vocab columns
 masked with -1e30 before the log-sum-exp.
@@ -42,7 +42,7 @@ class DistConfig:
         for name in ("tp", "fsdp", "sp"):
             if getattr(self, name):
                 raise not_ported(f"DistConfig({name}=...): the sharded LM "
-                                 f"path", "item 4 (models/dist.py)")
+                                 f"path", "item 4b (models/dist.py)")
 
     @property
     def extra_dp(self) -> Tuple[str, ...]:

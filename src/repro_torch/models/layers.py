@@ -81,12 +81,22 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
 
 # ---- MLP ------------------------------------------------------------------
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.silu as the reference's jitted code computes it. XLA expands
+    the logistic into exp(-x), 1 + e, 1 / d and x * s, and below f32 rounds
+    each step to x's dtype; F.silu rounds once, up to a few bf16 ulps
+    away. In f32 the two agree within an ulp, and F.silu stays."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * torch.reciprocal(1.0 + torch.exp(-x))
+
+
 def mlp(p: dict, x: torch.Tensor, cfg, dist: DistConfig,
         fd=None) -> torch.Tensor:
     fd = fd or {}
     xi = region_in(x, dist)
     if cfg.mlp == "swiglu":
-        h = F.silu(fdot(xi, p["w_gate"], fd.get("w_gate"), dist)) * \
+        h = silu(fdot(xi, p["w_gate"], fd.get("w_gate"), dist)) * \
             fdot(xi, p["w_in"], fd.get("w_in"), dist)
     else:
         h = F.gelu(fdot(xi, p["w_in"], fd.get("w_in"), dist),

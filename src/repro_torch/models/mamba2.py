@@ -19,12 +19,19 @@ import torch.nn.functional as F
 
 from repro_torch.models.dist import (DistConfig, region_in, region_out,
                                      tp_region_in, tp_region_out, tp_shared)
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import rmsnorm, silu
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """jax.nn.softplus, logaddexp(x, 0) (no threshold, unlike F.softplus)."""
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _dt_f32(xw: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The step before its softplus: `(x @ w_dt + dt_bias).astype(f32)` as
+    XLA computes it, the sum taken in f32 from the rounded product and
+    never rounded to the model's dtype (the same in f32)."""
+    return xw.to(torch.float32) + bias.to(torch.float32)[None, None, :]
 
 
 def segsum(x: torch.Tensor) -> torch.Tensor:
@@ -126,15 +133,14 @@ def mamba2_block(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
     z = xi @ p["w_z"]                                      # (B,S,d_in)
     xr = xi @ p["w_x"]
     bc = xi @ tp_shared(p["w_bc"], dist.tp)                # (B,S,2N)
-    dt = xi @ p["w_dt"] + p["dt_bias"][None, None, :]      # (B,S,H)
-    dt = softplus(dt.to(torch.float32))
+    dt = softplus(_dt_f32(xi @ p["w_dt"], p["dt_bias"]))   # (B,S,H)
 
     cx0 = conv_state[0] if conv_state is not None else None
     cbc0 = conv_state[1] if conv_state is not None else None
     xr, new_cx = _causal_conv(xr, p["conv_x"], cx0)
     bc, new_cbc = _causal_conv(bc, tp_shared(p["conv_bc"], dist.tp), cbc0)
-    xr = F.silu(xr)
-    bc = F.silu(bc)
+    xr = silu(xr)
+    bc = silu(bc)
     Bm, Cm = bc[..., :N], bc[..., N:]
 
     H = p["A_log"].shape[0]
@@ -144,7 +150,7 @@ def mamba2_block(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
                                  p["D"].to(torch.float32), cfg.ssm_chunk,
                                  init_state=ssm_state)
     y = rmsnorm(y, p["norm_g"].reshape(H, hd), cfg.norm_eps)
-    y = y.reshape(xr.shape) * F.silu(z)
+    y = y.reshape(xr.shape) * silu(z)
     out = region_out(y @ p["w_out"], dist)
     if return_state:
         return out, ((new_cx, new_cbc), final_state)
@@ -162,16 +168,15 @@ def mamba2_decode(p: Dict[str, torch.Tensor], x: torch.Tensor, conv_state,
     z = xi @ p["w_z"]
     xr = xi @ p["w_x"]
     bc = xi @ tp_shared(p["w_bc"], dist.tp)
-    dt = xi @ p["w_dt"] + p["dt_bias"][None, None, :]
-    dt = softplus(dt.to(torch.float32))[:, 0]              # (B,H)
+    dt = softplus(_dt_f32(xi @ p["w_dt"], p["dt_bias"]))[:, 0]   # (B,H)
 
     cx, cbc = conv_state
     xr, new_cx = _causal_conv(xr, p["conv_x"], cx)
     bc, new_cbc = _causal_conv(bc, tp_shared(p["conv_bc"], dist.tp), cbc)
     cx.copy_(new_cx)
     cbc.copy_(new_cbc)
-    xr = F.silu(xr)[:, 0]                                  # (B,d_in)
-    bc = F.silu(bc)[:, 0]
+    xr = silu(xr)[:, 0]                                    # (B,d_in)
+    bc = silu(bc)[:, 0]
     f32 = torch.float32
     Bm, Cm = bc[..., :N].to(f32), bc[..., N:].to(f32)      # (B,N)
 
@@ -184,6 +189,6 @@ def mamba2_decode(p: Dict[str, torch.Tensor], x: torch.Tensor, conv_state,
     y = torch.einsum("bn,bhpn->bhp", Cm, ssm_state)
     y = y + p["D"].to(f32)[None, :, None] * xh
     y = rmsnorm(y.to(x.dtype), p["norm_g"].reshape(H, hd), cfg.norm_eps)
-    y = y.reshape(x.shape[0], 1, -1) * F.silu(z)
+    y = y.reshape(x.shape[0], 1, -1) * silu(z)
     out = tp_region_out(y @ p["w_out"], dist.tp)
     return out, ((cx, cbc), ssm_state)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.dist import (DistConfig, fdot, region_in, region_out,
                                      tp_shared)
+from repro_torch.models.layers import silu
 
 
 def capacity(tokens: int, top_k: int, n_experts: int, cf: float) -> int:
@@ -65,7 +66,7 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg, dist: DistConfig,
 
     # ---- expert FFN, batched over experts ----
     if cfg.mlp == "swiglu":
-        h = F.silu(torch.einsum("ecd,edf->ecf", eb, p["w_gate"])) * \
+        h = silu(torch.einsum("ecd,edf->ecf", eb, p["w_gate"])) * \
             torch.einsum("ecd,edf->ecf", eb, p["w_in"])
     else:
         h = F.gelu(torch.einsum("ecd,edf->ecf", eb, p["w_in"]),
@@ -81,7 +82,7 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg, dist: DistConfig,
     for j in range(K):
         out = out + contrib[:, j]
     if cfg.moe_shared_expert:
-        hs = F.silu(fdot(xi, p["shared_w_gate"], fd.get("shared_w_gate"),
+        hs = silu(fdot(xi, p["shared_w_gate"], fd.get("shared_w_gate"),
                          dist)) * \
             fdot(xi, p["shared_w_in"], fd.get("shared_w_in"), dist)
         out = out + fdot(hs, p["shared_w_out"], fd.get("shared_w_out"), dist)

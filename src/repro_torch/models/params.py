@@ -3,7 +3,7 @@ models/params.py, one device).
 
 Every architecture declares its parameters through ParamBuilder, attaching
 per-leaf logical axes ("tp", "fsdp" or None, kept so the declaration is
-the reference's; the sharding they drive is ROADMAP Queue 1 item 4).
+the reference's; the sharding they drive is ROADMAP Queue 1 item 4b).
 From one declaration come the shapes (meta tensors), the init, the
 stacked-layer mask (compression granularity) and the tp_grad_sync mask.
 Leaves are (nested) dicts of tensors in the JAX layout; a stacked leaf

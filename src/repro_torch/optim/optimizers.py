@@ -84,10 +84,35 @@ def _grad32(cfg: OptConfig, p32, g):
     return g32
 
 
+# entries of a leaf an update takes at a time: fma_f32 works in f64, so a
+# slice's temporaries are a few times 8 bytes an entry
+CHUNK = 1 << 24
+
+
+def _chunked(upd, leaves):
+    """upd on corresponding leaves (p, g and state of one parameter). Every
+    op of an update is elementwise, so a leaf of more than CHUNK entries
+    updates slice by slice into preallocated outputs, each slice's
+    temporaries let go before the next: the same bits, bounded memory."""
+    n = leaves[0].numel()
+    if n <= CHUNK:
+        return upd(*leaves)
+    flat = [l.reshape(-1) for l in leaves]
+    outs = None
+    for s in range(0, n, CHUNK):
+        part = upd(*(f[s:s + CHUNK] for f in flat))
+        if outs is None:
+            outs = [torch.empty(n, dtype=o.dtype, device=o.device)
+                    for o in part]
+        for o, v in zip(outs, part):
+            o[s:s + CHUNK] = v
+    return tuple(o.reshape(leaves[0].shape) for o in outs)
+
+
 def _per_leaf(upd, params, *trees):
     """upd over corresponding leaves -> a tree per output of upd."""
-    outs = [upd(*leaves) for leaves in zip(tree_leaves(params),
-                                          *map(tree_leaves, trees))]
+    outs = [_chunked(upd, leaves) for leaves in
+            zip(tree_leaves(params), *map(tree_leaves, trees))]
     paths = tree_paths(params)
     return tuple(tree_unflatten(paths, list(col)) for col in zip(*outs))
 

@@ -464,13 +464,13 @@ def test_unported_paths_name_their_queue_item():
     from repro_torch.models import DistConfig
     for kw in ({"tp": "model"}, {"fsdp": "data", "dp": ("data",)},
                {"sp": True}):
-        with pytest.raises(NotImplementedError, match=r"Queue 1, item 4 \("):
+        with pytest.raises(NotImplementedError, match=r"Queue 1, item 4b \("):
             DistConfig(**kw)
     with pytest.raises(ValueError, match="last dp axis"):
         DistConfig(fsdp="data")
     base = ["--arch", "phi4-mini-3.8b", "--smoke", "--device", "cpu"]
     for extra in (["--data", "2"], ["--model", "2"]):
-        with pytest.raises(NotImplementedError, match=r"Queue 1, item 4 \("):
+        with pytest.raises(NotImplementedError, match=r"Queue 1, item 4b \("):
             serve.main(base + extra)
     for extra in (["--trace-out", "t.json"], ["--metrics-out", "m.jsonl"]):
         with pytest.raises(NotImplementedError, match=r"Queue 1, item 6 \("):

@@ -156,3 +156,29 @@ def test_schedules_match_reference(sched):
                 np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-9)
             else:
                 assert a == b, (name, i)
+
+
+@pytest.mark.parametrize("name", ["sgd", "momentum", "adam"])
+def test_update_in_slices_is_bitwise(name, monkeypatch):
+    """A leaf of more than optimizers.CHUNK entries updates slice by slice
+    (bounded temporaries at full width): the same bits as one slice."""
+    from repro_torch.convert import tree_leaves
+    from repro_torch.optim import optimizers as O
+    rng = np.random.default_rng(4)
+    ps = {"w": torch.from_numpy(rng.standard_normal((97, 41)).astype(
+              np.float32)),
+          "g": torch.from_numpy(rng.standard_normal(7).astype(
+              np.float32)).to(torch.bfloat16)}
+    gs = {k: torch.from_numpy(rng.standard_normal(tuple(v.shape)).astype(
+              np.float32)).to(v.dtype) for k, v in ps.items()}
+    cfg = O.OptConfig(name=name, lr=0.1, weight_decay=0.01, nesterov=True)
+    _, st = O.apply_updates(cfg, ps, gs, O.init_opt_state(cfg, ps), 0.1)
+    whole = O.apply_updates(cfg, ps, gs, st, torch.tensor(0.05))
+    monkeypatch.setattr(O, "CHUNK", 500)
+    sliced = O.apply_updates(cfg, ps, gs, st, torch.tensor(0.05))
+    for a, b in zip(tree_leaves(whole[0]) + tree_leaves(whole[1]),
+                    tree_leaves(sliced[0]) + tree_leaves(sliced[1])):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert a.numpy().tobytes() == b.numpy().tobytes()
