@@ -198,7 +198,33 @@ error:
      update, one profiled layerwise step (the pack and decode kernels'
      device ms), each rank's peak memory beside memory_estimate, wire
      bytes a step and rank exactly comm_report's, finite losses, exact
-     launches
+     launches; (d) inside (c)'s rank spawn, the train CLI's rank loop with
+     --policy granularity_switch (control/: the controller over the
+     Engine, top-k(10%), re-planning every 2 of 6 steps) on the card and
+     then on the CPU over the same group: the card's losses within 1e-5
+     relative of the CPU's, the same decision at every step on both
+     devices and ranks, the same builds / switches
+
+ 12. the adaptive controller and the paper's figures (control/,
+     experiment.cnn_controller, figures.py): (a) cnn_controller on resnet9
+     with AdaptiveKPolicy over top-k(1%) layerwise, re-planning every 5 of
+     15 steps through train_cnn_with_controller: builds equal to the
+     distinct decisions, exact launches (one fields pack and one fields
+     unpack a step: the per-bucket k's index legs in one grouped launch
+     each way); then on one step's worker gradients the last decision's
+     wire aggregation bitwise its simulated one, its index legs (a
+     different k and width a bucket) through fields_pack_buckets /
+     fields_unpack_buckets in one launch each bitwise the plain twins,
+     and the card's TelemetryState within 1e-5 relative of the CPU's on
+     the same gradients (the signed grad_sum within 1e-5 of its bucket's
+     sum |x|); (b) at the figures' own shapes: one step's worker
+     gradients of mlp, alexnet and resnet9, and for every sim-exact
+     compressor and knob figures.ALL runs on that model (QSGD(4),
+     TernGrad, top-k and random-k at each ratio) at both granularities,
+     aggregate_simulated_workers(wire=True) bitwise its wire=False result,
+     and ef_beyond_paper's error-feedback top-k(0.1%) over two steps
+     (aggregate and EF state), with exact launch counts; (c) figures.ALL
+     at 3 steps a run: every row printed with finite accuracies
 
 Phase 3 also holds the other compress-only kernels against their plain
 versions on the card at every bucket shape, the entire-model gradient and
@@ -229,7 +255,8 @@ chiprun_out/chip_smoke.json. The last line is {"ok": true, "device":
 {...}}; the line before it the kernel table, whose launches are, for the
 wire kernels, the main-path runs of phase 4 plus the multi-rank phase 7
 summed over its ranks plus phase 9(b) plus phase 11 summed over its
-ranks, and for the compress-only kernels the runs of phase 8.
+ranks plus phase 12, and for the compress-only kernels the runs of phase
+8.
 """
 from __future__ import annotations
 
@@ -2570,6 +2597,14 @@ FULL_LAUNCHES = {"qsgd_pack": 1, "fields_unpack": 1}
 # one whose decode is checked, and for layerwise one profiled
 FULL_BATCHES = 2 * (FULL_STEPS + 2) + 1
 DIGEST_CHUNK = 1 << 24
+# 11(d): the controller CLI (GranularitySwitchPolicy over top-k(10%); the
+# controller's steps aggregate on the simulated path, no kernel)
+POLICY_STEPS = 6
+POLICY_CLI = ["--arch", "llama3-405b", "--smoke", "--data",
+              str(ENGINE_RANKS), "--backend", "gloo", "--compressor", "topk",
+              "--ratio", "0.1", "--policy", "granularity_switch",
+              "--replan-every", "2", "--batch", "8", "--seq", "32", "--lr",
+              "0.05", "--steps", str(POLICY_STEPS)]
 
 
 def _rank_launches(results):
@@ -2858,14 +2893,33 @@ def engine_full_width(rank, n, dev):
     return out
 
 
+def engine_policy(rank, n, dev):
+    """11(d) on one rank: the train CLI's rank loop with --policy on the
+    card, then the same on the CPU over the same gloo group -> {device:
+    the rank's results}."""
+    import torch
+    from repro_torch.launch import train
+    threads = torch.get_num_threads()
+    out = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        args = train._parse(POLICY_CLI + ["--device", d.type])
+        out[name] = train._train_rank(rank, n, d, args, False)
+    torch.set_num_threads(threads)
+    return out
+
+
 def engine_ranks(rank, n, dev):
-    """11(a)'s Engine variants, then 11(c), in one spawn of the ranks."""
+    """11(a)'s Engine variants, 11(d), then 11(c), in one spawn of the
+    ranks."""
     variants = engine_variants(rank, n, dev)
+    t0 = time.perf_counter()
+    policy = engine_policy(rank, n, dev)
+    policy["seconds"] = time.perf_counter() - t0
     _free_card()
     t0 = time.perf_counter()
     full = engine_full_width(rank, n, dev)
     full["seconds"] = time.perf_counter() - t0
-    return {"variants": variants, "full_width": full}
+    return {"variants": variants, "policy": policy, "full_width": full}
 
 
 def _nonzero(counts: dict) -> dict:
@@ -2950,6 +3004,38 @@ def engine_phase(dev):
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
     var = [r["variants"] for r in ranks]
     fw = [r["full_width"] for r in ranks]
+    pol = [r["policy"] for r in ranks]
+    p0 = pol[0]
+    prel = max(abs(a - b) / abs(b) for a, b in
+               zip(p0["card"]["losses"], p0["cpu"]["losses"]))
+    check(len(p0["card"]["losses"]) == POLICY_STEPS and prel <= 1e-5,
+          f"engine policy CLI: card losses {p0['card']['losses']} vs CPU "
+          f"{p0['cpu']['losses']} ({prel:.2e})")
+
+    def ctl_line(c):
+        rep = c["controller"]["report"]
+        return (f"controller: decision={rep['decision']} "
+                f"builds={rep['builds']} switches={len(rep['switches'])}")
+    lines = {ctl_line(r[d]) for r in pol for d in ("card", "cpu")}
+    seqs = {tuple(r[d]["controller"]["decisions"]) for r in pol
+            for d in ("card", "cpu")}
+    check(len(lines) == 1 and len(seqs) == 1,
+          f"engine policy CLI: decisions or builds / switches differ "
+          f"between the card and the CPU or the ranks: {lines}, {seqs}")
+    c0 = p0["card"]["controller"]
+    check(c0["report"]["builds"] == len(set(c0["decisions"]))
+          and c0["report"]["switches"],
+          f"engine policy CLI: {c0['report']['builds']} builds for "
+          f"decisions {c0['decisions']}")
+    for r in pol:
+        for k, v in r["card"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"engine (d): train CLI --policy granularity_switch on "
+          f"{ENGINE_RANKS} gloo ranks on cuda:0, llama3 smoke, top-k(10%), "
+          f"{POLICY_STEPS} steps: losses {p0['card']['losses']}, the CPU's "
+          f"within {prel:.2e}; decisions {c0['decisions']} on both devices "
+          f"and ranks; {lines.pop()} ({p0['seconds']:.1f} s, card and CPU)",
+          flush=True)
     v0 = var[0]
     for a, b in (("wire", "records"), ("allgather", "wire"),
                  ("ring", "allgather")):
@@ -3011,7 +3097,307 @@ def engine_phase(dev):
                               "launches": v["launches"]}
                           for k, v in v0.items()},
              "full_width": fw,
+             "policy": {"card_losses": p0["card"]["losses"],
+                        "cpu_losses": p0["cpu"]["losses"],
+                        "loss_rel_err": prel, "controller": c0,
+                        "seconds": p0["seconds"]},
              "full_width_seconds": fw_secs}, launches)
+
+
+# ---- phase 12: the adaptive controller and the paper's figures ---------------
+
+CTRL_STEPS, CTRL_REPLAN = 15, 5
+# 12(a): every step of a top-k decision (the base or a per-bucket-k
+# allocation) aggregates resnet9's 11 layerwise buckets over the simulated
+# wire: one encode_buckets call (one fields_pack launch for the 11 index
+# legs, <= MAX_BUCKETS) and one decode_buckets call (one fields_unpack);
+# the telemetry leg runs TopK.sim (no kernel). 15 steps -> 15 and 15.
+CTRL_LAUNCHES = {"fields_pack": 1, "fields_unpack": 1}
+FIG_STEPS = 3
+
+
+def check_adaptive_wire(decision, dev):
+    """12(a)'s checks on one step's worker gradients under `decision`:
+    wire == simulated aggregation on the card, bitwise; the decision's
+    index legs through one fields_pack_buckets / fields_unpack_buckets
+    launch each, bitwise the plain twins; the card's TelemetryState
+    within 1e-5 relative of the CPU's (exact zeros exactly; the signed
+    grad_sum within 1e-5 of its bucket's sum |x|) -> (legs as
+    (n, k, width), max |err| of (pack, unpack), telemetry rel err)."""
+    import torch
+    from repro_torch import random as R
+    from repro_torch.control import measure, measurement_plan
+    from repro_torch.convert import tree_map
+    from repro_torch.core import aggregate_simulated_workers, stacked_mask
+    from repro_torch.core.aggregation import worker_mean
+    from repro_torch.core.compressors import index_bits
+    from repro_torch.core.wire import wire_codec
+    from repro_torch.data.synthetic import classification_batch
+    from repro_torch.experiment import MODELS, worker_grads
+    from repro_torch.kernels import pack as P
+    from repro_torch.models.cnn import init_cnn
+    cfg = MODELS["resnet9"]
+    key = R.key(31)
+    params = init_cnn(cfg, key, device=dev)
+    wg, _ = worker_grads(cfg, params, classification_batch(
+        R.fold_in(key, 1), 64, device=dev), WORKERS)
+    sm = stacked_mask(params)
+    mplan = measurement_plan(params, sm)
+    comp = decision.to_config()
+    sim, _, inc = aggregate_simulated_workers(wg, sm, comp, key,
+                                              telemetry_plan=mplan)
+    wire, _ = aggregate_simulated_workers(wg, sm, comp, key, wire=True)
+    check(bitwise_equal(_flat(sim), _flat(wire)),
+          "adaptive-k wire step != its simulated step")
+    cpu_wg = {k: v.cpu() for k, v in wg.items()}
+    _, _, cinc = aggregate_simulated_workers(cpu_wg, sm, comp, key,
+                                             telemetry_plan=mplan)
+    rel = {}
+    # the signed grad_sum is held against sum |x| of its bucket (the
+    # grad_sum of the same mean gradient's magnitudes)
+    abs_sum = measure(mplan, comp.qw, tree_map(
+        lambda g: worker_mean(g).abs(), cpu_wg), key,
+        entire_model=False).grad_sum.double()
+    for name, a, b in zip(inc._fields, inc, cinc):
+        a, b = a.cpu().double(), b.double()
+        zero = b == 0
+        check(torch.equal(a[zero], b[zero]),
+              f"telemetry {name}: card zeros != CPU zeros")
+        scale = abs_sum if name == "grad_sum" else b.abs()
+        rel[name] = (float(((a - b).abs() / scale)[~zero].max())
+                     if (~zero).any() else 0.0)
+        check(rel[name] <= 1e-5,
+              f"telemetry {name} card vs CPU: {rel[name]:.2e} relative")
+    rel = max(rel.values())
+    codec = wire_codec(comp.qw)
+    legs, idx = [], []
+    for b in mplan.buckets:
+        rows = mplan.gather_bucket(mplan.flatten(
+            {k: v[0] for k, v in wg.items()}), b)
+        k = codec._k(b.dim)
+        idx.append(codec._c(b.dim).encode(rows, None)["idx"])
+        legs.append((b.n, k, index_bits(b.dim)))
+    check(len({(k, w) for _, k, w in legs}) > 1,
+          f"adaptive-k legs share one (k, width): {legs}")
+    ws, ks = [w for _, _, w in legs], [k for _, k, _ in legs]
+    got = launched(P.fields_pack, lambda: P.fields_pack_buckets(idx, ws),
+                   len(idx), "adaptive-k legs")
+    back = launched(P.fields_unpack,
+                    lambda: P.fields_unpack_buckets(got, ks, ws), len(idx),
+                    "adaptive-k legs")
+    err = [0.0, 0.0]
+    for f, w, k, g, bk in zip(idx, ws, ks, got, back):
+        want = P.fields_pack_plain(f, w)
+        err[0] = max(err[0], max_abs_err(g, want))
+        check(bitwise_equal(g, want), f"fields_pack adaptive-k w{w} k{k}")
+        want = P.fields_unpack_plain(g, k, w)
+        err[1] = max(err[1], max_abs_err(bk, want))
+        check(bitwise_equal(bk, want) and bitwise_equal(bk, f),
+              f"fields_unpack adaptive-k w{w} k{k}")
+    torch.cuda.synchronize()
+    return legs, tuple(err), rel
+
+
+def figure_wire_cases():
+    """What figures.ALL trains, read off its calls with the experiment
+    stubbed -> ({model: [(compressor name, knobs)]} of the sim-exact
+    compressors, in figure order, each once; [(model, CompressionConfig)]
+    of ef_beyond_paper's runs)."""
+    import io
+    from repro_torch import figures
+    from repro_torch.core import make_compressor
+    from repro_torch.core.wire import wire_codec
+    runs, efs = {}, []
+
+    def compare(model, qname, *, steps, nesterov=False, device=None, **kw):
+        qw = make_compressor(qname, **kw)
+        if wire_codec(qw).exact_sim and (qname, kw) not in runs.get(model,
+                                                                     []):
+            runs.setdefault(model, []).append((qname, kw))
+        return {"layerwise": 0.0, "entire_model": 0.0, "baseline": 0.0}
+
+    def ef_run(model, comp, steps=100, device=None):
+        efs.append((model, comp))
+        return 0.0, None
+    saved = figures.compare_granularities, figures.train_cnn_ef
+    figures.compare_granularities, figures.train_cnn_ef = compare, ef_run
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            for fig in figures.ALL:
+                fig(1, "cpu")
+    finally:
+        figures.compare_granularities, figures.train_cnn_ef = saved
+    return runs, efs
+
+
+# 12(b): one aggregate_simulated_workers(wire=True) call encodes every
+# bucket of the step in one encode_buckets call and decodes them in one
+# decode_buckets (decode_ef_buckets under error feedback) call: one pack
+# and one unpack launch of the codec's kernel family (mlp 6, alexnet 8
+# and resnet9 11 layerwise buckets, all <= MAX_BUCKETS; one entire-model
+# bucket); the wire=False call launches nothing. So each (model,
+# compressor, granularity) counts 1 + 1, and ef_beyond_paper's two-step
+# runs 2 + 2 each.
+FAMILY = {"qsgd": ("qsgd_pack", "qsgd_unpack"),
+          "terngrad": ("terngrad_pack", "terngrad_unpack"),
+          "topk": ("fields_pack", "fields_unpack"),
+          "randomk": ("fields_pack", "fields_unpack")}
+EF_STEPS = 2
+
+
+def check_figure_wire(dev):
+    """12(b): on one step's worker gradients of each figure model, every
+    sim-exact compressor figures.ALL runs on it, at both granularities:
+    aggregate_simulated_workers(wire=True) bitwise its wire=False result
+    on the card; ef_beyond_paper's error-feedback runs over EF_STEPS
+    steps, the aggregate and the EF state bitwise; launches counted
+    exactly -> (cases checked, launches per kernel)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch import random as R
+    from repro_torch.convert import tree_leaves, tree_map
+    from repro_torch.core import (CompressionConfig, Granularity,
+                                  aggregate_simulated_workers,
+                                  make_compressor, stacked_mask)
+    from repro_torch.data.synthetic import classification_batch
+    from repro_torch.experiment import MODELS, worker_grads
+    from repro_torch.models.cnn import init_cnn
+    runs, efs = figure_wire_cases()
+    key = R.key(37)
+    grads = {}
+    for model in sorted(set(runs) | {m for m, _ in efs}):
+        params = init_cnn(MODELS[model], key, device=dev)
+        wg, _ = worker_grads(MODELS[model], params, classification_batch(
+            R.fold_in(key, 1), 64, device=dev), WORKERS)
+        grads[model] = (wg, stacked_mask(params))
+
+    def same(a, b, what):
+        check(all(bitwise_equal(x, y) for x, y in
+                  zip(tree_leaves(a), tree_leaves(b))),
+              f"figure wire {what}: wire != simulated")
+    want, total, cases = {}, {}, 0
+    kernels.reset_launch_counts()
+    for model, qs in runs.items():
+        wg, sm = grads[model]
+        for qname, kw in qs:
+            for gran in ("layerwise", "entire_model"):
+                comp = CompressionConfig(qw=make_compressor(qname, **kw),
+                                         granularity=Granularity(gran))
+                k = R.fold_in(key, 10_000 + cases)
+                sim, _ = aggregate_simulated_workers(wg, sm, comp, k)
+                wire, _ = aggregate_simulated_workers(wg, sm, comp, k,
+                                                      wire=True)
+                same(sim, wire, f"{model} {qname} {kw} {gran}")
+                for name in FAMILY[qname]:
+                    want[name] = want.get(name, 0) + 1
+                cases += 1
+    for model, comp in efs:
+        wg, sm = grads[model]
+        ef = (tree_map(torch.zeros_like, wg) if comp.error_feedback
+              else None)
+        for i in range(EF_STEPS):
+            k = R.fold_in(key, 20_000 + i)
+            sim, sim_ef = aggregate_simulated_workers(wg, sm, comp, k,
+                                                      ef_state=ef)
+            wire, wire_ef = aggregate_simulated_workers(
+                wg, sm, comp, k, ef_state=ef, wire=True)
+            what = f"{model} ef={comp.error_feedback} step {i}"
+            same(sim, wire, what)
+            if comp.error_feedback:
+                same(sim_ef, wire_ef, what + " EF state")
+                ef = sim_ef
+            for name in FAMILY[comp.qw.name]:
+                want[name] = want.get(name, 0) + 1
+        cases += 1
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    full = {k: want.get(k, 0) for k in counts}
+    check(counts == full, f"figure wire: launches {counts} != {full}")
+    return cases, _nonzero(counts), {m: len(q) for m, q in runs.items()}
+
+
+def control_phase(dev):
+    """Phase 12 -> (its record, its main-path launches per kernel, max
+    |err| of the adaptive-k field legs)."""
+    import io
+    from repro_torch import figures, kernels
+    from repro_torch.control import AdaptiveKPolicy, CompressionDecision
+    from repro_torch.core import Granularity, make_compressor
+    from repro_torch.experiment import (cnn_controller,
+                                        train_cnn_with_controller)
+    t0 = time.perf_counter()
+    base = CompressionDecision(qw=make_compressor("topk",
+                                                  ratio=SPARSE_RATIO),
+                               granularity=Granularity("layerwise"))
+    ctrl = cnn_controller("resnet9", AdaptiveKPolicy(avg_ratio=SPARSE_RATIO),
+                          base=base, replan_every=CTRL_REPLAN)
+    decisions, inner = [], ctrl.step_fn
+
+    def step_fn():
+        decisions.append(ctrl.decision)
+        return inner()
+    ctrl.step_fn = step_fn
+    kernels.reset_launch_counts()
+    acc, loss = train_cnn_with_controller("resnet9", ctrl, steps=CTRL_STEPS)
+    counts = kernels.launch_counts()
+    want = _want_launches(CTRL_LAUNCHES, CTRL_STEPS, SOURCES)
+    check({k: counts[k] for k in SOURCES} == want,
+          f"controller: launches {counts} != {want}")
+    check(math.isfinite(loss) and ctrl.builds == len(set(decisions)) >= 2,
+          f"controller: loss {loss}, {ctrl.builds} builds for "
+          f"{len(set(decisions))} distinct decisions")
+    launches = dict(counts)
+    last = ctrl.decision
+    legs, err, rel = check_adaptive_wire(last, dev)
+    print(f"control (a): cnn_controller resnet9, AdaptiveKPolicy over "
+          f"top-k({SPARSE_RATIO}) layerwise, re-plan every {CTRL_REPLAN} of "
+          f"{CTRL_STEPS} steps: acc {acc:.3f} loss {loss:.4f}; "
+          f"{ctrl.builds} builds for {len(set(decisions))} distinct "
+          f"decisions, {len(ctrl.switches)} switches, last "
+          f"{last.describe()}; launches {_nonzero(counts)}; its wire step "
+          f"bitwise its simulated step; index legs (n, k, width) {legs} in "
+          f"one fields_pack / fields_unpack launch each bitwise the plain "
+          f"twins (max abs err {err}); telemetry card vs CPU {rel:.2e} "
+          f"relative", flush=True)
+    ta = time.perf_counter() - t0
+    # (b) every sim-exact figure compressor's wire step at the figures'
+    # shapes (comparison launches: not added to the main path's)
+    tw = time.perf_counter()
+    wcases, wlaunch, per_model = check_figure_wire(dev)
+    tw = time.perf_counter() - tw
+    print(f"control (b): figure shapes, {per_model} sim-exact compressors "
+          f"a model x 2 granularities plus ef_beyond_paper's runs: "
+          f"{wcases} cases, wire bitwise simulated; launches {wlaunch}; "
+          f"{tw:.1f} s", flush=True)
+    # (c) the paper's figures at FIG_STEPS steps a run
+    t1 = time.perf_counter()
+    buf = io.StringIO()
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        for fig in figures.ALL:
+            fig(FIG_STEPS)
+    fig_counts = kernels.launch_counts()
+    for k, v in fig_counts.items():
+        launches[k] = launches.get(k, 0) + v
+    rows = [ln.split(",") for ln in buf.getvalue().splitlines()]
+    accs = [float(a.split("=")[1]) for _, _, d in rows for a in d.split("|")]
+    check(len(rows) == 26 and all(math.isfinite(a) for a in accs),
+          f"figures: {len(rows)} rows, accuracies {accs}")
+    for ln in buf.getvalue().splitlines():
+        print(f"  {ln}", flush=True)
+    tb = time.perf_counter() - t1
+    print(f"control (c): figures.ALL at {FIG_STEPS} steps a run: "
+          f"{len(rows)} rows, every accuracy finite; launches "
+          f"{_nonzero(fig_counts)}; {tb:.1f} s", flush=True)
+    return ({"seconds": time.perf_counter() - t0, "controller_seconds": ta,
+             "figures_seconds": tb, "figure_wire_seconds": tw,
+             "figure_wire_cases": wcases, "figure_wire_launches": wlaunch,
+             "acc": acc, "loss": loss,
+             "builds": ctrl.builds, "switches": ctrl.switches,
+             "decisions": [d.describe() for d in decisions],
+             "legs": legs, "telemetry_rel_err": rel,
+             "launches": counts, "figure_rows": rows,
+             "figure_launches": fig_counts}, launches, err)
 
 
 def _nested(flat: dict) -> dict:
@@ -4275,6 +4661,11 @@ def main(argv) -> int:
     engine, engine_launches = engine_phase(dev)
     for k, v in engine_launches.items():
         launches[k] += v
+    control, control_launches, cerr = control_phase(dev)
+    for k in SOURCES:
+        launches[k] += control_launches.get(k, 0)
+    errs["fields_pack"] = max(errs["fields_pack"], cerr[0])
+    errs["fields_unpack"] = max(errs["fields_unpack"], cerr[1])
     timings += lm["timings"]
     summary = kernel_line(timings, launches, errs)
     from repro_torch.core.compressors import QSGD, TopK
@@ -4301,7 +4692,7 @@ def main(argv) -> int:
                         if "registers" in ln or "spill" in ln]
                   for src, log in build.BUILD_LOG.items()},
         "multi_rank_seconds": multi_secs, "lm": lm, "serve": serve,
-        "engine": engine,
+        "engine": engine, "control": control,
         "summary": summary},
         indent=1))
     print(f"total {total:.1f} s", flush=True)

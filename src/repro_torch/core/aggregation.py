@@ -30,7 +30,10 @@ by rank-order arithmetic (core/collectives.py). Strategies:
                  rank encoding only the shard it owns and the packed shards
                  riding the ring.
 
-Fault injection, the trace recorder and telemetry are later slices and
+With `telemetry_plan` (a control.telemetry measurement plan) both entry
+points return a third element, the step's TelemetryState increment
+measured on the gradients against the aggregate (control/telemetry.py
+`measure`). Fault injection and the trace recorder are later slices and
 raise NotImplementedError (wire.not_ported).
 
 `aggregate_simulated_workers` is the paper-repro harness: worker
@@ -324,14 +327,12 @@ def _executor(plan: UnitPlan, cfg: CompressionConfig,
     return plan
 
 
-def _not_ported_hooks(telemetry_plan, faults, recorder=None) -> None:
+def _not_ported_hooks(faults, recorder=None) -> None:
     """The reference's hooks that later slices port raise here."""
     if faults is not None:
         raise not_ported("fault injection (faults=)", "item 7 (resil/)")
     if recorder is not None:
         raise not_ported("the trace recorder (recorder=)", "item 6 (obs/)")
-    if telemetry_plan is not None:
-        raise not_ported("telemetry (telemetry_plan=)", "item 5 (control/)")
 
 
 def compressed_allreduce(grads, stacked, cfg: CompressionConfig, group,
@@ -354,15 +355,32 @@ def compressed_allreduce(grads, stacked, cfg: CompressionConfig, group,
     schedule through the streaming collective
     (CommSchedule.execute_streaming); `stream_chunk_bytes` sets their hop
     granularity (None: whole messages). `alive` (strategy='dense' only)
-    renormalizes the mean over the ranks whose flag is set. The
-    reference's telemetry / recorder / faults hooks are later slices
-    (`telemetry_entire_model` is read only with `telemetry_plan`)."""
+    renormalizes the mean over the ranks whose flag is set. With
+    `telemetry_plan` the result is (grads_hat, new_ef_state,
+    telemetry_inc): this rank's gradients measured against the aggregate
+    (the caller takes the mean over the group); `telemetry_entire_model`
+    False skips the flat counterfactual leg. The reference's recorder /
+    faults hooks are later slices."""
+    agg, ef = _allreduce(grads, stacked, cfg, group, key, n_workers,
+                         ef_state, plan, schedule, wire, recorder,
+                         stream_chunk_bytes, faults, alive)
+    if telemetry_plan is None:
+        return agg, ef
+    from repro_torch.control.telemetry import measure
+    return agg, ef, measure(telemetry_plan, cfg.qw, grads, key,
+                            grads_hat=agg,
+                            entire_model=telemetry_entire_model)
+
+
+def _allreduce(grads, stacked, cfg, group, key, n_workers, ef_state, plan,
+               schedule, wire, recorder, stream_chunk_bytes, faults, alive):
+    """compressed_allreduce without the telemetry leg."""
     if cfg.strategy in STREAM_STRATEGIES and not wire:
         raise ValueError(
             f"strategy {cfg.strategy!r} is the streaming collective over "
             f"PACKED wire buffers — pass wire=True (the unpacked payload "
             f"records have no single buffer to ring-permute)")
-    _not_ported_hooks(telemetry_plan, faults, recorder)
+    _not_ported_hooks(faults, recorder)
     rank, n = dist.get_rank(group), dist.get_world_size(group)
     if n != n_workers:
         raise ValueError(f"n_workers={n_workers} but the group has {n} ranks")
@@ -464,10 +482,25 @@ def aggregate_simulated_workers(worker_grads, stacked,
     dense. A codec that is not sim-exact raises ValueError under
     wire=True. `alive` (n host-side flags) renormalizes the mean over the
     surviving workers, and a dead worker's EF residual stays at its old
-    value (its payload never reached the reduce). The reference's
-    telemetry and fault hooks are later slices (`telemetry_entire_model`
-    is read only with `telemetry_plan`)."""
-    _not_ported_hooks(telemetry_plan, faults)
+    value (its payload never reached the reduce). With `telemetry_plan`
+    the result is (grads_hat, new_ef_state, telemetry_inc), measured on
+    the workers' mean gradient against the aggregate. The reference's
+    fault hook is a later slice."""
+    _not_ported_hooks(faults)
+    out, new_ef = _aggregate_workers(worker_grads, stacked, cfg, key,
+                                     ef_state, plan, schedule, wire, alive)
+    if telemetry_plan is None:
+        return out, new_ef
+    from repro_torch.control.telemetry import measure
+    gbar = tree_map(worker_mean, worker_grads)
+    return out, new_ef, measure(telemetry_plan, cfg.qw, gbar, key,
+                                grads_hat=out,
+                                entire_model=telemetry_entire_model)
+
+
+def _aggregate_workers(worker_grads, stacked, cfg, key, ef_state, plan,
+                       schedule, wire, alive):
+    """aggregate_simulated_workers without the telemetry leg."""
     n = tree_leaves(worker_grads)[0].shape[0]
     if plan is None and schedule is not None:
         plan = schedule.plan

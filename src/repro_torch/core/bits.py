@@ -73,7 +73,10 @@ def comm_report(cfg: CompressionConfig,
     without a schedule one message per unit; with one, or with a UnitPlan
     and cfg.fusion_bytes, the fused message count; `measured=True` charges
     the compressed legs the real packed codec bytes instead of the
-    analytic payload bits)."""
+    analytic payload bits). `cfg` may also be a control
+    CompressionDecision (duck-typed by its to_config)."""
+    if hasattr(cfg, "to_config"):  # CompressionDecision (no core ->
+        cfg = cfg.to_config()      # control import)
     if (schedule is None and isinstance(unit_dims, UnitPlan)
             and cfg.fusion_bytes is not None):
         schedule = build_schedule(unit_dims, cfg.fusion_bytes)

@@ -706,7 +706,11 @@ class SparseCodec(WireCodec):
     (exact_sim) and the capacity-bounded threshold methods (not). Values
     travel first (4k bytes, or 2k word-padded at wire_dtype="bfloat16"),
     then the packed index leg. Decode scatters the values into zeros at
-    their (unique) indices. Per-unit and fused formats share one path."""
+    their (unique) indices. Per-unit and fused formats share one path.
+    Resolves PerDimRatio wrappers (control/policy.py) per unit dimension,
+    so adaptive per-bucket ratios wire with each bucket's own k: one
+    grouped pack / unpack launch then carries index legs of different k
+    and width."""
     comp: Compressor = TopK()
     sim_exact: bool = True
 
@@ -716,8 +720,12 @@ class SparseCodec(WireCodec):
     def exact_sim(self) -> bool:
         return self.sim_exact and self.wire_dtype == "float32"
 
+    def _c(self, d: int) -> Compressor:
+        return (self.comp.for_dim(d) if hasattr(self.comp, "for_dim")
+                else self.comp)
+
     def _k(self, d: int) -> int:
-        c = self.comp
+        c = self._c(d)
         return _k_of(c.ratio if hasattr(c, "ratio") else c.cap_ratio, d)
 
     def _vb(self, d: int) -> int:
@@ -729,7 +737,7 @@ class SparseCodec(WireCodec):
 
     def payload_bits(self, d: int) -> int:
         if self.wire_dtype == "float32":
-            return self.comp.payload_bits(d)
+            return self._c(d).payload_bits(d)
         return self._k(d) * (16 + index_bits(d))
 
     def encode_rows(self, x2d, keys):
@@ -737,7 +745,7 @@ class SparseCodec(WireCodec):
 
     def encode_buckets(self, es, keys):
         """Records per bucket, then every index leg in one pack launch."""
-        recs = [self.comp.encode(x2d.to(torch.float32), k)
+        recs = [self._c(x2d.shape[1]).encode(x2d.to(torch.float32), k)
                 for x2d, k in zip(es, keys)]
         words = ops.fields_pack_units_buckets(
             [r["idx"] for r in recs], [index_bits(x.shape[1]) for x in es])
@@ -779,9 +787,10 @@ def wire_codec(comp: Compressor, wire_dtype: str = "float32",
     entry points through the per-unit rows; `integrity=True` adds the
     Fletcher-32 header word to every fused message."""
     kw = dict(fused=fused, wire_dtype=wire_dtype, integrity=integrity)
-    if isinstance(comp, (TopK, RandomK)):
+    base = comp.base if hasattr(comp, "base") else comp  # PerDimRatio
+    if isinstance(base, (TopK, RandomK)):
         return SparseCodec(comp=comp, **kw)
-    if isinstance(comp, (ThresholdV, AdaptiveThreshold)):
+    if isinstance(base, (ThresholdV, AdaptiveThreshold)):
         return SparseCodec(comp=comp, sim_exact=False, **kw)
     if isinstance(comp, QSGD):
         return QSGDCodec(comp=comp, **kw)

@@ -1,6 +1,9 @@
 """The paper's experiment on the port: data-parallel momentum SGD with
 simulated workers, layer-wise vs entire-model compression (the JAX
-package's benchmarks/common.py:26-91).
+package's benchmarks/common.py), and its controller-driven form
+(`cnn_controller`, `train_cnn_with_controller`: the same step through a
+control.Controller's decision cache, with the telemetry leg) and the
+error-feedback variant of benchmarks/figures.py (`train_cnn_ef`).
 
 Same signatures, seeds and key derivation as the reference: the data of
 step i comes from fold_in(key, i), its aggregation key is
@@ -38,13 +41,15 @@ import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs.resnet9_cifar import ALEXNET, MLP, RESNET9, CNNConfig
+from repro_torch.control import (CompressionDecision, Controller, Policy,
+                                 accumulate, measurement_plan)
 from repro_torch.convert import (tree_leaves, tree_map, tree_paths,
                                  tree_unflatten)
 from repro_torch.core.aggregation import (STREAM_STRATEGIES,
                                           CompressionConfig,
                                           aggregate_simulated_workers,
                                           compressed_allreduce, worker_mean)
-from repro_torch.core.compressors import make_compressor
+from repro_torch.core.compressors import Identity, make_compressor
 from repro_torch.core.granularity import Granularity, stacked_mask
 from repro_torch.core.wire import wire_codec
 from repro_torch.data.synthetic import (classification_batch, lm_batches,
@@ -89,17 +94,25 @@ def worker_grads(cfg: CNNConfig, params: Dict, batch: Dict, workers: int):
 
 def train_step(cfg: CNNConfig, comp: Optional[CompressionConfig], params,
                vel, batch, key, lr, *, workers: int = 4,
-               momentum: float = 0.9, nesterov: bool = False):
-    """One Algorithm-1 step -> (params, vel, mean worker loss)."""
+               momentum: float = 0.9, nesterov: bool = False,
+               telemetry_plan=None, telemetry_entire_model: bool = True):
+    """One Algorithm-1 step -> (params, vel, mean worker loss), and with
+    `telemetry_plan` (needs `comp`) the step's TelemetryState increment as
+    a fourth element."""
     wg, losses = worker_grads(cfg, params, batch, workers)
     if comp is None:
-        g = tree_map(worker_mean, wg)
+        out = (tree_map(worker_mean, wg),)
     else:
         wire = wire_codec(comp.qw, wire_dtype=comp.wire_dtype).exact_sim
-        g, _ = aggregate_simulated_workers(wg, stacked_mask(params), comp,
-                                           key, wire=wire)
-    params, vel = _momentum_step(params, vel, g, lr, momentum, nesterov)
-    return params, vel, losses.mean()
+        out = aggregate_simulated_workers(
+            wg, stacked_mask(params), comp, key, wire=wire,
+            telemetry_plan=telemetry_plan,
+            telemetry_entire_model=telemetry_entire_model)
+    params, vel = _momentum_step(params, vel, out[0], lr, momentum,
+                                 nesterov)
+    if telemetry_plan is None:
+        return params, vel, losses.mean()
+    return params, vel, losses.mean(), out[2]
 
 
 def _full_precision() -> None:
@@ -197,6 +210,125 @@ def compare_granularities(model: str, qname: str, *, steps=120, seed=0,
     out["baseline"], _ = train_cnn(model, None, steps=steps, seed=seed,
                                    nesterov=nesterov, device=device)
     return out
+
+
+def csv_line(name: str, t_us: float, derived: str):
+    print(f"{name},{t_us:.1f},{derived}")
+
+
+def train_cnn_ef(model: str, comp: CompressionConfig, steps: int = 100, *,
+                 device="cuda", params=None, batch_fn=None):
+    """benchmarks/figures.py's train_cnn variant threading error-feedback
+    state: plain SGD (error feedback with heavy-ball momentum
+    double-counts the re-injected residuals), EF memory with a leading
+    worker axis of 4, key(0), batches of 64 and the LR schedule of
+    train_cnn. Returns (final_test_accuracy, None). `params` replaces the
+    init and `batch_fn(key, n)` the batch draws (tests feed the
+    reference's)."""
+    dev = resolve_device(device)
+    _full_precision()
+    cfg = MODELS[model]
+    key = make_key(0)
+    if params is None:
+        params = init_cnn(cfg, key, device=dev)
+    if batch_fn is None:
+        batch_fn = lambda k, n: classification_batch(k, n, device=dev)
+    efs = (tree_map(lambda x: torch.zeros((4,) + tuple(x.shape),
+                                          dtype=x.dtype, device=x.device),
+                    params) if comp.error_feedback else None)
+    sm = stacked_mask(params)
+    wire = wire_codec(comp.qw, wire_dtype=comp.wire_dtype).exact_sim
+    sched = piecewise_linear(LR[model], steps, max(1, steps // 8))
+    for i in range(steps):
+        b = batch_fn(fold_in(key, i), 64)
+        wg, _ = worker_grads(cfg, params, b, 4)
+        g, efs = aggregate_simulated_workers(
+            wg, sm, comp, fold_in(key, 10_000 + i), ef_state=efs, wire=wire)
+        lr = sched(i).to(dev)
+        params = tree_map(lambda p, gg: p - lr * gg, params, g)
+    test = batch_fn(fold_in(key, 999_999), 256)
+    with torch.no_grad():
+        return float(cnn_accuracy(cfg, params, test)), None
+
+
+# ---- the controller-driven study (the adaptive control loop over the same
+# simulated-worker Algorithm-1 step train_cnn takes) ---------------------------
+
+def dense_decision() -> CompressionDecision:
+    """No-compression decision (identity Q_W / Q_M == the plain gradient
+    mean)."""
+    return CompressionDecision(qw=Identity(), qm=Identity())
+
+
+def cnn_controller(model: str, policy: Policy, *,
+                   base: Optional[CompressionDecision] = None,
+                   workers: int = 4, momentum: float = 0.9,
+                   nesterov: bool = False, replan_every: int = 10,
+                   collect_telemetry: Optional[bool] = None,
+                   cache: Optional[dict] = None) -> Controller:
+    """A Controller whose data plane is train_step for the decision's
+    config (the reference's jitted simulated-worker step), with the
+    telemetry leg when the policy reads it. The measurement plan comes
+    from the model's shapes (an init on the meta device). Pass one shared
+    `cache` dict across controllers to reuse built steps over a study
+    sweep."""
+    cfg = MODELS[model]
+    shapes = init_cnn(cfg, make_key(0), device="meta")
+    sm = stacked_mask(shapes)
+    mplan = measurement_plan(shapes, sm)
+    collect = (policy.needs_telemetry if collect_telemetry is None
+               else bool(collect_telemetry))
+    em = getattr(policy, "needs_entire_model", True)
+
+    def build(decision: CompressionDecision):
+        comp = decision.to_config()
+
+        def step(params, vel, batch, key, lr, telem):
+            out = train_step(cfg, comp, params, vel, batch, key, lr,
+                             workers=workers, momentum=momentum,
+                             nesterov=nesterov,
+                             telemetry_plan=mplan if collect else None,
+                             telemetry_entire_model=em)
+            if collect:
+                telem = accumulate(telem, out[3])
+            return out[0], out[1], telem
+        return step
+
+    # tag = every build input besides the decision (see engine_controller)
+    return Controller(policy, build, base or dense_decision(), mplan,
+                      replan_every=replan_every, collect_telemetry=collect,
+                      cache=cache,
+                      cache_tag=("cnn", model, workers, momentum, nesterov,
+                                 em))
+
+
+def train_cnn_with_controller(model: str, ctrl: Controller, *,
+                              steps: int = 120, batch: int = 64,
+                              lr_peak: Optional[float] = None,
+                              seed: int = 0,
+                              device="cuda") -> Tuple[float, float]:
+    """train_cnn's loop driven through a Controller: the same data stream,
+    keys and LR schedule, the step fetched from the decision cache every
+    iteration and telemetry fed back at re-plan boundaries. Returns
+    (final_test_accuracy, final_test_loss)."""
+    dev = resolve_device(device)
+    _full_precision()
+    cfg = MODELS[model]
+    lr_peak = LR[model] if lr_peak is None else lr_peak
+    key = make_key(seed)
+    params = init_cnn(cfg, key, device=dev)
+    vel = tree_map(torch.zeros_like, params)
+    sched = piecewise_linear(lr_peak, steps, max(1, steps // 8))
+    for i in range(steps):
+        b = classification_batch(fold_in(key, i), batch, device=dev)
+        fn = ctrl.step_fn()
+        params, vel, telem = fn(params, vel, b, fold_in(key, 10_000 + i),
+                                sched(i).to(dev), ctrl.telemetry)
+        ctrl.observe(telem, i)
+    test = classification_batch(fold_in(key, 999_999), 256, device=dev)
+    with torch.no_grad():
+        return (float(cnn_accuracy(cfg, params, test)),
+                float(cnn_loss(cfg, params, test)))
 
 
 # ---- the causal LMs: examples/quickstart.py's experiment ---------------------

@@ -18,10 +18,15 @@ data group in rank order (the reference's pmean); step_guard's finite
 flag is reduced by MIN over the group, so every rank takes the same
 branch. Torch has no buffer donation: the step returns new trees.
 
+With telemetry=True the step also threads a control.TelemetryState: each
+rank measures its own gradients against the aggregate, and the increments
+are averaged over the data group in rank order (the reference's pmean)
+before they accumulate, so every rank holds the same state.
+
 The reference's tensor- and sequence-parallel axes and FSDP are ROADMAP
 Queue 1 item 4b: a mesh with model > 1 or a pod axis, and cfg.use_fsdp,
-raise. Telemetry (telemetry=, measurement_plan) is item 5 and the trace
-recorder and metrics registry (tracer=, metrics=) item 6.
+raise. The trace recorder and metrics registry (tracer=, metrics=) are
+item 6.
 """
 from __future__ import annotations
 
@@ -46,7 +51,6 @@ from repro_torch.models.model import Model
 from repro_torch.models.params import torch_dtype
 from repro_torch.optim import OptConfig, apply_updates, init_opt_state
 
-ITEM_5 = "item 5 (control/)"
 ITEM_6 = "item 6 (obs/)"
 # batch entries whose first dim is the batch
 _BATCH_ROWS = ("tokens", "targets", "patch_embeds", "frames", "token")
@@ -63,6 +67,29 @@ def _group_values(x: torch.Tensor, group) -> torch.Tensor:
     out = torch.empty((n,), dtype=x.dtype, device=x.device)
     dist.all_gather_into_tensor(out, x.reshape(1).contiguous(), group=group)
     return out
+
+
+def _group_mean_tree(tree, group):
+    """The mean over the data group of every tensor of a tuple of f32
+    tensors, summed in rank order then divided by n (the reference's
+    pmean): one all_gather of the concatenated fields."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return tree
+    flat = torch.cat([t.reshape(-1) for t in tree])
+    got = torch.empty((n * flat.numel(),), dtype=flat.dtype,
+                      device=flat.device)
+    dist.all_gather_into_tensor(got, flat.contiguous(), group=group)
+    got = got.reshape(n, -1)
+    mean = got[0]
+    for i in range(1, n):
+        mean = mean + got[i]
+    mean = mean / n
+    out, off = [], 0
+    for t in tree:
+        out.append(mean[off:off + t.numel()].reshape(t.shape))
+        off += t.numel()
+    return type(tree)(*out)
 
 
 def _cache_leaves(tree):
@@ -150,7 +177,15 @@ class Engine:
 
     # ---- plans ------------------------------------------------------------
     def measurement_plan(self):
-        raise not_ported("telemetry's measurement plan", ITEM_5)
+        """The layer-wise UnitPlan telemetry is measured over (the whole
+        gradient tree, independent of the active execution granularity,
+        so a controller's TelemetryState keeps its shape across
+        decisions). Cached: the same object the step uses."""
+        if "measure" not in self._plans:
+            from repro_torch.control.telemetry import measurement_plan
+            self._plans["measure"] = measurement_plan(
+                self.model.param_shapes(), self.model.stacked())
+        return self._plans["measure"]
 
     def comm_plans(self, comp: Optional[CompressionConfig] = None):
         """(rest_plan, fsdp_plan): the static UnitPlans the train step
@@ -215,13 +250,20 @@ class Engine:
         update (params and optimizer state keep their values) when the
         loss or any aggregated gradient is non-finite on any rank.
 
+        With `telemetry=True` the step takes and returns a
+        control.TelemetryState: (params, opt, batch, step, telem) ->
+        (params, opt, metrics, telem'), where telem' accumulates this
+        step's measurement (this rank's gradients against the aggregate,
+        under the step key) averaged over the data group: absolute second
+        moments are per-rank averages, and the ratio statistics every
+        policy reads are exact. `telemetry_entire_model=False` drops the
+        flat counterfactual compression pass (only GranularitySwitchPolicy
+        reads it).
+
         The engine threads no error-feedback state (nor does the
         reference's): a config with error_feedback raises the reference's
         ValueError here, where the reference raises it at its first step.
         """
-        if telemetry or not telemetry_entire_model:
-            raise not_ported("telemetry (telemetry=, telemetry_entire_model=)",
-                             ITEM_5)
         if tracer is not None or metrics is not None:
             raise not_ported("the trace recorder and metrics registry "
                              "(tracer=, metrics=)", ITEM_6)
@@ -247,7 +289,7 @@ class Engine:
             lr = torch.tensor(self.opt.lr, dtype=torch.float32)
             lr_schedule = (lambda s: lr)
         return TrainStep(self, lr_schedule, comp_eff, schedule, wire,
-                         step_guard)
+                         step_guard, telemetry, telemetry_entire_model)
 
     # ---- inference steps ----------------------------------------------------
     def build_prefill(self, shape: InputShape, cache_len: int = None):
@@ -339,13 +381,16 @@ class TrainStep:
     can time them apart."""
 
     def __init__(self, engine: Engine, lr_schedule, comp, schedule,
-                 wire: bool, step_guard: bool):
+                 wire: bool, step_guard: bool, telemetry: bool = False,
+                 telemetry_entire_model: bool = True):
         self.engine = engine
         self.lr_schedule = lr_schedule
         self.comp = comp
         self.schedule = schedule
         self.wire = wire
         self.step_guard = step_guard
+        self.telemetry = telemetry
+        self.telemetry_entire_model = telemetry_entire_model
 
     @staticmethod
     def key(step) -> torch.Tensor:
@@ -421,8 +466,22 @@ class TrainStep:
             metrics["skipped"] = 0.0 if finite else 1.0
         return params, opt_state, metrics
 
-    def __call__(self, params, opt_state, batch, step):
+    def measure(self, grads, agg, step, telem):
+        """telem + this step's telemetry increment, averaged over the data
+        group."""
+        from repro_torch.control.telemetry import accumulate, measure
+        eng = self.engine
+        qw = (self.comp or CompressionConfig(strategy="dense")).qw
+        inc = measure(eng.measurement_plan(), qw, grads, self.key(step),
+                      grads_hat=agg,
+                      entire_model=self.telemetry_entire_model)
+        return accumulate(telem, _group_mean_tree(inc, eng.group))
+
+    def __call__(self, params, opt_state, batch, step, telem=None):
         loss, grads = self.grads(params, batch, step)
         agg = self.aggregate(grads, step)
+        if self.telemetry:
+            telem = self.measure(grads, agg, step, telem)
         del grads
-        return self.update(params, opt_state, loss, agg, step)
+        out = self.update(params, opt_state, loss, agg, step)
+        return out + (telem,) if self.telemetry else out

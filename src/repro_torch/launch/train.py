@@ -20,16 +20,23 @@ as in the reference.
 --ckpt-dir / --ckpt-every / --resume checkpoint and resume as the
 reference (ckpt/checkpoint.py, its file format): rank 0 writes, and a
 resumed run replays the data stream to its step, so it ends bitwise
-where the uninterrupted run does. --policy / --telemetry-out and the
-controller's --replan-every / --variance-budget / --bit-budget are
-ROADMAP Queue 1 item 5, --trace-out / --metrics-out item 6, --model > 1
-item 4b; they raise. --error-feedback raises the reference's ValueError
-(the engine threads no EF state).
+where the uninterrupted run does. --policy routes the run through the
+adaptive controller (control/: engine_controller on every rank; the
+telemetry is averaged over the ranks, so every rank takes the same
+decisions) with --replan-every, --variance-budget, --bit-budget and
+--alpha-us; --telemetry-out writes its report from rank 0 (and implies
+--policy static). --trace-out / --metrics-out are ROADMAP Queue 1 item
+6, --model > 1 item 4b; they raise. --error-feedback raises the
+reference's ValueError (the engine threads no EF state).
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-405b \\
       --smoke --steps 4 --data 2 --device cpu --backend gloo \\
       --compressor qsgd --granularity layerwise --wire
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-405b \\
+      --smoke --steps 6 --data 2 --device cpu --backend gloo \\
+      --compressor topk --ratio 0.1 --policy granularity_switch \\
+      --replan-every 2
 """
 from __future__ import annotations
 
@@ -46,16 +53,35 @@ from repro_torch import resolve_device
 from repro_torch.ckpt import (host_state, latest_checkpoint,
                               load_checkpoint, save_checkpoint)
 from repro_torch.configs.registry import ARCH_NAMES, get_config, get_smoke
+from repro_torch.control import POLICIES, engine_controller, make_policy
 from repro_torch.convert import tree_leaves
 from repro_torch.core import CompressionConfig, Granularity, make_compressor
 from repro_torch.core.wire import not_ported
 from repro_torch.data import frames_stub, lm_batches, patches_stub
-from repro_torch.launch.engine import ITEM_5, ITEM_6, Engine
+from repro_torch.launch.engine import ITEM_6, Engine
 from repro_torch.launch.mesh import make_host_mesh, run_ranks
 from repro_torch.optim import OptConfig, piecewise_linear
 
 # seconds the ranks (and any one collective) may take before the run stops
 RANK_TIMEOUT = 3600.0
+
+
+def build_controller(args, eng, sched):
+    """The reference's controller over the engine: the policy by name with
+    its CLI knobs; telemetry is collected when the policy reads it or
+    --telemetry-out asks for the report."""
+    kw = {}
+    if args.policy == "variance_budget":
+        kw["budget"] = args.variance_budget
+    if args.policy == "bit_budget":
+        kw["bits_per_step"] = args.bit_budget
+    if args.policy == "fusion":
+        kw["alpha_us"] = args.alpha_us
+    policy = make_policy(args.policy, **kw)
+    collect = policy.needs_telemetry or bool(args.telemetry_out)
+    return engine_controller(eng, policy, lr_schedule=sched,
+                             replan_every=args.replan_every,
+                             collect_telemetry=collect)
 
 
 def build_compression(args) -> CompressionConfig:
@@ -102,8 +128,8 @@ def parser() -> argparse.ArgumentParser:
                          "into one wire message (0 = per-bucket messages, "
                          "inf = one message; default: unscheduled)")
     ap.add_argument("--alpha-us", type=float, default=50.0,
-                    help="per-message link latency for the modeled comm "
-                         "report")
+                    help="per-message link latency for the fusion policy "
+                         "and the modeled comm report")
     ap.add_argument("--wire", action="store_true",
                     help="materialize compression as real bit-packed wire "
                          "payloads: every message is a uint8 buffer, "
@@ -115,19 +141,24 @@ def parser() -> argparse.ArgumentParser:
                          "'allgather' gathers every payload, 'ring' "
                          "streams the same messages around the ring "
                          "(bit-identical numerics)")
-    ap.add_argument("--policy", default=None,
-                    help="adaptive compression policy (ROADMAP Queue 1 "
-                         "item 5: raises)")
+    ap.add_argument("--policy", default=None, choices=list(POLICIES),
+                    help="adaptive compression policy; routes the run "
+                         "through the control Controller (default: the "
+                         "static engine path without telemetry)")
     ap.add_argument("--replan-every", type=int, default=20,
-                    help="(item 5: raises)")
+                    help="policy re-plan boundary, in steps")
     ap.add_argument("--telemetry-out", default="",
-                    help="(item 5: raises)")
+                    help="write the controller's per-window telemetry "
+                         "summaries and switch log as JSON from rank 0 "
+                         "(implies --policy static when no policy is "
+                         "given)")
     ap.add_argument("--trace-out", default="", help="(item 6: raises)")
     ap.add_argument("--metrics-out", default="", help="(item 6: raises)")
     ap.add_argument("--variance-budget", type=float, default=0.1,
-                    help="(item 5: raises)")
+                    help="variance_budget policy: max relative "
+                         "compression error per bucket")
     ap.add_argument("--bit-budget", type=int, default=1 << 22,
-                    help="(item 5: raises)")
+                    help="bit_budget policy: uplink payload bits/step")
     ap.add_argument("--optimizer", default="momentum")
     ap.add_argument("--lr", type=float, default=0.2)
     ap.add_argument("--nesterov", action="store_true")
@@ -156,16 +187,15 @@ def _parse(argv):
     args = ap.parse_args(argv)
     if args.resume and not args.ckpt_dir:
         ap.error("--resume restores from --ckpt-dir; set it")
-    # the controller's knobs act only through --policy: set, they raise
-    knobs = [f for f in ("replan_every", "variance_budget", "bit_budget")
-             if getattr(args, f) != ap.get_default(f)]
-    if args.policy or args.telemetry_out or knobs:
-        raise not_ported("train --policy / --telemetry-out / --replan-every "
-                         "/ --variance-budget / --bit-budget (the "
-                         "controller)", ITEM_5)
+    if args.telemetry_out and not args.policy:
+        args.policy = "static"  # telemetry collection needs the controller
     if args.trace_out or args.metrics_out:
         raise not_ported("train --trace-out / --metrics-out", ITEM_6)
     comp = build_compression(args)
+    if args.wire and args.policy:
+        ap.error("--wire is the static engine path; drop --policy")
+    if args.step_guard and args.policy:
+        ap.error("--step-guard is the static engine path; drop --policy")
     if args.collective and not args.wire:
         ap.error("--collective picks the wire collective's topology; "
                  "add --wire")
@@ -192,7 +222,9 @@ def _summary(args, eng: Engine, params, say) -> None:
     n = sum(x.numel() for x in tree_leaves(params))
     say(f"arch={cfg.name} params={n/1e6:.2f}M mesh={dict(eng.sizes)} "
         f"comp={comp.strategy}/{comp.qw.name}/{comp.granularity.kind}"
-        + (f" collective={args.collective}" if args.collective else ""))
+        + (f" collective={args.collective}" if args.collective else "")
+        + (f" policy={args.policy}/replan={args.replan_every}"
+           if args.policy else ""))
     rest_plan, fsdp_plan = eng.comm_plans()
     for tag, p in (("dp", rest_plan), ("fsdp", fsdp_plan)):
         if p is not None:
@@ -232,8 +264,10 @@ def _batch(cfg, it, key, i, batch, dev):
 
 
 def _train_rank(rank, n, dev, args, collect):
-    """One rank of the run -> {"losses", "start", "launches", "wire"[,
-    "state"]}."""
+    """One rank of the run -> {"losses", "start", "launches", "wire",
+    "controller"[, "state"]}; "controller" (None without --policy) has the
+    decision in force at each step and the final decision, builds and
+    switches."""
     from repro_torch import kernels
     from repro_torch.core import collectives
     from repro_torch.experiment import _full_precision
@@ -245,9 +279,10 @@ def _train_rank(rank, n, dev, args, collect):
     eng = _engine(args, dev)
     cfg = eng.cfg
     sched = piecewise_linear(args.lr, args.steps, max(1, args.steps // 10))
-    step_fn = eng.build_train_step(sched, wire=args.wire,
-                                   collective=args.collective,
-                                   step_guard=args.step_guard)
+    ctrl = build_controller(args, eng, sched) if args.policy else None
+    step_fn = None if ctrl else eng.build_train_step(
+        sched, wire=args.wire, collective=args.collective,
+        step_guard=args.step_guard)
     params, opt_state = eng.init_state(args.seed)
     start = 0
     if args.resume:
@@ -269,11 +304,23 @@ def _train_rank(rank, n, dev, args, collect):
     key = R.key(args.seed)   # batches
     kernels.reset_launch_counts()
     collectives.reset_counts()
-    losses, skipped = [], 0
+    losses, skipped, decisions = [], 0, []
     t0 = time.time()
     for i in range(start, args.steps):
         batch = _batch(cfg, it, key, i, args.batch, dev)
-        params, opt_state, m = step_fn(params, opt_state, batch, i)
+        if ctrl is not None:
+            decisions.append(ctrl.decision.describe())
+            fn = ctrl.step_fn()
+            if ctrl.collect:
+                params, opt_state, m, telem = fn(params, opt_state, batch,
+                                                 i, ctrl.telemetry)
+            else:
+                params, opt_state, m = fn(params, opt_state, batch, i)
+                telem = None
+            if ctrl.observe(telem, i):
+                say(f"step {i:5d} replan -> {ctrl.decision.describe()}")
+        else:
+            params, opt_state, m = step_fn(params, opt_state, batch, i)
         loss = float(m["loss"])
         losses.append(loss)
         skipped += int(m.get("skipped", 0.0))
@@ -286,9 +333,17 @@ def _train_rank(rank, n, dev, args, collect):
                 save_checkpoint(args.ckpt_dir, i + 1,
                                 {"params": params, "opt": opt_state})
             dist.barrier()
+    report = None
+    if ctrl is not None:
+        say(f"controller: decision={ctrl.decision.describe()} "
+            f"builds={ctrl.builds} switches={len(ctrl.switches)}")
+        if args.telemetry_out and rank == 0:
+            ctrl.export(args.telemetry_out)
+            say(f"telemetry -> {args.telemetry_out}")
+        report = {"decisions": decisions, "report": ctrl.report()}
     out = {"losses": losses, "start": start, "skipped": skipped,
            "launches": kernels.launch_counts(),
-           "wire": collectives.counts("all_gather")}
+           "wire": collectives.counts("all_gather"), "controller": report}
     if collect:
         out["state"] = host_state({"params": params, "opt": opt_state})
     return out
@@ -303,9 +358,12 @@ def run(argv=None, *, collect: bool = False):
     resolve_device(args.device)
     # build the engine and its step once here: the errors a rank would
     # raise (a mesh or config of item 4b, error feedback) raise here
-    _engine(args, "cpu").build_train_step(
-        wire=args.wire, collective=args.collective,
-        step_guard=args.step_guard)
+    eng = _engine(args, "cpu")
+    if args.policy:
+        build_controller(args, eng, None).step_fn()
+    else:
+        eng.build_train_step(wire=args.wire, collective=args.collective,
+                             step_guard=args.step_guard)
     return run_ranks(_train_rank, args.data, backend=args.backend,
                      device=args.device, args=(args, collect),
                      timeout=RANK_TIMEOUT)

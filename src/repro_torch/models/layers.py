@@ -10,6 +10,8 @@ all-f32 arithmetic, so the kernel is not used here.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -91,6 +93,22 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.reciprocal(1.0 + torch.exp(-x))
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu (tanh form) as the reference's jitted code computes it.
+    Below f32, XLA expands x * 0.5 * (1 + tanh(c (x + a x^3))) with a and
+    c rounded to x's dtype, x^3 as (x * x) * x, and rounds each step to
+    that dtype; F.gelu rounds once (and where the rounded tanh is -1, for
+    x below about -3, XLA's product is -0.0, F.gelu's is not). In f32
+    F.gelu stays."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    a = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    c = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype,
+                     device=x.device)
+    t = torch.tanh((x + (x * x) * x * a) * c)
+    return x * ((t + 1.0) * 0.5)
+
+
 def mlp(p: dict, x: torch.Tensor, cfg, dist: DistConfig,
         fd=None) -> torch.Tensor:
     fd = fd or {}
@@ -99,8 +117,7 @@ def mlp(p: dict, x: torch.Tensor, cfg, dist: DistConfig,
         h = silu(fdot(xi, p["w_gate"], fd.get("w_gate"), dist)) * \
             fdot(xi, p["w_in"], fd.get("w_in"), dist)
     else:
-        h = F.gelu(fdot(xi, p["w_in"], fd.get("w_in"), dist),
-                   approximate="tanh")
+        h = gelu(fdot(xi, p["w_in"], fd.get("w_in"), dist))
     return region_out(fdot(h, p["w_out"], fd.get("w_out"), dist), dist)
 
 

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.dist import (DistConfig, fdot, region_in, region_out,
                                      tp_shared)
-from repro_torch.models.layers import silu
+from repro_torch.models.layers import gelu, silu
 
 
 def capacity(tokens: int, top_k: int, n_experts: int, cf: float) -> int:
@@ -69,8 +69,7 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg, dist: DistConfig,
         h = silu(torch.einsum("ecd,edf->ecf", eb, p["w_gate"])) * \
             torch.einsum("ecd,edf->ecf", eb, p["w_in"])
     else:
-        h = F.gelu(torch.einsum("ecd,edf->ecf", eb, p["w_in"]),
-                   approximate="tanh")
+        h = gelu(torch.einsum("ecd,edf->ecf", eb, p["w_in"]))
     eo = torch.einsum("ecf,efd->ecd", h, p["w_out"])     # (E, C, d)
 
     # ---- combine: each token's k contributions summed in k order ----

@@ -231,15 +231,30 @@ def test_aggregate_simulated_workers_plan_schedule_alive(comp, ef, wire,
 
 
 def test_aggregate_simulated_workers_hooks_name_the_queue():
+    """faults= names its ROADMAP item (7); telemetry_plan= (item 5, ported)
+    returns the aggregate unchanged and the step's TelemetryState
+    increment, with the entire-model leg only when asked."""
     from repro_torch import random as R
+    from repro_torch.control import TelemetryState, measurement_plan
     from repro_torch.core import (CompressionConfig,
                                   aggregate_simulated_workers, make_compressor)
-    g = {"w": torch.zeros(2, 4)}
-    cfg = CompressionConfig(qw=make_compressor("topk"))
-    for kw, queue in (({"faults": object()}, r"item 7 \("),
-                      ({"telemetry_plan": object()}, r"item 5 \(")):
-        with pytest.raises(NotImplementedError, match=f"Queue 1, {queue}"):
-            aggregate_simulated_workers(g, {"w": False}, cfg, R.key(0), **kw)
+    g = {"w": torch.arange(8.0).reshape(2, 4)}
+    cfg = CompressionConfig(qw=make_compressor("topk", ratio=0.5))
+    with pytest.raises(NotImplementedError, match=r"Queue 1, item 7 \("):
+        aggregate_simulated_workers(g, {"w": False}, cfg, R.key(0),
+                                    faults=object())
+    mplan = measurement_plan({"w": g["w"][0]}, {"w": False})
+    out, _ = aggregate_simulated_workers(g, {"w": False}, cfg, R.key(0))
+    for em in (True, False):
+        got, _, inc = aggregate_simulated_workers(
+            g, {"w": False}, cfg, R.key(0), telemetry_plan=mplan,
+            telemetry_entire_model=em)
+        assert torch.equal(got["w"], out["w"])
+        assert isinstance(inc, TelemetryState) and float(inc.steps) == 1.0
+        # the workers' mean is (2, 3, 4, 5): sum 14, squares 54
+        assert inc.grad_sum.tolist() == [14.0]
+        assert inc.grad_sumsq.tolist() == [54.0]
+        assert float(inc.em_sumsq) == (54.0 if em else 0.0)
 
 
 @pytest.mark.parametrize("fusion", list(FUSIONS), ids=list(FUSIONS))

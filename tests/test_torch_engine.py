@@ -865,8 +865,11 @@ def test_comm_plans_are_one_object_for_the_step_and_its_callers():
 
 def test_unported_paths_raise_with_their_queue_item(monkeypatch):
     """What 4a does not port names its ROADMAP item: a model axis, a pod
-    axis and FSDP (4b), telemetry and the controller's flags (5), the
-    recorder and metrics (6), the production mesh (9)."""
+    axis and FSDP (4b), the recorder and metrics (6), the production mesh
+    (9). Telemetry and the controller's flags (item 5) are ported: the
+    engine builds its telemetry step and measurement plan, and the CLI
+    takes --policy and its knobs (tests/test_torch_control.py runs
+    them)."""
     from repro_torch.configs import get_smoke
     from repro_torch.launch import mesh as M
     from repro_torch.launch import train
@@ -884,27 +887,46 @@ def test_unported_paths_raise_with_their_queue_item(monkeypatch):
         M.make_production_mesh()
     eng = Engine(get_smoke("llama3-405b"), M.make_host_mesh(data=2),
                  device="cpu")
-    with item("5"):
-        eng.build_train_step(telemetry=True)
-    with item("5"):
-        eng.build_train_step(telemetry_entire_model=False)
-    with item("5"):
-        eng.measurement_plan()
+    step = eng.build_train_step(telemetry=True)
+    assert step.telemetry and step.telemetry_entire_model
+    step = eng.build_train_step(telemetry=True, telemetry_entire_model=False)
+    assert step.telemetry and not step.telemetry_entire_model
+    assert not eng.build_train_step(telemetry_entire_model=False).telemetry
+    mplan = eng.measurement_plan()
+    assert mplan is eng.measurement_plan()
+    assert mplan.granularity.kind == "layerwise"
+    assert mplan.unit_dims == eng.comm_plans()[0].unit_dims
     with item("6"):
         eng.build_train_step(tracer=object())
     with item("6"):
         eng.build_train_step(metrics=object())
     base = ["--arch", "llama3-405b", "--smoke", "--device", "cpu"]
-    for extra, it in ((["--policy", "static"], "5"),
-                      (["--telemetry-out", "t.json"], "5"),
-                      (["--replan-every", "5"], "5"),
-                      (["--variance-budget", "0.2"], "5"),
-                      (["--bit-budget", "1024"], "5"),
-                      (["--trace-out", "t.json"], "6"),
+    for extra, it in ((["--trace-out", "t.json"], "6"),
                       (["--metrics-out", "m.jsonl"], "6"),
                       (["--model", "2"], "4b")):
         with item(it):
             train.run(base + extra)
+    # the controller's flags parse into a controller over the engine
+    for extra, policy, knob in (
+            (["--telemetry-out", "t.json"], "static", None),
+            (["--policy", "variance_budget", "--variance-budget", "0.2",
+              "--replan-every", "5"], "variance_budget", ("budget", 0.2)),
+            (["--policy", "bit_budget", "--bit-budget", "1024"],
+             "bit_budget", ("bits_per_step", 1024)),
+            (["--policy", "fusion", "--alpha-us", "3"], "fusion",
+             ("alpha_us", 3.0))):
+        args = train._parse(base + extra)
+        ctrl = train.build_controller(args, train._engine(args, "cpu"),
+                                      None)
+        assert args.policy == ctrl.policy.name == policy
+        assert ctrl.replan_every == args.replan_every
+        assert ctrl.collect == (policy != "static" or bool(
+            args.telemetry_out))
+        if knob:
+            assert getattr(ctrl.policy, knob[0]) == knob[1]
+    for extra in (["--wire"], ["--step-guard"]):
+        with pytest.raises(SystemExit):
+            train._parse(base + ["--policy", "static"] + extra)
     assert M.axis_sizes(M.make_host_mesh(data=4)) == {"data": 4, "model": 1}
     with pytest.raises(ValueError, match="differ in length"):
         M.make_mesh((2, 1), ("data",))

@@ -409,16 +409,20 @@ def test_serve_teacher_forced_matches_reference():
 # ---- bf16 against the reference's bf16 (ROADMAP Queue 3, item 14) ------------
 
 BF16_ARCHS = ["mamba2-1.3b", "zamba2-7b", "phi4-mini-3.8b"]
+# prefill only: whisper's one-query decode steps block the flash softmax
+# differently from the reference (item 12), which bf16 rounding magnifies
+BF16_PREFILL_ARCHS = ["whisper-base"]
 
 
 @pytest.fixture(scope="module")
 def reference_serving_bf16():
     """The reference's jitted bf16 prefill and two decode steps of the
-    BF16_ARCHS smoke configs (the inputs and seeds of reference_serving's
-    f32 runs), logits as f32 numpy, caches as numpy."""
+    BF16_ARCHS smoke configs, and the prefill of BF16_PREFILL_ARCHS (the
+    inputs and seeds of reference_serving's f32 runs), logits as f32
+    numpy, caches as numpy."""
     out = {}
     with serve_reference() as ref:
-        for arch in BF16_ARCHS:
+        for arch in BF16_ARCHS + BF16_PREFILL_ARCHS:
             jcfg = dataclasses.replace(ref.registry.get_smoke(arch),
                                        dtype="bfloat16")
             jm = ref.model.Model(jcfg, ref.model.DistConfig())
@@ -426,7 +430,7 @@ def reference_serving_bf16():
             b = _batch(jcfg, 1, S)
             rng = np.random.default_rng(2)
             toks = [rng.integers(0, jcfg.vocab, (B,)).astype(np.int32)
-                    for _ in range(2)]
+                    for _ in range(2 if arch in BF16_ARCHS else 0)]
             pre = jax.jit(lambda p, b: jm.prefill(p, b, jkey(1),
                                                   cache_len=S + 2))
             dec = jax.jit(jm.decode_step)
@@ -475,3 +479,24 @@ def test_bf16_prefill_and_decode_match_reference(arch, reference_serving,
     for t, (g, (w, _), (w32, _)) in enumerate(zip(got, steps, f32_steps)):
         own = _frac_of_max(w, w32)
         assert _frac_of_max(g, w) <= own, (arch, t, _frac_of_max(g, w), own)
+
+
+@pytest.mark.parametrize("arch", BF16_PREFILL_ARCHS)
+def test_bf16_prefill_matches_reference(arch, reference_serving,
+                                        reference_serving_bf16):
+    """whisper-base's bf16 prefill (its MLP is gelu: layers.gelu) no
+    further from the reference's bf16 logits than the reference's bf16
+    run is from its own f32 run (item 14's rule; seen 0.66 of it: 6.22e-3
+    of max |logit| against 9.40e-3). F.gelu, which the port called before
+    and which rounds once, gave other bits on 75% of these logits (by up
+    to 2.34e-2) but the same largest distance, which lies elsewhere."""
+    from repro_torch.convert import params_from_jax
+    jcfg, jp, b, _, steps = reference_serving_bf16[arch]
+    w32 = reference_serving[(arch, None)][5][0][0]
+    m = _port(jcfg)
+    logits, _ = m.prefill(params_from_jax(jp, device="cpu"),
+                          {k: torch.from_numpy(v) for k, v in b.items()},
+                          cache_len=S + 2)
+    own = _frac_of_max(steps[0][0], w32)
+    assert _frac_of_max(logits, steps[0][0]) <= own, (
+        _frac_of_max(logits, steps[0][0]), own)

@@ -201,6 +201,36 @@ def _bits(t) -> np.ndarray:
     return np.asarray(t).view(np.uint16)
 
 
+def test_bf16_gelu_bitwise():
+    """In bf16 the reference's jitted jax.nn.gelu (tanh form) rounds each
+    step of its expansion x * 0.5 * (1 + tanh(c (x + a (x * x) * x))) to
+    bf16, with a and c rounded to bf16; the port does the same
+    (layers.gelu). So gelu is bitwise on every bf16 value from 2^-120 in
+    magnitude (63,488 finite values; +inf gives +inf and -inf a NaN on both
+    sides, with other NaN payloads): below that XLA flushes subnormal
+    inputs and results (outside the contract as in item 5).
+    F.gelu(approximate="tanh"), which the port called before, rounds once:
+    it differed on 1,010 of those values, x from -5.03 to 2.31, where for
+    x below about -3 XLA's rounded tanh is -1 and its product -0.0."""
+    import jax.numpy as jnp
+    from repro_torch.models.layers import gelu
+    bits = np.arange(1 << 16, dtype=np.uint16)
+    xs = bits.view(jnp.bfloat16)
+    xf = xs.astype(np.float32)
+    keep = np.isfinite(xf) & (np.abs(xf) >= np.float32(2.0 ** -120))
+    want = jax.jit(jax.nn.gelu)(jnp.asarray(xs))
+    got = gelu(_bf16(xs))
+    assert keep.sum() == 63488
+    assert np.array_equal(_bits(got)[keep], _bits(want)[keep])
+    inf = np.isinf(xf)
+    assert np.array_equal(np.asarray(want, np.float32)[inf],
+                          got.to(torch.float32).numpy()[inf],
+                          equal_nan=True)
+    x32 = torch.from_numpy(xf[keep])
+    assert torch.equal(gelu(x32),
+                       torch.nn.functional.gelu(x32, approximate="tanh"))
+
+
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-7b"])
 def test_bf16_silu_and_mamba2_bitwise(arch):
     """In bf16 the reference's jitted jax.nn.silu rounds each step of its

@@ -209,9 +209,10 @@ def test_natural_message_buffers_within_tolerance(gran):
 
 def test_unported_compressors_name_the_queue():
     """What the port leaves out names its queue: compressed_allreduce's
-    fault, recorder and telemetry hooks; and a streaming strategy without
-    wire=True raises the reference's ValueError (all checked before any
-    collective runs, so no process group)."""
+    fault and recorder hooks; and a streaming strategy without wire=True
+    raises the reference's ValueError (all checked before any collective
+    runs, so no process group). The telemetry hook, ported, gets as far
+    as the process group."""
     from repro_torch import random as R
     from repro_torch.core.aggregation import (CompressionConfig,
                                               compressed_allreduce)
@@ -224,11 +225,17 @@ def test_unported_compressors_name_the_queue():
             compressed_allreduce(g, {"w": False}, cfg, None, R.key(0), 2)
     cfg = CompressionConfig(qw=make_compressor("qsgd"), strategy="allgather")
     for kw, queue in (({"faults": object()}, r"item 7 \("),
-                      ({"recorder": object()}, r"item 6 \("),
-                      ({"telemetry_plan": object()}, r"item 5 \(")):
+                      ({"recorder": object()}, r"item 6 \(")):
         with pytest.raises(NotImplementedError, match=f"Queue 1, {queue}"):
             compressed_allreduce(g, {"w": False}, cfg, None, R.key(0), 2,
                                  wire=True, **kw)
+    # telemetry_plan= (item 5) is ported: it reaches the collective, whose
+    # group check comes first (tests/test_torch_control.py runs it)
+    from repro_torch.control import measurement_plan
+    with pytest.raises(ValueError, match="Default process group"):
+        compressed_allreduce(g, {"w": False}, cfg, None, R.key(0), 2,
+                             wire=True, telemetry_plan=measurement_plan(
+                                 g, {"w": False}))
 
 
 @pytest.mark.parametrize("gran", ["layerwise", "entire_model"])
