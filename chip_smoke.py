@@ -226,6 +226,28 @@ error:
      (aggregate and EF state), with exact launch counts; (c) figures.ALL
      at 3 steps a run: every row printed with finite accuracies
 
+ 13. tensor, sequence and FSDP parallelism (models/dist.py, the (data,
+     model) mesh, the Engine's shards) in one spawn of 4 gloo ranks
+     sharing cuda:0, rank = d * 2 + m: (b) phi4-mini at full width (2
+     layers, bf16, SGD) on (data 2, model 2), one step each from the same
+     params and batch of QSGD(16) layerwise over the simulated wire and
+     over the allgather wire (bitwise equal params), and
+     top-k(1%) over the wire, exact launches a run, rank 0's wire
+     launches at the TP shards' bucket shapes captured and held bitwise
+     against the plain versions and the simulated wire's decodes against
+     QSGD.sim (the simulated step), each step split into forward /
+     backward (the TP collectives' host ms), aggregation and update, loss
+     and peak memory a rank; then on ranks 0
+     and 1: (a) tests/dist_checks.py's five families on model 2, SP off
+     and on, aggregated gradients within its TOL of the port's one-device
+     run on the card; (c) the same phi4-mini with use_fsdp=True on data
+     2: a dense step's aggregated gradients within TOL of the unsharded
+     Engine's, and a top-k(1%) FSDP hook call bitwise the plain top-k of
+     its gradient; (d) phi4-mini-3.8b whole served on model 2 (batch 8,
+     128 + 16 tokens): each rank's cache half the slots, every step's
+     logits within 5e-2 of max |logit| of the one-device run fed the same
+     tokens, prefill ms, decode ms a token and peak memory
+
 Phase 3 also holds the other compress-only kernels against their plain
 versions on the card at every bucket shape, the entire-model gradient and
 2**20 entries: top-k bitwise at k 1/5/16/128 on 512-wide rows, and as
@@ -255,8 +277,8 @@ chiprun_out/chip_smoke.json. The last line is {"ok": true, "device":
 {...}}; the line before it the kernel table, whose launches are, for the
 wire kernels, the main-path runs of phase 4 plus the multi-rank phase 7
 summed over its ranks plus phase 9(b) plus phase 11 summed over its
-ranks plus phase 12, and for the compress-only kernels the runs of phase
-8.
+ranks plus phase 12 plus phase 13 summed over its ranks, and for the
+compress-only kernels the runs of phase 8.
 """
 from __future__ import annotations
 
@@ -3412,6 +3434,626 @@ def _nested(flat: dict) -> dict:
 
 
 
+# ---- phase 13: tensor, sequence and FSDP parallelism ------------------------
+
+TP_RANKS = 4
+# 13(a): tests/dist_checks.py's five families (its configs and TOL, copied:
+# that module imports jax) on the model group of ranks 0 and 1 (data 1,
+# model 2), SP off and on, 16 x 32 tokens
+TP_FAMILIES = {
+    "dense": dict(name="dense", arch_type="dense", n_layers=2, d_model=64,
+                  vocab=256, n_heads=4, n_kv_heads=2, d_head=16, d_ff=128,
+                  dtype="float32"),
+    "moe": dict(name="moe", arch_type="moe", n_layers=2, d_model=64,
+                vocab=256, n_heads=4, n_kv_heads=2, d_head=16, d_ff=96,
+                n_experts=4, experts_per_token=2, moe_capacity_factor=8.0,
+                dtype="float32"),
+    "mla": dict(name="mla", arch_type="dense", attention="mla", n_layers=2,
+                d_model=64, vocab=256, n_heads=4, n_kv_heads=4, d_head=48,
+                d_ff=128, q_lora_rank=48, kv_lora_rank=32, qk_nope_dim=32,
+                qk_rope_dim=16, v_head_dim=32, dtype="float32"),
+    "ssm": dict(name="ssm", arch_type="ssm", attention="none", n_layers=2,
+                d_model=64, vocab=256, d_ff=0, ssm_state=16, ssm_expand=2,
+                ssm_head_dim=16, ssm_chunk=8, dtype="float32"),
+    "hybrid": dict(name="hybrid", arch_type="hybrid", n_layers=5,
+                   d_model=64, vocab=256, n_heads=4, n_kv_heads=4, d_head=16,
+                   d_ff=128, ssm_state=16, ssm_expand=2, ssm_head_dim=16,
+                   ssm_chunk=8, attn_every=2, dtype="float32"),
+}
+TP_TOL = {"dense": 1e-4, "moe": 2e-2, "mla": 1e-4, "ssm": 1e-4,
+          "hybrid": 1e-4}
+# 13(b): phi4-mini at full width cut to 2 layers (lm_full_width) on all four
+# ranks as (data 2, model 2), each data rank FULL_ROWS x LM_SEQ tokens,
+# three steps from the same params: QSGD(16) layerwise over the simulated
+# wire and over the allgather wire, and top-k(1%) over the simulated wire.
+# (The simulated records, QSGD.sim on every bucket and the f32 mean, do
+# not fit four full-width ranks on one card: rank 0 holds each bucket's
+# decode against QSGD.sim of its inputs instead.) The TP shards' layerwise
+# plan has 5 buckets (21 units, <= MAX_BUCKETS), so a rank's step
+# launches: simulated wire 1 qsgd_pack (every bucket) + 1 qsgd_unpack
+# (its own payloads); allgather 1 qsgd_pack + 1 fields_unpack (every
+# rank's gathered rows at once); top-k 1 fields_pack + 1 fields_unpack
+# (the index legs). Four ranks: 4 x (1 + 1) qsgd_pack, 4 x 1 qsgd_unpack,
+# 4 x 1 fields_pack, 4 x (1 + 1) fields_unpack.
+TP_STEP_LAUNCHES = {"wire": {"qsgd_pack": 1, "qsgd_unpack": 1},
+                    "allgather": {"qsgd_pack": 1, "fields_unpack": 1},
+                    "topk_wire": {"fields_pack": 1, "fields_unpack": 1}}
+# 13(d): phi4-mini-3.8b whole (32 layers, bf16) served by ranks 0 and 1 as
+# model 2: batch 8, TP_PROMPT uniform prompt tokens, TP_GEN tokens
+TP_PROMPT, TP_GEN = 128, 16
+# bf16 logits: phase 10's decode-vs-prefill bound, of max |logit|
+TP_SERVE_BOUND = 5e-2
+
+
+def _capture_ops(names, cap: dict):
+    """Swap kernels.ops entry points `names` for ones that run the kernel
+    and keep, of the first call, copies of its arguments and a digest of
+    its output in cap[name] (the wire path reuses and drops its buffers
+    after a launch) -> a function that puts them back."""
+    import torch
+    from repro_torch.kernels import ops
+    orig = {n: getattr(ops, n) for n in names}
+
+    def keep(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, (list, tuple)):
+            return [keep(t) for t in x]
+        return x
+
+    def wrap(n):
+        def f(*a):
+            if n in cap:
+                return orig[n](*a)
+            args = keep(a)
+            out = orig[n](*a)
+            cap[n] = (args, _digest(out))
+            return out
+        return f
+    for n in names:
+        setattr(ops, n, wrap(n))
+
+    def restore():
+        for n in names:
+            setattr(ops, n, orig[n])
+    return restore
+
+
+def _spans(d: int):
+    for lo in range(0, d, LM_SPAN):      # LM_SPAN is a multiple of 32
+        yield lo, min(lo + LM_SPAN, d)
+
+
+def check_captured_wire(name, cap) -> dict:
+    """Each captured wire launch (qsgd_pack_buckets, qsgd_unpack_buckets,
+    fields_pack_buckets, fields_unpack_buckets at the shapes the TP shards'
+    step gave them), launched again on copies of its inputs (its output's
+    digest the step's launch's), against the plain versions of the same
+    inputs over LM_SPAN-position spans, bitwise; where a step packed and
+    decoded its own QSGD payloads (the simulated wire), each bucket's
+    decode bitwise QSGD.sim of the packed units and keys (the simulated
+    step's values) -> {kernel: max abs err} (0.0)."""
+    import torch
+    from repro_torch.core.compressors import QSGD
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pack as P
+    from repro_torch.kernels import qsgd as Q
+    errs = {}
+    sim = None
+    if "qsgd_pack_buckets" in cap and "qsgd_unpack_buckets" in cap:
+        sim = {}
+
+    def again(n):
+        args, digest = cap.pop(n)
+        outs = getattr(ops, n)(*args)
+        check(_digest(outs) == digest,
+              f"{name}: {n} launched again != the step's launch")
+        return args, outs
+    if "qsgd_pack_buckets" in cap:
+        (xs, k0s, k1s, nrms, levels, width), words = again(
+            "qsgd_pack_buckets")
+        for b, (x, k0, k1, nrm, w) in enumerate(zip(xs, k0s, k1s, nrms,
+                                                    words)):
+            if sim is not None:       # the simulated step's values
+                keys = torch.stack([k0, k1], 1).to(torch.int64) & 0xFFFFFFFF
+                sim[b] = QSGD(levels=levels).sim(x, keys)
+            for lo, hi in _spans(x.shape[1]):
+                want = Q.qsgd_pack_plain(x, k0, k1, nrm, levels, width, lo, hi)
+                w0 = lo // 32 * width
+                check(torch.equal(w[:, w0:w0 + want.shape[1]], want),
+                      f"{name}: qsgd_pack bucket {b} != plain at {lo}")
+        errs["qsgd_pack"] = 0.0
+        del xs, words
+    if "qsgd_unpack_buckets" in cap:
+        (wl, facs, dims, levels, width), outs = again("qsgd_unpack_buckets")
+        for b, (w, fac, d, out) in enumerate(zip(wl, facs, dims, outs)):
+            for lo, hi in _spans(d):
+                w0 = lo // 32 * width
+                want = Q.qsgd_unpack_plain(
+                    w[:, w0:w0 + -(-(hi - lo) * width // 32)], fac, hi - lo,
+                    levels, width)
+                check(bitwise_equal(out[:, lo:hi].contiguous(), want),
+                      f"{name}: qsgd_unpack bucket {b} != plain at {lo}")
+            if sim is not None:
+                check(bitwise_equal(out, sim.pop(b)),
+                      f"{name}: bucket {b}'s wire decode != QSGD.sim of its "
+                      f"units (the simulated step)")
+        errs["qsgd_unpack"] = 0.0
+        del wl, outs
+    if "fields_pack_buckets" in cap:
+        (fs, widths), words = again("fields_pack_buckets")
+        for b, (f, w, out) in enumerate(zip(fs, widths, words)):
+            for lo, hi in _spans(f.shape[1]):
+                want = P.fields_pack_plain(f[:, lo:hi].contiguous(), w)
+                w0 = lo // 32 * w
+                check(torch.equal(out[:, w0:w0 + want.shape[1]], want),
+                      f"{name}: fields_pack bucket {b} != plain at {lo}")
+        errs["fields_pack"] = 0.0
+        del fs, words
+    if "fields_unpack_buckets" in cap:
+        (wl, ks, widths), outs = again("fields_unpack_buckets")
+        for b, (w, k, width, out) in enumerate(zip(wl, ks, widths, outs)):
+            for lo, hi in _spans(k):
+                w0, nw = lo // 32 * width, -(-(hi - lo) * width // 32)
+                want = P.fields_unpack_plain(w[:, w0:w0 + nw], hi - lo, width)
+                check(torch.equal(out[:, lo:hi], want),
+                      f"{name}: fields_unpack bucket {b} != plain at {lo}")
+        errs["fields_unpack"] = 0.0
+        del wl, outs
+    return errs
+
+
+def _tp_meshes(rank):
+    """The process groups of phase 13: (data 2, model 2) over all four
+    ranks (make_host_mesh), and on ranks 0 and 1 a (1, 2) mesh (their
+    model group) and a (2, 1) mesh (their data group), each axis of size
+    1 a group of its one rank. Every rank creates every group."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    full = make_host_mesh(data=2, model=2)
+    pair = dist.new_group([0, 1])
+    dist.new_group([2, 3])
+    single = [dist.new_group([r]) for r in range(TP_RANKS)]
+    if rank >= 2:
+        return full, None, None
+    tp = Mesh(("data", "model"), (1, 2), {"data": single[rank],
+                                          "model": pair},
+              {"data": 0, "model": rank})
+    dp = Mesh(("data", "model"), (2, 1), {"data": pair,
+                                          "model": single[rank]},
+              {"data": rank, "model": 0})
+    return full, tp, dp
+
+
+def tp_families(mesh, dev):
+    """13(a) on ranks 0 and 1: each family's loss and dense-aggregated
+    gradients on the (1, 2) mesh, SP off and on, gathered to global
+    arrays, against the port's one-device gradients on the card (the same
+    params, batch and key) -> {family: {sp: worst rel}}."""
+    import dataclasses
+    import torch
+    from repro_torch import random as R
+    from repro_torch.convert import tree_leaves, tree_paths, tree_unflatten
+    from repro_torch.core.aggregation import CompressionConfig
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models import DistConfig, Model
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.dist import bind_axes
+    from repro_torch.optim import OptConfig
+    g = torch.Generator().manual_seed(3)
+    s = torch.randint(0, 256, (16, 33), generator=g).to(dev)
+    batch = {"tokens": s[:, :-1], "targets": s[:, 1:]}
+    key = R.key(7)
+    out = {}
+    for name, kw in TP_FAMILIES.items():
+        cfg = ModelConfig(**kw)
+        m1 = Model(cfg, DistConfig())
+        params = {k: v for k, v in m1.init(R.key(0), device="cpu").items()}
+        paths, leaves = tree_paths(params), tree_leaves(params)
+        bind_axes({})
+        p = [l.to(dev).requires_grad_(True) for l in leaves]
+        want = torch.autograd.grad(
+            m1.loss(tree_unflatten(paths, p), batch, key), p)
+        out[name] = {}
+        for sp in (False, True):
+            eng = Engine(cfg, mesh, comp=CompressionConfig(strategy="dense"),
+                         opt=OptConfig(), device=dev)
+            if not sp:
+                eng.dist = dataclasses.replace(eng.dist, sp=False)
+                eng.model.dist = eng.dist
+            eng.bind()
+            specs = eng.model.param_pspecs()
+            local = eng.shard_tree(params, specs)
+            lp = [l.detach().requires_grad_(True) for l in tree_leaves(local)]
+            loss = eng.model.loss(tree_unflatten(tree_paths(local), lp),
+                                  eng.local_batch(batch), key)
+            gl = torch.autograd.grad(loss, lp)
+            agg = eng._aggregate_grads(
+                tree_unflatten(tree_paths(local), list(gl)), key)
+            full = tree_leaves(eng.global_tree(agg, specs))
+            worst = max(float((a - b).abs().max() / (b.abs().max() + 1e-9))
+                        for a, b in zip(full, want))
+            check(worst < TP_TOL[name], f"TP {name} SP={sp}: gradients "
+                  f"{worst:.2e} of max |g| from the one-device run")
+            out[name]["sp" if sp else "nosp"] = worst
+    return out
+
+
+def _tp_batches(vocab, dev, rows, steps, seed=11):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for _ in range(steps):
+        s = torch.randint(0, vocab, (rows, LM_SEQ + 1), generator=g,
+                          device=dev)
+        out.append({"tokens": s[:, :-1], "targets": s[:, 1:]})
+    return out
+
+
+def tp_full_width(rank, mesh, dev):
+    """13(b) on all four ranks: phi4-mini at full width (2 layers, bf16)
+    on the (data 2, model 2) mesh, three steps from the same params and
+    batch (TP_STEP_LAUNCHES), launches counted exactly a run; rank 0
+    captures each run's wire launches and holds them against the plain
+    versions, and the simulated wire's decode against QSGD.sim; the
+    allgather step bitwise the simulated wire step (a digest a leaf); each
+    step split into forward / backward (the TP and SP collectives' host
+    seconds inside), aggregation and update; loss and peak memory a
+    rank."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch import random as R
+    from repro_torch.convert import tree_leaves
+    from repro_torch.core import collectives
+    from repro_torch.core.aggregation import CompressionConfig
+    from repro_torch.core.compressors import QSGD, TopK
+    from repro_torch.experiment import _full_precision
+    from repro_torch.launch.engine import Engine
+    from repro_torch.optim import OptConfig, init_opt_state
+    _full_precision()
+    cfg = lm_full_width()
+    torch.cuda.reset_peak_memory_stats(dev)
+    qsgd = CompressionConfig(qw=QSGD(levels=MAIN_LEVELS))
+    # plain SGD: four full-width ranks on one card leave no room for a
+    # momentum buffer (2.9 GB f32 a rank) beside the f32 gathers
+    eng = Engine(cfg, mesh, comp=qsgd, opt=OptConfig("sgd", lr=LM_LR),
+                 device=dev)
+    # every rank draws the global params on the card from one seed, then
+    # keeps its shards
+    params = eng.shard_tree(eng.model.init(R.key(0), device=dev),
+                            eng.model.param_pspecs())
+    _free_card()
+    state = init_opt_state(eng.opt, params)
+    batch = _tp_batches(cfg.vocab, dev, 2 * FULL_ROWS, 1)[0]
+    runs = (("wire", qsgd, True, None),
+            ("allgather", qsgd, True, "allgather"),
+            ("topk_wire", CompressionConfig(qw=TopK(ratio=SPARSE_RATIO)),
+             True, None))
+    names = ("qsgd_pack_buckets", "qsgd_unpack_buckets",
+             "fields_pack_buckets", "fields_unpack_buckets")
+    out = {"runs": {}, "errs": {}, "params_local": sum(
+        p.numel() for p in tree_leaves(params))}
+    digests = {}
+    for run, comp, wire, coll in runs:
+        step = eng.build_train_step(comp=comp, wire=wire, collective=coll)
+        kernels.reset_launch_counts()
+        collectives.reset_counts()
+        cap = {}
+        restore = _capture_ops(names, cap) if rank == 0 else (lambda: None)
+        try:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            loss, grads = step.grads(params, batch, 0)
+            ev[1].record()
+            ev[1].synchronize()
+            tp_s = {c: collectives.counts(c)["seconds"]
+                    for c in ("all_gather", "reduce_scatter")}
+            tp_calls = {c: collectives.counts(c)["calls"]
+                        for c in ("all_gather", "reduce_scatter")}
+            agg = step.aggregate(grads, 0)
+            ev[2].record()
+            del grads
+            p1, s1, m = step.update(params, state, loss, agg, 0)
+            ev[3].record()
+            ev[3].synchronize()
+            del agg
+        finally:
+            restore()
+        counts = kernels.launch_counts()
+        want = {k: TP_STEP_LAUNCHES[run].get(k, 0) for k in SOURCES}
+        check({k: counts[k] for k in SOURCES} == want,
+              f"TP full width {run}: launches {counts} != {want}")
+        check(math.isfinite(float(m["loss"])),
+              f"TP full width {run}: loss {float(m['loss'])}")
+        if rank == 0:
+            out["errs"].update(check_captured_wire(f"TP full width {run}",
+                                                   cap))
+        del cap
+        digests[run] = {"params": _digest(tree_leaves(p1))}
+        out["runs"][run] = {
+            "loss": float(m["loss"]), "launches": counts,
+            "split_ms": {"forward_backward": ev[0].elapsed_time(ev[1]),
+                         "aggregation": ev[1].elapsed_time(ev[2]),
+                         "update": ev[2].elapsed_time(ev[3])},
+            "tp_collective_host_ms": {c: v * 1e3 for c, v in tp_s.items()},
+            "tp_collective_calls": tp_calls}
+        del p1, s1
+        _free_card()
+    check(digests["allgather"] == digests["wire"],
+          "TP full width: the allgather step's params != the simulated "
+          "wire step's")
+    out["digests"] = digests
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del params, state
+    _free_card()
+    return out
+
+
+def tp_fsdp(rank, mesh, dev):
+    """13(c) on ranks 0 and 1 as (data 2, model 1): phi4-mini at full width
+    (2 layers, bf16) with use_fsdp=True, one dense step's aggregated
+    gradients (gathered) against the unsharded data-parallel Engine's on
+    the same params and batch, within dist_checks' dense TOL; then one
+    top-k(1%) step whose first FSDP hook call on a leaf of at most 2^25
+    entries is held bitwise against the same _hook_compress on CPU copies
+    (the plain top-k)."""
+    import dataclasses
+    import torch
+    from repro_torch import random as R
+    from repro_torch.convert import tree_leaves, tree_paths
+    from repro_torch.core.aggregation import CompressionConfig
+    from repro_torch.core.compressors import TopK
+    from repro_torch.experiment import _full_precision
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models import dist as D
+    from repro_torch.optim import OptConfig, init_opt_state
+    _full_precision()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = lm_full_width()
+    batch = _tp_batches(base.vocab, dev, 2 * FULL_ROWS, 1, seed=13)[0]
+    aggs, ms = {}, {}
+    # the embedding's gradient is an indexed accumulate: atomics in bf16
+    # by default, an order-fixed sort with deterministic algorithms on
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    for fsdp in (False, True):
+        eng = Engine(dataclasses.replace(base, use_fsdp=fsdp), mesh,
+                     opt=OptConfig("momentum", lr=LM_LR), device=dev)
+        specs = eng.model.param_pspecs()
+        params = eng.shard_tree(eng.model.init(R.key(0), device=dev), specs)
+        _free_card()
+        step = eng.build_train_step()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        _, grads = step.grads(params, batch, 0)
+        agg = step.aggregate(grads, 0)
+        b.record()
+        b.synchronize()
+        ms["fsdp" if fsdp else "unsharded"] = a.elapsed_time(b)
+        del grads
+        full = eng.global_tree(agg, specs)
+        aggs[fsdp] = dict(zip(["/".join(p) for p in tree_paths(full)],
+                              tree_leaves(full)))
+        del agg, full
+        if not fsdp:
+            del params
+            _free_card()
+    rel = {k: float((aggs[True][k].float() - y.float()).abs().max()
+                    / (y.float().abs().max() + 1e-9))
+           for k, y in aggs[False].items()}
+    worst_leaf = max(rel, key=rel.get)
+    worst = rel[worst_leaf]
+    torch.use_deterministic_algorithms(False)
+    check(worst < TP_TOL["dense"], f"FSDP dense step: aggregated gradients "
+          f"{worst:.2e} of max |g| from the unsharded Engine's (leaf "
+          f"{worst_leaf}; {sorted(rel.items(), key=lambda kv: -kv[1])[:4]})")
+    del aggs
+    _free_card()
+    comp = CompressionConfig(qw=TopK(ratio=SPARSE_RATIO))
+    step = eng.build_train_step(comp=comp)
+    cap = {}
+    orig = D._hook_compress
+
+    def hook(g, kb, cfg, dist):
+        out = orig(g, kb, cfg, dist)
+        if "g" not in cap and cfg is not None and g.numel() <= 1 << 25:
+            cap.update(g=g.detach().clone(), kb=kb.detach().clone(),
+                       out=out.detach().clone(), cfg=cfg, dist=dist)
+        return out
+    D._hook_compress = hook
+    try:
+        p1, _, m = step(params, init_opt_state(eng.opt, params), batch, 1)
+    finally:
+        D._hook_compress = orig
+    check("g" in cap, "FSDP top-k step: no hook call captured")
+    eng.bind()
+    plain = orig(cap["g"].cpu(), cap["kb"].cpu(), cap["cfg"], cap["dist"])
+    check(bitwise_equal(cap["out"].cpu(), plain),
+          f"FSDP hook: top-k({SPARSE_RATIO}) on the card != the plain "
+          f"top-k of the same {tuple(cap['g'].shape)} gradient")
+    out = {"worst_rel": worst, "worst_leaf": worst_leaf, "step_ms": ms,
+           "topk_loss": float(m["loss"]),
+           "hook_leaf": list(cap["g"].shape),
+           "hook_kept": int((cap["out"] != 0).sum()),
+           "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    del p1, params, cap
+    _free_card()
+    return out
+
+
+def tp_serve(rank, mesh, dev):
+    """13(d) on ranks 0 and 1 as model 2: phi4-mini-3.8b whole (bf16)
+    through the Engine's prefill and serve steps, batch 8, TP_PROMPT
+    tokens, TP_GEN generated; each rank's cache shard exactly half the
+    slots; rank 0 serves the same params one-device with the TP run's
+    tokens forced and holds every step's logits within TP_SERVE_BOUND of
+    max |logit|; prefill ms, decode ms a token and peak memory a rank."""
+    import torch
+    from repro_torch import random as R
+    from repro_torch.configs import get_config
+    from repro_torch.experiment import _full_precision
+    from repro_torch.launch.engine import Engine
+    from repro_torch.launch.serve import generate, make_batch
+    from repro_torch.models import DistConfig, Model
+    from repro_torch.models.dist import bind_axes
+    _full_precision()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config("phi4-mini-3.8b")
+    eng = Engine(cfg, mesh, device=dev)
+    full = eng.model.init(R.key(0), device=dev)
+    shards = eng.shard_tree(full, eng.model.param_pspecs())
+    if rank:
+        del full
+    _free_card()
+    batch = make_batch(cfg, 8, TP_PROMPT, 0, dev)
+    res = generate(eng.model, shards, batch, TP_GEN, engine=eng,
+                   keep_logits=True)
+    clen = eng.model.cache_len(TP_PROMPT + TP_GEN)
+    k = res["cache"]["k"]
+    check(k.shape[3] * 2 == clen and res["cache"]["slot_pos"].shape[1] * 2
+          == clen, f"TP serve: rank {rank}'s cache holds {k.shape[3]} of "
+          f"{clen} slots")
+    out = {"prefill_ms": res["prefill_ms"],
+           "decode_ms_per_token": res["decode_ms_per_token"],
+           "tokens_per_s": res["tokens_per_s"],
+           "cache_slots": int(k.shape[3]), "cache_len": clen,
+           "cache_bytes": sum(t.numel() * t.element_size()
+                              for t in res["cache"].values())}
+    tokens = res["tokens"]
+    logits = [t.float() for t in res["logits"]]
+    del res, shards
+    _free_card()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    if rank == 0:
+        bind_axes({})
+        one = Model(cfg, DistConfig())
+        want = generate(one, full, batch, TP_GEN, forced=tokens,
+                        keep_logits=True)
+        errs = []
+        for i, (got, w) in enumerate(zip(logits, want["logits"])):
+            w = w.float()
+            e = float((got - w).abs().max() / w.abs().max())
+            check(e <= TP_SERVE_BOUND, f"TP serve: step {i}'s logits {e:.2e} "
+                  f"of max |logit| from the one-device run's")
+            errs.append(e)
+        out["logit_rel_err"] = errs
+        out["one_device"] = {"prefill_ms": want["prefill_ms"],
+                             "decode_ms_per_token":
+                                 want["decode_ms_per_token"]}
+        del full, want
+        eng.bind()
+    _free_card()
+    return out
+
+
+def tp_ranks(rank, n, dev):
+    """Phase 13's one spawn of TP_RANKS ranks on cuda:0: 13(b) on all four,
+    then on ranks 0 and 1 13(a), 13(c) and 13(d)."""
+    import torch
+    from repro_torch import kernels
+    full, tp, dp = _tp_meshes(rank)
+    t0 = time.perf_counter()
+    out = {"full_width": tp_full_width(rank, full, dev)}
+    out["seconds"] = {"full_width": time.perf_counter() - t0}
+    out["launches"] = {}
+    for r in out["full_width"]["runs"].values():
+        for k, v in r["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+    if rank >= 2:
+        return out
+    kernels.reset_launch_counts()
+    for name, fn, mesh in (("families", tp_families, tp),
+                           ("fsdp", tp_fsdp, dp), ("serve", tp_serve, tp)):
+        t0 = time.perf_counter()
+        out[name] = fn(mesh, dev) if name == "families" else fn(rank, mesh,
+                                                                dev)
+        out["seconds"][name] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    for k, v in kernels.launch_counts().items():
+        out["launches"][k] = out["launches"].get(k, 0) + v
+    return out
+
+
+def tp_phase(dev):
+    """Phase 13 -> (its record, its launches per kernel summed over the
+    ranks, max abs err per wire kernel checked)."""
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    _free_card()
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = run_ranks(tp_ranks, TP_RANKS, backend="gloo", device="cuda",
+                          timeout=RANK_TIMEOUT)
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    want = {k: TP_RANKS * sum(TP_STEP_LAUNCHES[run].get(k, 0)
+                              for run in TP_STEP_LAUNCHES) for k in SOURCES}
+    check({k: launches.get(k, 0) for k in SOURCES} == want,
+          f"phase 13: launches {launches} != {want}")
+    fw = [r["full_width"] for r in ranks]
+    # rank = d * 2 + m: ranks 0 and 2 hold model shard 0, ranks 1 and 3
+    # shard 1, and each pair's data replicas must agree after every step
+    check(fw[0]["digests"] == fw[2]["digests"]
+          and fw[1]["digests"] == fw[3]["digests"],
+          "TP full width: a model shard's data replicas differ")
+    check(all(f["runs"][k]["loss"] == fw[0]["runs"][k]["loss"]
+              for f in fw for k in fw[0]["runs"]),
+          "TP full width: the ranks' losses differ")
+    r0 = ranks[0]
+    fam = r0["families"]
+    print(f"TP (a): dist_checks' five families on 2 gloo ranks (model 2) "
+          f"on cuda:0, aggregated gradients against the one-device run: "
+          f"worst rel { {k: {s: f'{v:.2e}' for s, v in d.items()} for k, d in fam.items()} } "
+          f"(TOL {TP_TOL}); {r0['seconds']['families']:.1f} s", flush=True)
+    f0 = fw[0]
+    for run, rec in f0["runs"].items():
+        print(f"TP (b) phi4-mini full width (2 layers, bf16) on (data 2, "
+              f"model 2), {f0['params_local']} params a rank, {run}: loss "
+              f"{rec['loss']:.4f}, split ms "
+              f"{ {k: round(v, 1) for k, v in rec['split_ms'].items()} }, TP "
+              f"collectives' host ms in forward / backward "
+              f"{ {k: round(v, 1) for k, v in rec['tp_collective_host_ms'].items()} } "
+              f"({rec['tp_collective_calls']} calls), launches a rank "
+              f"{_nonzero(rec['launches'])}", flush=True)
+    print(f"TP (b): the allgather step bitwise the simulated wire step "
+          f"(params; each shard's data replicas equal); rank 0's "
+          f"wire launches bitwise the plain versions and its decodes "
+          f"QSGD.sim of their units {f0['errs']}; peak "
+          f"{[f['peak_bytes'] for f in fw]} B a rank; "
+          f"{r0['seconds']['full_width']:.1f} s", flush=True)
+    fs = r0["fsdp"]
+    print(f"TP (c) FSDP phi4-mini full width on data 2: dense step's "
+          f"aggregated gradients {fs['worst_rel']:.2e} of max |g| from the "
+          f"unsharded Engine's (ms {fs['step_ms']}); top-k({SPARSE_RATIO}) "
+          f"hook on a {fs['hook_leaf']} leaf bitwise the plain top-k "
+          f"({fs['hook_kept']} kept); peak {fs['peak_bytes']} B; "
+          f"{r0['seconds']['fsdp']:.1f} s", flush=True)
+    sv = [r["serve"] for r in ranks[:2]]
+    print(f"TP (d) serve phi4-mini whole bf16 on model 2, batch 8, "
+          f"{TP_PROMPT} + {TP_GEN} tokens: prefill "
+          f"{sv[0]['prefill_ms']:.1f} ms, decode "
+          f"{sv[0]['decode_ms_per_token']:.2f} ms a token "
+          f"({sv[0]['tokens_per_s']:.1f} tokens/s; one device "
+          f"{sv[0]['one_device']}), cache {sv[0]['cache_slots']} of "
+          f"{sv[0]['cache_len']} slots a rank ({sv[0]['cache_bytes']} B), "
+          f"logits within {max(sv[0]['logit_rel_err']):.2e} of max |logit| "
+          f"of the one-device run's; peak {[s['peak_bytes'] for s in sv]} "
+          f"B a rank; {r0['seconds']['serve']:.1f} s", flush=True)
+    errs = {}
+    for k, v in f0["errs"].items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    return ({"seconds": time.perf_counter() - t0, "ranks": ranks},
+            launches, errs)
+
+
 # ---- phase 7: the multi-rank path (runs inside each rank process) ----------
 
 def _flat(tree):
@@ -4666,6 +5308,11 @@ def main(argv) -> int:
         launches[k] += control_launches.get(k, 0)
     errs["fields_pack"] = max(errs["fields_pack"], cerr[0])
     errs["fields_unpack"] = max(errs["fields_unpack"], cerr[1])
+    tp, tp_launches, tp_errs = tp_phase(dev)
+    for k in SOURCES:
+        launches[k] += tp_launches.get(k, 0)
+    for k, v in tp_errs.items():
+        errs[k] = max(errs[k], v)
     timings += lm["timings"]
     summary = kernel_line(timings, launches, errs)
     from repro_torch.core.compressors import QSGD, TopK
@@ -4692,7 +5339,7 @@ def main(argv) -> int:
                         if "registers" in ln or "spill" in ln]
                   for src, log in build.BUILD_LOG.items()},
         "multi_rank_seconds": multi_secs, "lm": lm, "serve": serve,
-        "engine": engine, "control": control,
+        "engine": engine, "control": control, "tp": tp,
         "summary": summary},
         indent=1))
     print(f"total {total:.1f} s", flush=True)

@@ -14,7 +14,13 @@ turns a truncated or altered file into a ValueError naming the path and
 puts every leaf on the device of the matching leaf of `like`.
 
 Data-parallel ranks hold identical state, so one process (rank 0) writes
-shard 0 and every rank reads it.
+shard 0 and every rank reads it. A state sharded over a (data, model)
+mesh (tensor parallelism, FSDP) is saved as the reference's global file:
+`save_sharded_checkpoint` gathers every leaf to its global array (a
+collective: every rank calls it) and rank 0 writes, so the file holds
+what an unsharded run with the same params writes;
+`load_sharded_checkpoint` reads the global file and cuts each rank's
+shards.
 """
 from __future__ import annotations
 
@@ -169,3 +175,22 @@ def load_checkpoint(path: str, like) -> Tuple[int, Any]:
         raise ValueError(f"checkpoint missing keys: {sorted(missing)[:5]}...")
     vals = iter([flat[k].to(_device_of(leaf)) for k, leaf in ref.items()])
     return meta["step"], _rebuild(like, vals)
+
+
+def save_sharded_checkpoint(directory: str, step: int, state, engine, *,
+                            tag: str = "ckpt") -> Optional[str]:
+    """Gather the sharded {"params", "opt"} `state` of `engine` (a
+    launch.engine.Engine) to global arrays on every rank, then write them
+    from global rank 0 -> the path written there, None elsewhere."""
+    import torch.distributed as dist
+    full = engine.global_tree(state, engine.state_pspecs())
+    if dist.is_available() and dist.is_initialized() and dist.get_rank():
+        return None
+    return save_checkpoint(directory, step, full, tag=tag)
+
+
+def load_sharded_checkpoint(path: str, engine) -> Tuple[int, Any]:
+    """Restore a global checkpoint into this rank's shards of `engine`'s
+    {"params", "opt"} state, on the engine's device -> (step, state)."""
+    step, full = load_checkpoint(path, engine.global_like())
+    return step, engine.shard_tree(full, engine.state_pspecs())

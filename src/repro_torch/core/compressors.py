@@ -37,7 +37,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.prng import uniform_rows
+from repro_torch.kernels.prng import uniform_at, uniform_rows
 
 _EPS = 1e-12
 
@@ -57,6 +57,10 @@ def index_bits(d: int) -> int:
 #: 614,596,608-entry bucket row (a full-width LM embedding) sorts alone
 #: instead of beside every other row of its bucket
 SORT_ELEMS = 1 << 27
+#: positions of a row QSGD quantizes at a time: its uniforms depend only on
+#: the position and the row's length, and the threefry's int64
+#: temporaries of a full-width LM embedding row at once take gigabytes
+QSGD_SPAN = 1 << 23
 
 
 def _row_chunks(x2d: torch.Tensor):
@@ -339,13 +343,21 @@ class QSGD(Compressor):
         return max(2, math.ceil(math.log2(2 * self.levels + 1)))
 
     def _quantize(self, x2d, keys):
-        """-> (q (n, d) int8 signed levels, nrm (n,) f32 incl. +1e-12)."""
+        """-> (q (n, d) int8 signed levels, nrm (n,) f32 incl. +1e-12),
+        QSGD_SPAN positions at a time."""
         nrm = torch.linalg.vector_norm(x2d, dim=1) + _EPS
-        y = x2d.abs() / nrm[:, None] * self.levels
-        lo = torch.floor(y)
-        u = uniform_rows(keys.to(x2d.device), x2d.shape[1])
-        lev = lo + (u < (y - lo)).to(y.dtype)
-        return (torch.sign(x2d) * lev).to(torch.int8), nrm
+        n, d = x2d.shape
+        k = keys.to(x2d.device)
+        q = torch.empty((n, d), dtype=torch.int8, device=x2d.device)
+        for a in range(0, d, QSGD_SPAN):
+            x = x2d[:, a:a + QSGD_SPAN]
+            y = x.abs() / nrm[:, None] * self.levels
+            lo = torch.floor(y)
+            pos = torch.arange(a, a + x.shape[1], device=x2d.device)
+            u = uniform_at(k[:, :1], k[:, 1:], pos[None, :], d)
+            lev = lo + (u < (y - lo)).to(y.dtype)
+            q[:, a:a + x.shape[1]] = (torch.sign(x) * lev).to(torch.int8)
+        return q, nrm
 
     def sim(self, x2d, keys):
         q, nrm = self._quantize(x2d.to(torch.float32), keys)

@@ -1,32 +1,39 @@
-"""The data-parallel execution engine (the JAX package's launch/engine.py
-on a data-only mesh): train, prefill and serve steps with the paper's
-compressed gradient aggregation wired in, one rank process per worker.
+"""The distributed execution engine (the JAX package's launch/engine.py):
+train, prefill and serve steps on a (data, model) mesh with the paper's
+compressed gradient aggregation wired in, one rank process per device of
+the reference's mesh (rank = d * model + m).
 
-train step (on every rank of the mesh's data group):
-  1. forward / backward on this rank's rows of the global batch
-     (`train_microbatch` microbatches accumulated in the param dtype)
-  2. the paper's Algorithm 1 on the gradient tree: Q_W on this rank ->
-     the collective over the data group -> Q_M (compressed_allreduce,
-     through the engine's cached UnitPlan; wire=True packs real message
-     buffers, collective='ring' streams them around the ring)
-  3. the optimizer update, the same on every rank
+train step (on every rank, with this rank's parameter shards):
+  1. forward / backward on this data rank's rows of the global batch
+     (`train_microbatch` microbatches accumulated in the param dtype), the
+     TP and SP collectives inside; FSDP leaves (cfg.use_fsdp) aggregate
+     their gradients in the backward hook with Q_W
+  2. the paper's Algorithm 1 on the other gradient leaves: Q_W on this
+     rank -> the collective over the data group -> Q_M
+     (compressed_allreduce through the engine's cached UnitPlan of the
+     SHARD shapes; wire=True packs real message buffers,
+     collective='ring' streams them around the ring)
+  3. Q_M layer-wise on the FSDP leaves (one key on every rank)
+  4. the optimizer update, its state sharded like the params
 
-Rank r of n takes rows [r B / n, (r + 1) B / n) of the global batch, as
-the reference's data sharding does, and the step key is
-fold_in(key(42), step), the reference's. The loss is averaged over the
-data group in rank order (the reference's pmean); step_guard's finite
-flag is reduced by MIN over the group, so every rank takes the same
-branch. Torch has no buffer donation: the step returns new trees.
+The engine's DistConfig is the reference's: tp="model", fsdp="data" when
+cfg.use_fsdp, dp=("data",), sp=True. Data rank d of n takes rows
+[d B / n, (d + 1) B / n) of the global batch, as the reference's data
+sharding does, and the step key is fold_in(key(42), step), the
+reference's. The loss is averaged over the data group in rank order (the
+reference's pmean); step_guard's finite flag is reduced by MIN over the
+model group, then the data group, so every rank takes the same branch.
+Torch has no buffer donation: the step returns new trees.
 
 With telemetry=True the step also threads a control.TelemetryState: each
 rank measures its own gradients against the aggregate, and the increments
 are averaged over the data group in rank order (the reference's pmean)
 before they accumulate, so every rank holds the same state.
 
-The reference's tensor- and sequence-parallel axes and FSDP are ROADMAP
-Queue 1 item 4b: a mesh with model > 1 or a pod axis, and cfg.use_fsdp,
-raise. The trace recorder and metrics registry (tracer=, metrics=) are
-item 6.
+`init_state` gives each rank its shards (`shard_tree`); `global_tree`
+gathers a sharded state back to the reference's global arrays (the
+checkpoint file's content). The pod axis is ROADMAP Queue 1 item 9; the
+trace recorder and metrics registry (tracer=, metrics=) are item 6.
 """
 from __future__ import annotations
 
@@ -44,11 +51,12 @@ from repro_torch.core.aggregation import (CompressionConfig,
                                           compressed_allreduce)
 from repro_torch.core.plan import build_plan
 from repro_torch.core.wire import not_ported
-from repro_torch.launch.mesh import ITEM_4B, Mesh, axis_sizes
+from repro_torch.core.collectives import all_gather as _gather_ranks
+from repro_torch.launch.mesh import ITEM_9, Mesh, axis_sizes
 from repro_torch.models.config import InputShape, ModelConfig
 from repro_torch.models.dist import DistConfig
 from repro_torch.models.model import Model
-from repro_torch.models.params import torch_dtype
+from repro_torch.models.params import shard, torch_dtype, unshard
 from repro_torch.optim import OptConfig, apply_updates, init_opt_state
 
 ITEM_6 = "item 6 (obs/)"
@@ -92,6 +100,33 @@ def _group_mean_tree(tree, group):
     return type(tree)(*out)
 
 
+def _partition(tree, mask):
+    """(the leaves where mask is True, the others), as two pruned trees in
+    the tree's order (the reference's None placeholders, which jax
+    flattens away)."""
+    t, f = {}, {}
+    for k in tree:
+        if isinstance(tree[k], dict):
+            a, b = _partition(tree[k], mask[k])
+            if a:
+                t[k] = a
+            if b:
+                f[k] = b
+        elif mask[k]:
+            t[k] = tree[k]
+        else:
+            f[k] = tree[k]
+    return t, f
+
+
+def _merge(a, b):
+    """The union of two pruned trees."""
+    out = dict(a)
+    for k, v in b.items():
+        out[k] = _merge(out[k], v) if k in out else v
+    return out
+
+
 def _cache_leaves(tree):
     """Leaves of a cache tree (dicts, tuples and None)."""
     out = []
@@ -107,20 +142,77 @@ class Engine:
         self.cfg = cfg
         self.mesh = mesh
         self.sizes = axis_sizes(mesh)
-        if "pod" in self.sizes or self.sizes.get("model", 1) > 1:
-            raise not_ported("a tensor-parallel or pod mesh", ITEM_4B)
-        if cfg.use_fsdp:
-            raise not_ported("FSDP (cfg.use_fsdp)", ITEM_4B)
-        # no TP axis on a data-only mesh (the port's DistConfig has none)
-        self.dist = DistConfig(dp=("data",))
+        if "pod" in self.sizes:
+            raise not_ported("a pod mesh axis", ITEM_9)
+        self.dist = DistConfig(tp="model",
+                               fsdp="data" if cfg.use_fsdp else None,
+                               dp=("data",), sp=True)
         self.model = Model(cfg, self.dist, self.sizes)
         self.comp = comp
         self.opt = opt or OptConfig()
         self.remat = remat
         self.device = resolve_device(device)
         self.dp_size = self.sizes["data"]
+        self.tp_size = self.sizes.get("model", 1)
         self.group = mesh.group("data")
+        self.model_group = mesh.group("model")
         self._plans: Dict[Any, tuple] = {}
+
+    def bind(self) -> None:
+        """Bind the mesh's axes for the model code (every step does)."""
+        self.mesh.bind()
+
+    # ---- shards -------------------------------------------------------------
+    def _index(self) -> Dict[str, int]:
+        return {a: self.mesh.axis_index(a) for a in self.mesh.axis_names}
+
+    def opt_pspecs(self) -> Dict:
+        """The optimizer state's partition: moments like the params."""
+        pp = self.model.param_pspecs()
+        if self.opt.name == "sgd":
+            return {}
+        if self.opt.name == "momentum":
+            return {"m": pp}
+        return {"m": pp, "v": pp, "count": ()}
+
+    def state_pspecs(self) -> Dict:
+        return {"params": self.model.param_pspecs(),
+                "opt": self.opt_pspecs()}
+
+    def shard_tree(self, tree, pspecs):
+        """This rank's blocks of a global tree under `pspecs` (a tree of
+        partitions; () for a scalar), on the engine's device."""
+        index = self._index()
+        return tree_map(lambda t, sp: shard(t, sp, self.sizes, index)
+                        .to(self.device), tree, pspecs)
+
+    def global_tree(self, tree, pspecs):
+        """The global arrays of a sharded tree, on every rank (collective:
+        every rank calls it): each sharded dim gathered over its axis."""
+        groups = {"data": self.group, "model": self.model_group}
+
+        def gather(t, axis):
+            return _gather_ranks(t, groups[axis])
+        return tree_map(lambda t, sp: unshard(t, sp, self.sizes, gather),
+                        tree, pspecs)
+
+    def global_like(self) -> Dict:
+        """Meta tensors of the global {"params", "opt"} state (a
+        checkpoint's structure, shapes and dtypes)."""
+        params = self.model.param_shapes()
+        return {"params": params, "opt": init_opt_state(self.opt, params)}
+
+    def local_shapes(self) -> Dict:
+        """Meta tensors of this rank's parameter shards (the gradient
+        shapes the train step sees; the reference's _local_param_sds)."""
+        def local(t, sp):
+            shape = list(t.shape)
+            for i, ax in enumerate(sp):
+                if ax is not None:
+                    shape[i] //= self.sizes.get(ax, 1)
+            return torch.empty(shape, dtype=t.dtype, device="meta")
+        return tree_map(local, self.model.param_shapes(),
+                        self.model.param_pspecs())
 
     # ---- input shapes (meta tensors, no storage) ---------------------------
     def batch_shapes(self, shape: InputShape) -> Dict[str, torch.Tensor]:
@@ -155,7 +247,8 @@ class Engine:
                 for k, v in self.batch_shapes(shape).items()}
 
     def _rank(self) -> int:
-        return dist.get_rank(self.group) if self.dp_size > 1 else 0
+        """This rank's index along the data axis."""
+        return self.mesh.axis_index("data") if self.dp_size > 1 else 0
 
     def local_batch(self, batch: Dict[str, torch.Tensor],
                     sharded: bool = True) -> Dict[str, torch.Tensor]:
@@ -184,47 +277,60 @@ class Engine:
         if "measure" not in self._plans:
             from repro_torch.control.telemetry import measurement_plan
             self._plans["measure"] = measurement_plan(
-                self.model.param_shapes(), self.model.stacked())
+                self.local_shapes(), self.model.stacked())
         return self._plans["measure"]
 
     def comm_plans(self, comp: Optional[CompressionConfig] = None):
         """(rest_plan, fsdp_plan): the static UnitPlans the train step
-        compresses through, built from the parameter shapes (a data-only
-        mesh shards no leaf) and cached on the engine, so the step and
-        every caller before it (the CLI's summary, comm_report,
-        comm_sched) share one plan object. fsdp_plan is None: no leaf is
-        aggregated in an FSDP backward hook here."""
+        compresses through, built from this rank's SHARD shapes (the
+        params with the tp / fsdp partition applied) and cached on the
+        engine, so the step and every caller before it (the CLI's summary,
+        comm_report, comm_sched) share one plan object. fsdp_plan is None
+        when no leaf is aggregated in the FSDP hook or Q_M is the identity
+        (no master pass runs on those leaves)."""
         comp = comp or self.comp or CompressionConfig(strategy="dense")
-        key = comp.granularity
+        key = (comp.granularity, comp.qm.name)
         if key not in self._plans:
-            shapes = self.model.param_shapes()
-            rest = (build_plan(shapes, self.model.stacked(), comp.granularity)
-                    if tree_leaves(shapes) else None)
-            self._plans[key] = (rest, None)
+            fsdp_mask = self.model.fsdp_mask()
+            g_fsdp, g_rest = _partition(self.local_shapes(), fsdp_mask)
+            s_fsdp, s_rest = _partition(self.model.stacked(), fsdp_mask)
+            rest = (build_plan(g_rest, s_rest, comp.granularity)
+                    if tree_leaves(g_rest) else None)
+            master = comp.qm is not None and comp.qm.name != "identity"
+            fsdp = (build_plan(g_fsdp, s_fsdp, comp.granularity)
+                    if master and tree_leaves(g_fsdp) else None)
+            self._plans[key] = (rest, fsdp)
         return self._plans[key]
 
     def _aggregate_grads(self, grads, key: torch.Tensor,
                          comp: Optional[CompressionConfig] = None,
                          schedule=None, wire: bool = False, recorder=None):
-        """Algorithm 1 over the data group, through the engine's cached
-        plan; `schedule` (a CommSchedule of that plan) or
-        comp.fusion_bytes streams it through the backward-ordered message
-        schedule (bit-identical numerics); wire=True packs real message
-        buffers."""
+        """Algorithm 1 over the data group on the leaves outside the FSDP
+        hook, through the engine's cached plan; `schedule` (a CommSchedule
+        of that plan) or comp.fusion_bytes streams it through the
+        backward-ordered message schedule (bit-identical numerics);
+        wire=True packs real message buffers. The FSDP leaves arrive
+        compressed, scattered and averaged by the hook; Q_M runs on them
+        layer-wise with fold_in(key, 0x5EED), the same on every rank."""
         if recorder is not None:
             raise not_ported("the trace recorder (recorder=)", ITEM_6)
         comp = comp if comp is not None else self.comp
-        stacked = self.model.stacked()
+        fsdp_mask = self.model.fsdp_mask()
+        g_fsdp, g_rest = _partition(grads, fsdp_mask)
+        _, s_rest = _partition(self.model.stacked(), fsdp_mask)
         if comp is None or comp.strategy == "dense":
             agg, _ = compressed_allreduce(
-                grads, stacked, comp or CompressionConfig(strategy="dense"),
+                g_rest, s_rest, comp or CompressionConfig(strategy="dense"),
                 self.group, key, self.dp_size, wire=wire)
-            return agg
-        rest_plan, _ = self.comm_plans(comp)
-        agg, _ = compressed_allreduce(grads, stacked, comp, self.group, key,
+            return _merge(g_fsdp, agg)
+        rest_plan, fsdp_plan = self.comm_plans(comp)
+        agg, _ = compressed_allreduce(g_rest, s_rest, comp, self.group, key,
                                       self.dp_size, plan=rest_plan,
                                       schedule=schedule, wire=wire)
-        return agg
+        if fsdp_plan is not None:
+            g_fsdp = fsdp_plan.execute(comp.qm.sim, g_fsdp,
+                                       R.fold_in(key, 0x5EED))
+        return _merge(g_fsdp, agg)
 
     # ---- train step ---------------------------------------------------------
     def build_train_step(self, lr_schedule=None, *,
@@ -294,13 +400,16 @@ class Engine:
     # ---- inference steps ----------------------------------------------------
     def build_prefill(self, shape: InputShape, cache_len: int = None):
         """The prefill step on this rank: fn(params, global_batch) -> (this
-        rank's rows' last logits, this rank's cache). `cache_len` sizes
-        the cache beyond the prompt (the serve loop's generation slots).
-        A global batch that does not divide the ranks runs whole on every
-        rank."""
+        data rank's rows' last logits over this rank's vocab shard, this
+        rank's cache shard: `cache_pspecs`, the slots over the model axis).
+        `cache_len` sizes the cache beyond the prompt (the serve loop's
+        generation slots). A global batch that does not divide the data
+        ranks runs whole on every rank. `gather_logits` assembles the
+        vocab."""
         model, sharded = self.model, self._dpp(shape) is not None
 
         def step_fn(params, batch):
+            self.bind()
             return model.prefill(params, self.local_batch(batch, sharded),
                                  R.key(0), remat=self.remat,
                                  cache_len=cache_len)
@@ -312,9 +421,27 @@ class Engine:
         model, sharded = self.model, self._dpp(shape) is not None
 
         def step_fn(params, batch, cache):
+            self.bind()
             b = self.local_batch(batch, sharded)
             return model.decode_step(params, b["token"], batch["pos"], cache)
         return step_fn
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This data rank's rows -> the global batch's rows, on every rank
+        of the data group (a decode loop's next tokens)."""
+        if self.dp_size == 1:
+            return x
+        g = _gather_ranks(x.contiguous(), self.group)
+        return torch.cat(list(g.unbind(0)), dim=0)
+
+    def gather_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """(B_local, V_local) logits of this rank's vocab shard -> the
+        (B_local, V) logits over the whole (padded) vocab, on every rank of
+        the model group."""
+        if self.tp_size == 1:
+            return logits
+        g = _gather_ranks(logits.contiguous(), self.model_group)
+        return torch.cat(list(g.unbind(0)), dim=-1)
 
     # ---- memory -------------------------------------------------------------
     def memory_estimate(self, shape: InputShape) -> Dict[str, float]:
@@ -365,13 +492,14 @@ class Engine:
         return est
 
     def init_state(self, seed: int = 0):
-        """Params from Model.init(key(seed)) and the optimizer's zero state
-        on the engine's device. The draws are made on the CPU, so every
-        device starts from the same params (not the reference's draws:
-        tests convert the reference's init_state); at full width draw on
-        the device with `self.model.init(key, device=...)` instead."""
-        params = tree_map(lambda t: t.to(self.device),
-                          self.model.init(R.key(seed), device="cpu"))
+        """This rank's shards of Model.init(key(seed)) and the optimizer's
+        zero state on the engine's device. The draws are made on the CPU,
+        so every rank cuts its shards from the same global params (not the
+        reference's draws: tests convert the reference's init_state); at
+        full width draw on the device with `self.model.init(key,
+        device=...)` and `shard_tree` instead."""
+        params = self.shard_tree(self.model.init(R.key(seed), device="cpu"),
+                                 self.model.param_pspecs())
         return params, init_opt_state(self.opt, params)
 
 
@@ -398,17 +526,21 @@ class TrainStep:
 
     def grads(self, params, batch, step):
         """(this rank's f32 loss, its gradient tree in the param dtype) on
-        its rows of the global batch; with cfg.train_microbatch > 1 the
-        rows split into microbatches whose gradients add up in the param
-        dtype and then scale by 1 / mb, as the reference's scan."""
+        its data rank's rows of the global batch; with cfg.train_microbatch
+        > 1 the rows split into microbatches whose gradients add up in the
+        param dtype and then scale by 1 / mb, as the reference's scan (the
+        FSDP hook compresses and scatters per microbatch). The FSDP
+        leaves' gradients come out of the hook aggregated."""
         eng = self.engine
+        eng.bind()
         model, key = eng.model, self.key(step)
         b = eng.local_batch(batch)
         paths, leaves = tree_paths(params), tree_leaves(params)
+        hook = self.comp if eng.dist.fsdp is not None else None
 
         def value_and_grad(bi):
             p = [l.detach().requires_grad_(True) for l in leaves]
-            loss = model.loss(tree_unflatten(paths, p), bi, key,
+            loss = model.loss(tree_unflatten(paths, p), bi, key, comp=hook,
                               remat=eng.remat)
             return loss.detach(), torch.autograd.grad(loss, p)
 
@@ -436,6 +568,7 @@ class TrainStep:
 
     def aggregate(self, grads, step):
         """The gradient tree aggregated over the data group."""
+        self.engine.bind()
         return self.engine._aggregate_grads(grads, self.key(step), self.comp,
                                             schedule=self.schedule,
                                             wire=self.wire)
@@ -451,8 +584,10 @@ class TrainStep:
             ok = torch.isfinite(loss)
             for leaf in tree_leaves(agg):
                 ok = ok & torch.isfinite(leaf).all()
-            finite = bool(_group_values(ok.to(torch.int32), eng.group)
-                          .min() > 0)
+            ok = ok.to(torch.int32)
+            if eng.tp_size > 1:
+                ok = _group_values(ok, eng.model_group).min()
+            finite = bool(_group_values(ok, eng.group).min() > 0)
         if finite:
             params, opt_state = apply_updates(eng.opt, params, agg,
                                               opt_state, lr)
@@ -475,9 +610,12 @@ class TrainStep:
         inc = measure(eng.measurement_plan(), qw, grads, self.key(step),
                       grads_hat=agg,
                       entire_model=self.telemetry_entire_model)
+        if eng.tp_size > 1:      # the reference's pmean over every axis
+            inc = _group_mean_tree(inc, eng.model_group)
         return accumulate(telem, _group_mean_tree(inc, eng.group))
 
     def __call__(self, params, opt_state, batch, step, telem=None):
+        self.engine.bind()
         loss, grads = self.grads(params, batch, step)
         agg = self.aggregate(grads, step)
         if self.telemetry:

@@ -21,18 +21,23 @@ an error inside the ranks. `fn` must be importable (a module-level
 function) and return picklable host data (numbers, numpy arrays).
 
 A `Mesh` is the reference's mesh as a small object: its axis names, its
-shape and the process group of each axis, over the group run_ranks
-opened. `make_host_mesh(data, model, pod)` / `make_mesh(shape, axes)`
-build one; the port's meshes are data-only (model 1, no pod: the tensor-
-and pod-parallel axes are ROADMAP Queue 1 item 4b), so the data axis is
-the whole default group. A mesh built where no process group is open
-describes shapes only (an Engine's plans, batch shapes, memory
-estimate); its collectives need the group.
+shape, and this rank's process group and index along each axis, over the
+group run_ranks opened. `make_host_mesh(data, model)` / `make_mesh(shape,
+axes)` build one with jax.make_mesh's row-major layout, the last axis the
+fastest: on a (data, model) mesh rank = d * model + m, so the model group
+of rank r is the ranks d * model + 0 .. model - 1 and its data group the
+ranks m, model + m, 2 model + m, .... Every rank creates every group
+(torch.distributed.new_group is collective) and keeps its own; the mesh
+binds its axes for the model code (models.dist.bind_axes). A mesh built
+where no process group is open describes shapes only (an Engine's plans,
+batch shapes, memory estimate); its collectives need the group. The pod
+axis is the production mesh's (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
 import math
 import queue
 import socket
@@ -47,7 +52,7 @@ import torch.multiprocessing as mp
 from repro_torch.core.wire import not_ported
 
 BACKENDS = ("gloo", "nccl")
-ITEM_4B = "item 4b (TP, FSDP and SP)"
+ITEM_9 = "item 9 (the pod axis and the production mesh)"
 
 
 def _free_port() -> int:
@@ -147,12 +152,15 @@ def run_ranks(fn, n: int, *, backend: str, device: str, args=(),
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """Axis names, their sizes, and the process group each axis reduces
-    over (None: the default group)."""
+    """Axis names, their sizes, and per axis this rank's process group
+    (None: the axis spans every rank of the default group, or one rank)
+    and its index along the axis."""
     axis_names: Tuple[str, ...]
     shape: Tuple[int, ...]
     groups: Dict[str, Optional[object]] = dataclasses.field(
         default_factory=dict, compare=False)
+    index: Dict[str, int] = dataclasses.field(default_factory=dict,
+                                              compare=False)
 
     @property
     def size(self) -> int:
@@ -161,11 +169,58 @@ class Mesh:
     def group(self, axis: str):
         return self.groups.get(axis)
 
+    def axis_index(self, axis: str) -> int:
+        """This rank's index along `axis`: the recorded one, else its rank
+        in the axis' group (the default group's for a whole-world axis)."""
+        if axis in self.index:
+            return self.index[axis]
+        n = dict(zip(self.axis_names, self.shape)).get(axis, 1)
+        if n == 1 or not (dist.is_available() and dist.is_initialized()):
+            return 0
+        return dist.get_rank(self.groups.get(axis))
+
+    def bind(self) -> None:
+        """Bind this mesh's axes for the model code (models.dist)."""
+        from repro_torch.models.dist import Axis, bind_axes
+        bind_axes({a: Axis(self.groups.get(a), n, self.axis_index(a))
+                   for a, n in zip(self.axis_names, self.shape)})
+
+
+def _axis_groups(shape: Tuple[int, ...], rank: int):
+    """Per axis, this rank's group and index on a row-major mesh of
+    `shape` (the last axis fastest; an axis of size 1 gets a group of its
+    one rank). Every rank creates every group, in the same order."""
+    coords = []
+    r = rank
+    for n in reversed(shape):
+        coords.append(r % n)
+        r //= n
+    coords = coords[::-1]
+    strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]
+    groups, index = {}, {}
+    world = math.prod(shape)
+    for i, n in enumerate(shape):
+        index[i] = coords[i]
+        if n == world:
+            groups[i] = None          # the default group
+            continue
+        others = [j for j in range(len(shape)) if j != i]
+        mine = None
+        for rest in itertools.product(*(range(shape[j]) for j in others)):
+            base = sum(c * strides[j] for c, j in zip(rest, others))
+            ranks = [base + k * strides[i] for k in range(n)]
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                mine = g
+        groups[i] = mine
+    return groups, index
+
 
 def make_mesh(shape, axes) -> Mesh:
-    """A mesh of the given shape over axes from ("pod", "data", "model"):
-    data-parallel only (model 1, no pod axis), its data axis the default
-    group. Where a process group is open its size must be the mesh's."""
+    """A mesh of the given shape over axes from ("data", "model"), row-major
+    over the ranks of the open process group (rank = d * model + m), with
+    one process group per axis, bound for the model code. Without a
+    process group it describes shapes only."""
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} and axes {axes} differ in "
@@ -176,22 +231,24 @@ def make_mesh(shape, axes) -> Mesh:
         raise ValueError(f"mesh axes {sorted(unknown)}: the engine knows "
                          f"pod, data and model")
     if "pod" in sizes:
-        raise not_ported("a pod axis (multi-pod meshes)", ITEM_4B)
-    if sizes.get("model", 1) > 1:
-        raise not_ported("a model axis of size > 1 (tensor parallelism)",
-                         ITEM_4B)
-    mesh = Mesh(axes, shape, {"data": None})
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() != mesh.size:
-        raise ValueError(f"mesh {sizes} needs {mesh.size} ranks, the "
+        raise not_ported("a pod axis (multi-pod meshes)", ITEM_9)
+    if not (dist.is_available() and dist.is_initialized()):
+        return Mesh(axes, shape, {a: None for a in axes})
+    if dist.get_world_size() != math.prod(shape):
+        raise ValueError(f"mesh {sizes} needs {math.prod(shape)} ranks, the "
                          f"process group has {dist.get_world_size()}")
+    groups, index = _axis_groups(shape, dist.get_rank())
+    mesh = Mesh(axes, shape, {a: groups[i] for i, a in enumerate(axes)},
+                {a: index[i] for i, a in enumerate(axes)})
+    mesh.bind()
     return mesh
 
 
 def make_host_mesh(data: int = 1, model: int = 1,
                    pod: Optional[int] = None) -> Mesh:
     """The reference's small test mesh: (data, model) over the ranks
-    run_ranks started (the reference's host CPU devices)."""
+    run_ranks started (the reference's host CPU devices), rank =
+    d * model + m."""
     if pod:
         return make_mesh((pod, data, model), ("pod", "data", "model"))
     return make_mesh((data, model), ("data", "model"))

@@ -1,15 +1,26 @@
-"""Serving launcher on one device: prefill a batch of prompts and decode N
-tokens greedily (the JAX package's launch/serve.py).
+"""Serving launcher: prefill a batch of prompts and decode N tokens
+greedily (the JAX package's launch/serve.py), on one device or across
+`--data N --model M` rank processes (launch/mesh.run_ranks, rank =
+d * M + m) through the Engine's sharded prefill and serve steps: the
+batch split over the data axis, heads, vocab and the cache's slots over
+the model axis. Rank 0 prints.
 
-Runs on the card unless `--device cpu` is given. The params come from
-`Model.init(key(seed))` and the prompts are uniform tokens drawn on the
-device (a torch.Generator seeded from the key: not the reference's draws);
-a VLM gets patch embeddings, an audio model frame embeddings, from the
-same key. Times are CUDA events on the card (host clocks on the CPU).
+Runs on the card unless `--device cpu` is given; across ranks the backend
+is nccl on the card (one card a rank) unless `--backend gloo` shares one
+card, gloo on the CPU. The params come from `Model.init(key(seed))` (each
+rank cuts its shards from the same draw, so a sharded run serves the
+one-device run's model where the heads divide the model axis; TP padding
+heads change the declared shapes, as in the reference) and the prompts are uniform tokens drawn on the
+device (a torch.Generator seeded from the key: not the reference's
+draws); a VLM gets patch embeddings, an audio model frame embeddings,
+from the same key. Times are CUDA events on the card (host clocks on the
+CPU).
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
       --smoke --device cpu --batch 8 --prompt 24 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
+      --smoke --device cpu --model 2
 """
 from __future__ import annotations
 
@@ -25,9 +36,12 @@ from repro_torch import resolve_device
 from repro_torch.configs.registry import ARCH_NAMES, get_config, get_smoke
 from repro_torch.core.wire import not_ported
 from repro_torch.data import frames_stub, patches_stub
-from repro_torch.launch.engine import ITEM_6
-from repro_torch.launch.mesh import ITEM_4B
-from repro_torch.models import DistConfig, Model
+from repro_torch.launch.engine import ITEM_6, Engine
+from repro_torch.launch.mesh import make_host_mesh, run_ranks
+from repro_torch.models import DistConfig, InputShape, Model
+
+# seconds the ranks (and any one collective) may take before the run stops
+RANK_TIMEOUT = 3600.0
 
 
 
@@ -91,38 +105,64 @@ def make_batch(cfg, batch: int, prompt: int, seed: int, dev) -> Dict:
 
 def generate(model: Model, params, batch: Dict, gen: int,
              forced: Optional[torch.Tensor] = None,
-             keep_logits: bool = False) -> Dict:
+             keep_logits: bool = False,
+             engine: Optional[Engine] = None) -> Dict:
     """Prefill, then gen - 1 greedy decode steps (gen tokens in all). The
     first decode request is round-tripped through pack_request /
     unpack_request outside the timed region, as the reference does.
     forced (B, gen): feed forced[:, t] as the token after step t instead of
-    the argmax (teacher forcing). -> {"tokens" (B, gen), "prefill_ms",
-    "decode_ms" (the gen - 1 steps), "decode_ms_per_token", "tokens_per_s"
-    (batch x decode steps over decode time), "cache", and "logits" (one
-    (B, V) tensor a step) when keep_logits}."""
+    the argmax (teacher forcing). With `engine` (its model and this rank's
+    param shards) the steps are the engine's: this rank's rows and cache
+    shard, the logits gathered over the vocab shards, the next tokens over
+    the data ranks. -> {"tokens" (B_rows, gen), "prefill_ms", "decode_ms"
+    (the gen - 1 steps), "decode_ms_per_token", "tokens_per_s" (batch x
+    decode steps over decode time), "cache", and "logits" (one (B_rows, V)
+    tensor a step) when keep_logits}."""
     dev = batch["tokens"].device
     Bsz, S = batch["tokens"].shape
     clock = _Clock(dev)
+    if engine is None:
+        def prefill(b):
+            return model.prefill(params, b, cache_len=S + gen)
+
+        def decode(token, pos, cache):
+            return model.decode_step(params, token, pos, cache)
+        rows = full = (lambda t: t)
+    else:
+        pre = engine.build_prefill(InputShape("prefill", S, Bsz, "prefill"),
+                                   cache_len=S + gen)
+        srv = engine.build_serve_step(InputShape("serve", S + gen, Bsz,
+                                                 "decode"))
+
+        def prefill(b):
+            return pre(params, b)
+
+        def decode(token, pos, cache):
+            return srv(params, {"token": token, "pos": pos}, cache)
+        rows, full = engine.gather_rows, engine.gather_logits
     with torch.inference_mode():
         clock.start()
-        logits, cache = model.prefill(params, batch, cache_len=S + gen)
+        logits, cache = prefill(batch)
+        logits = full(logits)
         tok = torch.argmax(logits, -1).to(torch.int32)
         prefill_ms = clock.stop()
         out, kept = [tok], [logits] if keep_logits else []
-        nxt = forced[:, 0] if forced is not None else tok
+        nxt = forced[:, 0] if forced is not None else rows(tok)
         req = unpack_request(pack_request(nxt, S))
         token, pos = req["token"], int(req["pos"])
         clock.start()
         for t in range(gen - 1):
-            logits, cache = model.decode_step(params, token, pos, cache)
+            logits, cache = decode(token, pos, cache)
+            logits = full(logits)
             tok = torch.argmax(logits, -1).to(torch.int32)
             out.append(tok)
             if keep_logits:
                 kept.append(logits)
-            token = forced[:, t + 1] if forced is not None else tok
+            token = forced[:, t + 1] if forced is not None else rows(tok)
             pos += 1
         decode_ms = clock.stop()
     steps = max(1, gen - 1)
+    Bsz = out[0].shape[0]
     res = {"tokens": torch.stack(out, dim=1), "prefill_ms": prefill_ms,
            "decode_ms": decode_ms, "decode_ms_per_token": decode_ms / steps,
            "tokens_per_s": Bsz * steps / (decode_ms / 1e3)
@@ -132,7 +172,7 @@ def generate(model: Model, params, batch: Dict, gen: int,
     return res
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="granite-20b", choices=ARCH_NAMES)
     ap.add_argument("--smoke", action="store_true")
@@ -145,24 +185,71 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
+    ap.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                    help="across ranks: nccl on the card (one card a "
+                         "rank), gloo on the CPU or to share a card")
     ap.add_argument("--trace-out", default="")
     ap.add_argument("--metrics-out", default="")
-    args = ap.parse_args(argv)
-    if args.data > 1 or args.model > 1:
-        raise not_ported("serve --data / --model > 1 (a device mesh)",
-                         ITEM_4B)
+    return ap
+
+
+def _report(cfg, res, args, mesh, say) -> None:
+    say(f"arch={cfg.name} {mesh} batch={args.batch}")
+    say(f"prefill({args.prompt} tok): {res['prefill_ms']:.0f} ms   "
+        f"decode: {res['decode_ms_per_token']:.1f} ms/token")
+    say("sample continuation:", res["tokens"][0].tolist())
+
+
+def _serve_rank(rank, n, dev, args, collect):
+    """One rank of a sharded serve run -> this rank's result (its rows'
+    tokens, times; with `collect` its logits a step, as numpy)."""
+    say = ((lambda *a: print(*a, flush=True)) if rank == 0
+           else (lambda *a: None))
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    eng = Engine(cfg, make_host_mesh(data=args.data, model=args.model),
+                 device=dev)
+    eng.bind()
+    params = eng.shard_tree(eng.model.init(R.key(args.seed), device=dev),
+                            eng.model.param_pspecs())
+    batch = make_batch(cfg, args.batch, args.prompt, args.seed, dev)
+    res = generate(eng.model, params, batch, args.gen, engine=eng,
+                   keep_logits=collect)
+    _report(cfg, res, args, f"mesh={dict(eng.sizes)}", say)
+    out = {k: res[k] for k in ("prefill_ms", "decode_ms_per_token",
+                                "tokens_per_s")}
+    out["tokens"] = res["tokens"].cpu().numpy()
+    out["index"] = (eng.mesh.axis_index("data"),
+                    eng.mesh.axis_index("model"))
+    if collect:
+        out["logits"] = [t.float().cpu().numpy() for t in res["logits"]]
+    return out
+
+
+def run(argv=None):
+    """Parse `argv` and serve: on one device -> None; across data x model
+    ranks -> every rank's result in rank order."""
+    args = parser().parse_args(argv)
     if args.trace_out or args.metrics_out:
         raise not_ported("serve --trace-out / --metrics-out", ITEM_6)
+    if args.data * args.model > 1:
+        resolve_device(args.device)
+        backend = args.backend or ("nccl" if args.device == "cuda"
+                                   else "gloo")
+        return run_ranks(_serve_rank, args.data * args.model,
+                         backend=backend, device=args.device,
+                         args=(args, False), timeout=RANK_TIMEOUT)
     dev = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     model = Model(cfg, DistConfig())
     params = model.init(R.key(args.seed), device=dev)
     batch = make_batch(cfg, args.batch, args.prompt, args.seed, dev)
     res = generate(model, params, batch, args.gen)
-    print(f"arch={cfg.name} device={dev} batch={args.batch}")
-    print(f"prefill({args.prompt} tok): {res['prefill_ms']:.0f} ms   "
-          f"decode: {res['decode_ms_per_token']:.1f} ms/token")
-    print("sample continuation:", res["tokens"][0].tolist())
+    _report(cfg, res, args, f"device={dev}", print)
+    return None
+
+
+def main(argv=None):
+    run(argv)
     return 0
 
 

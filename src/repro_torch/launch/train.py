@@ -2,9 +2,11 @@
 real ranks (the JAX package's launch/train.py, same flags and printed
 lines).
 
-`--data N` starts N rank processes (launch/mesh.run_ranks), one worker
-each, where the reference ran one process over N virtual devices; rank 0
-prints. `--device cuda` (the default) runs every rank on the card: over
+`--data N --model M` starts N x M rank processes (launch/mesh.run_ranks)
+on a (data, model) mesh, rank = d * M + m, where the reference ran one
+process over N x M virtual devices; rank 0 prints. The model axis is
+tensor (and sequence) parallel; configs with use_fsdp shard their params
+over the data axis too. `--device cuda` (the default) runs every rank on the card: over
 nccl (the default there) rank r on cuda:r, which needs N cards; over
 `--backend gloo` all ranks share cuda:0. `--device cpu` runs on the CPU
 over gloo. Nothing switches over silently: nccl with fewer cards than
@@ -13,21 +15,23 @@ ranks raises run_ranks' error, which names --backend gloo.
 The batches are the reference's Markov stream (data/synthetic.py
 lm_batches), drawn on the CPU from --seed on every rank and moved to its
 device, so the card and the CPU train on the same tokens; rank r takes
-rows [r B / N, (r + 1) B / N) of each global batch of --batch. The
+rows [d B / N, (d + 1) B / N) of each global batch of --batch, d its
+data index. The
 Markov matrix is (vocab, vocab): at a full-width vocab no host holds it,
 as in the reference.
 
 --ckpt-dir / --ckpt-every / --resume checkpoint and resume as the
-reference (ckpt/checkpoint.py, its file format): rank 0 writes, and a
-resumed run replays the data stream to its step, so it ends bitwise
-where the uninterrupted run does. --policy routes the run through the
+reference (ckpt/checkpoint.py, its file format): the state is gathered
+to its global arrays and rank 0 writes; a resume cuts every rank's
+shards from that file and replays the data stream to its step, so it
+ends bitwise where the uninterrupted run does. --policy routes the run through the
 adaptive controller (control/: engine_controller on every rank; the
 telemetry is averaged over the ranks, so every rank takes the same
 decisions) with --replan-every, --variance-budget, --bit-budget and
 --alpha-us; --telemetry-out writes its report from rank 0 (and implies
 --policy static). --trace-out / --metrics-out are ROADMAP Queue 1 item
-6, --model > 1 item 4b; they raise. --error-feedback raises the
-reference's ValueError (the engine threads no EF state).
+6; they raise. --error-feedback raises the reference's ValueError (the
+engine threads no EF state).
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-405b \\
@@ -37,6 +41,9 @@ Example:
       --smoke --steps 6 --data 2 --device cpu --backend gloo \\
       --compressor topk --ratio 0.1 --policy granularity_switch \\
       --replan-every 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-405b \\
+      --smoke --steps 4 --data 2 --model 2 --device cpu --backend gloo \\
+      --compressor qsgd --granularity layerwise --wire
 """
 from __future__ import annotations
 
@@ -51,7 +58,8 @@ import torch.distributed as dist
 from repro_torch import random as R
 from repro_torch import resolve_device
 from repro_torch.ckpt import (host_state, latest_checkpoint,
-                              load_checkpoint, save_checkpoint)
+                              load_sharded_checkpoint,
+                              save_sharded_checkpoint)
 from repro_torch.configs.registry import ARCH_NAMES, get_config, get_smoke
 from repro_torch.control import POLICIES, engine_controller, make_policy
 from repro_torch.convert import tree_leaves
@@ -219,7 +227,7 @@ def _summary(args, eng: Engine, params, say) -> None:
     """The reference's header lines: arch / mesh / comp, the plan, the
     wire bits and the schedule."""
     cfg, comp = eng.cfg, eng.comp
-    n = sum(x.numel() for x in tree_leaves(params))
+    n = sum(x.numel() for x in tree_leaves(eng.model.param_shapes()))
     say(f"arch={cfg.name} params={n/1e6:.2f}M mesh={dict(eng.sizes)} "
         f"comp={comp.strategy}/{comp.qw.name}/{comp.granularity.kind}"
         + (f" collective={args.collective}" if args.collective else "")
@@ -288,8 +296,7 @@ def _train_rank(rank, n, dev, args, collect):
     if args.resume:
         ck = latest_checkpoint(args.ckpt_dir)
         if ck is not None:
-            start, state = load_checkpoint(
-                ck, like={"params": params, "opt": opt_state})
+            start, state = load_sharded_checkpoint(ck, eng)
             params, opt_state = state["params"], state["opt"]
             say(f"resume: {ck} -> step {start}")
         else:
@@ -329,9 +336,9 @@ def _train_rank(rank, n, dev, args, collect):
                 f"({time.time() - t0:.1f}s)")
         if args.ckpt_dir and args.ckpt_every and \
                 (i + 1) % args.ckpt_every == 0:
-            if rank == 0:
-                save_checkpoint(args.ckpt_dir, i + 1,
-                                {"params": params, "opt": opt_state})
+            save_sharded_checkpoint(args.ckpt_dir, i + 1,
+                                    {"params": params, "opt": opt_state},
+                                    eng)
             dist.barrier()
     report = None
     if ctrl is not None:
@@ -345,7 +352,8 @@ def _train_rank(rank, n, dev, args, collect):
            "launches": kernels.launch_counts(),
            "wire": collectives.counts("all_gather"), "controller": report}
     if collect:
-        out["state"] = host_state({"params": params, "opt": opt_state})
+        out["state"] = host_state(eng.global_tree(
+            {"params": params, "opt": opt_state}, eng.state_pspecs()))
     return out
 
 
@@ -357,14 +365,15 @@ def run(argv=None, *, collect: bool = False):
     args = _parse(argv)
     resolve_device(args.device)
     # build the engine and its step once here: the errors a rank would
-    # raise (a mesh or config of item 4b, error feedback) raise here
+    # raise (a pod mesh, error feedback) raise here
     eng = _engine(args, "cpu")
     if args.policy:
         build_controller(args, eng, None).step_fn()
     else:
         eng.build_train_step(wire=args.wire, collective=args.collective,
                              step_guard=args.step_guard)
-    return run_ranks(_train_rank, args.data, backend=args.backend,
+    return run_ranks(_train_rank, args.data * args.model,
+                     backend=args.backend,
                      device=args.device, args=(args, collect),
                      timeout=RANK_TIMEOUT)
 

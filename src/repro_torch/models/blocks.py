@@ -1,10 +1,11 @@
 """Transformer blocks, the train / prefill path and the one-token decode
-path (the JAX package's models/blocks.py), on one device.
+path (the JAX package's models/blocks.py), TP-aware through models.dist.
 
-`collect_cache > 0` (prefill) also returns the layer's decode cache of
-that length: the first collect_cache positions of k / v (int8 with
-per-vector scales when cfg.kv_cache_dtype == "int8"), or MLA's latent
-c_kv and shared rope key, with slot_pos (-1 past the prompt). As in the
+`collect_cache > 0` (prefill) also returns this rank's sequence shard of
+the layer's decode cache of that total length: TP rank r holds the
+collect_cache / tp_size slots from r * Ss of k / v (int8 with per-vector
+scales when cfg.kv_cache_dtype == "int8"), or of MLA's latent c_kv and
+shared rope key, with slot_pos (-1 past the prompt). As in the
 reference, a pure sliding-window arch's ring cache is filled with
 positions 0 .. window-1 even when the prompt is longer (ROADMAP Queue 3).
 The decode functions write the new token into the cache they are given,
@@ -17,7 +18,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.dist import (DistConfig, fdot, region_in, region_out,
+from repro_torch.models.dist import (DistConfig, all_gather, axis_index,
+                                     fdot, pmax, psum, region_in, region_out,
                                      tp_region_in, tp_region_out, tp_shared)
 from repro_torch.models.flash import flash_attention
 from repro_torch.models.layers import (NEG_INF, apply_norm, cache_write,
@@ -27,14 +29,14 @@ from repro_torch.models.layers import (NEG_INF, apply_norm, cache_write,
 from repro_torch.models.moe import moe_ffn
 
 
-def _collect(t: torch.Tensor, S: int, clen: int) -> torch.Tensor:
-    """(B,S,...) -> its first clen positions, zero-padded past S."""
-    pad = [0, 0] * (t.dim() - 2) + [0, max(0, clen - S)]
-    return F.pad(t, pad)[:, :clen]
+def _collect(t: torch.Tensor, S: int, start: int, Ss: int) -> torch.Tensor:
+    """(B,S,...) -> positions [start, start + Ss), zero-padded past S."""
+    pad = [0, 0] * (t.dim() - 2) + [0, max(0, start + Ss - S)]
+    return F.pad(t, pad)[:, start:start + Ss]
 
 
-def _slot_pos(S: int, clen: int, device) -> torch.Tensor:
-    spos = torch.arange(clen, dtype=torch.int32, device=device)
+def _slot_pos(S: int, start: int, Ss: int, device) -> torch.Tensor:
+    spos = start + torch.arange(Ss, dtype=torch.int32, device=device)
     return torch.where(spos < S, spos, -1)
 
 
@@ -61,17 +63,18 @@ def gqa_attention(p: Dict, x: torch.Tensor, cfg, dist: DistConfig, *,
     if use_rope:
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
-    ke = expand_kv(k, Hl, 0, cfg.n_heads, cfg.n_kv_heads)
-    ve = expand_kv(v, Hl, 0, cfg.n_heads, cfg.n_kv_heads)
+    r = axis_index(dist.tp)
+    ke = expand_kv(k, Hl, r, cfg.n_heads, cfg.n_kv_heads)
+    ve = expand_kv(v, Hl, r, cfg.n_heads, cfg.n_kv_heads)
     o = flash_attention(q, ke, ve, window, causal, pos_offset)
     o = head_mask(o, cfg, dist, axis=2)
     out = region_out(o.reshape(B, S, -1) @ p[f"{prefix}wo"], dist)
     cache = None
     if collect_cache:
-        clen = collect_cache // tp_size
-        kt = _collect(k, S, clen).transpose(1, 2)       # (B,Hkv,clen,dh)
-        vt = _collect(v, S, clen).transpose(1, 2)
-        spos = _slot_pos(S, clen, x.device)
+        Ss = collect_cache // tp_size
+        kt = _collect(k, S, r * Ss, Ss).transpose(1, 2)  # (B,Hkv,Ss,dh)
+        vt = _collect(v, S, r * Ss, Ss).transpose(1, 2)
+        spos = _slot_pos(S, r * Ss, Ss, x.device)
         if cfg.kv_cache_dtype == "int8":
             kq, ksc = quantize_kv(kt)
             vq, vsc = quantize_kv(vt)
@@ -98,8 +101,9 @@ def gqa_cross_attention(p: Dict, x: torch.Tensor, memory: torch.Tensor, cfg,
     M = memory.shape[1]
     k = (mq @ tp_shared(p["cwk"], dist.tp)).reshape(B, M, -1, dh)
     v = (mq @ tp_shared(p["cwv"], dist.tp)).reshape(B, M, -1, dh)
-    ke = expand_kv(k, Hl, 0, cfg.n_heads, cfg.n_kv_heads)
-    ve = expand_kv(v, Hl, 0, cfg.n_heads, cfg.n_kv_heads)
+    r = axis_index(dist.tp)
+    ke = expand_kv(k, Hl, r, cfg.n_heads, cfg.n_kv_heads)
+    ve = expand_kv(v, Hl, r, cfg.n_heads, cfg.n_kv_heads)
     o = flash_attention(q, ke, ve, 0, False, 0)
     o = head_mask(o, cfg, dist, axis=2)
     return region_out(o.reshape(B, S, -1) @ p["cwo"], dist)
@@ -188,10 +192,11 @@ def mla_attention(p: Dict, x: torch.Tensor, cfg, dist: DistConfig, *,
     out = region_out(o.reshape(B, S, -1) @ p["wo"], dist)
     cache = None
     if collect_cache:
-        clen = collect_cache // tp_size
-        cache = {"ckv": _collect(c_kv, S, clen)[:, None],
-                 "krope": _collect(k_rope[:, :, 0, :], S, clen)[:, None],
-                 "slot_pos": _slot_pos(S, clen, x.device)}
+        Ss = collect_cache // tp_size
+        start = axis_index(dist.tp) * Ss
+        cache = {"ckv": _collect(c_kv, S, start, Ss)[:, None],
+                 "krope": _collect(k_rope[:, :, 0, :], S, start, Ss)[:, None],
+                 "slot_pos": _slot_pos(S, start, Ss, x.device)}
     return out, cache
 
 
@@ -216,17 +221,28 @@ def mla_attention_decode(p: Dict, x: torch.Tensor, cache: Dict, pos: int,
     spos = cache["slot_pos"]
     ck, _ = cache_write(cache["ckv"], spos, c_kv, pos, dist)
     kr, _ = cache_write(cache["krope"], spos, k_rope[:, 0], pos, dist)
-    q_all = torch.cat([q_eff, qr], dim=-1)               # (B,H,r+rdim)
+    # gather every head's latent query (tiny), split-KV over the cache
+    q_loc = torch.cat([q_eff, qr], dim=-1)
+    q_all = all_gather(q_loc, dist.tp, gather_axis=1)    # (B,H,r+rdim)
     lat = torch.cat([ck[:, 0], kr[:, 0]], dim=-1)        # (B,Ss,r+rdim)
     s = torch.einsum("bhr,bsr->bhs", q_all, lat.to(torch.float32)) \
         * inv_sqrt_f32(nope + rdim)
     valid = (spos >= 0) & (spos <= pos)
     s = torch.where(valid[None, None, :], s, NEG_INF)
-    m = torch.clamp_min(s.amax(dim=-1), 2 * NEG_INF)
-    pr = torch.exp(s - m[..., None])
-    den = pr.sum(dim=-1)
-    num = torch.einsum("bhs,bsr->bhr", pr, ck[:, 0].to(torch.float32))
-    ctx = num / torch.clamp_min(den[..., None], 1e-30)   # (B,H,r) latent
+    m_l = torch.clamp_min(s.amax(dim=-1), 2 * NEG_INF)
+    pr = torch.exp(s - m_l[..., None])
+    den_l = pr.sum(dim=-1)
+    num_l = torch.einsum("bhs,bsr->bhr", pr, ck[:, 0].to(torch.float32))
+    if q_all is q_loc:                                   # one shard
+        ctx = num_l / torch.clamp_min(den_l[..., None], 1e-30)
+    else:
+        m = pmax(m_l, dist.tp)
+        corr = torch.exp(m_l - m)
+        num = psum(num_l * corr[..., None], dist.tp)
+        den = psum(den_l * corr, dist.tp)
+        ctx = num / torch.clamp_min(den[..., None], 1e-30)
+        rk = axis_index(dist.tp)
+        ctx = ctx[:, rk * Hl:(rk + 1) * Hl]              # (B,Hl,r) latent
     wv = p["wv_up"].reshape(r_lat, Hl, vdim)
     o = torch.einsum("bhr,rhv->bhv", ctx, wv.to(torch.float32))
     o = head_mask(o, cfg, dist, axis=1)

@@ -11,27 +11,45 @@ weight sees).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.resnet9_cifar import CNNConfig
-from repro_torch.random import generator
+from repro_torch.random import normal as jax_normal
+from repro_torch.random import split
 
 
 def init_cnn(cfg: CNNConfig, key: torch.Tensor, device="cuda") -> Dict:
-    """He-initialised params from `key` (random.key data), on `device`."""
+    """He-initialised params from `key` (random.key data), on `device`: the
+    reference's draws, split(key, 32) taken in its order, each weight
+    std * normal(k, shape) drawn on the CPU and moved (so the card and the
+    CPU start from the same params). The CPU draws of the last INIT_CACHE
+    (config, key) pairs are kept: the figures start every run of a model
+    from one key."""
     dev = resolve_device(device)
-    g = generator(key)   # need not match JAX (tests convert its params)
+    k0, k1 = (int(w) for w in key.tolist())
+    return {k: (v.clone() if dev.type == "cpu" else v.to(dev))
+            for k, v in _init_cpu(cfg, k0, k1).items()}
+
+
+INIT_CACHE = 8
+
+
+@functools.lru_cache(maxsize=INIT_CACHE)
+def _init_cpu(cfg: CNNConfig, k0: int, k1: int) -> Dict:
+    ks = iter(split(torch.tensor([k0, k1], dtype=torch.int64), 32))
 
     def normal(std, *shape):
-        return (std * torch.randn(shape, generator=g)).to(dev)
+        return jax_normal(next(ks), shape) * float(np.float32(std))
 
     def zeros(n):
-        return torch.zeros((n,), device=dev)
+        return torch.zeros((n,))
 
     p: Dict = {}
     if cfg.kind == "mlp":

@@ -1,23 +1,35 @@
-"""Distribution primitives of the model code, their one-device part (the
-JAX package's models/dist.py).
+"""Distribution primitives of the model code (the JAX package's
+models/dist.py): Megatron-style tensor parallelism (column / row parallel
+matmuls with the f / g conjugate boundary ops), sequence parallelism,
+FSDP parameter gathering with the paper's Q_W in the backward pass, and
+the vocab-parallel embedding and cross-entropy.
 
-The reference's helpers take a mesh axis and degrade to single-device
-semantics when it is None. The port has the None case only: a DistConfig
-naming a tensor-parallel, FSDP or sequence-parallel axis raises (ROADMAP
-Queue 1, item 4b), and the boundary ops below are identities, kept so the
-model code reads as the reference's. Vocab-parallel embedding and
-cross-entropy are the one-shard case: offset 0, the padded vocab columns
-masked with -1e30 before the log-sum-exp.
+The reference runs its model code inside shard_map, where a mesh axis
+name stands for the devices along it. Here every rank is a process and an
+axis name stands for a torch.distributed process group: `bind_axes`
+(called by `Mesh.bind`) maps each axis to its group, its size and this
+rank's index along it. An axis that is not bound, or bound with size 1,
+degrades to single-device semantics, as the reference's axis=None does, so
+the same model code runs on one device and across ranks.
+
+Every sum the reference takes with psum / psum_scatter is a rank-order sum
+((x_0 + x_1) + x_2) + ... built on core.collectives (all_gather,
+reduce_scatter, rank_sum) over the axis' group, so a rank's result does
+not depend on a backend's reduction order (XLA's CPU psum sums in device
+order; gloo has no reduce_scatter). The boundary ops are
+torch.autograd.Functions with the reference's custom forward and backward
+rules; the plain all_gather and psum_scatter carry jax's transposes
+(reduce-scatter and all-gather) as their backward.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint as checkpoint
 
-from repro_torch.core.wire import not_ported
+from repro_torch.core import collectives as C
 
 NEG_INF = -1e30
 
@@ -26,10 +38,14 @@ NEG_INF = -1e30
 class DistConfig:
     """Logical-to-mesh axis mapping (the reference's fields).
 
-    tp    : tensor/expert-parallel axis name or None
-    fsdp  : parameter-sharding axis or None; when set it must be dp[-1]
-    dp    : gradient-aggregation (data-parallel) axes
-    sp    : sequence parallelism over tp
+    tp    : tensor/expert-parallel axis name ("model") or None
+    fsdp  : parameter-sharding axis ("data") or None; when set it must be
+            dp[-1]
+    dp    : gradient-aggregation (data-parallel) axes, e.g. ("data",)
+    sp    : sequence parallelism (Korthikanti et al.): the residual stream
+            between blocks is sharded over tp on the sequence dim; block
+            entry all-gathers it, block exit reduce-scatters. Train and
+            prefill only.
     """
     tp: Optional[str] = None
     fsdp: Optional[str] = None
@@ -39,10 +55,6 @@ class DistConfig:
     def __post_init__(self):
         if self.fsdp is not None and (not self.dp or self.dp[-1] != self.fsdp):
             raise ValueError("fsdp axis must be the last dp axis")
-        for name in ("tp", "fsdp", "sp"):
-            if getattr(self, name):
-                raise not_ported(f"DistConfig({name}=...): the sharded LM "
-                                 f"path", "item 4b (models/dist.py)")
 
     @property
     def extra_dp(self) -> Tuple[str, ...]:
@@ -52,34 +64,264 @@ class DistConfig:
         return tuple(self.dp[:-1])
 
 
-# ---- the boundary ops, one device: identities --------------------------------
+# ---- axes: name -> (process group, size, this rank's index) ------------------
 
-def region_in(x, dist: DistConfig, axis: int = 1):
-    return x
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    group: object
+    size: int
+    index: int
 
 
-def region_out(x, dist: DistConfig, axis: int = 1):
-    return x
+_AXES: Dict[str, Axis] = {}
 
+
+def bind_axes(axes: Dict[str, Axis]) -> None:
+    """Bind mesh axis names to this rank's process groups (replaces every
+    earlier binding)."""
+    _AXES.clear()
+    _AXES.update(axes)
+
+
+def _axis(axis) -> Optional[Axis]:
+    """The bound Axis of a name or a tuple of names, or None when it spans
+    one rank. Of a tuple, at most one axis may span more than one rank
+    (the reference's multi-axis psum over ("pod", "data") is the pod
+    mesh, ROADMAP Queue 1 item 9)."""
+    if axis is None:
+        return None
+    names = axis if isinstance(axis, (tuple, list)) else (axis,)
+    real = [_AXES[a] for a in names if a in _AXES and _AXES[a].size > 1]
+    if len(real) > 1:
+        raise NotImplementedError(
+            f"a reduction over several mesh axes {tuple(names)} is not "
+            f"ported yet (ROADMAP.md Queue 1, item 9 (the pod axis))")
+    return real[0] if real else None
+
+
+def axis_size(axis) -> int:
+    a = _axis(axis)
+    return 1 if a is None else a.size
+
+
+def axis_index(axis) -> int:
+    """This rank's index along `axis` (0 when it spans one rank)."""
+    a = _axis(axis)
+    return 0 if a is None else a.index
+
+
+# ---- the collectives, forward only -------------------------------------------
+
+def _psum(x: torch.Tensor, a: Axis) -> torch.Tensor:
+    return C.rank_sum(C.all_gather(x, a.group))
+
+
+def _gather(x: torch.Tensor, a: Axis, dim: int) -> torch.Tensor:
+    """Tiled all_gather: the ranks' x concatenated along dim in rank
+    order."""
+    return torch.cat(list(C.all_gather(x, a.group).unbind(0)), dim=dim)
+
+
+def _scatter_sum(x: torch.Tensor, a: Axis, dim: int) -> torch.Tensor:
+    """Tiled psum_scatter: this rank's slice along dim of the rank-order
+    sum."""
+    d = dim % x.dim()
+    return C.reduce_scatter(x.movedim(d, -1), a.group).movedim(-1, d)
+
+
+def _slice(x: torch.Tensor, a: Axis, dim: int) -> torch.Tensor:
+    local = x.shape[dim] // a.size
+    return x.narrow(dim, a.index * local, local)
+
+
+def pmax(x, axis):
+    a = _axis(axis)
+    if a is None:
+        return x
+    return C.all_gather(x, a.group).amax(dim=0)
+
+
+# ---- autograd Functions ------------------------------------------------------
+
+class _Psum(torch.autograd.Function):
+    """psum, backward psum (jax's transpose)."""
+    @staticmethod
+    def forward(ctx, x, a):
+        ctx.a = a
+        return _psum(x, a)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g, ctx.a), None
+
+
+class _AllGather(torch.autograd.Function):
+    """Tiled all_gather, backward the reduce-scatter (jax's transpose)."""
+    @staticmethod
+    def forward(ctx, x, a, dim):
+        ctx.a, ctx.dim = a, dim
+        return _gather(x, a, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_sum(g, ctx.a, ctx.dim), None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    """Tiled psum_scatter, backward the all_gather (jax's transpose)."""
+    @staticmethod
+    def forward(ctx, x, a, dim):
+        ctx.a, ctx.dim = a, dim
+        return _scatter_sum(x, a, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.a, ctx.dim), None, None
+
+
+class _IdentityPsumBwd(torch.autograd.Function):
+    """Identity forward, psum backward: tp_region_in and tp_shared."""
+    @staticmethod
+    def forward(ctx, x, a):
+        ctx.a = a
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g, ctx.a), None
+
+
+class _PsumIdentityBwd(torch.autograd.Function):
+    """psum forward, identity backward: tp_region_out."""
+    @staticmethod
+    def forward(ctx, x, a):
+        return _psum(x, a)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    """all_gather whose output is consumed replicated-identically on every
+    rank: the adjoint takes this rank's slice."""
+    @staticmethod
+    def forward(ctx, x, a, dim):
+        ctx.a, ctx.dim = a, dim
+        return _gather(x, a, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice(g, ctx.a, ctx.dim).contiguous(), None, None
+
+
+class _SliceReplicated(torch.autograd.Function):
+    """This rank's slice, backward the all_gather."""
+    @staticmethod
+    def forward(ctx, x, a, dim):
+        ctx.a, ctx.dim = a, dim
+        return _slice(x, a, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.a, ctx.dim), None, None
+
+
+# ---- axis-optional helpers ----------------------------------------------------
+
+def psum(x, axis):
+    a = _axis(axis)
+    return x if a is None else _Psum.apply(x, a)
+
+
+def pmean(x, axis):
+    a = _axis(axis)
+    return x if a is None else _Psum.apply(x, a) / a.size
+
+
+def all_gather(x, axis, gather_axis=0):
+    """The ranks' x concatenated along gather_axis (jax's tiled
+    all_gather)."""
+    a = _axis(axis)
+    return x if a is None else _AllGather.apply(x, a, gather_axis)
+
+
+def psum_scatter(x, axis, scatter_dimension=0):
+    """This rank's slice along scatter_dimension of the rank-order sum
+    (jax's tiled psum_scatter)."""
+    a = _axis(axis)
+    return x if a is None else _PsumScatter.apply(x, a, scatter_dimension)
+
+
+def pmax_sg(x, axis):
+    """pmax with zero gradient (the reference's custom_vjp; jax has no pmax
+    derivative): the max of the detached values, a softmax stabilizer."""
+    return pmax(x.detach(), axis)
+
+
+# ---- Megatron f / g boundary ops ----------------------------------------------
 
 def tp_region_in(x, axis):
-    return x
+    """Identity forward / psum backward: enter a column-parallel region."""
+    a = _axis(axis)
+    return x if a is None else _IdentityPsumBwd.apply(x, a)
 
 
 def tp_region_out(x, axis):
-    return x
+    """psum forward / identity backward: exit a row-parallel region (a
+    plain psum's transpose would double-count a value every rank consumes
+    identically)."""
+    a = _axis(axis)
+    return x if a is None else _PsumIdentityBwd.apply(x, a)
+
+
+def gather_replicated(x, axis, dim):
+    """all_gather consumed replicated on every rank; adjoint: my slice."""
+    a = _axis(axis)
+    return x if a is None else _GatherReplicated.apply(x, a, dim)
+
+
+def make_slice_replicated(n_shards: int):
+    """The reference's factory of a slice with an all_gather adjoint for a
+    static shard count (the axis' bound size)."""
+    def slice_rep(x, axis, dim):
+        a = _axis(axis)
+        if a is None:
+            return x
+        if a.size != n_shards:
+            raise ValueError(f"axis {axis!r} has {a.size} ranks, the model "
+                             f"was built for {n_shards}")
+        return _SliceReplicated.apply(x, a, dim)
+    return slice_rep
+
+
+def region_in(x, dist: DistConfig, axis: int = 1):
+    """Enter a column-parallel region: identity forward / psum backward
+    (sp=False), or all-gather the sequence-sharded residual (sp=True)."""
+    if dist.tp is None:
+        return x
+    if dist.sp:
+        return all_gather(x, dist.tp, gather_axis=axis)
+    return tp_region_in(x, dist.tp)
+
+
+def region_out(x, dist: DistConfig, axis: int = 1):
+    """Exit a row-parallel region: psum (sp=False) or reduce-scatter back to
+    the sequence-sharded residual (sp=True)."""
+    if dist.tp is None:
+        return x
+    if dist.sp:
+        return psum_scatter(x, dist.tp, scatter_dimension=axis)
+    return tp_region_out(x, dist.tp)
 
 
 def tp_shared(w, axis):
-    return w
+    """Identity forward / psum backward on a parameter replicated over TP
+    but used differently by each rank (GQA kv projections, routers)."""
+    return tp_region_in(w, axis)
 
 
-def fdot(x: torch.Tensor, w: torch.Tensor, fsdp_dim,
-         dist: DistConfig) -> torch.Tensor:
-    """x @ w: the reference's matmul against an FSDP-sharded weight when
-    there is no fsdp axis (DistConfig refuses one)."""
-    return x @ w
-
+# ---- FSDP parameter gather with the compressed-gradient backward --------------
 
 def key_to_bits(key: torch.Tensor) -> torch.Tensor:
     """A key's two uint32 words as f32 bit patterns (the reference's
@@ -87,40 +329,126 @@ def key_to_bits(key: torch.Tensor) -> torch.Tensor:
     return key.to(torch.int32).view(torch.float32)
 
 
-# ---- vocab-parallel embedding & cross-entropy, one shard ---------------------
+def bits_to_key(bits: torch.Tensor) -> torch.Tensor:
+    """key_to_bits' inverse -> the (2,) int64 key data."""
+    return bits.reshape(2).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
 
-def vp_embed(table: torch.Tensor, ids: torch.Tensor, tp_axis,
+
+def _hook_compress(g: torch.Tensor, key_bits: torch.Tensor, cfg,
+                   dist: DistConfig) -> torch.Tensor:
+    """Worker-side Q_W on the local (pre-reduction) gradient of one leaf,
+    the layer-wise unit of the FSDP path: the key folded in by this rank's
+    index along each dp axis, then qw.sim on the flat f32 leaf."""
+    from repro_torch.random import fold_in
+    if cfg is None or cfg.strategy in ("dense",):
+        return g
+    key = bits_to_key(key_bits.cpu())
+    for ax in dist.dp:
+        key = fold_in(key, axis_index(ax))
+    flat = g.reshape(1, -1).to(torch.float32)
+    out = cfg.qw.sim(flat, key[None].to(g.device))
+    return out.reshape(g.shape).to(g.dtype)
+
+
+class _FsdpParam(torch.autograd.Function):
+    """forward : all_gather over dist.fsdp along `dim`
+    backward: Q_W(local grad) -> reduce-scatter over fsdp -> sum over the
+              other dp axes -> mean over the dp group"""
+    @staticmethod
+    def forward(ctx, w, key_bits, dim, dist, comp):
+        ctx.dim, ctx.dist, ctx.comp = dim, dist, comp
+        ctx.save_for_backward(key_bits)
+        a = _axis(dist.fsdp)
+        return w if a is None else _gather(w, a, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        (key_bits,) = ctx.saved_tensors
+        dist = ctx.dist
+        g = _hook_compress(g, key_bits, ctx.comp, dist)
+        a = _axis(dist.fsdp)
+        if a is not None:
+            g = _scatter_sum(g, a, ctx.dim)
+        e = _axis(dist.extra_dp)
+        if e is not None:
+            g = _psum(g, e)
+        n = axis_size(dist.dp)
+        if dist.dp:
+            g = g / torch.tensor(float(n), dtype=g.dtype, device=g.device)
+        return g, None, None, None, None
+
+
+def fsdp_param(w: torch.Tensor, key_bits: torch.Tensor, dim: int,
+               dist: DistConfig, comp) -> torch.Tensor:
+    """Gather an FSDP-sharded parameter leaf for compute; its gradient
+    arrives compressed per Algorithm 1 and already scattered to the shard
+    (ZeRO-style). See _FsdpParam."""
+    return _FsdpParam.apply(w, key_bits, dim, dist, comp)
+
+
+def fdot(x: torch.Tensor, w: torch.Tensor, fsdp_dim,
+         dist: DistConfig) -> torch.Tensor:
+    """Matmul against a weight that stays FSDP-sharded (2D tensor parallel,
+    the decode path of the FSDP archs):
+      fsdp_dim == w.ndim-2 (input dim sharded): this rank's slice of x's
+          features @ w, summed over fsdp;
+      fsdp_dim == w.ndim-1 (output dim sharded): x @ w, the output
+          features all-gathered."""
+    a = _axis(dist.fsdp)
+    if fsdp_dim is None or dist.fsdp is None or a is None:
+        return x @ w
+    if fsdp_dim == w.dim() - 2:
+        d_local = w.shape[-2]
+        xs = x.narrow(-1, a.index * d_local, d_local)
+        return _psum(xs @ w, a)
+    if fsdp_dim == w.dim() - 1:
+        return _gather(x @ w, a, x.dim() - 1)
+    raise ValueError(f"unsupported fsdp_dim {fsdp_dim} for w rank {w.dim()}")
+
+
+# ---- vocab-parallel embedding & cross-entropy ---------------------------------
+
+def vp_embed(table_local: torch.Tensor, ids: torch.Tensor, tp_axis,
              vocab_global: int) -> torch.Tensor:
-    """Embedding lookup: table (V, d), ids (...) -> (..., d). Ids out of
-    range give zero rows, as the reference's masked take."""
-    v = table.shape[0]
-    ok = (ids >= 0) & (ids < v)
-    return torch.where(ok[..., None], table[ids.clamp(0, v - 1)], 0.0)
+    """Embedding lookup with the vocab dim sharded over tp_axis:
+    table_local (V_local, d), ids (...) global ids -> (..., d). Ids outside
+    this rank's rows give zero rows; the psum over the axis has an identity
+    backward."""
+    v_local = table_local.shape[0]
+    local = ids - axis_index(tp_axis) * v_local
+    ok = (local >= 0) & (local < v_local)
+    emb = torch.where(ok[..., None], table_local[local.clamp(0, v_local - 1)],
+                      0.0)
+    return tp_region_out(emb, tp_axis)
 
 
-def _nll(t: torch.Tensor, targets: torch.Tensor,
-         vocab: Optional[int]) -> torch.Tensor:
-    """Per-row negative log-likelihood of f32 logits t (T, V): the padded
-    columns at or past `vocab` masked to -1e30, the max a stabilizer
-    without gradient."""
+def _nll(t: torch.Tensor, targets: torch.Tensor, vocab: Optional[int],
+         tp_axis) -> torch.Tensor:
+    """Per-row negative log-likelihood of f32 logits t (T, V_local) of this
+    rank's vocab shard: columns at or past `vocab` masked to -1e30, the
+    global max a stabilizer without gradient, the sum of exponentials and
+    the target logit summed over the shards."""
+    v_local = t.shape[-1]
+    offset = axis_index(tp_axis) * v_local
     if vocab is not None:
-        col = torch.arange(t.shape[-1], device=t.device)
+        col = offset + torch.arange(v_local, device=t.device)
         t = torch.where(col[None, :] < vocab, t, NEG_INF)
-    m = t.max(dim=-1).values.detach()
-    se = torch.exp(t - m[:, None]).sum(dim=-1)
-    v = t.shape[-1]
-    ok = (targets >= 0) & (targets < v)
-    tl = t.gather(1, targets.clamp(0, v - 1).long()[:, None])[:, 0]
-    tgt = torch.where(ok, tl, 0.0)
+    m = pmax_sg(t.max(dim=-1).values, tp_axis)
+    se = tp_region_out(torch.exp(t - m[:, None]).sum(dim=-1), tp_axis)
+    lt = targets - offset
+    ok = (lt >= 0) & (lt < v_local)
+    tl = t.gather(1, lt.clamp(0, v_local - 1).long()[:, None])[:, 0]
+    tgt = tp_region_out(torch.where(ok, tl, 0.0), tp_axis)
     return torch.log(se) + m - tgt
 
 
-def vp_xent(logits: torch.Tensor, targets: torch.Tensor, tp_axis,
+def vp_xent(logits_local: torch.Tensor, targets: torch.Tensor, tp_axis,
             valid: Optional[torch.Tensor] = None,
             vocab: Optional[int] = None) -> torch.Tensor:
-    """Mean cross-entropy of logits (T, V) against targets (T,); `valid`
-    weights the mean, `vocab` masks the padding columns."""
-    nll = _nll(logits.to(torch.float32), targets, vocab)
+    """Mean cross-entropy of vocab-sharded logits (T, V_local) against
+    targets (T,); `valid` weights the mean, `vocab` masks the padding
+    columns."""
+    nll = _nll(logits_local.to(torch.float32), targets, vocab, tp_axis)
     if valid is None:
         return nll.mean()
     w = valid.to(torch.float32)
@@ -129,18 +457,19 @@ def vp_xent(logits: torch.Tensor, targets: torch.Tensor, tp_axis,
 
 def vp_xent_chunked(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
                     tp_axis, vocab: int, chunk: int = 8192) -> torch.Tensor:
-    """Fused head matmul + cross-entropy over token chunks, each chunk
-    recomputed in the backward (torch.utils.checkpoint), so at most one
-    chunk's (chunk, V) f32 logits live at a time.
+    """Fused head matmul + vocab-parallel cross-entropy over token chunks,
+    each chunk recomputed in the backward (torch.utils.checkpoint), so at
+    most one chunk's (chunk, V_local) f32 logits live at a time.
 
-    x (T, d); w (d, V); targets (T,), < 0 is padding. Returns the SUM of
-    the per-token NLL; the caller normalizes. The logits round to x's
-    dtype before the f32 cast, as the reference's (xc @ w).astype(f32)."""
+    x (T, d); w (d, V_local); targets (T,), < 0 is padding. Returns the SUM
+    of the per-token NLL over the local tokens; the caller normalizes. The
+    logits round to x's dtype before the f32 cast, as the reference's
+    (xc @ w).astype(f32)."""
     T = x.shape[0]
     c = min(chunk, T)
 
     def chunk_nll(xc, tc):
-        nll = _nll((xc @ w).to(torch.float32), tc, vocab)
+        nll = _nll((xc @ w).to(torch.float32), tc, vocab, tp_axis)
         return torch.where(tc >= 0, nll, 0.0).sum()
 
     total = torch.zeros((), dtype=torch.float32, device=x.device)

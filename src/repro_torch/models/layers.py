@@ -1,7 +1,9 @@
 """Shared neural layers (the JAX package's models/layers.py): norms, RoPE,
 MLPs, the chunked-attention oracle, GQA head expansion, padding-head
 masks, sinusoidal positions, and the decode cache's int8 quantization,
-split-KV decode attention and cache writes on one device.
+split-KV decode attention over a sequence-sharded cache and cache writes.
+Every function is TP-aware through models.dist (an unbound axis is one
+device).
 
 Plain torch, as the reference is jnp: the model's norms round as the
 reference's do (`rsqrt(ms + eps)` cast to x's dtype before both
@@ -16,8 +18,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ref import fma_f32
-from repro_torch.models.dist import (NEG_INF, DistConfig, fdot, region_in,
-                                     region_out)
+from repro_torch.models.dist import (NEG_INF, DistConfig, all_gather,
+                                     axis_index, fdot, pmax, psum, region_in,
+                                     region_out, tp_shared)
 
 
 # ---- norms ----------------------------------------------------------------
@@ -51,10 +54,19 @@ def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 def apply_norm(p: dict, name: str, x: torch.Tensor, cfg,
                dist=None) -> torch.Tensor:
     """The norm `name` of params p (`{name}_g`, and `{name}_b` for
-    layernorm) on x."""
+    layernorm) on x. `dist` with sp=True marks a norm inside the
+    sequence-parallel region: each TP rank sees another sequence shard, so
+    the replicated norm params take their gradients summed over tp."""
+    g = p[f"{name}_g"]
+    sp = dist is not None and dist.sp
+    if sp:
+        g = tp_shared(g, dist.tp)
     if cfg.norm == "layernorm":
-        return layernorm(x, p[f"{name}_g"], p[f"{name}_b"], cfg.norm_eps)
-    return rmsnorm(x, p[f"{name}_g"], cfg.norm_eps)
+        b = p[f"{name}_b"]
+        if sp:
+            b = tp_shared(b, dist.tp)
+        return layernorm(x, g, b, cfg.norm_eps)
+    return rmsnorm(x, g, cfg.norm_eps)
 
 
 # ---- RoPE (split-half convention) -------------------------------------------
@@ -178,7 +190,8 @@ def chunked_attention(q, k, v, *, causal: bool, window=0, q_offset: int = 0,
 def expand_kv(k: torch.Tensor, n_q_heads_local: int, tp_rank: int,
               n_heads: int, n_kv: int) -> torch.Tensor:
     """Full kv heads (B,S,Hkv,dh) -> the local q heads' kv (B,S,Hl,dh) by
-    GQA grouping; padded q heads clip to the last kv head."""
+    GQA grouping, tp_rank the rank's TP index; padded q heads (global id
+    >= n_heads) clip to the last kv head, and head_mask zeroes them."""
     group = max(1, n_heads // max(1, n_kv))
     q_global = tp_rank * n_q_heads_local + torch.arange(n_q_heads_local,
                                                         device=k.device)
@@ -188,9 +201,11 @@ def expand_kv(k: torch.Tensor, n_q_heads_local: int, tp_rank: int,
 
 def head_mask(o: torch.Tensor, cfg, dist: DistConfig,
               axis: int) -> torch.Tensor:
-    """Zero the outputs of padding heads (global id >= n_heads)."""
+    """Zero the outputs of TP-padding heads (n_heads rounded up to a
+    multiple of the TP size; global id >= n_heads)."""
     Hl = o.shape[axis]
-    m = (torch.arange(Hl, device=o.device) < cfg.n_heads).to(o.dtype)
+    gid = axis_index(dist.tp) * Hl + torch.arange(Hl, device=o.device)
+    m = (gid < cfg.n_heads).to(o.dtype)
     shape = [1] * o.dim()
     shape[axis] = Hl
     return o * m.reshape(shape)
@@ -234,49 +249,76 @@ def splitkv_decode(q_local: torch.Tensor, k_cache: torch.Tensor,
                    dist: DistConfig, n_heads: int, n_kv: int, window: int = 0,
                    k_scale: torch.Tensor = None,
                    v_scale: torch.Tensor = None) -> torch.Tensor:
-    """One-token attention against the cache, one device (the reference's
-    sequence shards, all_gather, pmax and psum are the one-shard case).
+    """One-token attention against a cache whose sequence dim is sharded
+    over dist.tp.
 
-    q_local (B,H,dh); k_cache / v_cache (B,Hkv,Ss,dh) (int8 with k_scale /
-    v_scale (B,Hkv,Ss)); slot_pos (Ss,) int32, -1 empty; pos the current
-    position (int). -> (B,H,dh). A q head's group of the kv heads is a
+    q_local (B,Hl,dh) this rank's q heads; k_cache / v_cache (B,Hkv,Ss,dh)
+    this rank's slots, all kv heads (int8 with k_scale / v_scale
+    (B,Hkv,Ss)); slot_pos (Ss,) int32, -1 empty; pos the current position
+    (int). -> this rank's q heads' output (B,Hl,dh).
+
+    Every q head is gathered (one token: a few KB), each rank takes the
+    partial softmax over its slots, the partials merge by pmax / psum, and
+    the rank keeps its own heads. A q head's group of the kv heads is a
     reshape, not the reference's gather of every q head's kv copy (the same
-    products, without an (B,H,Ss,dh) f32 copy of the cache), so the q
-    heads must be a multiple of the kv heads, as in every config."""
-    B, H, dh = q_local.shape
+    products, without an (B,H,Ss,dh) f32 copy of the cache), so the real q
+    heads must be a multiple of the kv heads, as in every config. TP
+    padding heads (global id >= n_heads) get zeros, which head_mask keeps;
+    the reference's gather reads past the kv heads there and its jnp.take
+    fills NaN (ROADMAP Queue 3 item 18)."""
+    B, Hl, dh = q_local.shape
+    q_all = all_gather(q_local, dist.tp, gather_axis=1)     # (B,H,dh)
+    H = q_all.shape[1]
+    Hr = min(H, n_heads)                                    # real heads
     Hkv = k_cache.shape[1]
     group = max(1, n_heads // max(1, n_kv))
-    if H != Hkv * group:
-        raise ValueError(f"{H} q heads are not {group} for each of {Hkv} "
+    if Hr != Hkv * group:
+        raise ValueError(f"{Hr} q heads are not {group} for each of {Hkv} "
                          f"kv heads")
     k = k_cache.to(torch.float32)
     v = v_cache.to(torch.float32)
     if k_scale is not None:          # int8 cache: per-vector scales
         k = k * k_scale[..., None]
         v = v * v_scale[..., None]
-    q = q_local.to(torch.float32).reshape(B, Hkv, group, dh)
+    q = q_all[:, :Hr].to(torch.float32).reshape(B, Hkv, group, dh)
     s = torch.matmul(q, k.transpose(-1, -2)) * inv_sqrt_f32(dh)
     valid = (slot_pos >= 0) & (slot_pos <= pos)
     if window > 0:
         valid = valid & (slot_pos > pos - window)
     s = torch.where(valid, s, NEG_INF)
-    m = torch.clamp_min(s.amax(dim=-1), 2 * NEG_INF)
-    p = torch.exp(s - m[..., None])
-    den = p.sum(dim=-1)
-    o = torch.matmul(p, v) / torch.clamp_min(den[..., None], 1e-30)
-    return o.reshape(B, H, dh).to(q_local.dtype)
+    m_l = torch.clamp_min(s.amax(dim=-1), 2 * NEG_INF)
+    p = torch.exp(s - m_l[..., None])
+    den_l = p.sum(dim=-1)
+    num_l = torch.matmul(p, v)
+    if q_all is q_local:                                # one shard
+        o = num_l / torch.clamp_min(den_l[..., None], 1e-30)
+    else:
+        m = pmax(m_l, dist.tp)
+        corr = torch.exp(m_l - m)
+        num = psum(num_l * corr[..., None], dist.tp)
+        den = psum(den_l * corr, dist.tp)
+        o = num / torch.clamp_min(den[..., None], 1e-30)
+    o = o.reshape(B, Hr, dh)
+    if H > Hr:
+        o = F.pad(o, (0, 0, 0, H - Hr))
+    r = axis_index(dist.tp)
+    return o[:, r * Hl:(r + 1) * Hl].to(q_local.dtype)
 
 
 def cache_write(cache: torch.Tensor, slot_pos: torch.Tensor,
                 new: torch.Tensor, pos: int, dist: DistConfig,
                 ring_size: int = 0):
     """Write one token's entry `new` (the cache without its slot dim 2)
-    into slot pos (pos % ring_size for the ring of a pure sliding-window
-    arch) IN PLACE, and slot_pos[slot] = pos; -> (cache, slot_pos), the
-    same tensors. The reference rebuilds both; on one device its owner
-    test leaves a slot past the cache's end unwritten, and so does this."""
-    slot = pos % ring_size if ring_size > 0 else pos
-    if slot < cache.shape[2]:
-        cache.select(2, slot).copy_(new)
-        slot_pos[slot] = pos
+    into the sequence-sharded cache IN PLACE, and slot_pos[slot] = pos;
+    -> (cache, slot_pos), the same tensors. ring_size=0: contiguous, rank
+    r owns global slots [r Ss, (r + 1) Ss); ring_size > 0 (pure
+    sliding-window archs): global slot pos % ring_size on rank slot // Ss.
+    Only the owner writes; as in the reference, a slot past the cache's
+    end is written by no rank."""
+    Ss = cache.shape[2]
+    g = pos % ring_size if ring_size > 0 else pos
+    owner, local = divmod(g, Ss)
+    if owner == axis_index(dist.tp):
+        cache.select(2, local).copy_(new)
+        slot_pos[local] = pos
     return cache, slot_pos

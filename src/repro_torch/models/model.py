@@ -1,6 +1,7 @@
 """Model assembly: parameter declaration, the train loss, prefill and
-decode of every architecture family, and the cache layouts, on one device
-(the JAX package's models/model.py).
+decode of every architecture family, and the cache layouts (the JAX
+package's models/model.py), on one device or on a rank of a (data, model)
+mesh: the DistConfig and the axes bound in models.dist decide.
 
 `declare_params` ports every branch, so shapes, stacked masks and
 UnitPlans equal the reference's for all ten archs. `Model.loss` runs the
@@ -10,7 +11,11 @@ them. Layers run in a Python loop over the stacked leaves (the reference's
 lax.scan), each under torch.utils.checkpoint when `remat` and gradients
 are on (the reference's jax.checkpoint with nothing saveable); the
 reference's optimization barrier, a guard against XLA hoisting, has no
-counterpart.
+counterpart. Under tensor parallelism each rank holds its blocks of the
+params (`param_pspecs`); sequence parallelism shards the residual stream
+over the TP axis between the embedding and the final norm; FSDP leaves
+are gathered per layer (`fsdp_param`), their gradients compressed by the
+hook in the backward with the layer's key (`_layer_keys`).
 
 Caches keep the reference's stacked layout (a leading layer dim, the
 leaves of `cache_shapes`), so a reference cache converts leaf for leaf
@@ -31,11 +36,15 @@ from repro_torch import resolve_device
 from repro_torch.convert import map_tree
 from repro_torch.models import blocks as B
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.dist import (DistConfig, tp_region_in, vp_embed,
-                                     vp_xent_chunked)
+from repro_torch import random as R
+from repro_torch.models.dist import (DistConfig, all_gather, fdot,
+                                     fsdp_param, gather_replicated,
+                                     key_to_bits, make_slice_replicated,
+                                     tp_region_in, vp_embed, vp_xent_chunked)
 from repro_torch.models.layers import apply_norm, sinusoid_positions
 from repro_torch.models.mamba2 import mamba2_block, mamba2_decode
 from repro_torch.models.params import LeafMeta, ParamBuilder, torch_dtype
+from repro_torch.random import fold_in
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -271,40 +280,89 @@ def _ssm_cache(out_state):
 
 
 class Model:
-    """One architecture's parameters, train loss and serving path on one
-    device. Params are nested dicts of tensors in the JAX layout (stacked
-    leaves lead with the layer count), so UnitPlan ids, PRNG folds and
-    bucket order equal the reference's."""
+    """One architecture's parameters, train loss and serving path, on one
+    device or on this rank's shards of a (data, model) mesh. Params are
+    nested dicts of tensors in the JAX layout (stacked leaves lead with
+    the layer count), each leaf this rank's block of the global leaf under
+    `param_pspecs()`, so UnitPlan ids, PRNG folds and bucket order equal
+    the reference's inside shard_map."""
 
     def __init__(self, cfg: ModelConfig, dist: DistConfig,
                  mesh_axis_sizes: Optional[Dict[str, int]] = None):
-        """`mesh_axis_sizes` is the reference's; one device has no mesh
-        (DistConfig refuses a tp axis), so the TP size is 1."""
         self.cfg = cfg
         self.dist = dist
-        self.tp_size = 1
+        sizes = mesh_axis_sizes or {}
+        self.sizes = dict(sizes)
+        self.tp_size = sizes.get(dist.tp, 1) if dist.tp else 1
+        self.dp_size = 1
+        for a in dist.dp:
+            self.dp_size *= sizes.get(a, 1)
         self.pb = declare_params(cfg, self.tp_size)
         self.meta = self.pb.meta()
         self.vocab_padded = _ceil_to(cfg.vocab, 128)
+        self.dist_nosp = dataclasses.replace(dist, sp=False)
+
+    def _eff(self, seq_len: int) -> DistConfig:
+        """Sequence parallelism applies when enabled, tp > 1, the sequence
+        divides the TP size, and the arch is not encoder-decoder."""
+        if (not self.dist.sp or self.dist.tp is None or self.tp_size <= 1
+                or seq_len % self.tp_size != 0
+                or self.cfg.arch_type == "audio"):
+            return self.dist_nosp
+        return self.dist
+
+    def _sp_slice(self, x, dist):
+        if not dist.sp:
+            return x
+        return make_slice_replicated(self.tp_size)(x, dist.tp, 1)
+
+    def _sp_gather(self, x, dist):
+        if not dist.sp:
+            return x
+        return gather_replicated(x, dist.tp, 1)
 
     # ---- plumbing ------------------------------------------------------
     def init(self, key: torch.Tensor, device="cuda") -> Dict:
+        """GLOBAL params (params.shard gives a rank its blocks)."""
         return self.pb.init(key, device=device)
 
     def param_shapes(self) -> Dict:
         return self.pb.shapes()
 
+    def param_pspecs(self) -> Dict:
+        return self.pb.pspecs(self.dist)
+
     def stacked(self) -> Dict:
         return self.pb.stacked_mask()
 
     def fsdp_mask(self) -> Dict:
-        """True for leaves aggregated inside the backward (an FSDP hook):
-        none on one device."""
+        """True for leaves aggregated inside the backward (the FSDP hook);
+        False for leaves aggregated after it (compressed_allreduce)."""
         def walk(t):
             if isinstance(t, LeafMeta):
                 return t.fsdp_dim() is not None and self.dist.fsdp is not None
             return {k: walk(v) for k, v in t.items()}
         return walk(self.meta)
+
+    def _gather_leaf(self, w, meta: LeafMeta, kb, comp, consumed_lead=1):
+        fd = meta.fsdp_dim()
+        if fd is not None and self.dist.fsdp is not None:
+            return fsdp_param(w, kb, fd - consumed_lead, self.dist, comp)
+        return w
+
+    def _gather_layer(self, p_layer: Dict, meta_layer: Dict, kb, comp,
+                      consumed_lead=1):
+        return {k: self._gather_leaf(w, meta_layer[k], kb, comp,
+                                     consumed_lead)
+                for k, w in p_layer.items()}
+
+    def _decode_fd(self, meta_layer: Dict, consumed_lead=1):
+        """fsdp-dim map for 2D-TP decode (weights stay sharded)."""
+        if self.dist.fsdp is None:
+            return {}
+        return {k: (None if m.fsdp_dim() is None
+                    else m.fsdp_dim() - consumed_lead)
+                for k, m in meta_layer.items()}
 
     def _layer_window(self, idx: int) -> int:
         """Layer idx's sliding window (0 = full attention): every
@@ -315,32 +373,45 @@ class Model:
                 else cfg.sliding_window
         return cfg.sliding_window
 
+    @staticmethod
+    def _layer_keys(key: torch.Tensor, L: int) -> torch.Tensor:
+        """(L, 2) f32 key bits fold_in(key, i), i < L: the FSDP hook's key
+        for layer i."""
+        return key_to_bits(fold_in(key.cpu(), torch.arange(L)))
+
     # ---- embedding / head ----------------------------------------------
-    def _embed(self, params, tokens):
-        return vp_embed(params["embed"], tokens, self.dist.tp,
-                        self.vocab_padded)
+    def _embed(self, params, tokens, kb=None, comp=None):
+        w = self._gather_leaf(params["embed"], self.meta["embed"], kb, comp,
+                              consumed_lead=0)
+        return vp_embed(w, tokens, self.dist.tp, self.vocab_padded)
 
-    def _head_weight(self, params):
-        """(d, V) head matrix (the tied embedding transposed)."""
+    def _head_weight(self, params, kb=None, comp=None):
+        """(d, V_local) head matrix, FSDP-gathered / the tied embedding
+        transposed."""
         if self.cfg.tie_embeddings:
-            return params["embed"].transpose(0, 1)
-        return params["head"]
+            w = self._gather_leaf(params["embed"], self.meta["embed"], kb,
+                                  comp, consumed_lead=0)
+            return w.transpose(0, 1)
+        return self._gather_leaf(params["head"], self.meta["head"], kb,
+                                 comp, consumed_lead=0)
 
-    def _lm_loss(self, params, x, targets):
-        """Final norm, then the chunked fused head + cross-entropy (the
-        full logits never materialized), mean over the tokens."""
+    def _lm_loss(self, params, x, targets, kb, comp, eff):
+        """Final norm, then the chunked fused head + vocab-parallel
+        cross-entropy (the full logits never materialized), mean over the
+        tokens. x arrives gathered (replicated over tp)."""
         cfg = self.cfg
         Bt, S_tot = targets.shape
         x = apply_norm(params, "final_norm", x, cfg)
-        xi = tp_region_in(x, self.dist.tp)
-        s = vp_xent_chunked(xi.reshape(-1, cfg.d_model),
-                            self._head_weight(params), targets.reshape(-1),
-                            self.dist.tp, cfg.vocab)
+        w = self._head_weight(params, kb, comp)
+        xi = tp_region_in(x, eff.tp)
+        s = vp_xent_chunked(xi.reshape(-1, cfg.d_model), w,
+                            targets.reshape(-1), eff.tp, cfg.vocab)
         return s / (Bt * S_tot)
 
-    def _logits(self, params, x):
-        """(B,S,d) -> (B,S,V) logits in the model's dtype."""
-        return tp_region_in(x, self.dist.tp) @ self._head_weight(params)
+    def _logits(self, params, x, kb=None, comp=None):
+        """(B,S,d) -> (B,S,V_local) logits of this rank's vocab shard."""
+        return tp_region_in(x, self.dist.tp) @ self._head_weight(params, kb,
+                                                                 comp)
 
     def _positions(self, x, pos0: int):
         """x + the sinusoidal positions pos0 .. pos0+S-1 (no RoPE)."""
@@ -348,19 +419,23 @@ class Model:
         return x + sinusoid_positions(pos, self.cfg.d_model).to(x.dtype)[None]
 
     # ---- stacks (train / prefill) ----------------------------------------
-    def _run_stack(self, p_blocks, x, *, block_kind: str, pos_offset=0,
-                   causal=True, memory=None, collect_cache=0, remat=True):
+    def _run_stack(self, p_blocks, meta_blocks, x, comp, key, *,
+                   block_kind: str, pos_offset=0, causal=True, memory=None,
+                   collect_cache=0, remat=True, dist=None):
         """x through every stacked layer of p_blocks -> (x, aux f32, the
         stacked cache or None). block_kind "decoder" or "ssm"."""
         cfg = self.cfg
-        dist = self.dist
+        dist = dist if dist is not None else self.dist_nosp
         if block_kind not in ("decoder", "ssm"):
             raise ValueError(block_kind)
         interleaved = (block_kind == "decoder" and cfg.n_experts
                        and cfg.moe_every > 1)
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        layers = _layers(p_blocks)
+        kbs = self._layer_keys(key, len(layers)).to(x.device)
 
-        def apply(g, x, idx):
+        def apply(p_layer, x, kb, idx):
+            g = self._gather_layer(p_layer, meta_blocks, kb, comp)
             if interleaved:
                 ga, gb = _split_ab(g)
                 cfg_a = dataclasses.replace(cfg, n_experts=0)
@@ -390,29 +465,35 @@ class Model:
 
         aux = zero
         caches = []
-        for idx, g in enumerate(_layers(p_blocks)):
+        for idx, p_layer in enumerate(layers):
             if remat and torch.is_grad_enabled():
                 x, aux_l, cache = checkpoint.checkpoint(
-                    apply, g, x, idx, use_reentrant=False)
+                    apply, p_layer, x, kbs[idx], idx, use_reentrant=False)
             else:
-                x, aux_l, cache = apply(g, x, idx)
+                x, aux_l, cache = apply(p_layer, x, kbs[idx], idx)
             aux = aux + aux_l
             caches.append(cache)
         return x, aux, (_stack(caches) if collect_cache else None)
 
     # ---- hybrid (zamba2) stack ------------------------------------------
-    def _run_hybrid(self, params, x, *, collect_cache=0, remat=True):
+    def _run_hybrid(self, params, x, comp, key, *, collect_cache=0,
+                    remat=True, dist=None):
         """Groups of attn_every Mamba2 layers, each followed by the shared
         attention block, then the tail layers -> (x, cache or None)."""
-        cfg, dist = self.cfg, self.dist
+        cfg = self.cfg
+        dist = dist if dist is not None else self.dist_nosp
         k_per = cfg.attn_every
         Gn = cfg.n_layers // k_per
         layers = _layers(params["blocks"])
+        meta_b, shared_meta = self.meta["blocks"], self.meta["shared"]
+        kbs = self._layer_keys(key, Gn).to(x.device)
         cfg_a = dataclasses.replace(cfg, n_experts=0)
 
         def group(x, gidx):
+            kb = kbs[gidx]
             mcaches = []
-            for g in layers[gidx * k_per:(gidx + 1) * k_per]:
+            for p_layer in layers[gidx * k_per:(gidx + 1) * k_per]:
+                g = self._gather_layer(p_layer, meta_b, kb, comp)
                 h = apply_norm(g, "norm_in", x, cfg, dist)
                 if collect_cache:
                     out, state = mamba2_block(g, h, cfg, dist,
@@ -421,8 +502,10 @@ class Model:
                 else:
                     out = mamba2_block(g, h, cfg, dist)
                 x = x + out
+            gs = self._gather_layer(params["shared"], shared_meta, kb, comp,
+                                    consumed_lead=0)
             x, _, acache = B.decoder_block(
-                params["shared"], x, cfg_a, dist, window=cfg.sliding_window,
+                gs, x, cfg_a, dist, window=cfg.sliding_window,
                 causal=True, use_rope=cfg.use_rope,
                 collect_cache=collect_cache, tp_size=self.tp_size)
             return x, ((_stack(mcaches), acache) if collect_cache else None)
@@ -437,21 +520,21 @@ class Model:
             caches.append(c)
         tail = None
         if "tail_blocks" in params:
-            x, _, tail = self._run_stack(params["tail_blocks"], x,
-                                         block_kind="ssm",
-                                         collect_cache=collect_cache,
-                                         remat=remat)
+            x, _, tail = self._run_stack(
+                params["tail_blocks"], self.meta["tail_blocks"], x, comp,
+                fold_in(key.cpu(), 7777), block_kind="ssm",
+                collect_cache=collect_cache, remat=remat, dist=dist)
         if not collect_cache:
             return x, None
         return x, {"mamba": _stack([m for m, _ in caches]),
                    "attn": _stack([a for _, a in caches]), "tail": tail}
 
     # ---- top-level forward: train loss ----------------------------------
-    def _embed_input(self, params, batch):
+    def _embed_input(self, params, batch, kb=None, comp=None):
         """Token embeddings, the VLM's patch embeddings over the first
         positions, and sinusoidal positions when the arch has no RoPE."""
         cfg = self.cfg
-        x = self._embed(params, batch["tokens"])
+        x = self._embed(params, batch["tokens"], kb, comp)
         if cfg.arch_type == "vlm":
             patches = batch["patch_embeds"].to(x.dtype)
             x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
@@ -461,38 +544,51 @@ class Model:
 
     def loss(self, params, batch, key=None, comp=None, remat: bool = True):
         """Mean next-token cross-entropy + 0.01 x the MoE aux loss. `key`
-        and `comp` are the reference's (they drive its FSDP gradient hook,
-        which one device does not have)."""
+        (default key(0)) and `comp` drive the FSDP gradient hook: Q_W of
+        comp runs on each FSDP leaf's local gradient in the backward."""
         cfg = self.cfg
+        key = R.key(0) if key is None else key
+        kb = key_to_bits(key.cpu())
         if cfg.arch_type == "audio":
-            return self._loss_audio(params, batch, remat)
-        x = self._embed_input(params, batch)
+            return self._loss_audio(params, batch, key, comp, remat)
+        eff = self._eff(batch["tokens"].shape[1])
+        x = self._sp_slice(self._embed_input(params, batch, kb, comp), eff)
         if cfg.arch_type in ("dense", "moe", "vlm"):
-            x, aux, _ = self._run_stack(params["blocks"], x,
-                                        block_kind="decoder", remat=remat)
+            x, aux, _ = self._run_stack(params["blocks"], self.meta["blocks"],
+                                        x, comp, key, block_kind="decoder",
+                                        remat=remat, dist=eff)
         elif cfg.arch_type == "ssm":
-            x, aux, _ = self._run_stack(params["blocks"], x,
-                                        block_kind="ssm", remat=remat)
+            x, aux, _ = self._run_stack(params["blocks"], self.meta["blocks"],
+                                        x, comp, key, block_kind="ssm",
+                                        remat=remat, dist=eff)
         elif cfg.arch_type == "hybrid":
-            x, _ = self._run_hybrid(params, x, remat=remat)
+            x, _ = self._run_hybrid(params, x, comp, key, remat=remat,
+                                    dist=eff)
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         else:
             raise ValueError(cfg.arch_type)
-        return self._lm_loss(params, x, batch["targets"]) + 0.01 * aux
+        x = self._sp_gather(x, eff)
+        return self._lm_loss(params, x, batch["targets"], kb, comp,
+                             eff) + 0.01 * aux
 
-    def _loss_audio(self, params, batch, remat):
-        mem = self._encode_audio(params, batch["frames"], remat)
-        x = self._positions(self._embed(params, batch["tokens"]), 0)
-        x, _, _ = self._run_stack(params["decoder_blocks"], x,
+    def _loss_audio(self, params, batch, key, comp, remat):
+        kb = key_to_bits(key.cpu())
+        mem = self._encode_audio(params, batch["frames"], comp, key, remat)
+        x = self._positions(self._embed(params, batch["tokens"], kb, comp), 0)
+        x, _, _ = self._run_stack(params["decoder_blocks"],
+                                  self.meta["decoder_blocks"], x, comp, key,
                                   block_kind="decoder", memory=mem,
                                   remat=remat)
-        return self._lm_loss(params, x, batch["targets"])
+        return self._lm_loss(params, x, batch["targets"], kb, comp,
+                             self.dist_nosp)
 
-    def _encode_audio(self, params, frames, remat):
+    def _encode_audio(self, params, frames, comp, key, remat):
         """The encoder over the frame embeddings (non-causal) -> memory."""
         cfg = self.cfg
         x = frames.to(torch_dtype(cfg.dtype)) + params["enc_pos"][None]
-        x, _, _ = self._run_stack(params["encoder_blocks"], x,
+        x, _, _ = self._run_stack(params["encoder_blocks"],
+                                  self.meta["encoder_blocks"], x, comp,
+                                  fold_in(key.cpu(), 99),
                                   block_kind="decoder", causal=False,
                                   remat=remat)
         return apply_norm(params, "enc_final_norm", x, cfg)
@@ -501,35 +597,44 @@ class Model:
     @torch.inference_mode()
     def prefill(self, params, batch, key=None, remat: bool = True,
                 cache_len: int = None):
-        """Forward over the prompt -> (last position's logits (B,V), cache).
-        cache_len: the cache's capacity (>= the prompt, so generated tokens
-        have slots); defaults to the prompt length. `key` and `remat` are
-        the reference's (no gradient runs here)."""
+        """Forward over the prompt -> (last position's logits (B,V_local),
+        this rank's cache shard). cache_len: the cache's capacity (>= the
+        prompt, so generated tokens have slots); defaults to the prompt
+        length. `key` and `remat` are the reference's (no gradient runs
+        here)."""
         cfg = self.cfg
+        key = R.key(0) if key is None else key
+        kb = key_to_bits(key.cpu())
         S = batch["tokens"].shape[1]
         clen = self.cache_len(cache_len or S)
         if cfg.arch_type == "audio":
-            mem = self._encode_audio(params, batch["frames"], remat)
-            x = self._positions(self._embed(params, batch["tokens"]), 0)
+            mem = self._encode_audio(params, batch["frames"], None, key,
+                                     remat)
+            x = self._positions(self._embed(params, batch["tokens"], kb), 0)
             x, _, caches = self._run_stack(
-                params["decoder_blocks"], x, block_kind="decoder",
-                memory=mem, collect_cache=clen)
+                params["decoder_blocks"], self.meta["decoder_blocks"], x,
+                None, key, block_kind="decoder", memory=mem,
+                collect_cache=clen)
             caches = {"self": caches, "memory": mem}
         else:
-            x = self._embed_input(params, batch)
+            eff = self._eff(S)
+            x = self._sp_slice(self._embed_input(params, batch, kb), eff)
             if cfg.arch_type in ("dense", "moe", "vlm"):
                 x, _, caches = self._run_stack(
-                    params["blocks"], x, block_kind="decoder",
-                    collect_cache=clen)
+                    params["blocks"], self.meta["blocks"], x, None, key,
+                    block_kind="decoder", collect_cache=clen, dist=eff)
             elif cfg.arch_type == "ssm":
                 x, _, caches = self._run_stack(
-                    params["blocks"], x, block_kind="ssm", collect_cache=clen)
+                    params["blocks"], self.meta["blocks"], x, None, key,
+                    block_kind="ssm", collect_cache=clen, dist=eff)
             elif cfg.arch_type == "hybrid":
-                x, caches = self._run_hybrid(params, x, collect_cache=clen)
+                x, caches = self._run_hybrid(params, x, None, key,
+                                             collect_cache=clen, dist=eff)
             else:
                 raise ValueError(cfg.arch_type)
+            x = self._sp_gather(x, eff)
         x = apply_norm(params, "final_norm", x[:, -1:], cfg)
-        return self._logits(params, x)[:, 0], caches
+        return self._logits(params, x, kb)[:, 0], caches
 
     # ---- decode ----------------------------------------------------------
     @torch.inference_mode()
@@ -537,17 +642,21 @@ class Model:
                     memory: Optional[torch.Tensor] = None):
         """token (B,) int; pos the position of token, a Python int or a
         0-d tensor (read once; on the card that waits for it, so a serving
-        loop advances a host int). Writes the token into `cache` in place
-        -> (logits (B,V), cache)."""
-        cfg, dist = self.cfg, self.dist
+        loop advances a host int). Writes the token into this rank's cache
+        shard in place -> (logits (B,V_local), cache). FSDP weights stay
+        sharded (2D tensor parallel: models.dist.fdot)."""
+        cfg, dist = self.cfg, self.dist_nosp
         pos = int(pos)
-        x = self._embed(params, token[:, None])
+        kb0 = torch.zeros((2,), dtype=torch.float32)
+        x = self._embed_decode(params, token[:, None])
         if not cfg.use_rope:
             x = self._positions(x, pos)
 
         if cfg.arch_type in ("dense", "moe", "vlm", "audio"):
             audio = cfg.arch_type == "audio"
-            p_blocks = params["decoder_blocks" if audio else "blocks"]
+            bname = "decoder_blocks" if audio else "blocks"
+            p_blocks = params[bname]
+            fd = self._decode_fd(self.meta[bname])
             mem = cache["memory"] if audio else memory
             layer_caches = cache["self"] if audio else cache
             interleaved = cfg.n_experts and cfg.moe_every > 1
@@ -556,29 +665,53 @@ class Model:
                 c = _row(layer_caches, idx)
                 if interleaved:
                     ga, gb = _split_ab(g)
+                    fda, fdb = _split_ab(fd)
                     x, _ = B.decoder_block_decode(
                         ga, x, c[0], pos, cfg_a, dist,
-                        window=self._layer_window(2 * idx))
+                        window=self._layer_window(2 * idx), fd=fda)
                     x, _ = B.decoder_block_decode(
                         gb, x, c[1], pos, cfg, dist,
-                        window=self._layer_window(2 * idx + 1))
+                        window=self._layer_window(2 * idx + 1), fd=fdb)
                 else:
                     x, _ = B.decoder_block_decode(
                         g, x, c, pos, cfg, dist,
-                        window=self._layer_window(idx), memory=mem)
+                        window=self._layer_window(idx), memory=mem, fd=fd)
         elif cfg.arch_type == "ssm":
-            x = self._decode_ssm(params["blocks"], x, cache)
+            x = self._decode_ssm(params["blocks"], self.meta["blocks"], x,
+                                 cache, kb0)
         elif cfg.arch_type == "hybrid":
-            x = self._decode_hybrid(params, x, pos, cache)
+            x = self._decode_hybrid(params, x, pos, cache, kb0)
         else:
             raise ValueError(cfg.arch_type)
         x = apply_norm(params, "final_norm", x, cfg)
-        return self._logits(params, x)[:, 0], cache
+        return self._logits_decode(params, x)[:, 0], cache
 
-    def _decode_ssm(self, p_blocks, x, cache):
+    def _embed_decode(self, params, tokens):
+        """Vocab-parallel lookup with the d dim left fsdp-sharded, then the
+        (tiny) embedding features all-gathered (2D-TP decode)."""
+        x = vp_embed(params["embed"], tokens, self.dist.tp,
+                     self.vocab_padded)
+        if self.dist.fsdp is not None and \
+                self.meta["embed"].fsdp_dim() is not None:
+            x = all_gather(x, self.dist.fsdp, gather_axis=x.dim() - 1)
+        return x
+
+    def _logits_decode(self, params, x):
+        xi = tp_region_in(x, self.dist.tp)
+        fs = self.dist.fsdp is not None
+        if self.cfg.tie_embeddings:
+            fdim = self.meta["embed"].fsdp_dim()
+            return fdot(xi, params["embed"].transpose(0, 1),
+                        0 if (fdim is not None and fs) else None, self.dist)
+        fdim = self.meta["head"].fsdp_dim()
+        return fdot(xi, params["head"], 0 if (fdim is not None and fs)
+                    else None, self.dist)
+
+    def _decode_ssm(self, p_blocks, meta_b, x, cache, kb):
         """One token through stacked Mamba2 layers, states in place."""
-        cfg, dist = self.cfg, self.dist
-        for idx, g in enumerate(_layers(p_blocks)):
+        cfg, dist = self.cfg, self.dist_nosp
+        for idx, p_layer in enumerate(_layers(p_blocks)):
+            g = self._gather_layer(p_layer, meta_b, kb, None)
             c = _row(cache, idx)
             h = apply_norm(g, "norm_in", x, cfg)
             out, _ = mamba2_decode(g, h, (c["conv_x"], c["conv_bc"]),
@@ -586,25 +719,32 @@ class Model:
             x = x + out
         return x
 
-    def _decode_hybrid(self, params, x, pos, cache):
-        cfg, dist = self.cfg, self.dist
+    def _decode_hybrid(self, params, x, pos, cache, kb):
+        cfg, dist = self.cfg, self.dist_nosp
         k_per = cfg.attn_every
         Gn = cfg.n_layers // k_per
         cfg_a = dataclasses.replace(cfg, n_experts=0)
         layers = _layers(params["blocks"])
+        meta_b = self.meta["blocks"]
         for gidx in range(Gn):
             mc = _row(cache["mamba"], gidx)
-            for j, g in enumerate(layers[gidx * k_per:(gidx + 1) * k_per]):
+            for j, p_layer in enumerate(
+                    layers[gidx * k_per:(gidx + 1) * k_per]):
+                g = self._gather_layer(p_layer, meta_b, kb, None)
                 c = _row(mc, j)
                 h = apply_norm(g, "norm_in", x, cfg)
                 out, _ = mamba2_decode(g, h, (c["conv_x"], c["conv_bc"]),
                                        c["ssm"], cfg, dist)
                 x = x + out
+            gs = self._gather_layer(params["shared"], self.meta["shared"],
+                                    kb, None, consumed_lead=0)
             x, _ = B.decoder_block_decode(
-                params["shared"], x, _row(cache["attn"], gidx), pos, cfg_a,
+                gs, x, _row(cache["attn"], gidx), pos, cfg_a,
                 dist, window=cfg.sliding_window)
         if cache.get("tail") is not None:
-            x = self._decode_ssm(params["tail_blocks"], x, cache["tail"])
+            x = self._decode_ssm(params["tail_blocks"],
+                                 self.meta["tail_blocks"], x, cache["tail"],
+                                 kb)
         return x
 
     # ---- cache layouts ----------------------------------------------------
@@ -646,6 +786,54 @@ class Model:
         return {"conv_x": sd((batch, K - 1, d_in), dtype),
                 "conv_bc": sd((batch, K - 1, 2 * G * N), dtype),
                 "ssm": sd((batch, nh, cfg.ssm_head_dim, N), torch.float32)}
+
+    def _attn_cache_pspec(self, shard_batch: bool = True):
+        dp = (tuple(self.dist.dp) or None) if shard_batch else None
+        tp = self.dist.tp
+        base = {"slot_pos": (None, tp)}
+        if self.cfg.attention == "mla":
+            base.update(ckv=(None, dp, None, tp, None),
+                        krope=(None, dp, None, tp, None))
+        else:
+            base.update(k=(None, dp, None, tp, None),
+                        v=(None, dp, None, tp, None))
+            if self.cfg.kv_cache_dtype == "int8":
+                base.update(k_scale=(None, dp, None, tp),
+                            v_scale=(None, dp, None, tp))
+        return base
+
+    def _ssm_cache_pspec(self, shard_batch: bool = True):
+        dp = (tuple(self.dist.dp) or None) if shard_batch else None
+        tp = self.dist.tp
+        return {"conv_x": (None, dp, None, tp),
+                "conv_bc": (None, dp, None, None),
+                "ssm": (None, dp, tp, None, None)}
+
+    def cache_pspecs(self, shard_batch: bool = True):
+        """The cache's partition, one entry per dim (a mesh axis name, a
+        tuple of them, or None; the reference's PartitionSpecs as tuples):
+        attention caches shard their slot dim over tp and their batch over
+        the dp axes; shard_batch=False (a global batch smaller than the dp
+        size) replicates over dp instead."""
+        cfg = self.cfg
+        dp = (tuple(self.dist.dp) or None) if shard_batch else None
+        sb = shard_batch
+        if cfg.arch_type in ("dense", "moe", "vlm"):
+            if cfg.n_experts and cfg.moe_every > 1:
+                return (self._attn_cache_pspec(sb), self._attn_cache_pspec(sb))
+            return self._attn_cache_pspec(sb)
+        if cfg.arch_type == "ssm":
+            return self._ssm_cache_pspec(sb)
+        if cfg.arch_type == "hybrid":
+            m = {k: (None,) + v for k, v in self._ssm_cache_pspec(sb).items()}
+            tail = (self._ssm_cache_pspec(sb)
+                    if cfg.n_layers % cfg.attn_every else None)
+            return {"mamba": m, "attn": self._attn_cache_pspec(sb),
+                    "tail": tail}
+        if cfg.arch_type == "audio":
+            return {"self": self._attn_cache_pspec(sb),
+                    "memory": (dp, None, None)}
+        raise ValueError(cfg.arch_type)
 
     def cache_shapes(self, seq_len: int, batch: int):
         """The cache's tree as meta tensors (the reference's

@@ -1,13 +1,20 @@
 """Parameter trees with per-leaf metadata (the JAX package's
-models/params.py, one device).
+models/params.py).
 
 Every architecture declares its parameters through ParamBuilder, attaching
-per-leaf logical axes ("tp", "fsdp" or None, kept so the declaration is
-the reference's; the sharding they drive is ROADMAP Queue 1 item 4b).
-From one declaration come the shapes (meta tensors), the init, the
+per-leaf logical axes: "tp" (the tensor/expert-parallel mesh axis), "fsdp"
+(the parameter-sharding axis) or None (replicated). From one declaration
+come the shapes (meta tensors), the partition specs (one mesh axis name or
+None per dim, the reference's PartitionSpecs as tuples), the init, the
 stacked-layer mask (compression granularity) and the tp_grad_sync mask.
 Leaves are (nested) dicts of tensors in the JAX layout; a stacked leaf
 carries the layer count L as its leading dim.
+
+`shard(leaf, spec, sizes, index)` gives a rank the block of a global leaf
+that shard_map's in_specs give its device (each named dim cut into
+equal blocks, the block at the rank's index along that axis);
+`unshard(local, spec, sizes, gather)` reassembles the global leaf from
+every rank's block.
 """
 from __future__ import annotations
 
@@ -41,6 +48,44 @@ class LeafMeta:
 
     def fsdp_dim(self) -> Optional[int]:
         return self.axes.index("fsdp") if "fsdp" in self.axes else None
+
+    def pspec(self, dist) -> Tuple[Optional[str], ...]:
+        """One mesh axis name or None per dim: "tp" -> dist.tp, "fsdp" ->
+        dist.fsdp."""
+        return tuple(dist.tp if a == "tp" else dist.fsdp if a == "fsdp"
+                     else None for a in self.axes)
+
+
+def shard(leaf: torch.Tensor, spec, sizes: Dict[str, int],
+          index: Dict[str, int]) -> torch.Tensor:
+    """This rank's block of a global leaf under partition `spec`: dim i
+    cut into sizes[spec[i]] equal blocks, the block index[spec[i]] kept.
+    Axes missing from `sizes` count as size 1."""
+    out = leaf
+    for dim, ax in enumerate(spec):
+        n = sizes.get(ax, 1) if ax is not None else 1
+        if n == 1:
+            continue
+        if out.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(leaf.shape)} does not "
+                             f"split over {n} ranks of axis {ax!r}")
+        local = out.shape[dim] // n
+        out = out.narrow(dim, index[ax] * local, local)
+    return out.contiguous()
+
+
+def unshard(local: torch.Tensor, spec, sizes: Dict[str, int],
+            gather) -> torch.Tensor:
+    """The global leaf from every rank's block: for each named dim (last
+    first), `gather(t, axis)` returns the blocks of the ranks along that
+    axis in index order, which are concatenated along the dim."""
+    out = local
+    for dim in reversed(range(len(spec))):
+        ax = spec[dim]
+        if ax is None or sizes.get(ax, 1) == 1:
+            continue
+        out = torch.cat(list(gather(out.contiguous(), ax)), dim=dim)
+    return out
 
 
 def _nested_set(d: Dict, path: str, value: Any):
@@ -80,6 +125,9 @@ class ParamBuilder:
 
     def meta(self) -> Dict:
         return self._tree(lambda p: self._meta[p])
+
+    def pspecs(self, dist) -> Dict:
+        return self._tree(lambda p: self._meta[p].pspec(dist))
 
     def stacked_mask(self) -> Dict:
         return self._tree(lambda p: self._meta[p].stacked)

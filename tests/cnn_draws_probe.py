@@ -2,11 +2,13 @@
 test module: pytest does not collect it).
 
 The port's train_cnn step is held against the reference's for 3 steps
-(test_torch_model.py::test_three_train_steps), but its init (models/cnn.py)
-and its data (data/synthetic.py) are torch.Generator draws, not JAX's.
-This script trains resnet9 without compression for `--steps` steps four
-ways, crossing the two inits with the two data streams, and prints each
-run's test accuracy and test loss beside the reference's own train_cnn:
+(test_torch_model.py::test_three_train_steps), and its init
+(models/cnn.py) and data (data/synthetic.py) draw the reference's numbers
+(repro_torch.random's normal / randint; tests/test_torch_draws.py holds
+them). This script trains resnet9 without compression for `--steps` steps
+four ways, crossing the two inits with the two data streams, and prints
+each run's test accuracy and test loss beside the reference's own
+train_cnn:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/cnn_draws_probe.py \\
         --steps 60

@@ -799,8 +799,6 @@ def test_memory_estimate_matches_reference(reference_run):
     for (arch, smoke, n, kind, seq, batch), want in zip(MEMORY,
                                                         res["memory"]):
         cfg = get_smoke(arch) if smoke else get_config(arch)
-        if cfg.use_fsdp:       # the estimate reads the flag; the engine
-            continue           # refuses FSDP (item 4b)
         eng = Engine(cfg, make_host_mesh(data=n), device="cpu",
                      opt=OptConfig("momentum", lr=LR))
         got = eng.memory_estimate(InputShape(kind, seq, batch, kind))
@@ -864,25 +862,29 @@ def test_comm_plans_are_one_object_for_the_step_and_its_callers():
 
 
 def test_unported_paths_raise_with_their_queue_item(monkeypatch):
-    """What 4a does not port names its ROADMAP item: a model axis, a pod
-    axis and FSDP (4b), the recorder and metrics (6), the production mesh
-    (9). Telemetry and the controller's flags (item 5) are ported: the
-    engine builds its telemetry step and measurement plan, and the CLI
-    takes --policy and its knobs (tests/test_torch_control.py runs
-    them)."""
+    """What the port leaves out names its ROADMAP item: the recorder and
+    metrics (6), a pod axis and the production mesh (9). A model axis and
+    FSDP (item 4b) build: their meshes, engines and the CLI's --model
+    engine are checked here, and they run in tests/test_torch_tp.py and
+    test_torch_fsdp.py. Telemetry and the controller's flags (item 5) are
+    ported: the engine builds its telemetry step and measurement plan,
+    and the CLI takes --policy and its knobs (tests/test_torch_control.py
+    runs them)."""
     from repro_torch.configs import get_smoke
     from repro_torch.launch import mesh as M
     from repro_torch.launch import train
     from repro_torch.launch.engine import Engine
     item = lambda s: pytest.raises(NotImplementedError,
                                    match=rf"Queue 1, item {s} \(")
-    with item("4b"):
-        M.make_host_mesh(data=1, model=2)
-    with item("4b"):
+    assert M.axis_sizes(M.make_host_mesh(data=1, model=2)) == {
+        "data": 1, "model": 2}
+    with item("9"):
         M.make_host_mesh(data=2, pod=2)
-    with item("4b"):
-        Engine(dataclasses.replace(get_smoke("llama3-405b"), use_fsdp=True),
-               M.make_host_mesh(data=2), device="cpu")
+    fs = Engine(dataclasses.replace(get_smoke("llama3-405b"), use_fsdp=True),
+                M.make_host_mesh(data=2, model=2), device="cpu")
+    assert fs.dist.fsdp == "data" and fs.dist.tp == "model" and fs.dist.sp
+    mask = fs.model.fsdp_mask()
+    assert mask["blocks"]["wq"] and not mask["final_norm_g"]
     with item("9"):
         M.make_production_mesh()
     eng = Engine(get_smoke("llama3-405b"), M.make_host_mesh(data=2),
@@ -902,10 +904,12 @@ def test_unported_paths_raise_with_their_queue_item(monkeypatch):
         eng.build_train_step(metrics=object())
     base = ["--arch", "llama3-405b", "--smoke", "--device", "cpu"]
     for extra, it in ((["--trace-out", "t.json"], "6"),
-                      (["--metrics-out", "m.jsonl"], "6"),
-                      (["--model", "2"], "4b")):
+                      (["--metrics-out", "m.jsonl"], "6")):
         with item(it):
             train.run(base + extra)
+    tp = train._engine(train._parse(base + ["--model", "2", "--data", "2"]),
+                       "cpu")
+    assert tp.sizes == {"data": 2, "model": 2} and tp.tp_size == 2
     # the controller's flags parse into a controller over the engine
     for extra, policy, knob in (
             (["--telemetry-out", "t.json"], "static", None),
