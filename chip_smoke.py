@@ -247,6 +247,28 @@ error:
      128 + 16 tokens): each rank's cache half the slots, every step's
      logits within 5e-2 of max |logit| of the one-device run fed the same
      tokens, prefill ms, decode ms a token and peak memory
+ 14. observability (obs/) on a one-rank gloo group opened in this
+     process: (a) the Engine on phi4-mini at full width (2 layers, bf16),
+     QSGD(16) layerwise over the simulated wire, momentum SGD, with
+     tracer= and metrics=: one step each from the same params untraced,
+     with a disabled TraceRecorder and traced (twice), then untraced
+     again: params and momentum bitwise equal, launches identical
+     (exact), each traced step exactly num_messages message spans whose
+     stages include compress / pack / decode / collective, the sum of
+     stage_us at most wall_us, the traced step's wire launches held
+     bitwise against their plain versions, the engine/* gauges equal
+     the plan's and schedule's counts and payload_bits_per_step, the
+     Chrome trace valid; step ms from CUDA events; (b) obs.calibrate
+     with QSGD(16) at the three default thresholds (reps 3) on resnet9's
+     and (a)'s phi4-mini gradient trees: counts, bytes and model bits
+     equal the CPU's, the fitted alpha / beta and model-error ratios
+     printed; (c) inside phase 7's spawn: measure_stream (ring, rs) and
+     measure_collective on each rank's resnet9 gradient: hop spans
+     exactly n_messages x (n - 1), hop bytes what ring_shift moved,
+     exact launches; (d) the serve CLI and the train CLI's rank loop
+     with --trace-out / --metrics-out at smoke width: one prefill and
+     gen - 1 decode spans and decode_us samples, num_messages message
+     spans a train step
 
 Phase 3 also holds the other compress-only kernels against their plain
 versions on the card at every bucket shape, the entire-model gradient and
@@ -277,8 +299,9 @@ chiprun_out/chip_smoke.json. The last line is {"ok": true, "device":
 {...}}; the line before it the kernel table, whose launches are, for the
 wire kernels, the main-path runs of phase 4 plus the multi-rank phase 7
 summed over its ranks plus phase 9(b) plus phase 11 summed over its
-ranks plus phase 12 plus phase 13 summed over its ranks, and for the
-compress-only kernels the runs of phase 8.
+ranks plus phase 12 plus phase 13 summed over its ranks plus phase 14
+(its (c) summed over phase 7's ranks), and for the compress-only kernels
+the runs of phase 8.
 """
 from __future__ import annotations
 
@@ -4054,6 +4077,589 @@ def tp_phase(dev):
             launches, errs)
 
 
+# ---- phase 14: observability (obs/: recorder, metrics, calibration) ---------
+
+# 14(a): the Engine on a one-rank gloo group in this process, phi4-mini at
+# full width (lm_full_width: 2 layers, bf16), FULL_ROWS x LM_SEQ tokens,
+# QSGD(16) layerwise over the simulated wire with the per-bucket schedule,
+# momentum SGD. Every run steps from the same params, batch and step index,
+# untraced, with a disabled TraceRecorder and traced (tracer= and metrics=
+# on every run): a step packs its 5 layerwise buckets (21 units) in one
+# qsgd_pack launch and decodes them in one qsgd_unpack, traced or not.
+OBS_RUNS = ("untraced", "disabled", "traced", "traced", "untraced")
+OBS_STEP_LAUNCHES = {"qsgd_pack": 1, "qsgd_unpack": 1}
+# the tracer's cost on the aggregation alone: execute_schedule_wire (no
+# collective) on the step's gradient tree, untraced and traced in turns,
+# a warm-up pair and OBS_COST_REPS timed pairs
+OBS_COST_REPS = 10
+# 14(b): calibrate at the three default thresholds with reps 3 (a warm-up
+# run and 3 timed runs a threshold, each one pack and one unpack launch)
+OBS_REPS = 3
+# 14(c), inside phase 7's spawn: measure_stream (ring, rs) and
+# measure_collective on each rank's resnet9 gradient row, per-bucket
+# messages, a warm-up call and OBS_STREAM_REPS timed calls each
+OBS_STREAM_REPS = 2
+# 14(d): the serve CLI (phi4 smoke) and the train CLI's rank loop (llama3
+# smoke, QSGD(16) layerwise over the wire, 2 steps) on the one-rank group
+OBS_SERVE_GEN = 4
+OBS_TRAIN = ["--arch", "llama3-405b", "--smoke", "--steps", "2", "--data",
+             "1", "--backend", "gloo", "--compressor", "qsgd", "--levels",
+             str(MAIN_LEVELS), "--granularity", "layerwise", "--wire",
+             "--batch", "8", "--seq", "32"]
+
+
+def _stages_within_wall(summary) -> bool:
+    """The sum of a step's stage_us is at most its wall_us, in the integer
+    nanoseconds both are rounded from."""
+    return (round(sum(v * 1000 for v in summary["stage_us"].values()))
+            <= round(summary["wall_us"] * 1000))
+
+
+def obs_engine(dev):
+    """14(a) -> (record, launches, (phi4-mini gradient tree, stacked
+    mask) for 14(b))."""
+    import torch
+    from repro_torch import random as R
+    from repro_torch.control.telemetry import payload_bits_per_step
+    from repro_torch.convert import tree_leaves
+    from repro_torch.core.aggregation import CompressionConfig
+    from repro_torch.core.compressors import QSGD
+    from repro_torch.core.granularity import Granularity
+    from repro_torch.experiment import _full_precision
+    from repro_torch.launch.engine import Engine
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.obs import (MetricsRegistry, TraceRecorder,
+                                 validate_chrome_trace)
+    from repro_torch.optim import OptConfig, init_opt_state
+    _full_precision()
+    cfg = lm_full_width()
+    comp = CompressionConfig(qw=QSGD(levels=MAIN_LEVELS),
+                             granularity=Granularity("layerwise"))
+    eng = Engine(cfg, make_host_mesh(data=1), comp=comp,
+                 opt=OptConfig("momentum", lr=LM_LR), device=dev)
+    params = eng.model.init(R.key(0), device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = init_opt_state(eng.opt, params)
+    g = torch.Generator(device=dev).manual_seed(11)
+    s = torch.randint(0, cfg.vocab, (FULL_ROWS, LM_SEQ + 1), generator=g,
+                      device=dev)
+    batch = {"tokens": s[:, :-1], "targets": s[:, 1:]}
+    rec = TraceRecorder()
+    tracers = {"untraced": None, "disabled": TraceRecorder(enabled=False),
+               "traced": rec}
+    regs = {k: MetricsRegistry() for k in tracers}
+    steps = {k: eng.build_train_step(schedule=0.0, wire=True, tracer=t,
+                                     metrics=regs[k])
+             for k, t in tracers.items()}
+    plan, sched = eng.comm_plans()[0], steps["traced"].schedule
+    want_gauges = {"engine/n_dispatches": float(plan.num_dispatches),
+                   "engine/n_units": float(plan.num_units),
+                   "engine/n_messages": float(sched.num_messages),
+                   "engine/fusion_bytes": 0.0,
+                   "engine/wire_bits_per_step": float(
+                       payload_bits_per_step(plan, comp.qw))}
+    for k, reg in regs.items():
+        check(reg.counters == {"engine/step_builds": 1.0}
+              and reg.gauges == want_gauges,
+              f"14(a) {k}: counters {reg.counters}, gauges {reg.gauges} != "
+              f"{want_gauges}")
+    runs, launches, errs = [], {}, {}
+    # the embedding's gradient is an indexed accumulate: atomics in bf16
+    # by default, an order-fixed sort with deterministic algorithms on
+    # (so two runs of one step can be held bitwise)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs, launches, errs = _obs_runs(steps, params, state, batch, rec,
+                                         sched)
+        _, grads = steps["untraced"].grads(params, batch, 0)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    cost = obs_tracer_cost(grads, eng.model.stacked())
+    differ = {r["run"] + str(i): sum(a != b for a, b in zip(
+        r["digest"], runs[0]["digest"])) for i, r in enumerate(runs)}
+    check(not any(differ.values()), f"14(a): params / momentum differ "
+          f"from the first untraced step's (leaves differing a run: "
+          f"{differ})")
+    check(all(math.isfinite(r["loss"]) for r in runs), "14(a): losses")
+    trace = rec.chrome_trace()
+    validate_chrome_trace(trace)
+    rec.export(str(ROOT / "chiprun_out" / "obs_trace.json"))
+    for e in rec.message_spans():
+        check({"compress", "pack", "decode", "collective"}
+              <= set(e["args"]["stages"]),
+              f"14(a): message {e['args']['message']} stages "
+              f"{e['args']['stages']}")
+    out = {"params": sum(t.numel() for t in tree_leaves(params)),
+           "buckets": len(plan.buckets), "messages": sched.num_messages,
+           "gauges": want_gauges, "runs": [
+               {k: v for k, v in r.items() if k != "digest"} for r in runs],
+           "events": len(trace["traceEvents"]), "errs": errs,
+           "tracer_cost": cost,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    del params, state, steps
+    return out, launches, (grads, eng.model.stacked())
+
+
+def _obs_runs(steps, params, state, batch, rec, sched):
+    """14(a)'s OBS_RUNS, each one step from `params` / `state`, timed by
+    CUDA events, launches counted; the first traced step's wire launches
+    captured and held against the plain versions -> (runs, launches,
+    max abs err per kernel checked)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.convert import tree_leaves
+    from repro_torch.obs import format_step_summary
+    runs, launches, errs = [], {}, {}
+    for name in OBS_RUNS:
+        cap = {}
+        first_traced = name == "traced" and not rec.steps
+        restore = (_capture_ops(["qsgd_pack_buckets", "qsgd_unpack_buckets"],
+                                cap) if first_traced else None)
+        kernels.reset_launch_counts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        try:
+            ev[0].record()
+            p, st, m = steps[name](params, state, batch, 0)
+            ev[1].record()
+            ev[1].synchronize()
+        finally:
+            if restore is not None:
+                restore()
+        counts = kernels.launch_counts()
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        check({k: counts[k] for k in SOURCES}
+              == _want_launches(OBS_STEP_LAUNCHES, 1, SOURCES),
+              f"14(a) {name}: launches {counts}")
+        run = {"run": name, "ms": ev[0].elapsed_time(ev[1]),
+               "loss": float(m["loss"]),
+               "digest": _digest(tree_leaves(p) + tree_leaves(st))}
+        del p, st, m
+        if name == "traced":
+            summary = rec.finalize_step(len(rec.steps))
+            n_spans = len(rec.message_spans(step=summary["step"]))
+            check(summary["n_message_spans"] == n_spans
+                  == sched.num_messages,
+                  f"14(a): {n_spans} message spans, {sched.num_messages} "
+                  f"messages")
+            check(_stages_within_wall(summary),
+                  f"14(a): stage_us {summary['stage_us']} exceed wall_us "
+                  f"{summary['wall_us']}")
+            run["summary"] = summary
+            run["line"] = format_step_summary(summary)
+        if first_traced:
+            errs = check_captured_wire("14(a) traced step", cap)
+            del cap
+        runs.append(run)
+    return runs, launches, errs
+
+
+def obs_tracer_cost(tree, stacked) -> dict:
+    """14(a)'s tracer cost on the aggregation alone: execute_schedule_wire
+    (QSGD(16) layerwise, per-bucket messages, no collective) on the
+    phi4-mini gradient tree, untraced and traced in turns (the order
+    alternating a pair), a warm-up pair and OBS_COST_REPS timed pairs,
+    each call timed by CUDA events; the traced calls' trees and buffers
+    bitwise the untraced calls', their message spans num_messages."""
+    import statistics
+
+    import torch
+    from repro_torch import random as R
+    from repro_torch.convert import tree_leaves
+    from repro_torch.core import build_plan, build_schedule, wire_codec
+    from repro_torch.core.compressors import QSGD
+    from repro_torch.core.granularity import Granularity
+    from repro_torch.core.wire import execute_schedule_wire
+    from repro_torch.obs import TraceRecorder
+    sched = build_schedule(build_plan(tree, stacked,
+                                      Granularity("layerwise")), 0.0)
+    codec = wire_codec(QSGD(levels=MAIN_LEVELS))
+    key = R.key(0)
+    rec = TraceRecorder()
+    ms = {"untraced": [], "traced": []}
+    digests = {}
+    for r in range(1 + OBS_COST_REPS):
+        pair = ("untraced", "traced") if r % 2 else ("traced", "untraced")
+        for name in pair:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out, bufs = execute_schedule_wire(
+                sched, codec, tree, key,
+                recorder=rec if name == "traced" else None)
+            ev[1].record()
+            ev[1].synchronize()
+            if name == "traced":
+                summary = rec.finalize_step(r)
+                check(summary["n_message_spans"] == sched.num_messages
+                      and _stages_within_wall(summary),
+                      f"14(a) tracer cost: {summary}")
+            if r:
+                ms[name].append(ev[0].elapsed_time(ev[1]))
+            d = _digest(tree_leaves(out) + list(bufs))
+            check(digests.setdefault(name, d) == d,
+                  f"14(a) tracer cost: {name} call {r} differs from its "
+                  f"first")
+            del out, bufs
+    check(digests["traced"] == digests["untraced"],
+          "14(a) tracer cost: the traced aggregation's tree or buffers "
+          "differ from the untraced")
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    return {"messages": sched.num_messages, "ms": ms, "median_ms": med,
+            "spread_ms": {k: max(v) - min(v) for k, v in ms.items()},
+            "traced_minus_untraced_ms": med["traced"] - med["untraced"],
+            "events_a_step": rec.steps[-1]["n_spans"]}
+
+
+def obs_card_buffers(tree, stacked, comp, cal, name) -> None:
+    """14(b): per threshold, one execute_schedule_wire of `tree` on the
+    card under a TraceRecorder: the byte size of every buffer it returned
+    equals calibrate's per-message wire_bytes, and it gives calibrate's
+    n_messages message spans."""
+    from repro_torch import random as R
+    from repro_torch.core import build_plan, build_schedule, wire_codec
+    from repro_torch.core.granularity import Granularity
+    from repro_torch.core.wire import execute_schedule_wire
+    from repro_torch.obs import DEFAULT_THRESHOLDS, TraceRecorder
+    plan = build_plan(tree, stacked, Granularity("layerwise"))
+    for label, fb in DEFAULT_THRESHOLDS:
+        t = cal["thresholds"][label]
+        rec = TraceRecorder()
+        _, bufs = execute_schedule_wire(build_schedule(plan, float(fb)),
+                                        wire_codec(comp), tree, R.key(0),
+                                        recorder=rec)
+        got = [b.numel() * b.element_size() for b in bufs]
+        del bufs
+        rec.finalize_step(0)
+        want = [m["wire_bytes"] for m in t["per_message_measured"]]
+        spans = len(rec.message_spans(0))
+        check(got == want and spans == t["n_messages"]
+              and sum(got) == t["wire_bytes_measured"],
+              f"14(b) {name} {label}: the card's buffers {got} B and "
+              f"{spans} message spans, calibrate's {want} B and "
+              f"{t['n_messages']} messages")
+
+
+def _calibration_cpu(tree, stacked, comp) -> dict:
+    """calibrate's message counts, buffer bytes, model bits and per-message
+    bytes of `tree` at DEFAULT_THRESHOLDS, from its plan, schedules and
+    layouts on the CPU (no execution: the shapes decide them)."""
+    from repro_torch.core.granularity import Granularity
+    from repro_torch.core.plan import build_plan
+    from repro_torch.core.schedule import build_schedule, simulate_schedule
+    from repro_torch.core.wire import message_layouts, wire_codec
+    from repro_torch.obs import DEFAULT_THRESHOLDS
+    plan = build_plan(tree, stacked, Granularity("layerwise"))
+    out = {}
+    for label, fb in DEFAULT_THRESHOLDS:
+        sched = build_schedule(plan, float(fb))
+        lays = message_layouts(sched, wire_codec(comp))
+        out[label] = {"n_messages": sched.num_messages,
+                      "wire_bytes_measured": sum(l.total_nbytes
+                                                 for l in lays),
+                      "wire_bits_model": simulate_schedule(
+                          sched, qw=comp)["wire_bits_total"],
+                      "per_message": [l.total_nbytes for l in lays]}
+    return out
+
+
+def _calibration_counts(cal) -> dict:
+    return {label: {"n_messages": t["n_messages"],
+                    "wire_bytes_measured": t["wire_bytes_measured"],
+                    "wire_bits_model": t["wire_bits_model"],
+                    "per_message": [m["wire_bytes"] for m in
+                                    t["per_message_measured"]]}
+            for label, t in cal["thresholds"].items()}
+
+
+def obs_calibrate(dev, phi4):
+    """14(b): calibrate with QSGD(16) at the three default thresholds and
+    reps OBS_REPS on the resnet9 gradient tree and on 14(a)'s phi4-mini
+    gradient tree, on the card; counts, bytes and model bits equal the
+    CPU's (resnet9: calibrate run on a CPU copy; phi4-mini: its CPU plan,
+    schedules and layouts), a structural check, as both sides read the
+    layouts; then the buffers the card's wire step returns and its
+    message spans are held against the report (obs_card_buffers) ->
+    (record, launches)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch import random as R
+    from repro_torch.configs.resnet9_cifar import RESNET9
+    from repro_torch.convert import tree_map
+    from repro_torch.core.compressors import QSGD
+    from repro_torch.core.granularity import stacked_mask
+    from repro_torch.data.synthetic import classification_batch
+    from repro_torch.experiment import worker_grads
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.obs import DEFAULT_THRESHOLDS, calibrate
+    key = R.key(0)
+    params = init_cnn(RESNET9, key, device=dev)
+    wg, _ = worker_grads(RESNET9, params,
+                         classification_batch(R.fold_in(key, 0), 64,
+                                              device=dev), 1)
+    g9 = tree_map(lambda t: t[0], wg)
+    q = QSGD(levels=MAIN_LEVELS)
+    trees = (("resnet9", g9, stacked_mask(g9)), ("phi4-mini",) + phi4)
+    out, launches = {}, {}
+    per_call = len(DEFAULT_THRESHOLDS) * (1 + OBS_REPS)
+    for name, tree, sm in trees:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        cal = calibrate(name, tree, sm, q, reps=OBS_REPS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        check({k: counts[k] for k in SOURCES}
+              == _want_launches(OBS_STEP_LAUNCHES, per_call, SOURCES),
+              f"14(b) {name}: launches {counts}")
+        if name == "resnet9":
+            want = _calibration_counts(calibrate(
+                name, tree_map(lambda t: t.cpu(), tree), sm, q, reps=1))
+        else:
+            want = _calibration_cpu(tree_map(
+                lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                      device="meta"), tree), sm, q)
+        check(_calibration_counts(cal) == want,
+              f"14(b) {name}: counts {_calibration_counts(cal)} != the "
+              f"CPU's {want}")
+        obs_card_buffers(tree, sm, q, cal, name)
+        out[name] = dict(cal, seconds=secs)
+    return out, launches
+
+
+def obs_streams(rank, n, dev, wg):
+    """14(c) on one rank of phase 7's spawn: measure_stream (ring, rs) and
+    measure_collective (allgather) on this rank's resnet9 gradient row
+    with QSGD(16), per-bucket messages: hop spans exactly n_messages x
+    (n - 1) a call, hop_bytes_total exactly what ring_shift moved a call,
+    launches exactly stream_plan's (the collective's 1 qsgd_pack and 1
+    fields_unpack) a call -> {mode: report, "launches"}."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.convert import tree_map
+    from repro_torch.core import collectives
+    from repro_torch.core.aggregation import CompressionConfig
+    from repro_torch.core.compressors import QSGD
+    from repro_torch.core.granularity import Granularity, stacked_mask
+    from repro_torch.obs.calibrate import measure_collective, measure_stream
+    g = tree_map(lambda t: t[rank], wg)
+    sm = stacked_mask(g)
+    q = QSGD(levels=MAIN_LEVELS)
+    base = CompressionConfig(qw=q, fusion_bytes=0.0,
+                             granularity=Granularity("layerwise"))
+    calls = 1 + OBS_STREAM_REPS
+    out, launches = {}, {}
+    for mode, strategy in (("ring", "ring"), ("rs", "rs_stream")):
+        layouts, want, hops, nbytes, _ = stream_plan(
+            dataclasses.replace(base, strategy=strategy), g, sm, n, None)
+        collectives.reset_counts()
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        rep = measure_stream(g, sm, q, 0.0, mode=mode, reps=OBS_STREAM_REPS)
+        rep["seconds"] = time.perf_counter() - t0
+        got = _launched(before)
+        ring = collectives.counts("ring_shift")
+        check(rep["n_hop_spans_measured"] == rep["n_hops"]
+              == len(layouts) * (n - 1) == hops,
+              f"14(c) {mode}: {rep['n_hop_spans_measured']} hop spans, "
+              f"{rep['n_hops']} hops, {hops} planned")
+        check(ring["sent_bytes"] == calls * rep["hop_bytes_total"] == calls
+              * nbytes and ring["calls"] == calls * hops,
+              f"14(c) {mode}: ring_shift moved {ring}, the report "
+              f"{rep['hop_bytes_total']} B a call, planned {nbytes}")
+        check(got == {k: calls * v for k, v in want.items()},
+              f"14(c) {mode}: launches {got} != {calls} x {want}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        out[mode] = rep
+    collectives.reset_counts()
+    before = kernels.launch_counts()
+    rep = measure_collective(g, sm, q, 0.0, reps=OBS_STREAM_REPS)
+    got = _launched(before)
+    gathers = collectives.counts("all_gather")
+    check(got == {"qsgd_pack": calls, "fields_unpack": calls},
+          f"14(c) collective: launches {got}")
+    check(gathers["calls"] == calls * rep["n_messages"],
+          f"14(c) collective: {gathers['calls']} all_gathers for {calls} x "
+          f"{rep['n_messages']} messages")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    out["collective"] = rep
+    out["launches"] = launches
+    return out
+
+
+def obs_stream_ranks(rank, n, dev):
+    """14(c) in a rank spawn of its own (tools/obs_phase_probe.py; the
+    whole script runs obs_streams inside phase 7's spawn)."""
+    _, wg = _fixed_gradients(rank, n, dev)
+    return obs_streams(rank, n, dev, wg)
+
+
+def obs_clis(dev):
+    """14(d): the serve CLI with --trace-out / --metrics-out (phi4 smoke,
+    OBS_SERVE_GEN tokens) and the train CLI's rank loop with both (on the
+    one-rank group), on the card -> (record, launches)."""
+    import io
+    from repro_torch import kernels
+    from repro_torch.launch import serve, train
+    from repro_torch.obs import read_jsonl, validate_chrome_trace
+    out_dir = ROOT / "chiprun_out"
+    out, launches = {}, {}
+    kernels.reset_launch_counts()
+    paths = [out_dir / "obs_serve_trace.json",
+             out_dir / "obs_serve_metrics.jsonl"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(["--arch", "phi4-mini-3.8b", "--smoke", "--gen",
+                    str(OBS_SERVE_GEN), "--trace-out", str(paths[0]),
+                    "--metrics-out", str(paths[1])])
+    launches.update(kernels.launch_counts())
+    trace = json.loads(paths[0].read_text())
+    validate_chrome_trace(trace)
+    spans = [e for e in trace["traceEvents"] if e["ph"] == "X"]
+    check([e["name"] for e in spans]
+          == ["prefill"] + ["decode"] * (OBS_SERVE_GEN - 1),
+          f"14(d) serve: spans {[e['name'] for e in spans]}")
+    (line,) = read_jsonl(str(paths[1]))
+    hist = line["histograms"]["serve/decode_us"]
+    check(hist["count"] == OBS_SERVE_GEN - 1
+          and line["counters"]["serve/requests"] == 1.0,
+          f"14(d) serve: metrics {line}")
+    out["serve"] = {"lines": buf.getvalue().splitlines(),
+                    "span_us": [(e["name"], e["dur"]) for e in spans],
+                    "decode_us": hist,
+                    "prefill_us": line["gauges"]["serve/prefill_us"]}
+    paths = [out_dir / "obs_train_trace.json",
+             out_dir / "obs_train_metrics.jsonl"]
+    args = train._parse(OBS_TRAIN + ["--trace-out", str(paths[0]),
+                                     "--metrics-out", str(paths[1])])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = train._train_rank(0, 1, dev, args, False)
+    for k, v in res["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    check({k: res["launches"][k] for k in SOURCES}
+          == _want_launches(OBS_STEP_LAUNCHES, 2, SOURCES),
+          f"14(d) train: launches {res['launches']}")
+    trace = json.loads(paths[0].read_text())
+    validate_chrome_trace(trace)
+    lines = read_jsonl(str(paths[1]))
+    msgs = lines[-1]["gauges"]["engine/n_dispatches"]   # per-bucket
+    per_step = [st["n_message_spans"] for st in trace["metadata"]["steps"]]
+    check(per_step == [msgs] * 2 and lines[-1]["counters"]["train/steps"]
+          == 2.0, f"14(d) train: message spans a step {per_step}, "
+          f"{msgs} messages; metrics {lines[-1]}")
+    out["train"] = {"lines": buf.getvalue().splitlines(),
+                    "message_spans": per_step, "losses": res["losses"],
+                    "metrics": lines[-1],
+                    "steps": trace["metadata"]["steps"]}
+    return out, launches
+
+
+def obs_phase(dev, streams):
+    """Phase 14: (a), (b) and (d) on a one-rank gloo group opened in this
+    process; `streams` are (c)'s reports from phase 7's ranks -> (record,
+    launches of (a)-(d) per kernel)."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    _free_card()
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)    # the exported files
+    dist.init_process_group("gloo", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    try:
+        eng, counts, phi4 = obs_engine(dev)
+        add(counts)
+        t1 = time.perf_counter()
+        cal, counts = obs_calibrate(dev, phi4)
+        add(counts)
+        del phi4
+        _free_card()
+        t2 = time.perf_counter()
+        cli, counts = obs_clis(dev)
+        add(counts)
+    finally:
+        dist.destroy_process_group()
+    for r in streams:
+        add(r["launches"])
+    secs = time.perf_counter() - t0
+    ms = {k: [r["ms"] for r in eng["runs"] if r["run"] == k]
+          for k in ("untraced", "disabled", "traced")}
+    later = [r["ms"] for r in eng["runs"][1:]]   # the first warms up
+    print(f"obs (a): phi4-mini full width ({eng['params']} params, 2 "
+          f"layers, bf16) on a one-rank gloo group, QSGD({MAIN_LEVELS}) "
+          f"layerwise over the simulated wire, {eng['buckets']} buckets, "
+          f"{eng['messages']} messages a step: params and momentum bitwise "
+          f"equal untraced / disabled / traced, launches {OBS_STEP_LAUNCHES} "
+          f"every run, the traced step's wire launches bitwise the plain "
+          f"versions {eng['errs']}, gauges {eng['gauges']}; step ms (CUDA "
+          f"events, in run order {OBS_RUNS}) untraced {ms['untraced']}, "
+          f"disabled {ms['disabled']}, traced {ms['traced']} (spread of the "
+          f"traced {max(ms['traced']) - min(ms['traced']):.1f}, of every "
+          f"run after the first {max(later) - min(later):.1f}); "
+          f"{eng['events']} trace events; peak {eng['peak_bytes']} B; "
+          f"{t1 - t0:.1f} s", flush=True)
+    for r in eng["runs"]:
+        if "line" in r:
+            print(f"  (a) {r['line']}", flush=True)
+    c = eng["tracer_cost"]
+    print(f"obs (a) tracer cost on the aggregation alone "
+          f"(execute_schedule_wire, {c['messages']} messages, no "
+          f"collective, {c['events_a_step']} spans a traced call; outputs "
+          f"and buffers bitwise): ms (CUDA events, {OBS_COST_REPS} calls "
+          f"each, in turns) untraced {c['ms']['untraced']}, traced "
+          f"{c['ms']['traced']}; medians {c['median_ms']}, spreads "
+          f"{c['spread_ms']}, traced - untraced "
+          f"{c['traced_minus_untraced_ms']:.4f} ms", flush=True)
+    for name, c in cal.items():
+        fit = next(iter(c["fit_by_host"].values()))
+        rows = "; ".join(
+            f"{label} {t['n_messages']} messages {t['wire_bytes_measured']} "
+            f"B measured {t['exposed_comm_us_measured']:.1f} us, model "
+            f"{t['exposed_comm_us_model']:.1f} us, error ratio default "
+            f"{t['model_error_ratio_default']} fitted "
+            f"{t['model_error_ratio_fitted']}"
+            for label, t in c["thresholds"].items())
+        print(f"obs (b) calibrate {name} QSGD({MAIN_LEVELS}) reps "
+              f"{OBS_REPS}: counts and bytes == the CPU's, the card's buffers "
+              f"and message spans == the report; fit alpha "
+              f"{fit['alpha_us']} us, gbps {fit['gbps']} (us/B "
+              f"{fit['us_per_byte']}, resid {fit['resid_rms_us']} us, "
+              f"degenerate {fit['fit_degenerate']}); {rows}; "
+              f"{c['seconds']:.1f} s", flush=True)
+    s0 = streams[0]
+    for mode in ("ring", "rs"):
+        r = s0[mode]
+        print(f"obs (c) measure_stream {mode} on {r['n_workers']} gloo "
+              f"ranks (resnet9, per-bucket): {r['n_messages']} messages, "
+              f"{r['n_hop_spans_measured']} hop spans (== {r['n_hops']}), "
+              f"{r['hop_bytes_total']} hop B a call (== ring_shift's), hop "
+              f"{r['hop_us']:.1f} us, total {r['total_us']:.1f} us, stages "
+              f"{r['stage_us']}; {r['seconds']:.1f} s", flush=True)
+    r = s0["collective"]
+    print(f"obs (c) measure_collective allgather: {r['n_messages']} "
+          f"messages, {r['wire_bytes']} B, total {r['total_us']:.1f} us, "
+          f"stages {r['stage_us']}", flush=True)
+    sv, tr = cli["serve"], cli["train"]
+    print(f"obs (d) serve --trace-out --metrics-out (phi4 smoke, "
+          f"{OBS_SERVE_GEN} tokens): spans {sv['span_us']}, decode_us "
+          f"{sv['decode_us']}, prefill_us {sv['prefill_us']:.1f}", flush=True)
+    print(f"obs (d) train rank loop --trace-out --metrics-out (llama3 "
+          f"smoke, 2 steps): message spans a step {tr['message_spans']}, "
+          f"losses {tr['losses']}, gauges {tr['metrics']['gauges']}",
+          flush=True)
+    print(f"phase 14: {secs:.1f} s here (a {t1 - t0:.1f}, b {t2 - t1:.1f}, "
+          f"d {secs - (t2 - t0):.1f}) + (c) inside phase 7", flush=True)
+    return ({"seconds": secs, "engine": eng, "calibrate": cal,
+             "streams": streams, "cli": cli}, launches)
+
+
 # ---- phase 7: the multi-rank path (runs inside each rank process) ----------
 
 def _flat(tree):
@@ -4675,6 +5281,9 @@ def rank_phase(rank, n, dev):
     res["train"] = train_ranks(rank, n, dev)
     res["gather_ms"] = gather_timing(rank, n, dev,
                                      (4_096, 60_512, 484_008, 4_194_304))
+    t0 = time.perf_counter()
+    res["obs"] = obs_streams(rank, n, dev, wg)
+    res["obs"]["seconds"] = time.perf_counter() - t0
     return res
 
 
@@ -5313,6 +5922,11 @@ def main(argv) -> int:
         launches[k] += tp_launches.get(k, 0)
     for k, v in tp_errs.items():
         errs[k] = max(errs[k], v)
+    obs, obs_launches = obs_phase(dev, [r["obs"] for r in multi])
+    for k in SOURCES:
+        launches[k] += obs_launches.get(k, 0)
+    for k, v in obs["engine"]["errs"].items():
+        errs[k] = max(errs[k], v)
     timings += lm["timings"]
     summary = kernel_line(timings, launches, errs)
     from repro_torch.core.compressors import QSGD, TopK
@@ -5339,7 +5953,7 @@ def main(argv) -> int:
                         if "registers" in ln or "spill" in ln]
                   for src, log in build.BUILD_LOG.items()},
         "multi_rank_seconds": multi_secs, "lm": lm, "serve": serve,
-        "engine": engine, "control": control, "tp": tp,
+        "engine": engine, "control": control, "tp": tp, "obs": obs,
         "summary": summary},
         indent=1))
     print(f"total {total:.1f} s", flush=True)

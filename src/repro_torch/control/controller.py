@@ -33,9 +33,6 @@ from repro_torch.control.telemetry import (TELEMETRY_SCHEMA_VERSION,
                                            TelemetryState, init_telemetry,
                                            summarize, to_json)
 from repro_torch.core.plan import UnitPlan
-from repro_torch.core.wire import not_ported
-
-ITEM_6 = "item 6 (obs/)"
 
 
 class Controller:
@@ -49,10 +46,8 @@ class Controller:
         is keyed on (decision, telemetry-enabled, cache_tag) so steps
         with different build shapes never collide; harnesses pass their
         extra build flags (e.g. the entire-model telemetry leg) as
-        `cache_tag`. `metrics` (the reference's obs registry) is ROADMAP
-        Queue 1 item 6 and raises when given."""
-        if metrics is not None:
-            raise not_ported("the metrics registry (metrics=)", ITEM_6)
+        `cache_tag`. `metrics` (duck-typed, obs.metrics.MetricsRegistry)
+        receives builds/switch/retrace counters."""
         self.policy = policy
         self.build_step = build_step
         self.mplan = mplan
@@ -64,6 +59,7 @@ class Controller:
             init_telemetry(mplan) if self.collect else None)
         self._cache = {} if cache is None else cache
         self._cache_tag = cache_tag
+        self.metrics = metrics
         self.builds = 0            # build_step invocations
         self.retraces_unexpected = 0   # rebuilds of previously-built keys
         self.jit_recompiles = 0    # no jit cache in torch: stays 0
@@ -85,6 +81,8 @@ class Controller:
                 # rebuild here means the shared cache was cleared or
                 # evicted behind our back — surface it, don't hide it.
                 self.retraces_unexpected += 1
+                if self.metrics is not None:
+                    self.metrics.inc("controller/retraces_unexpected")
                 warnings.warn(
                     f"unexpected retrace: decision "
                     f"{decision.describe()!r} was built before but is "
@@ -93,6 +91,8 @@ class Controller:
             self._cache[key] = self.build_step(decision)
             self.builds += 1
             self._built_keys.add(key)
+            if self.metrics is not None:
+                self.metrics.inc("controller/builds")
         return self._cache[key]
 
     def check_retraces(self) -> int:
@@ -100,8 +100,15 @@ class Controller:
         of previously built decisions): 0 on every healthy run. The
         reference also probes each cached step's jit for extra compiled
         signatures; a torch step has no jit cache, so `jit_recompiles`
-        stays 0 and is kept only for the report's schema."""
+        stays 0 (the reference's probe gives 0 on a function without
+        `_cache_size` too) and is kept for the report's schema and the
+        `controller/jit_recompiles` gauge."""
         self.jit_recompiles = 0
+        if self.metrics is not None:
+            self.metrics.gauge("controller/retraces_unexpected_total",
+                               self.retraces_unexpected)
+            self.metrics.gauge("controller/jit_recompiles",
+                               self.jit_recompiles)
         return self.retraces_unexpected
 
     def config(self):
@@ -134,11 +141,15 @@ class Controller:
                              "summary": summary})
         new = self.policy.decide(summary, self.decision, self.mplan)
         changed = new != self.decision
+        if self.metrics is not None:
+            self.metrics.inc("controller/replans")
         if changed:
             self.switches.append({"step": step_idx,
                                   "from": self.decision.describe(),
                                   "to": new.describe()})
             self.decision = new
+            if self.metrics is not None:
+                self.metrics.inc("controller/switches")
         if self.collect:  # fresh window per re-plan interval
             self.telemetry = init_telemetry(self.mplan)
         return changed
@@ -193,12 +204,9 @@ def engine_controller(engine, policy: Policy, *, lr_schedule=None,
     """Controller over launch/engine.py Engine's train step. The step
     factory threads the decision's CompressionConfig (and, when telemetry
     is on, the TelemetryState leg) through Engine.build_train_step.
-    `metrics` / `tracer` (the reference's obs registry and recorder) are
-    ROADMAP Queue 1 item 6 and raise when given."""
+    `metrics` / `tracer` (duck-typed obs registry / recorder) instrument
+    the built steps and the controller's own counters."""
     from repro_torch.core.aggregation import no_compression
-    if metrics is not None or tracer is not None:
-        raise not_ported("the trace recorder and metrics registry "
-                         "(tracer=, metrics=)", ITEM_6)
     if base is None:
         base = CompressionDecision.from_config(
             engine.comp if engine.comp is not None else no_compression())
@@ -210,12 +218,13 @@ def engine_controller(engine, policy: Policy, *, lr_schedule=None,
         return engine.build_train_step(lr_schedule,
                                        comp=decision.to_config(),
                                        telemetry=collect,
-                                       telemetry_entire_model=em)
+                                       telemetry_entire_model=em,
+                                       tracer=tracer, metrics=metrics)
 
     # the tag carries every build input besides the decision, so a cache
     # shared across controllers never hands back a step built for a
-    # different engine / schedule / telemetry shape
+    # different engine / schedule / telemetry shape or tracer
     return Controller(policy, build, base, engine.measurement_plan(),
                       replan_every=replan_every, collect_telemetry=collect,
-                      cache=cache,
-                      cache_tag=("engine", engine, lr_schedule, em))
+                      cache=cache, metrics=metrics,
+                      cache_tag=("engine", engine, lr_schedule, em, tracer))

@@ -33,8 +33,9 @@ by rank-order arithmetic (core/collectives.py). Strategies:
 With `telemetry_plan` (a control.telemetry measurement plan) both entry
 points return a third element, the step's TelemetryState increment
 measured on the gradients against the aggregate (control/telemetry.py
-`measure`). Fault injection and the trace recorder are later slices and
-raise NotImplementedError (wire.not_ported).
+`measure`). `compressed_allreduce(recorder=)` (obs.trace.TraceRecorder)
+marks the executed pipeline's spans. Fault injection is a later slice
+and raises NotImplementedError (wire.not_ported).
 
 `aggregate_simulated_workers` is the paper-repro harness: worker
 gradients carry a leading worker axis n on one device. The per-worker
@@ -298,16 +299,24 @@ def _wire_post(cfg, group, codec):
     # allgather: the packed uint8 payload rows cross the collective; the
     # gathered rows go once decoded and each bucket's decoded rows once
     # averaged
-    def post_buckets(payloads, xhats, ukeys_list, dims):
+    def post_buckets(payloads, xhats, ukeys_list, dims, mark=None):
+        """`mark(dep, stage)` (a recorder's grouped mark) stamps the
+        gathers and the mean as collective, the decode as decode."""
         n = dist.get_world_size(group)
         rows = [all_gather(p, group).reshape(-1, p.shape[-1])
                 for p in payloads]
+        if mark is not None:
+            mark(rows, "collective")
         decs = codec.decode_rows_buckets(rows, dims)
         del rows
+        if mark is not None:
+            mark(decs, "decode")
         out = []
         for i, (ukeys, d) in enumerate(zip(ukeys_list, dims)):
             dec, decs[i] = decs[i], None
             out.append(master(worker_mean(dec.reshape(n, -1, d)), ukeys))
+        if mark is not None:
+            mark(out, "collective")
         return out
 
     def post(payload, xhat, ukeys, d):
@@ -327,12 +336,10 @@ def _executor(plan: UnitPlan, cfg: CompressionConfig,
     return plan
 
 
-def _not_ported_hooks(faults, recorder=None) -> None:
-    """The reference's hooks that later slices port raise here."""
+def _not_ported_hooks(faults) -> None:
+    """The reference's hook that a later slice ports raises here."""
     if faults is not None:
         raise not_ported("fault injection (faults=)", "item 7 (resil/)")
-    if recorder is not None:
-        raise not_ported("the trace recorder (recorder=)", "item 6 (obs/)")
 
 
 def compressed_allreduce(grads, stacked, cfg: CompressionConfig, group,
@@ -359,8 +366,11 @@ def compressed_allreduce(grads, stacked, cfg: CompressionConfig, group,
     `telemetry_plan` the result is (grads_hat, new_ef_state,
     telemetry_inc): this rank's gradients measured against the aggregate
     (the caller takes the mean over the group); `telemetry_entire_model`
-    False skips the flat counterfactual leg. The reference's recorder /
-    faults hooks are later slices."""
+    False skips the flat counterfactual leg. `recorder` (duck-typed,
+    obs.trace.TraceRecorder) threads through to the executor: dispatch or
+    message spans, or the wire path's stage spans (the streaming
+    collectives' hop spans too); the dense strategy records nothing, as in
+    the reference. The reference's faults hook is a later slice."""
     agg, ef = _allreduce(grads, stacked, cfg, group, key, n_workers,
                          ef_state, plan, schedule, wire, recorder,
                          stream_chunk_bytes, faults, alive)
@@ -380,7 +390,7 @@ def _allreduce(grads, stacked, cfg, group, key, n_workers, ef_state, plan,
             f"strategy {cfg.strategy!r} is the streaming collective over "
             f"PACKED wire buffers — pass wire=True (the unpacked payload "
             f"records have no single buffer to ring-permute)")
-    _not_ported_hooks(faults, recorder)
+    _not_ported_hooks(faults)
     rank, n = dist.get_rank(group), dist.get_world_size(group)
     if n != n_workers:
         raise ValueError(f"n_workers={n_workers} but the group has {n} ranks")
@@ -429,7 +439,8 @@ def _allreduce(grads, stacked, cfg, group, key, n_workers, ef_state, plan,
         if cfg.strategy in STREAM_STRATEGIES:
             kw = dict(wire=codec, group=group, n_workers=n,
                       mode="ring" if cfg.strategy == "ring" else "rs",
-                      wire_key=wkey, chunk_bytes=stream_chunk_bytes)
+                      wire_key=wkey, chunk_bytes=stream_chunk_bytes,
+                      recorder=recorder)
             if cfg.error_feedback:
                 agg, ef, _bufs = sched.execute_streaming_with_state(
                     _master(cfg), grads, ef_state, key, **kw)
@@ -440,17 +451,19 @@ def _allreduce(grads, stacked, cfg, group, key, n_workers, ef_state, plan,
         post = _wire_post(cfg, group, codec)
         if cfg.error_feedback:
             agg, ef, _bufs = execute_schedule_wire_with_state(
-                sched, codec, grads, ef_state, key, post, wkey)
+                sched, codec, grads, ef_state, key, post, wkey,
+                recorder=recorder)
             return agg, ef
         agg, _bufs = execute_schedule_wire(
             sched, codec, grads, key, post, wkey,
-            decode_local=cfg.strategy == "simulated")
+            decode_local=cfg.strategy == "simulated", recorder=recorder)
         return agg, ef_state
 
     if cfg.error_feedback:
         fn = (_unit_simulated_ef if cfg.strategy == "simulated"
               else _unit_allgather_ef)(cfg, group, wkey)
-        return ex.execute_with_state(fn, grads, ef_state, key)
+        return ex.execute_with_state(fn, grads, ef_state, key,
+                                     recorder=recorder)
     if cfg.strategy == "simulated":
         fn = _unit_simulated(cfg, group, wkey)
     elif cfg.strategy == "allgather":
@@ -459,7 +472,7 @@ def _allreduce(grads, stacked, cfg, group, key, n_workers, ef_state, plan,
         fn = _unit_rs_compress_ag(cfg, group, wkey, rank, n)
     else:  # shared_random
         fn = _unit_shared_random(cfg, group)
-    return ex.execute(fn, grads, key), ef_state
+    return ex.execute(fn, grads, key, recorder=recorder), ef_state
 
 
 def aggregate_simulated_workers(worker_grads, stacked,

@@ -22,6 +22,7 @@ of the reference's jax.vmap over workers. A (2,) key runs one tree.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
 import functools
 import math
@@ -238,34 +239,71 @@ class UnitPlan:
         return out
 
     # ---- execution --------------------------------------------------------
-    def execute(self, fn: Callable, grads, key: torch.Tensor):
+    def execute(self, fn: Callable, grads, key: torch.Tensor, *,
+                recorder=None):
         """Map fn(x2d, keys2d) -> y2d over every bucket, one dispatch per
-        bucket. Returns a tree shaped/dtyped like `grads`."""
-        return self._execute(fn, grads, key, range(self.num_dispatches))
+        bucket. Returns a tree shaped/dtyped like `grads`. `recorder`
+        (duck-typed, obs.trace.TraceRecorder) marks each dispatch with a
+        scope and an end-of-stage stamp; None or a disabled recorder runs
+        the uninstrumented ops."""
+        return self._execute(fn, grads, key, self._dispatch_groups(),
+                             recorder)
 
     def execute_with_state(self, fn: Callable, grads, state,
-                           key: torch.Tensor):
+                           key: torch.Tensor, *, recorder=None):
         """Like execute, but fn(x2d, m2d, keys2d) -> (y2d, m2d_new) threads
         a same-shaped per-unit state (error-feedback memory)."""
         return self._execute_with_state(fn, grads, state, key,
-                                        range(self.num_dispatches))
+                                        self._dispatch_groups(), recorder)
 
-    def _execute(self, fn, grads, key, order):
-        """execute over the buckets in `order` (core/schedule.py passes its
-        message order; every bucket writes a disjoint region)."""
+    def _dispatch_groups(self):
+        return [(bi,) for bi in range(self.num_dispatches)]
+
+    def _span(self, kind: str, gi: int, group) -> Tuple[str, dict]:
+        """(scope name, mark keywords) of group `gi` (its bucket ids
+        `group`): a bare-plan dispatch or a schedule message."""
+        kw = dict(bucket_ids=group,
+                  dims=tuple(self.buckets[bi].dim for bi in group),
+                  n_units=sum(self.buckets[bi].n for bi in group))
+        if kind == "dispatch":
+            return f"repro/dispatch/b{gi}", dict(
+                stage="dispatch", cat="dispatch", label=f"dispatch b{gi}",
+                **kw)
+        return f"repro/msg{gi}", dict(stage="message", cat="message",
+                                      message=gi, **kw)
+
+    def _execute(self, fn, grads, key, groups, recorder=None,
+                 kind="dispatch"):
+        """execute over `groups` of bucket ids in order (core/schedule.py
+        passes its messages; every bucket writes a disjoint region); an
+        active recorder marks each group as a `kind` span."""
+        rec = _active(recorder)
         leaves, batched = self._inputs(grads, key)
         flat = self._flat(leaves) if self.needs_flat else None
         keys = self._keys(key, leaves[0].device)
         out_leaves = [None] * len(leaves)
         out_flat = self._new_flat(leaves) if flat is not None else None
-        for bi in order:
-            b = self.buckets[bi]
-            y = fn(self._gather_runs(leaves, flat, b),
-                   self._bucket_keys(keys, b))
-            self._scatter_runs(out_leaves, out_flat, b, y)
+        if rec is not None:
+            rec.begin(leaves[0], label="grads_ready")
+        for gi, group in enumerate(groups):
+            name, kw = (self._span(kind, gi, group) if rec is not None
+                        else ("", None))
+            ys = []
+            with _scope(rec, name):
+                for bi in group:
+                    b = self.buckets[bi]
+                    y = fn(self._gather_runs(leaves, flat, b),
+                           self._bucket_keys(keys, b))
+                    self._scatter_runs(out_leaves, out_flat, b, y)
+                    if rec is not None:
+                        ys.append(y)
+            if rec is not None:
+                rec.mark(ys, **kw)
         return self._assemble(out_leaves, out_flat, batched)
 
-    def _execute_with_state(self, fn, grads, state, key, order):
+    def _execute_with_state(self, fn, grads, state, key, groups,
+                            recorder=None, kind="dispatch"):
+        rec = _active(recorder)
         leaves, batched = self._inputs(grads, key)
         sleaves, _ = self._inputs(state, key)
         need = self.needs_flat
@@ -276,15 +314,39 @@ class UnitPlan:
         mout_leaves = [None] * len(leaves)
         out_flat = self._new_flat(leaves) if need else None
         mout_flat = self._new_flat(leaves) if need else None
-        for bi in order:
-            b = self.buckets[bi]
-            y, mn = fn(self._gather_runs(leaves, flat, b),
-                       self._gather_runs(sleaves, mflat, b),
-                       self._bucket_keys(keys, b))
-            self._scatter_runs(out_leaves, out_flat, b, y)
-            self._scatter_runs(mout_leaves, mout_flat, b, mn)
+        if rec is not None:
+            rec.begin(leaves[0], label="grads_ready")
+        for gi, group in enumerate(groups):
+            name, kw = (self._span(kind, gi, group) if rec is not None
+                        else ("", None))
+            ys = []
+            with _scope(rec, name):
+                for bi in group:
+                    b = self.buckets[bi]
+                    y, mn = fn(self._gather_runs(leaves, flat, b),
+                               self._gather_runs(sleaves, mflat, b),
+                               self._bucket_keys(keys, b))
+                    self._scatter_runs(out_leaves, out_flat, b, y)
+                    self._scatter_runs(mout_leaves, mout_flat, b, mn)
+                    if rec is not None:
+                        ys += [y, mn]
+            if rec is not None:
+                rec.mark(ys, **kw)
         return (self._assemble(out_leaves, out_flat, batched),
                 self._assemble(mout_leaves, mout_flat, batched))
+
+
+def _active(recorder):
+    """The duck-typed zero-overhead guard (obs.trace.active, which core
+    does not import): the recorder when enabled, else None."""
+    if recorder is not None and getattr(recorder, "enabled", False):
+        return recorder
+    return None
+
+
+def _scope(rec, name: str):
+    """The recorder's profiler scope, or nothing without a recorder."""
+    return rec.scope(name) if rec is not None else contextlib.nullcontext()
 
 
 # ==========================================================================

@@ -60,19 +60,24 @@ class CommSchedule:
         return (f"CommSchedule(fuse<{fb}B: {self.num_messages} messages "
                 f"over {self.plan.num_dispatches} dispatches [{ms}])")
 
-    def _bucket_order(self) -> List[int]:
-        return [bi for m in self.messages for bi in m.bucket_ids]
+    def _groups(self) -> List[Tuple[int, ...]]:
+        return [m.bucket_ids for m in self.messages]
 
-    def execute(self, fn: Callable, grads, key):
+    def execute(self, fn: Callable, grads, key, *, recorder=None):
         """UnitPlan.execute, streamed in message order: identical
         per-bucket dispatches and keys, bit-identical output. (Real wire
-        buffers: core.wire.execute_schedule_wire.)"""
-        return self.plan._execute(fn, grads, key, self._bucket_order())
+        buffers: core.wire.execute_schedule_wire.) `recorder` (duck-typed,
+        obs.trace.TraceRecorder) marks one span per message; None or a
+        disabled recorder runs the uninstrumented ops."""
+        return self.plan._execute(fn, grads, key, self._groups(), recorder,
+                                  "message")
 
-    def execute_with_state(self, fn: Callable, grads, state, key):
+    def execute_with_state(self, fn: Callable, grads, state, key, *,
+                           recorder=None):
         """UnitPlan.execute_with_state, streamed in message order."""
         return self.plan._execute_with_state(fn, grads, state, key,
-                                             self._bucket_order())
+                                             self._groups(), recorder,
+                                             "message")
 
     def execute_streaming(self, post, grads, key, *, wire, group=None,
                           n_workers: int, mode: str = "ring", wire_key=None,

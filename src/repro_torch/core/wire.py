@@ -63,8 +63,13 @@ slotted (n, n_units, d) accumulators (WireCodec.decode_accumulate*).
 Under mode="rs" each rank encodes only the shard it owns after a dense
 reduce-scatter (shard_message_layouts).
 
-Fault injection and the trace recorder are later slices (ROADMAP.md
-Queue 1, items 7 and 6): `faults=` and `recorder=` raise not_ported.
+`recorder=` (duck-typed, obs.trace.TraceRecorder) marks the stages of
+both pipelines: compress, pack, decode, collective and ef_update per
+message on the serialized path (the step's grouped encode and decode as
+one interval shared by the messages they cover, obs.trace.mark_group),
+and the stream's per-message stages plus a hop span per ring hop. None
+or a disabled recorder runs the uninstrumented ops. Fault injection is
+a later slice (ROADMAP.md Queue 1, item 7): `faults=` raises not_ported.
 """
 from __future__ import annotations
 
@@ -84,6 +89,7 @@ from repro_torch.core.compressors import (QSGD, AdaptiveThreshold,
                                           NaturalCompression, RandomK,
                                           SignSGD, TernGrad, ThresholdV,
                                           TopK, _k_of, index_bits, pow2)
+from repro_torch.core.plan import _active, _scope
 from repro_torch.kernels import ops
 
 
@@ -983,7 +989,7 @@ def _bucket_region(buf: torch.Tensor, layout: MessageLayout, j: int,
 def execute_schedule_wire(schedule, codec: WireCodec, grads, key,
                           post: Optional[Callable] = None,
                           wire_key: Optional[Callable] = None,
-                          decode_local: bool = True):
+                          decode_local: bool = True, recorder=None):
     """Stream a CommSchedule through REAL wire buffers: encode every bucket
     of the schedule (codec.encode_buckets: one pack launch for all of them
     under every codec but the dense one, which launches none), then per
@@ -998,27 +1004,45 @@ def execute_schedule_wire(schedule, codec: WireCodec, grads, key,
     (e.g. the rank fold) before encode. `decode_local=False` skips the
     local decode for a post that does not read xhat (it gets None).
     Returns (tree, buffers); sum(8 * buf.numel()) is the measured wire
-    truth."""
+    truth. `recorder` marks compress (the grouped encode, one interval
+    for every message), pack (each message's buffer), decode (the grouped
+    decode) and, with a post, collective; the allgather post.buckets
+    marks its gathers and the mean as collective and its decode as
+    decode."""
     return _execute_wire(schedule, codec, grads, None, key, post, wire_key,
-                         decode_local)
+                         decode_local, recorder)
 
 
 def execute_schedule_wire_with_state(schedule, codec: WireCodec, grads,
                                      state, key,
                                      post: Optional[Callable] = None,
-                                     wire_key: Optional[Callable] = None):
+                                     wire_key: Optional[Callable] = None,
+                                     recorder=None):
     """Error-feedback twin of execute_schedule_wire: per unit e = x + m is
     encoded, and decode threads through codec.decode_ef_buckets (the
     unpack launches of decode_buckets plus the caller-side residual
     m' = e - xhat per bucket); post, if given, maps (payload, xhat, keys,
     d) to the output, or its bucket-list form the whole step, as in
-    execute_schedule_wire. Returns (tree, m_tree, buffers)."""
+    execute_schedule_wire. Returns (tree, m_tree, buffers). `recorder`
+    marks the stages as in execute_schedule_wire, plus ef_update once the
+    residuals are written."""
     return _execute_wire(schedule, codec, grads, state, key, post, wire_key,
-                         True)
+                         True, recorder)
+
+
+def _message_attrs(schedule, codec) -> list:
+    """Each message's span attribution (TraceRecorder.mark keywords)."""
+    plan = schedule.plan
+    return [dict(message=mi, bucket_ids=msg.bucket_ids,
+                 dims=tuple(plan.buckets[bi].dim for bi in msg.bucket_ids),
+                 n_units=sum(plan.buckets[bi].n for bi in msg.bucket_ids),
+                 codec=codec.name)
+            for mi, msg in enumerate(schedule.messages)]
 
 
 def _execute_wire(schedule, codec, grads, state, key, post, wire_key,
-                  decode_local):
+                  decode_local, recorder=None):
+    rec = _active(recorder)
     plan = schedule.plan
     leaves, batched = plan._inputs(grads, key)
     B = leaves[0].shape[0]
@@ -1028,6 +1052,10 @@ def _execute_wire(schedule, codec, grads, state, key, post, wire_key,
         sleaves, _ = plan._inputs(state, key)
         mflat = plan._flat(sleaves) if need else None
     keys = plan._keys(key, leaves[0].device)
+    step = f"repro/msg0-{schedule.num_messages - 1}"   # grouped scopes
+    if rec is not None:
+        rec.begin(leaves[0], label="grads_ready")
+        attrs = _message_attrs(schedule, codec)
     # every bucket's encode input and key for the whole schedule, encoded
     # in one call (one pack launch under the grouped codecs), then message
     # by message
@@ -1039,16 +1067,23 @@ def _execute_wire(schedule, codec, grads, state, key, post, wire_key,
               for e, b in zip(es, bs)]
     kbs = [plan._bucket_keys(keys, b) for b in bs]
     wkbs = kbs if wire_key is None else [wire_key(k) for k in kbs]
-    pays = codec.encode_buckets(es, wkbs)
+    with _scope(rec, step + "/compress"):
+        pays = codec.encode_buckets(es, wkbs)
+    if rec is not None:
+        rec.mark_group(pays, "compress", attrs)
     if state is None:   # only the EF decode reads the encode inputs again
         es = flat = None
     # every message buffer, then every bucket's region of its buffer; each
     # payload is let go once it is in its buffer
     buffers, regions = [], []
-    for msg, layout in zip(schedule.messages,
-                           message_layouts(schedule, codec)):
-        mats = [pays.pop(0).reshape(B, -1) for _ in msg.bucket_ids]
-        buf = _message_buffer(layout, mats)
+    for mi, (msg, layout) in enumerate(zip(schedule.messages,
+                                           message_layouts(schedule,
+                                                           codec))):
+        with _scope(rec, f"repro/msg{mi}/pack"):
+            mats = [pays.pop(0).reshape(B, -1) for _ in msg.bucket_ids]
+            buf = _message_buffer(layout, mats)
+        if rec is not None:
+            rec.mark(buf, "pack", **attrs[mi])
         del mats
         buffers.append(buf if batched else buf[0])
         regions += [_bucket_region(buf, layout, j, plan.buckets[bi].n)
@@ -1060,22 +1095,40 @@ def _execute_wire(schedule, codec, grads, state, key, post, wire_key,
     dims = [b.dim for b in bs]
     if state is not None:
         mout = ([None] * len(leaves), plan._new_flat(leaves) if need else None)
-        dec = codec.decode_ef_buckets(regions, es, dims)
+        with _scope(rec, step + "/decode"):
+            dec = codec.decode_ef_buckets(regions, es, dims)
+        if rec is not None:
+            rec.mark_group([x for x, _ in dec], "decode", attrs)
         for b, (_, mn) in zip(bs, dec):
             plan._scatter_runs(*mout, b, mn)
+        if rec is not None:
+            rec.mark_group([mn for _, mn in dec], "ef_update", attrs)
         xhats = [x for x, _ in dec]
         del dec
     elif decode_local:
-        xhats = codec.decode_buckets(regions, dims)
+        with _scope(rec, step + "/decode"):
+            xhats = codec.decode_buckets(regions, dims)
+        if rec is not None:
+            rec.mark_group(xhats, "decode", attrs)
     else:
         xhats = [None] * len(bs)
     if post is None:
         ys = xhats
     elif hasattr(post, "buckets"):        # the whole step in one call
-        ys = post.buckets(regions, xhats, kbs, dims)
-    else:
-        ys = [post(pay, xhat, kb, d)
-              for pay, xhat, kb, d in zip(regions, xhats, kbs, dims)]
+        mark = None if rec is None else (
+            lambda dep, stage: rec.mark_group(dep, stage, attrs))
+        with _scope(rec, step + "/collective"):
+            ys = post.buckets(regions, xhats, kbs, dims, mark=mark)
+    else:                                 # each message's own collective
+        ys, i = [], 0
+        for mi, msg in enumerate(schedule.messages):
+            j = i + len(msg.bucket_ids)
+            with _scope(rec, f"repro/msg{mi}/collective"):
+                ys += [post(regions[k], xhats[k], kbs[k], dims[k])
+                       for k in range(i, j)]
+            if rec is not None:
+                rec.mark(ys[i:j], "collective", **attrs[mi])
+            i = j
     ys, xhats = list(ys), None
     out = ([None] * len(leaves), plan._new_flat(leaves) if need else None)
     for i, b in enumerate(bs):
@@ -1126,11 +1179,15 @@ def execute_schedule_stream(schedule, codec: WireCodec,
     decode(own payload), local to the encode leg, as on the allgather wire
     path. `wire_key` maps unit keys before encode (the rank fold). Returns
     (tree, buffers), or (tree, m_tree, buffers) with state; the buffers
-    are this rank's own messages."""
+    are this rank's own messages.
+
+    `recorder` marks each message's compress and pack (its own encode
+    launch and buffer), decode (the own payload) and ef_update, a hop
+    span per ring hop (n_messages x (n - 1) a step) and collective (the
+    mean and post); None or a disabled recorder runs the uninstrumented
+    ops."""
     if faults is not None:
         raise not_ported("fault injection (faults=)", "item 7 (resil/)")
-    if recorder is not None:
-        raise not_ported("the trace recorder (recorder=)", "item 6 (obs/)")
     if mode not in ("ring", "rs"):
         raise ValueError(f"mode must be 'ring' or 'rs', got {mode!r}")
     rank, n = dist.get_rank(group), dist.get_world_size(group)
@@ -1154,8 +1211,12 @@ def execute_schedule_stream(schedule, codec: WireCodec,
     layouts = (message_layouts(schedule, codec) if mode == "ring"
                else shard_message_layouts(schedule, codec, n))
     buffers = []
+    rec = _active(recorder)
+    if rec is not None:
+        rec.begin(leaves[0], label="grads_ready")
+        attrs = _message_attrs(schedule, codec)
 
-    def prepare(msg, layout):
+    def prepare(mi, msg, layout):
         bs = [plan.buckets[bi] for bi in msg.bucket_ids]
         xs = [plan._gather_runs(leaves, flat, b) for b in bs]
         ms = ([plan._gather_runs(sleaves, mflat, b) for b in bs]
@@ -1184,36 +1245,62 @@ def execute_schedule_stream(schedule, codec: WireCodec,
                     mps.append(None)
         kbs = [plan._bucket_keys(keys, b) for b in bs]
         wkbs = kbs if wire_key is None else [wire_key(k) for k in kbs]
-        mats = codec.encode_buckets(es, wkbs)
-        buf = _message_buffer(layout, [p.reshape(1, -1) for p in mats])[0]
+        with _scope(rec, f"repro/msg{mi}/compress"):
+            mats = codec.encode_buckets(es, wkbs)
+        if rec is not None:
+            rec.mark(mats, "compress", **attrs[mi])
+        with _scope(rec, f"repro/msg{mi}/pack"):
+            buf = _message_buffer(layout, [p.reshape(1, -1)
+                                           for p in mats])[0]
+        if rec is not None:
+            rec.mark(buf, "pack", **attrs[mi])
         buffers.append(buf)
-        return dict(bs=bs, layout=layout, buf=buf, es=es, mps=mps,
+        return dict(mi=mi, bs=bs, layout=layout, buf=buf, es=es, mps=mps,
                     dims=dims, kbs=kbs)
 
     def finish(p):
-        bs, layout, buf, dims = p["bs"], p["layout"], p["buf"], p["dims"]
-        accs = [torch.zeros((n, b.n, d), dtype=torch.float32, device=dev)
-                for b, d in zip(bs, dims)]
-        own = [_bucket_region(buf[None], layout, j, b.n)
-               for j, b in enumerate(bs)]
-        if with_state:
-            accs, mns = codec.decode_accumulate_ef_buckets(own, p["es"], accs,
-                                                           rank, dims)
-        else:
-            accs = codec.decode_accumulate_buckets(own, accs, rank, dims)
+        mi, bs, layout, buf, dims = (p["mi"], p["bs"], p["layout"], p["buf"],
+                                     p["dims"])
+        with _scope(rec, f"repro/msg{mi}/decode"):
+            accs = [torch.zeros((n, b.n, d), dtype=torch.float32,
+                                device=dev) for b, d in zip(bs, dims)]
+            own = [_bucket_region(buf[None], layout, j, b.n)
+                   for j, b in enumerate(bs)]
+            if with_state:
+                accs, mns = codec.decode_accumulate_ef_buckets(
+                    own, p["es"], accs, rank, dims)
+            else:
+                accs = codec.decode_accumulate_buckets(own, accs, rank, dims)
+        if rec is not None:
+            rec.mark(accs, "decode", **attrs[mi])
+            if with_state:
+                rec.mark(mns, "ef_update", **attrs[mi])
         chunks = layout_chunks(layout, chunk_bytes)
         cur = [buf[s:e] for _, s, e in chunks]
         for h in range(1, n):
             src = (rank - h) % n
-            for c, (run, start, _) in enumerate(chunks):
-                cur[c] = collectives.ring_shift(cur[c], group)
-                pays = [cur[c][layout.offsets[j] - start:
-                               layout.offsets[j] - start
-                               + bs[j].n * layout.unit_nbytes[j]]
-                        .reshape(bs[j].n, layout.unit_nbytes[j])
-                        for j in run]
-                codec.decode_accumulate_buckets(
-                    pays, [accs[j] for j in run], src, [dims[j] for j in run])
+            with _scope(rec, f"repro/msg{mi}/hop{h}"):
+                for c, (run, start, _) in enumerate(chunks):
+                    cur[c] = collectives.ring_shift(cur[c], group)
+                    pays = [cur[c][layout.offsets[j] - start:
+                                   layout.offsets[j] - start
+                                   + bs[j].n * layout.unit_nbytes[j]]
+                            .reshape(bs[j].n, layout.unit_nbytes[j])
+                            for j in run]
+                    codec.decode_accumulate_buckets(
+                        pays, [accs[j] for j in run], src,
+                        [dims[j] for j in run])
+            if rec is not None:
+                rec.mark([cur[-1], accs[-1]], "hop", label=f"hop{h} m{mi}",
+                         **attrs[mi])
+        with _scope(rec, f"repro/msg{mi}/collective"):
+            _collect(p, bs, dims, accs, mns if with_state else None)
+        if rec is not None:
+            rec.mark(accs, "collective", **attrs[mi])
+
+    def _collect(p, bs, dims, accs, mns):
+        """The mean (ring) or the gathered shards (rs), post, and the
+        scatter of each bucket's output and residual."""
         for j, b in enumerate(bs):
             if mode == "ring":
                 xm = collectives.rank_sum(accs[j]) / n
@@ -1234,8 +1321,8 @@ def execute_schedule_stream(schedule, codec: WireCodec,
     # the depth-2 pipeline: message m + 1's compute leg is issued before
     # message m's collective leg
     pending = None
-    for msg, layout in zip(schedule.messages, layouts):
-        prepared = prepare(msg, layout)
+    for mi, (msg, layout) in enumerate(zip(schedule.messages, layouts)):
+        prepared = prepare(mi, msg, layout)
         if pending is not None:
             finish(pending)
         pending = prepared

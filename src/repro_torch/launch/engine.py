@@ -32,8 +32,13 @@ before they accumulate, so every rank holds the same state.
 
 `init_state` gives each rank its shards (`shard_tree`); `global_tree`
 gathers a sharded state back to the reference's global arrays (the
-checkpoint file's content). The pod axis is ROADMAP Queue 1 item 9; the
-trace recorder and metrics registry (tracer=, metrics=) are item 6.
+checkpoint file's content). The pod axis is ROADMAP Queue 1 item 9.
+
+`build_train_step(tracer=, metrics=)` instruments the step (the
+reference's engine.py:323-475): the tracer (obs.trace.TraceRecorder)
+marks the aggregation pipeline's spans each step (the caller finalizes
+it after the step), and the registry (obs.metrics.MetricsRegistry)
+counts the build and gets the plan's and schedule's static gauges.
 """
 from __future__ import annotations
 
@@ -59,7 +64,6 @@ from repro_torch.models.model import Model
 from repro_torch.models.params import shard, torch_dtype, unshard
 from repro_torch.optim import OptConfig, apply_updates, init_opt_state
 
-ITEM_6 = "item 6 (obs/)"
 # batch entries whose first dim is the batch
 _BATCH_ROWS = ("tokens", "targets", "patch_embeds", "frames", "token")
 
@@ -311,9 +315,9 @@ class Engine:
         backward-ordered message schedule (bit-identical numerics);
         wire=True packs real message buffers. The FSDP leaves arrive
         compressed, scattered and averaged by the hook; Q_M runs on them
-        layer-wise with fold_in(key, 0x5EED), the same on every rank."""
-        if recorder is not None:
-            raise not_ported("the trace recorder (recorder=)", ITEM_6)
+        layer-wise with fold_in(key, 0x5EED), the same on every rank.
+        `recorder` (duck-typed, obs.trace.TraceRecorder) marks the
+        compressed aggregation's spans."""
         comp = comp if comp is not None else self.comp
         fsdp_mask = self.model.fsdp_mask()
         g_fsdp, g_rest = _partition(grads, fsdp_mask)
@@ -326,7 +330,8 @@ class Engine:
         rest_plan, fsdp_plan = self.comm_plans(comp)
         agg, _ = compressed_allreduce(g_rest, s_rest, comp, self.group, key,
                                       self.dp_size, plan=rest_plan,
-                                      schedule=schedule, wire=wire)
+                                      schedule=schedule, wire=wire,
+                                      recorder=recorder)
         if fsdp_plan is not None:
             g_fsdp = fsdp_plan.execute(comp.qm.sim, g_fsdp,
                                        R.fold_in(key, 0x5EED))
@@ -369,10 +374,16 @@ class Engine:
         The engine threads no error-feedback state (nor does the
         reference's): a config with error_feedback raises the reference's
         ValueError here, where the reference raises it at its first step.
+
+        `tracer` (duck-typed, obs.trace.TraceRecorder) marks the gradient
+        aggregation's per-message and per-stage spans every step (call
+        tracer.finalize_step after the step; on the card its marks are
+        CUDA events and finalize synchronizes once). `metrics`
+        (obs.metrics.MetricsRegistry) gets `engine/step_builds` and the
+        static gauges `engine/n_dispatches`, `n_units`, `n_messages`,
+        `fusion_bytes` and `wire_bits_per_step` at build time. Both None
+        (or disabled) leave the step's ops untouched.
         """
-        if tracer is not None or metrics is not None:
-            raise not_ported("the trace recorder and metrics registry "
-                             "(tracer=, metrics=)", ITEM_6)
         comp_eff = comp if comp is not None else self.comp
         if collective is not None:
             if collective not in ("allgather", "ring"):
@@ -394,8 +405,34 @@ class Engine:
         if lr_schedule is None:
             lr = torch.tensor(self.opt.lr, dtype=torch.float32)
             lr_schedule = (lambda s: lr)
+        if metrics is not None and getattr(metrics, "enabled", False):
+            self._build_gauges(metrics, comp_eff, schedule)
         return TrainStep(self, lr_schedule, comp_eff, schedule, wire,
-                         step_guard, telemetry, telemetry_entire_model)
+                         step_guard, telemetry, telemetry_entire_model,
+                         tracer)
+
+    def _build_gauges(self, metrics, comp, schedule) -> None:
+        """The reference's engine.py:450-475: a build counter and the
+        static plan / schedule gauges of the step being built."""
+        metrics.inc("engine/step_builds")
+        rest_plan, _ = self.comm_plans(comp)
+        if rest_plan is None:
+            return
+        metrics.gauge("engine/n_dispatches", rest_plan.num_dispatches)
+        metrics.gauge("engine/n_units", rest_plan.num_units)
+        # an explicit schedule wins; else the config's fusion_bytes
+        if schedule is None and comp is not None and \
+                comp.fusion_bytes is not None:
+            from repro_torch.core.schedule import build_schedule
+            schedule = build_schedule(rest_plan, comp.fusion_bytes)
+        if schedule is not None:
+            metrics.gauge("engine/n_messages", schedule.num_messages)
+            metrics.gauge("engine/fusion_bytes",
+                          min(schedule.fusion_bytes, 2.0 ** 63))
+        if comp is not None and comp.strategy != "dense":
+            from repro_torch.control.telemetry import payload_bits_per_step
+            metrics.gauge("engine/wire_bits_per_step",
+                          payload_bits_per_step(rest_plan, comp.qw))
 
     # ---- inference steps ----------------------------------------------------
     def build_prefill(self, shape: InputShape, cache_len: int = None):
@@ -510,8 +547,9 @@ class TrainStep:
 
     def __init__(self, engine: Engine, lr_schedule, comp, schedule,
                  wire: bool, step_guard: bool, telemetry: bool = False,
-                 telemetry_entire_model: bool = True):
+                 telemetry_entire_model: bool = True, tracer=None):
         self.engine = engine
+        self.tracer = tracer
         self.lr_schedule = lr_schedule
         self.comp = comp
         self.schedule = schedule
@@ -571,7 +609,8 @@ class TrainStep:
         self.engine.bind()
         return self.engine._aggregate_grads(grads, self.key(step), self.comp,
                                             schedule=self.schedule,
-                                            wire=self.wire)
+                                            wire=self.wire,
+                                            recorder=self.tracer)
 
     def update(self, params, opt_state, loss, agg, step):
         """The optimizer update (dropped on every rank when step_guard

@@ -3,7 +3,9 @@ launch/mesh.py, whose mesh axes become torch.distributed process groups).
 
 `run_ranks(fn, n, backend=..., device=...)` starts n processes with
 torch.multiprocessing (start method spawn: CUDA cannot fork), opens the
-process group in each over TCP on a free localhost port, runs
+process group in each over a TCP store that the calling process hosts
+on a localhost port the OS assigns and holds for the run (so runs
+started side by side never share a rendezvous), runs
 `fn(rank, n, device, *args)` there, tears the group down and returns the
 ranks' results in rank order. The caller names the backend and the
 device; nothing is chosen for it:
@@ -40,7 +42,6 @@ import datetime
 import itertools
 import math
 import queue
-import socket
 import time
 import traceback
 from typing import Dict, Optional, Tuple
@@ -53,13 +54,6 @@ from repro_torch.core.wire import not_ported
 
 BACKENDS = ("gloo", "nccl")
 ITEM_9 = "item 9 (the pod axis and the production mesh)"
-
-
-def _free_port() -> int:
-    """A TCP port on localhost that was free a moment ago."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _rank_device(backend: str, device: str, rank: int) -> torch.device:
@@ -91,9 +85,11 @@ def _rank_main(fn, rank, n, backend, device, port, args, out, pg_timeout):
         dev = _rank_device(backend, device, rank)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        dist.init_process_group(
-            backend, init_method=f"tcp://127.0.0.1:{port}", world_size=n,
-            rank=rank, timeout=datetime.timedelta(seconds=pg_timeout))
+        limit = datetime.timedelta(seconds=pg_timeout)
+        store = dist.TCPStore("127.0.0.1", port, is_master=False,
+                              timeout=limit)
+        dist.init_process_group(backend, store=store, world_size=n,
+                                rank=rank, timeout=limit)
         try:
             result = fn(rank, n, dev, *args)
         finally:
@@ -110,10 +106,13 @@ def run_ranks(fn, n: int, *, backend: str, device: str, args=(),
     _check(backend, device, n)
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
-    port = _free_port()
+    # the rendezvous: this process listens for the whole run
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True,
+                          wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=timeout))
     procs = [ctx.Process(target=_rank_main,
-                         args=(fn, r, n, backend, device, port, args, out,
-                               timeout), daemon=True)
+                         args=(fn, r, n, backend, device, store.port, args,
+                               out, timeout), daemon=True)
              for r in range(n)]
     for p in procs:
         p.start()

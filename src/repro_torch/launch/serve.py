@@ -16,6 +16,13 @@ draws); a VLM gets patch embeddings, an audio model frame embeddings,
 from the same key. Times are CUDA events on the card (host clocks on the
 CPU).
 
+--trace-out writes rank 0's spans (obs.TraceRecorder host spans: one
+prefill, one decode a step, each closed over finished work: on the card
+an event pair whose end is synchronized) as Chrome trace-event JSON;
+--metrics-out rank 0's counters serve/requests and serve/tokens, the
+gauge serve/prefill_us and the histogram serve/decode_us (one sample a
+decode step, from a CUDA event pair on the card) as JSON lines.
+
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
       --smoke --device cpu --batch 8 --prompt 24 --gen 16
@@ -25,6 +32,7 @@ Example:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 from typing import Dict, Optional
@@ -34,9 +42,8 @@ import torch
 from repro_torch import random as R
 from repro_torch import resolve_device
 from repro_torch.configs.registry import ARCH_NAMES, get_config, get_smoke
-from repro_torch.core.wire import not_ported
 from repro_torch.data import frames_stub, patches_stub
-from repro_torch.launch.engine import ITEM_6, Engine
+from repro_torch.launch.engine import Engine
 from repro_torch.launch.mesh import make_host_mesh, run_ranks
 from repro_torch.models import DistConfig, InputShape, Model
 
@@ -79,12 +86,24 @@ class _Clock:
             self.t0 = time.perf_counter()
 
     def stop(self) -> float:
+        self.mark()
         if self.cuda:
-            t1 = torch.cuda.Event(enable_timing=True)
-            t1.record()
-            t1.synchronize()
-            return self.t0.elapsed_time(t1)
-        return (time.perf_counter() - self.t0) * 1e3
+            self.t1.synchronize()
+        return self.elapsed_ms()
+
+    def mark(self) -> None:
+        """The end of the timed work, not waited for."""
+        if self.cuda:
+            self.t1 = torch.cuda.Event(enable_timing=True)
+            self.t1.record()
+        else:
+            self.t1 = time.perf_counter()
+
+    def elapsed_ms(self) -> float:
+        """start() to mark(), once the work before mark() has finished."""
+        if self.cuda:
+            return self.t0.elapsed_time(self.t1)
+        return (self.t1 - self.t0) * 1e3
 
 
 def make_batch(cfg, batch: int, prompt: int, seed: int, dev) -> Dict:
@@ -106,7 +125,8 @@ def make_batch(cfg, batch: int, prompt: int, seed: int, dev) -> Dict:
 def generate(model: Model, params, batch: Dict, gen: int,
              forced: Optional[torch.Tensor] = None,
              keep_logits: bool = False,
-             engine: Optional[Engine] = None) -> Dict:
+             engine: Optional[Engine] = None, recorder=None,
+             metrics=None) -> Dict:
     """Prefill, then gen - 1 greedy decode steps (gen tokens in all). The
     first decode request is round-tripped through pack_request /
     unpack_request outside the timed region, as the reference does.
@@ -117,7 +137,12 @@ def generate(model: Model, params, batch: Dict, gen: int,
     the data ranks. -> {"tokens" (B_rows, gen), "prefill_ms", "decode_ms"
     (the gen - 1 steps), "decode_ms_per_token", "tokens_per_s" (batch x
     decode steps over decode time), "cache", and "logits" (one (B_rows, V)
-    tensor a step) when keep_logits}."""
+    tensor a step) when keep_logits}. `recorder` (obs.trace.TraceRecorder)
+    gets a "prefill" host span and a "decode" one a step, each closed over
+    finished work; `metrics` (obs.metrics.MetricsRegistry) a
+    serve/decode_us sample a decode step, timed by its own CUDA event
+    pair on the card (read after the loop's clock has synchronized), and
+    serve/tokens, serve/requests and serve/prefill_us."""
     dev = batch["tokens"].device
     Bsz, S = batch["tokens"].shape
     clock = _Clock(dev)
@@ -140,11 +165,19 @@ def generate(model: Model, params, batch: Dict, gen: int,
         def decode(token, pos, cache):
             return srv(params, {"token": token, "pos": pos}, cache)
         rows, full = engine.gather_rows, engine.gather_logits
+    rec = recorder if getattr(recorder, "enabled", False) else None
+    metrics = metrics if getattr(metrics, "enabled", False) else None
+
+    def span(name, **kw):
+        return (rec.host_span(name, **kw) if rec is not None
+                else contextlib.nullcontext())
+    step_clocks = []
     with torch.inference_mode():
         clock.start()
-        logits, cache = prefill(batch)
-        logits = full(logits)
-        tok = torch.argmax(logits, -1).to(torch.int32)
+        with span("prefill", batch=Bsz, prompt=S):
+            logits, cache = prefill(batch)
+            logits = full(logits)
+            tok = torch.argmax(logits, -1).to(torch.int32)
         prefill_ms = clock.stop()
         out, kept = [tok], [logits] if keep_logits else []
         nxt = forced[:, 0] if forced is not None else rows(tok)
@@ -152,15 +185,29 @@ def generate(model: Model, params, batch: Dict, gen: int,
         token, pos = req["token"], int(req["pos"])
         clock.start()
         for t in range(gen - 1):
-            logits, cache = decode(token, pos, cache)
-            logits = full(logits)
-            tok = torch.argmax(logits, -1).to(torch.int32)
+            if metrics is not None:
+                step_clocks.append(_Clock(dev))
+                step_clocks[-1].start()
+            with span("decode", pos=pos):
+                logits, cache = decode(token, pos, cache)
+                logits = full(logits)
+                tok = torch.argmax(logits, -1).to(torch.int32)
+            if metrics is not None:
+                step_clocks[-1].mark()
             out.append(tok)
             if keep_logits:
                 kept.append(logits)
             token = forced[:, t + 1] if forced is not None else rows(tok)
             pos += 1
         decode_ms = clock.stop()
+    if rec is not None:
+        rec.finalize_step(0)
+    if metrics is not None:
+        for c in step_clocks:
+            metrics.observe("serve/decode_us", c.elapsed_ms() * 1e3)
+            metrics.inc("serve/tokens", Bsz)
+        metrics.inc("serve/requests")
+        metrics.gauge("serve/prefill_us", prefill_ms * 1e3)
     steps = max(1, gen - 1)
     Bsz = out[0].shape[0]
     res = {"tokens": torch.stack(out, dim=1), "prefill_ms": prefill_ms,
@@ -188,9 +235,35 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend", default=None, choices=["gloo", "nccl"],
                     help="across ranks: nccl on the card (one card a "
                          "rank), gloo on the CPU or to share a card")
-    ap.add_argument("--trace-out", default="")
-    ap.add_argument("--metrics-out", default="")
+    ap.add_argument("--trace-out", default="",
+                    help="record rank 0's prefill / decode spans "
+                         "(obs.TraceRecorder) and write a Chrome "
+                         "trace-event JSON (open in Perfetto)")
+    ap.add_argument("--metrics-out", default="",
+                    help="write rank 0's serve counters (requests, "
+                         "tokens) and the per-token decode-latency "
+                         "histogram as JSON lines (obs.MetricsRegistry)")
     return ap
+
+
+def _obs(args, dev):
+    """(recorder, registry) that --trace-out / --metrics-out ask for."""
+    if not (args.trace_out or args.metrics_out):
+        return None, None
+    from repro_torch.obs import MetricsRegistry, TraceRecorder
+    return (TraceRecorder() if args.trace_out else None,
+            MetricsRegistry() if args.metrics_out else None)
+
+
+def _export(rec, reg, cfg, args, say) -> None:
+    if reg is not None:
+        reg.record(arch=cfg.name, batch=args.batch)
+    if rec is not None:
+        rec.export(args.trace_out)
+        say(f"trace -> {args.trace_out} ({len(rec.events)} events)")
+    if reg is not None:
+        n_lines = reg.export_jsonl(args.metrics_out)
+        say(f"metrics -> {args.metrics_out} ({n_lines} lines)")
 
 
 def _report(cfg, res, args, mesh, say) -> None:
@@ -212,9 +285,11 @@ def _serve_rank(rank, n, dev, args, collect):
     params = eng.shard_tree(eng.model.init(R.key(args.seed), device=dev),
                             eng.model.param_pspecs())
     batch = make_batch(cfg, args.batch, args.prompt, args.seed, dev)
+    rec, reg = _obs(args, dev) if rank == 0 else (None, None)
     res = generate(eng.model, params, batch, args.gen, engine=eng,
-                   keep_logits=collect)
+                   keep_logits=collect, recorder=rec, metrics=reg)
     _report(cfg, res, args, f"mesh={dict(eng.sizes)}", say)
+    _export(rec, reg, cfg, args, say)
     out = {k: res[k] for k in ("prefill_ms", "decode_ms_per_token",
                                 "tokens_per_s")}
     out["tokens"] = res["tokens"].cpu().numpy()
@@ -229,8 +304,6 @@ def run(argv=None):
     """Parse `argv` and serve: on one device -> None; across data x model
     ranks -> every rank's result in rank order."""
     args = parser().parse_args(argv)
-    if args.trace_out or args.metrics_out:
-        raise not_ported("serve --trace-out / --metrics-out", ITEM_6)
     if args.data * args.model > 1:
         resolve_device(args.device)
         backend = args.backend or ("nccl" if args.device == "cuda"
@@ -243,8 +316,11 @@ def run(argv=None):
     model = Model(cfg, DistConfig())
     params = model.init(R.key(args.seed), device=dev)
     batch = make_batch(cfg, args.batch, args.prompt, args.seed, dev)
-    res = generate(model, params, batch, args.gen)
+    rec, reg = _obs(args, dev)
+    res = generate(model, params, batch, args.gen, recorder=rec,
+                   metrics=reg)
     _report(cfg, res, args, f"device={dev}", print)
+    _export(rec, reg, cfg, args, print)
     return None
 
 

@@ -29,9 +29,13 @@ adaptive controller (control/: engine_controller on every rank; the
 telemetry is averaged over the ranks, so every rank takes the same
 decisions) with --replan-every, --variance-budget, --bit-budget and
 --alpha-us; --telemetry-out writes its report from rank 0 (and implies
---policy static). --trace-out / --metrics-out are ROADMAP Queue 1 item
-6; they raise. --error-feedback raises the reference's ValueError (the
-engine threads no EF state).
+--policy static). --trace-out writes rank 0's trace (obs.TraceRecorder:
+a span per message and stage of every step, CUDA events on the card, the
+step finalized after it) as Chrome trace-event JSON, --metrics-out rank
+0's counters and gauges (obs.MetricsRegistry: engine/*, controller/*,
+train/steps and, under --step-guard, resil/steps_skipped) as JSON lines;
+the other ranks record nothing. --error-feedback raises the reference's
+ValueError (the engine threads no EF state).
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-405b \\
@@ -64,9 +68,8 @@ from repro_torch.configs.registry import ARCH_NAMES, get_config, get_smoke
 from repro_torch.control import POLICIES, engine_controller, make_policy
 from repro_torch.convert import tree_leaves
 from repro_torch.core import CompressionConfig, Granularity, make_compressor
-from repro_torch.core.wire import not_ported
 from repro_torch.data import frames_stub, lm_batches, patches_stub
-from repro_torch.launch.engine import ITEM_6, Engine
+from repro_torch.launch.engine import Engine
 from repro_torch.launch.mesh import make_host_mesh, run_ranks
 from repro_torch.optim import OptConfig, piecewise_linear
 
@@ -74,7 +77,7 @@ from repro_torch.optim import OptConfig, piecewise_linear
 RANK_TIMEOUT = 3600.0
 
 
-def build_controller(args, eng, sched):
+def build_controller(args, eng, sched, *, metrics=None, tracer=None):
     """The reference's controller over the engine: the policy by name with
     its CLI knobs; telemetry is collected when the policy reads it or
     --telemetry-out asks for the report."""
@@ -89,7 +92,8 @@ def build_controller(args, eng, sched):
     collect = policy.needs_telemetry or bool(args.telemetry_out)
     return engine_controller(eng, policy, lr_schedule=sched,
                              replan_every=args.replan_every,
-                             collect_telemetry=collect)
+                             collect_telemetry=collect,
+                             metrics=metrics, tracer=tracer)
 
 
 def build_compression(args) -> CompressionConfig:
@@ -160,8 +164,16 @@ def parser() -> argparse.ArgumentParser:
                          "summaries and switch log as JSON from rank 0 "
                          "(implies --policy static when no policy is "
                          "given)")
-    ap.add_argument("--trace-out", default="", help="(item 6: raises)")
-    ap.add_argument("--metrics-out", default="", help="(item 6: raises)")
+    ap.add_argument("--trace-out", default="",
+                    help="record rank 0's per-step / per-message spans "
+                         "with the obs.TraceRecorder and write a Chrome "
+                         "trace-event JSON (open in Perfetto). Each step "
+                         "is finalized after it (one synchronize on the "
+                         "card)")
+    ap.add_argument("--metrics-out", default="",
+                    help="write rank 0's engine / controller / train "
+                         "counters and gauges as JSON lines "
+                         "(obs.MetricsRegistry)")
     ap.add_argument("--variance-budget", type=float, default=0.1,
                     help="variance_budget policy: max relative "
                          "compression error per bucket")
@@ -197,8 +209,6 @@ def _parse(argv):
         ap.error("--resume restores from --ckpt-dir; set it")
     if args.telemetry_out and not args.policy:
         args.policy = "static"  # telemetry collection needs the controller
-    if args.trace_out or args.metrics_out:
-        raise not_ported("train --trace-out / --metrics-out", ITEM_6)
     comp = build_compression(args)
     if args.wire and args.policy:
         ap.error("--wire is the static engine path; drop --policy")
@@ -287,10 +297,16 @@ def _train_rank(rank, n, dev, args, collect):
     eng = _engine(args, dev)
     cfg = eng.cfg
     sched = piecewise_linear(args.lr, args.steps, max(1, args.steps // 10))
-    ctrl = build_controller(args, eng, sched) if args.policy else None
+    rec = reg = None
+    if rank == 0 and (args.trace_out or args.metrics_out):
+        from repro_torch.obs import MetricsRegistry, TraceRecorder
+        rec = TraceRecorder(pid=rank) if args.trace_out else None
+        reg = MetricsRegistry() if args.metrics_out else None
+    ctrl = (build_controller(args, eng, sched, metrics=reg, tracer=rec)
+            if args.policy else None)
     step_fn = None if ctrl else eng.build_train_step(
-        sched, wire=args.wire, collective=args.collective,
-        step_guard=args.step_guard)
+        sched, wire=args.wire, collective=args.collective, tracer=rec,
+        metrics=reg, step_guard=args.step_guard)
     params, opt_state = eng.init_state(args.seed)
     start = 0
     if args.resume:
@@ -328,6 +344,13 @@ def _train_rank(rank, n, dev, args, collect):
                 say(f"step {i:5d} replan -> {ctrl.decision.describe()}")
         else:
             params, opt_state, m = step_fn(params, opt_state, batch, i)
+        if rec is not None:
+            rec.finalize_step(i)
+        if reg is not None:
+            reg.inc("train/steps")
+            if args.step_guard:
+                reg.inc("resil/steps_skipped", float(m["skipped"]))
+            reg.record(step=i)
         loss = float(m["loss"])
         losses.append(loss)
         skipped += int(m.get("skipped", 0.0))
@@ -348,6 +371,18 @@ def _train_rank(rank, n, dev, args, collect):
             ctrl.export(args.telemetry_out)
             say(f"telemetry -> {args.telemetry_out}")
         report = {"decisions": decisions, "report": ctrl.report()}
+    if rec is not None:
+        from repro_torch.obs import format_step_summary
+        if rec.steps:
+            say(format_step_summary(rec.steps[-1]))
+        rec.export(args.trace_out)
+        say(f"trace -> {args.trace_out} "
+            f"({len(rec.events)} events, {len(rec.steps)} steps)")
+    if reg is not None:
+        if ctrl is not None:
+            ctrl.check_retraces()  # stamp the final retrace gauge
+        n_lines = reg.export_jsonl(args.metrics_out)
+        say(f"metrics -> {args.metrics_out} ({n_lines} lines)")
     out = {"losses": losses, "start": start, "skipped": skipped,
            "launches": kernels.launch_counts(),
            "wire": collectives.counts("all_gather"), "controller": report}

@@ -862,8 +862,14 @@ def test_comm_plans_are_one_object_for_the_step_and_its_callers():
 
 
 def test_unported_paths_raise_with_their_queue_item(monkeypatch):
-    """What the port leaves out names its ROADMAP item: the recorder and
-    metrics (6), a pod axis and the production mesh (9). A model axis and
+    """What the port leaves out names its ROADMAP item: a pod axis and the
+    production mesh (9). The recorder and metrics (item 6) are ported:
+    build_train_step(tracer=, metrics=) builds a step that carries the
+    tracer, with the reference's build counter and static gauges from
+    the engine's plan (engine.py:450-475), engine_controller threads both
+    and counts its builds, and the CLI parses --trace-out / --metrics-out
+    (tests/test_torch_obs.py runs them against the reference). A model
+    axis and
     FSDP (item 4b) build: their meshes, engines and the CLI's --model
     engine are checked here, and they run in tests/test_torch_tp.py and
     test_torch_fsdp.py. Telemetry and the controller's flags (item 5) are
@@ -898,15 +904,33 @@ def test_unported_paths_raise_with_their_queue_item(monkeypatch):
     assert mplan is eng.measurement_plan()
     assert mplan.granularity.kind == "layerwise"
     assert mplan.unit_dims == eng.comm_plans()[0].unit_dims
-    with item("6"):
-        eng.build_train_step(tracer=object())
-    with item("6"):
-        eng.build_train_step(metrics=object())
+    from repro_torch.control import StaticPolicy, engine_controller
+    from repro_torch.control.telemetry import payload_bits_per_step
+    from repro_torch.core import CompressionConfig, make_compressor
+    from repro_torch.obs import MetricsRegistry, TraceRecorder
+    rec, reg = TraceRecorder(), MetricsRegistry()
+    comp = CompressionConfig(qw=make_compressor("qsgd", levels=16))
+    assert eng.build_train_step(comp=comp, tracer=rec,
+                                metrics=reg).tracer is rec
+    plan = eng.comm_plans(comp)[0]
+    assert reg.counters == {"engine/step_builds": 1.0}
+    assert reg.gauges == {
+        "engine/n_dispatches": plan.num_dispatches,
+        "engine/n_units": plan.num_units,
+        "engine/wire_bits_per_step": payload_bits_per_step(plan, comp.qw)}
+    reg = MetricsRegistry()
+    eng.build_train_step(comp=comp, schedule=0.0, metrics=reg)
+    assert reg.gauges["engine/n_messages"] == plan.num_dispatches
+    assert reg.gauges["engine/fusion_bytes"] == 0.0
+    reg = MetricsRegistry()
+    ctrl = engine_controller(eng, StaticPolicy(), metrics=reg, tracer=rec)
+    assert ctrl.step_fn().tracer is rec
+    assert reg.counters == {"controller/builds": 1.0,
+                            "engine/step_builds": 1.0}
     base = ["--arch", "llama3-405b", "--smoke", "--device", "cpu"]
-    for extra, it in ((["--trace-out", "t.json"], "6"),
-                      (["--metrics-out", "m.jsonl"], "6")):
-        with item(it):
-            train.run(base + extra)
+    args = train._parse(base + ["--trace-out", "t.json", "--metrics-out",
+                                "m.jsonl"])
+    assert (args.trace_out, args.metrics_out) == ("t.json", "m.jsonl")
     tp = train._engine(train._parse(base + ["--model", "2", "--data", "2"]),
                        "cpu")
     assert tp.sizes == {"data": 2, "model": 2} and tp.tp_size == 2

@@ -459,23 +459,36 @@ def test_params_from_jax_bf16_bitwise():
 
 # ---- what this slice leaves out ------------------------------------------------
 
-def test_unported_paths_name_their_queue_item():
+def test_unported_paths_name_their_queue_item(tmp_path):
     """The sharded configs construct (tensor, FSDP and sequence
     parallelism run in tests/test_torch_tp.py and test_torch_fsdp.py, the
     serve CLI across ranks in test_torch_tp.py); an fsdp axis outside the
     dp axes is the reference's ValueError; serve's trace and metrics
-    outputs are item 6."""
+    outputs (item 6, ported) write the reference's structure: one prefill
+    span and gen - 1 decode spans, gen - 1 serve/decode_us samples
+    (tests/test_torch_obs.py holds the rest)."""
+    import json
     from repro_torch.launch import serve
+    from repro_torch.obs import read_jsonl, validate_chrome_trace
     from repro_torch.models import DistConfig
     for kw in ({"tp": "model"}, {"fsdp": "data", "dp": ("data",)},
                {"sp": True}):
         assert all(getattr(DistConfig(**kw), k) == v for k, v in kw.items())
     with pytest.raises(ValueError, match="last dp axis"):
         DistConfig(fsdp="data")
-    base = ["--arch", "phi4-mini-3.8b", "--smoke", "--device", "cpu"]
-    for extra in (["--trace-out", "t.json"], ["--metrics-out", "m.jsonl"]):
-        with pytest.raises(NotImplementedError, match=r"Queue 1, item 6 \("):
-            serve.main(base + extra)
+    base = ["--arch", "phi4-mini-3.8b", "--smoke", "--device", "cpu",
+            "--batch", "2", "--prompt", "8", "--gen", "3"]
+    trace, metrics = tmp_path / "t.json", tmp_path / "m.jsonl"
+    for extra in (["--trace-out", str(trace)],
+                  ["--metrics-out", str(metrics)]):
+        assert serve.main(base + extra) == 0
+    obj = json.loads(trace.read_text())
+    assert validate_chrome_trace(obj)
+    assert [e["name"] for e in obj["traceEvents"] if e["ph"] == "X"] == \
+        ["prefill", "decode", "decode"]
+    (line,) = read_jsonl(str(metrics))
+    assert line["histograms"]["serve/decode_us"]["count"] == 2
+    assert line["counters"] == {"serve/requests": 1.0, "serve/tokens": 4.0}
 
 
 def test_model_refuses_cuda_without_a_card():

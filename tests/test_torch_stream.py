@@ -261,6 +261,36 @@ def _pipeline_events(rank: int, n: int):
     return log
 
 
+def _traced(rank: int, n: int):
+    """One QSGD ring and one rs_stream step (per-bucket messages, 64-byte
+    chunks) with a TraceRecorder: its message and hop span counts, the
+    hop spans' args, and whether the output equals the untraced step's."""
+    from repro_torch import random as R
+    from repro_torch.core import compressed_allreduce, stacked_mask
+    from repro_torch.obs import TraceRecorder
+    out = {}
+    for strategy in ("ring", "rs_stream"):
+        case = Case("qsgd", strategy, 0.0, 64.0)
+        x, _ = inputs(case, n)
+        t = unflatten(torch.from_numpy(x[rank, 0]), case.tree)
+        sm = stacked_mask(t)
+        cfg = port_config(case, strategy)
+        kw = dict(wire=True, stream_chunk_bytes=case.chunk)
+        bare, _ = compressed_allreduce(t, sm, cfg, None, R.key(KEY_SEED), n,
+                                       **kw)
+        rec = TraceRecorder(pid=rank)
+        got, _ = compressed_allreduce(t, sm, cfg, None, R.key(KEY_SEED), n,
+                                      recorder=rec, **kw)
+        s = rec.finalize_step(0)
+        out[strategy] = {
+            "message_spans": s["n_message_spans"],
+            "hops": [e["args"] for e in rec.span_events(step=0)
+                     if e["args"]["stage"] == "hop"],
+            "same": np.array_equal(flatten(got, case.tree),
+                                   flatten(bare, case.tree))}
+    return out
+
+
 def rank_main(rank, n, dev):
     torch.set_num_threads(1)
     out = {}
@@ -269,6 +299,7 @@ def rank_main(rank, n, dev):
         if case.strategy == "ring":
             out[case.name + "/allgather"] = _run(case, "allgather", rank, n)
     out["pipeline"] = _pipeline_events(rank, n)
+    out["traced"] = _traced(rank, n)
     return out
 
 
@@ -372,7 +403,12 @@ def test_chunk_runs():
 
 def test_stream_errors_before_any_collective():
     """The reference's ValueErrors: a streaming strategy without wire=True,
-    an unknown executor mode; and the hooks later slices port."""
+    an unknown executor mode; the fault hook a later slice ports. The
+    recorder hook is ported: it reaches the group check, and on 2 ranks
+    (test_stream_across_ranks's spawn) a traced ring / rs_stream step
+    gives the reference's structure — a message span a message, n_messages
+    x (n - 1) hop spans with their message's attribution — and the
+    untraced step's output."""
     from repro_torch import random as R
     from repro_torch.core import (build_plan, build_schedule,
                                   compressed_allreduce, stacked_mask,
@@ -392,11 +428,26 @@ def test_stream_errors_before_any_collective():
     with pytest.raises(ValueError, match="mode must be"):
         execute_schedule_stream(sched, codec, None, g, None, R.key(0),
                                 n_workers=2, mode="tree")
-    for kw, queue in (({"faults": object()}, r"item 7 \("),
-                      ({"recorder": object()}, r"item 6 \(")):
+    for kw, queue in (({"faults": object()}, r"item 7 \("),):
         with pytest.raises(NotImplementedError, match=f"Queue 1, {queue}"):
             execute_schedule_stream(sched, codec, None, g, None, R.key(0),
                                     n_workers=2, **kw)
+    from repro_torch.obs import TraceRecorder
+    with pytest.raises(ValueError, match="Default process group"):
+        execute_schedule_stream(sched, codec, None, g, None, R.key(0),
+                                n_workers=2, recorder=TraceRecorder())
+    n = 2
+    for strategy in ("ring", "rs_stream"):
+        sched, _ = _layouts(Case("qsgd", strategy, 0.0, 64.0), n)
+        for r in rank_results(n):
+            tr = r["traced"][strategy]
+            assert tr["same"], strategy
+            assert tr["message_spans"] == sched.num_messages
+            assert len(tr["hops"]) == sched.num_messages * (n - 1)
+            for mi, a in enumerate(tr["hops"]):
+                msg = sched.messages[mi]
+                assert (a["message"], tuple(a["bucket_ids"]),
+                        a["codec"]) == (mi, msg.bucket_ids, codec.name)
 
 
 # ---- the reference under shard_map (one subprocess a world size) -----------

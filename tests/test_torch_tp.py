@@ -11,7 +11,8 @@ The module's first test starts, together:
   - two run_ranks spawns of 4 gloo ranks, each in a thread: (A) the five
     families' aggregated gradients (SP on and off) and the boundary ops
     on the model group; (B) the Engine's prefill and 2 decode steps, then
-    the serve CLI's and the two examples' rank functions;
+    the serve CLI's and the two examples' rank functions, then phi4
+    smoke's TP decode with a padding head;
 and each gradient test jits the reference's single-device gradients of
 its family in the main process, so no test waits for every run.
 
@@ -28,6 +29,13 @@ of max |logit|; the two decode steps, each chained from the port's own
 cache, within 1e-4; every rank's cache leaves within 1e-5 of their max
 of the reference's shard of the cache (slot_pos bitwise). The boundary
 ops are held to their definitions bitwise.
+
+TP decode with padding heads (ROADMAP Queue 3 item 18): phi4 smoke has 3
+heads, so at model 2 each rank holds 2 and one is padding. On the
+reference's params (its Engine's init_state(0), padded shapes) the
+port's decode step is finite and within item 18's decode bound (1e-4 of
+max |logit|) of its own one-device decode on the same params without the
+padding head; the reference's TP decode on the same inputs is NaN.
 
 This module imports no jax at module level: the spawned ranks import it.
 """
@@ -92,7 +100,7 @@ def reference_serve_main(out_dir: str) -> None:
         return _jit(f, *a, **k)
     out = pathlib.Path(out_dir)
     with reference("repro.launch.engine", "repro.models.config",
-                   "repro.optim") as ref:
+                   "repro.optim", "repro.configs.registry") as ref:
         jax.jit = jit
         E = sys.modules["repro.launch.engine"]
         C = sys.modules["repro.models.config"]
@@ -118,6 +126,20 @@ def reference_serve_main(out_dir: str) -> None:
             res[f"decode{i}"] = np.asarray(logits)
             res.update({f"cache{i + 1}/{k}": v
                         for k, v in _flat(cache).items()})
+        # phi4 smoke at model 2: 3 heads, one padding head on rank m = 1
+        cfg = ref.registry.get_smoke("phi4-mini-3.8b")
+        peng = E.Engine(cfg, mesh)
+        pparams, _ = peng.init_state(0)
+        _save(out / "params_phi4.npz", _flat(pparams))
+        pre = peng.build_prefill(C.InputShape("p", SEQ, SERVE_B, "prefill"),
+                                 cache_len=SERVE_CACHE)
+        srv = peng.build_serve_step(C.InputShape("d", SERVE_CACHE, SERVE_B,
+                                                 "decode"))
+        logits, cache = pre(pparams, {"tokens": tokens})
+        res["phi4_prefill"] = np.asarray(logits)
+        logits, _ = srv(pparams, {"token": jnp.asarray(
+            inputs["tokens"][:SERVE_B, 0]), "pos": jnp.int32(SEQ)}, cache)
+        res["phi4_decode"] = np.asarray(logits)
     np.savez(out / "serve_ref.npz", **res)
 
 
@@ -315,6 +337,25 @@ def _serve_case(mesh, dev, inputs, params):
     return out
 
 
+def _pad_heads_case(mesh, dev, inputs, params):
+    """phi4 smoke (3 heads) on the (2, 2) mesh from the reference's params:
+    prefill, then one decode step -> this rank's gathered logits."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models import InputShape
+    eng = Engine(get_smoke("phi4-mini-3.8b"), mesh, device=dev)
+    local = eng.shard_tree(_params(params), eng.model.param_pspecs())
+    tokens = torch.from_numpy(inputs["tokens"][:SERVE_B].astype(np.int64))
+    pre = eng.build_prefill(InputShape("p", SEQ, SERVE_B, "prefill"),
+                            cache_len=SERVE_CACHE)
+    srv = eng.build_serve_step(InputShape("d", SERVE_CACHE, SERVE_B,
+                                          "decode"))
+    _, cache = pre(local, {"tokens": tokens})
+    logits, _ = srv(local, {"token": tokens[:, 0], "pos": SEQ}, cache)
+    return {"decode": eng.gather_logits(logits).numpy(),
+            "index": (mesh.axis_index("data"), mesh.axis_index("model"))}
+
+
 def _host_cache(cache) -> dict:
     return {k: v.cpu().numpy().copy() for k, v in cache.items()}
 
@@ -361,6 +402,9 @@ def serve_rank_main(rank, world, dev, inputs_path):
     out["train_example"] = train_lm_distributed._rank(rank, world, dev, ex)
     out["serve_example"] = serve_batched._rank(
         rank, world, dev, argparse.Namespace(gen=2, data=DATA, model=MODEL))
+    out["pad_heads"] = _pad_heads_case(
+        make_host_mesh(data=DATA, model=MODEL), dev, inputs,
+        _wait_npz(pathlib.Path(inputs_path).parent / "params_phi4.npz"))
     return out
 
 
@@ -608,3 +652,40 @@ def test_examples_run_across_ranks(tp_run):
     for r in ranks:
         assert r["serve_example"].shape == (SB.BATCH, 3)
         np.testing.assert_array_equal(r["serve_example"], want.numpy())
+
+
+def test_tp_decode_with_padding_heads(tp_run):
+    """ROADMAP Queue 3 item 18: phi4 smoke's 3 heads at model 2 (one
+    padding head). Every rank's rows of the port's TP decode step are
+    finite and within 1e-4 of max |logit| of the port's one-device
+    decode on the same params without the padding head; the reference's
+    TP decode of the same inputs is NaN (its split-KV gather of a kv head
+    past the last)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import DistConfig, Model
+    cfg = get_smoke("phi4-mini-3.8b")
+    ref = tp_run.serve_ref()
+    assert np.isnan(ref["phi4_decode"]).all(), \
+        "the reference's TP decode with a padding head is not NaN"
+    assert np.isfinite(ref["phi4_prefill"]).all()
+    flat = tp_run.file("params_phi4.npz")
+    hd = cfg.n_heads * cfg.d_head
+    assert flat["blocks/wq"].shape[-1] == 4 * cfg.d_head   # padded to 4
+    flat = dict(flat, **{"blocks/wq": flat["blocks/wq"][..., :hd],
+                         "blocks/wo": flat["blocks/wo"][:, :hd]})
+    model = Model(cfg, DistConfig())
+    tokens = torch.from_numpy(tp_run.file("inputs.npz")["tokens"][:SERVE_B]
+                              .astype(np.int64))
+    params = _params(flat)
+    _, cache = model.prefill(params, {"tokens": tokens},
+                             cache_len=SERVE_CACHE)
+    want, _ = model.decode_step(params, tokens[:, 0], SEQ, cache)
+    want = want[:, :cfg.vocab].numpy()
+    per = SERVE_B // DATA
+    for res in tp_run.ranks("serve"):
+        got = res["pad_heads"]
+        d, _ = got["index"]
+        g = got["decode"][:, :cfg.vocab]
+        w = want[d * per:(d + 1) * per]
+        assert np.isfinite(g).all()
+        assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max(), d

@@ -209,14 +209,21 @@ def test_natural_message_buffers_within_tolerance(gran):
 
 def test_unported_compressors_name_the_queue():
     """What the port leaves out names its queue: compressed_allreduce's
-    fault and recorder hooks; and a streaming strategy without wire=True
-    raises the reference's ValueError (all checked before any collective
-    runs, so no process group). The telemetry hook, ported, gets as far
-    as the process group."""
+    fault hook; and a streaming strategy without wire=True raises the
+    reference's ValueError (all checked before any collective runs, so no
+    process group). The telemetry and recorder hooks, ported, get as far
+    as the process group; the recorder on the wire path it threads to
+    (execute_schedule_wire) gives the reference's structure: a message
+    span a schedule message, each with compress, pack and decode stages
+    attributed to the codec (tests/test_torch_obs.py holds the args
+    against the reference's recorder)."""
     from repro_torch import random as R
+    from repro_torch.core import build_plan, build_schedule, stacked_mask
     from repro_torch.core.aggregation import (CompressionConfig,
                                               compressed_allreduce)
     from repro_torch.core.compressors import make_compressor
+    from repro_torch.core.wire import execute_schedule_wire, wire_codec
+    from repro_torch.obs import TraceRecorder
     g = {"w": torch.zeros(4)}
     for strategy in ("ring", "rs_stream"):
         cfg = CompressionConfig(qw=make_compressor("qsgd"),
@@ -224,18 +231,29 @@ def test_unported_compressors_name_the_queue():
         with pytest.raises(ValueError, match="pass wire=True"):
             compressed_allreduce(g, {"w": False}, cfg, None, R.key(0), 2)
     cfg = CompressionConfig(qw=make_compressor("qsgd"), strategy="allgather")
-    for kw, queue in (({"faults": object()}, r"item 7 \("),
-                      ({"recorder": object()}, r"item 6 \(")):
+    for kw, queue in (({"faults": object()}, r"item 7 \("),):
         with pytest.raises(NotImplementedError, match=f"Queue 1, {queue}"):
             compressed_allreduce(g, {"w": False}, cfg, None, R.key(0), 2,
                                  wire=True, **kw)
-    # telemetry_plan= (item 5) is ported: it reaches the collective, whose
-    # group check comes first (tests/test_torch_control.py runs it)
+    # telemetry_plan= (item 5) and recorder= (item 6) are ported: they
+    # reach the collective, whose group check comes first
+    # (tests/test_torch_control.py and test_torch_obs.py run them)
     from repro_torch.control import measurement_plan
-    with pytest.raises(ValueError, match="Default process group"):
-        compressed_allreduce(g, {"w": False}, cfg, None, R.key(0), 2,
-                             wire=True, telemetry_plan=measurement_plan(
-                                 g, {"w": False}))
+    for kw in ({"telemetry_plan": measurement_plan(g, {"w": False})},
+               {"recorder": TraceRecorder()}):
+        with pytest.raises(ValueError, match="Default process group"):
+            compressed_allreduce(g, {"w": False}, cfg, None, R.key(0), 2,
+                                 wire=True, **kw)
+    t = {"a": torch.ones(3, 5), "b": torch.ones(7)}
+    sched = build_schedule(build_plan(t, stacked_mask(t), cfg.granularity),
+                           0.0)
+    codec = wire_codec(cfg.qw)
+    rec = TraceRecorder()
+    execute_schedule_wire(sched, codec, t, R.key(0), recorder=rec)
+    assert rec.finalize_step(0)["n_message_spans"] == sched.num_messages
+    for e in rec.message_spans(0):
+        assert e["args"]["codec"] == codec.name
+        assert {"compress", "pack", "decode"} <= set(e["args"]["stages"])
 
 
 @pytest.mark.parametrize("gran", ["layerwise", "entire_model"])
