@@ -269,6 +269,23 @@ error:
      with --trace-out / --metrics-out at smoke width: one prefill and
      gen - 1 decode spans and decode_us samples, num_messages message
      spans a train step
+ 15. the simulated cluster and the resilience plane (sim/, resil/): (a)
+     aggregate_simulated_workers(wire=True) at phi4-mini's full width (2
+     layers, bf16, 2 workers), QSGD(16) layerwise with the integrity
+     word, under prob=1 bit flips with resend bitwise the clean aggregate
+     (every message detected and resent), without resend all detected and
+     the aggregate different, a prob-0 injector the clean launches and
+     bits; aggregate ms (CUDA events) and peak memory a run; (b) resnet9
+     through train_resilient (top-k 0.25 with EF, both granularities, 8
+     steps, deterministic algorithms): corrupted with resend bitwise
+     clean, resume bitwise, the step guard, the card's losses against a
+     CPU run, exact launches; (c) inside phase 7's spawn: the ring under
+     per-hop bit flips and dropped hops with resend bitwise the clean ring
+     with every hop detected, stale hops undetected with a different
+     aggregate, the allgather wire path under bit flips with resend
+     bitwise, each faulted call the clean call's launches; (d) one
+     campaign cell a reference scenario (repro_torch.scenarios, 3 steps)
+     and the identity scenarios bitwise the bare aggregate
 
 Phase 3 also holds the other compress-only kernels against their plain
 versions on the card at every bucket shape, the entire-model gradient and
@@ -300,8 +317,8 @@ chiprun_out/chip_smoke.json. The last line is {"ok": true, "device":
 wire kernels, the main-path runs of phase 4 plus the multi-rank phase 7
 summed over its ranks plus phase 9(b) plus phase 11 summed over its
 ranks plus phase 12 plus phase 13 summed over its ranks plus phase 14
-(its (c) summed over phase 7's ranks), and for the compress-only kernels
-the runs of phase 8.
+(its (c) summed over phase 7's ranks) plus phase 15 (its (c) summed over
+phase 7's ranks), and for the compress-only kernels the runs of phase 8.
 """
 from __future__ import annotations
 
@@ -4660,6 +4677,347 @@ def obs_phase(dev, streams):
              "streams": streams, "cli": cli}, launches)
 
 
+# ---- phase 15: the simulated cluster and the resilience plane ---------------
+
+# 15(a): the faulted full-width aggregate runs in this order (the last two
+# again for the step times); each is one aggregate_simulated_workers call of
+# QSGD(16) layerwise on 2 workers: phi4-mini's 5 layerwise buckets at 2
+# layers (<= MAX_BUCKETS) encode in 1 qsgd_pack and decode in 1 qsgd_unpack
+# launch,
+# and a fault injector without error feedback adds no launch (the received
+# regions go through the same one decode), so 15(a) counts 6 qsgd_pack and
+# 6 qsgd_unpack launches
+RESIL_RUNS = ("clean", "resend", "no_resend", "prob0", "clean", "resend")
+RESIL_WORKERS = 2
+# 15(b): the faults leg's cell (resnet9, top-k 0.25 with EF, integrity),
+# RESIL_STEPS steps a run, the first RESIL_CPU_STEPS also on the CPU
+RESIL_STEPS, RESIL_CPU_STEPS, RESIL_KILL = 8, 3, 4
+# 15(d): one campaign cell a reference scenario
+SCEN_STEPS = 3
+
+
+def resil_launches_b(steps: int) -> dict:
+    """15(b)'s exact launches. A top-k EF wire step of resnet9 (11
+    layerwise buckets or 1 entire-model bucket) packs its index legs in 1
+    fields_pack and unpacks them in 1 fields_unpack; under an injector
+    that touches bytes the receiver's regions decode in 1 more
+    fields_unpack (the residual stays the clean decode's). Runs: clean
+    and faulted (resend) at each granularity (steps each), the resume
+    pair (k steps, then steps - k, faulted, whatever k), the guard pair (1
+    clean step, then 2 with the second poisoned): packs 4 steps + steps +
+    3 and unpacks 2 steps (clean) + 4 steps (faulted) + 2 steps (resume,
+    faulted) + 3."""
+    return {"fields_pack": 5 * steps + 3, "fields_unpack": 8 * steps + 3}
+
+
+def _tree_equal(a, b) -> bool:
+    import torch
+    from repro_torch.convert import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                  tree_leaves(b)))
+
+
+def resil_full_width(dev):
+    """15(a): aggregate_simulated_workers(wire=True) at phi4-mini's full
+    width (2 layers, bf16; two param draws as the 2 workers' gradients),
+    QSGD(16) layerwise with the integrity word: under prob=1 bit flips with
+    resend the aggregate is bitwise the faults=None one and every message
+    is detected and resent (2 x n_messages); without resend every message
+    is detected and the aggregate differs; a prob=0 injector runs the
+    clean call's launches and bits. Aggregate ms from CUDA events (the
+    allocator's cache kept between runs), peak memory a run -> (record,
+    launches)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch import random as R
+    from repro_torch.convert import tree_leaves, tree_map
+    from repro_torch.core import (CompressionConfig, Granularity,
+                                  aggregate_simulated_workers, build_plan,
+                                  build_schedule)
+    from repro_torch.core.compressors import QSGD
+    from repro_torch.models import DistConfig, Model
+    from repro_torch.resil import FaultInjector
+    from repro_torch.sim import CorruptionSpec
+    _free_card()
+    cfg = lm_full_width()
+    model = Model(cfg, DistConfig())
+    draws = [model.init(R.key(150 + w), device=dev)
+             for w in range(RESIL_WORKERS)]
+    wg = tree_map(lambda *xs: torch.stack(xs), *draws)
+    del draws
+    sm = model.stacked()
+    comp = CompressionConfig(qw=QSGD(levels=MAIN_LEVELS),
+                             granularity=Granularity("layerwise"),
+                             integrity=True)
+    one = tree_map(lambda x: torch.empty(x.shape[1:], dtype=x.dtype,
+                                         device="meta"), wg)
+    plan = build_plan(one, sm, comp.granularity)
+    n_msgs = build_schedule(plan, 0.0).num_messages
+    params = sum(x[0].numel() for x in tree_leaves(wg))
+    key = R.key(15)
+    specs = {"clean": None,
+             "resend": (CorruptionSpec(prob=1.0, seed=3), True),
+             "no_resend": (CorruptionSpec(prob=1.0, seed=3), False),
+             "prob0": (CorruptionSpec(prob=0.0), True)}
+    runs, launches, ref = [], {}, None
+    for name in RESIL_RUNS:
+        spec = specs[name]
+        inj = None if spec is None else FaultInjector(spec[0],
+                                                      resend=spec[1])
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = kernels.launch_counts()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize(dev)
+        e0.record()
+        out = aggregate_simulated_workers(wg, sm, comp, key, wire=True,
+                                          faults=inj)
+        e1.record()
+        torch.cuda.synchronize(dev)
+        got = _launched(before)
+        check(got == {"qsgd_pack": 1, "qsgd_unpack": 1},
+              f"15(a) {name}: launches {got}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        rec = {"run": name, "ms": e0.elapsed_time(e1),
+               "peak_bytes": torch.cuda.max_memory_allocated(dev),
+               "launches": got}
+        if inj is not None:
+            info = {k: int(v) for k, v in out[-1].items()}
+            rec["info"] = info
+            if name in ("resend", "no_resend"):
+                want = RESIL_WORKERS * n_msgs
+                check(info["messages"] == info["corrupt_detected"] == want
+                      and info["resends"] == (want if spec[1] else 0),
+                      f"15(a) {name}: counters {info}, want {want} "
+                      f"messages all detected")
+            else:
+                check(info == {"messages": 0, "corrupt_detected": 0,
+                               "resends": 0}, f"15(a) prob0: {info}")
+        if ref is None:
+            ref = out[0]
+        else:
+            same = _tree_equal(out[0], ref)
+            rec["bitwise_clean"] = same
+            check(same == (name != "no_resend"),
+                  f"15(a) {name}: aggregate "
+                  f"{'differs from' if not same else 'equals'} the clean "
+                  f"one")
+        del out
+        runs.append(rec)
+    del ref, wg
+    _free_card()
+    return ({"params": params, "buckets": len(plan.buckets),
+             "messages": n_msgs, "workers": RESIL_WORKERS, "runs": runs},
+            launches)
+
+
+def resil_resnet9(dev):
+    """15(b): train_resilient on the faults leg's cell (resnet9, top-k 0.25
+    with EF and the integrity word, both granularities, RESIL_STEPS steps)
+    under deterministic algorithms, TF32 off: heavy receive corruption
+    (prob 0.5, 2 bit flips) with resend is bitwise the clean trajectory
+    (losses, params, EF); train RESIL_STEPS == train RESIL_KILL, resume,
+    train the rest, leaf for leaf; a non-finite grad_hook step leaves
+    params and EF as they were; the clean layerwise run's first
+    RESIL_CPU_STEPS losses within Queue 3 item 2 (1e-2 relative) of the
+    CPU's run of the same cell -> (record, launches)."""
+    import tempfile
+    import torch
+    from repro_torch import kernels
+    from repro_torch.convert import tree_map
+    from repro_torch.faults import LR, _cnn_comp
+    from repro_torch.resil import RecoveryConfig, train_resilient
+    from repro_torch.scenarios import _CnnRunner
+    from repro_torch.sim import CorruptionSpec, Scenario
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    clean = Scenario(name="clean", n_workers=4)
+    bad = Scenario(name="corrupt", n_workers=4,
+                   corruption=CorruptionSpec(prob=0.5, n_bits=2, seed=21))
+    before = kernels.launch_counts()
+    out = {}
+
+    def train(device, scen, gran, steps, **kw):
+        t0 = time.perf_counter()
+        r = train_resilient(_CnnRunner(device), scen, _cnn_comp(gran),
+                            steps=steps, lr=LR, seed=17, **kw)
+        r["seconds"] = time.perf_counter() - t0
+        return r
+    try:
+        runs = {}
+        for gran in ("layerwise", "entire_model"):
+            c = train(dev, clean, gran, RESIL_STEPS,
+                      recovery=RecoveryConfig(resend=False))
+            f = train(dev, bad, gran, RESIL_STEPS,
+                      recovery=RecoveryConfig(resend=True))
+            det = f["counters"]["resil/corrupt_detected"]
+            check(det > 0 and f["counters"]["resil/resends"] == det,
+                  f"15(b) {gran}: counters {f['counters']}")
+            check(f["losses"] == c["losses"] and _tree_equal(
+                f["params"], c["params"]) and _tree_equal(f["ef"], c["ef"]),
+                f"15(b) {gran}: the faulted run with resend is not bitwise "
+                f"the clean run")
+            runs[gran] = (c, f)
+            out[gran] = {"losses": c["losses"], "detected": det,
+                         "clean_seconds": c["seconds"],
+                         "faulted_seconds": f["seconds"]}
+        full = runs["layerwise"][1]
+        with tempfile.TemporaryDirectory() as d:
+            train(dev, bad, "layerwise", RESIL_KILL, ckpt_dir=d,
+                  ckpt_every=RESIL_KILL)
+            res = train(dev, bad, "layerwise", RESIL_STEPS, ckpt_dir=d,
+                        ckpt_every=RESIL_KILL, resume=True)
+        check(_tree_equal(res["params"], full["params"])
+              and _tree_equal(res["ef"], full["ef"])
+              and res["losses"] == full["losses"][RESIL_KILL:]
+              and res["counters"] == full["counters"],
+              "15(b) resume: not bitwise the uninterrupted run")
+        calls = []
+
+        def poison(wg, key):
+            calls.append(1)
+            return tree_map(lambda g: torch.full_like(g, torch.nan)
+                            if len(calls) == 2 else g, wg)
+        one = train(dev, clean, "layerwise", 1)
+        guard = train(dev, clean, "layerwise", 2, grad_hook=poison)
+        check(guard["counters"]["resil/steps_skipped"] == 1
+              and _tree_equal(guard["params"], one["params"])
+              and _tree_equal(guard["ef"], one["ef"]),
+              "15(b) step guard: params or EF moved on a skipped step")
+        launches = _launched(before)
+        want = resil_launches_b(RESIL_STEPS)
+        check(launches == want, f"15(b): launches {launches} != {want}")
+        cpu = train("cpu", clean, "layerwise", RESIL_CPU_STEPS,
+                    recovery=RecoveryConfig(resend=False))
+        card = runs["layerwise"][0]["losses"][:RESIL_CPU_STEPS]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu["losses"]))
+        check(rel <= 1e-2, f"15(b): card losses {card} vs CPU "
+              f"{cpu['losses']} ({rel:.2e} relative)")
+        out.update({"resume_seconds": res["seconds"], "cpu_losses":
+                    cpu["losses"], "cpu_rel_err": rel,
+                    "cpu_seconds": cpu["seconds"]})
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    return out, launches
+
+
+def resil_campaign(dev):
+    """15(d): one campaign cell a reference scenario (resnet9, top-k 0.25
+    with EF, layerwise, SCEN_STEPS steps; repro_torch.scenarios._run_cell):
+    finite losses and the exposed-comm accounting; and the identity
+    scenario (every knob present and neutral) and the clean one are
+    bitwise the bare aggregate_simulated_workers on resnet9 gradients of
+    4 workers, sim and wire, with EF -> record."""
+    from repro_torch import random as R
+    from repro_torch.configs.resnet9_cifar import RESNET9
+    from repro_torch.core import (CompressionConfig, Granularity,
+                                  aggregate_simulated_workers,
+                                  make_compressor, stacked_mask)
+    from repro_torch.data.synthetic import classification_batch
+    from repro_torch.experiment import worker_grads
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch import scenarios as S
+    from repro_torch.sim import (RescaleEvent, Scenario, SimCluster,
+                                 StragglerSpec, init_ef)
+    runner = S._CnnRunner(dev)
+    cells = {}
+    for sc in S.scenarios_for(SCEN_STEPS):
+        t0 = time.perf_counter()
+        c = S._run_cell("resnet9", runner, sc, 0.25, "layerwise",
+                        SCEN_STEPS)
+        check(all(math.isfinite(v) for v in c["loss_curve"]),
+              f"15(d) {sc.name}: losses {c['loss_curve']}")
+        cells[sc.name] = {"losses": c["loss_curve"],
+                          "exposed_comm_us_per_step":
+                              c["exposed_comm_us_per_step"],
+                          "straggler_hits": c["straggler_hits"],
+                          "seconds": time.perf_counter() - t0}
+    params = init_cnn(RESNET9, R.key(0), device=dev)
+    wg, _ = worker_grads(RESNET9, params, classification_batch(
+        R.fold_in(R.key(0), 0), 64, device=dev), 4)
+    sm = stacked_mask(params)
+    ident = Scenario(name="identity", n_workers=4,
+                     straggler=StragglerSpec(prob=0.5, delay_us=0.0,
+                                             seed=11),
+                     rescales=(RescaleEvent(step=3, world_size=4),))
+    comp = CompressionConfig(qw=make_compressor("topk", ratio=0.25),
+                             granularity=Granularity("layerwise"),
+                             error_feedback=True)
+    ef = init_ef(params, 4)
+    for sc in (ident, Scenario(name="clean", n_workers=4)):
+        check(sc.is_identity(), f"15(d) {sc.name} is not at identity")
+        for wire in (False, True):
+            got = SimCluster(sc, comp).aggregate(wg, sm, R.key(5),
+                                                 ef_state=ef, wire=wire)
+            want = aggregate_simulated_workers(wg, sm, comp, R.key(5),
+                                               ef_state=ef, wire=wire)
+            check(_tree_equal(got[0], want[0])
+                  and _tree_equal(got[1], want[1]),
+                  f"15(d) {sc.name} wire={wire}: not the bare aggregate")
+    return {"cells": cells}
+
+
+def resil_phase(dev, ranks):
+    """Phase 15; `ranks` are (c)'s records from phase 7's ranks ->
+    (record, launches of (a)-(d) per kernel)."""
+    import torch
+    t0 = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    full, counts = resil_full_width(dev)
+    add(counts)
+    t1 = time.perf_counter()
+    r9, counts = resil_resnet9(dev)
+    add(counts)
+    t2 = time.perf_counter()
+    camp = resil_campaign(dev)
+    t3 = time.perf_counter()
+    for r in ranks:
+        add(r["launches"])
+    ms = {name: [r["ms"] for r in full["runs"] if r["run"] == name]
+          for name in dict.fromkeys(RESIL_RUNS)}
+    peak = max(r["peak_bytes"] for r in full["runs"])
+    print(f"resil (a): phi4-mini full width ({full['params']} params, 2 "
+          f"layers, bf16), {full['workers']} workers, QSGD({MAIN_LEVELS}) "
+          f"layerwise with the integrity word, {full['buckets']} buckets = "
+          f"{full['messages']} messages a worker: prob=1 bit flips with "
+          f"resend bitwise the clean aggregate, every message detected and "
+          f"resent; without resend all detected and the aggregate differs; "
+          f"prob 0 the clean launches and bits; aggregate ms (CUDA events, "
+          f"in run order {RESIL_RUNS}) {ms}; peak {peak} B "
+          f"({peak / 2**30:.2f} GiB); {t1 - t0:.1f} s", flush=True)
+    print(f"resil (b): resnet9 train_resilient (top-k 0.25 EF, "
+          f"{RESIL_STEPS} steps): corrupted with resend bitwise clean "
+          f"(detected: layerwise {r9['layerwise']['detected']}, "
+          f"entire-model {r9['entire_model']['detected']}), resume at "
+          f"{RESIL_KILL} bitwise, the step guard holds params and EF, "
+          f"card vs CPU losses {r9['cpu_rel_err']:.2e} relative over "
+          f"{RESIL_CPU_STEPS} steps; run seconds clean / faulted: layerwise "
+          f"{r9['layerwise']['clean_seconds']:.2f} / "
+          f"{r9['layerwise']['faulted_seconds']:.2f}, entire-model "
+          f"{r9['entire_model']['clean_seconds']:.2f} / "
+          f"{r9['entire_model']['faulted_seconds']:.2f}, CPU "
+          f"{r9['cpu_seconds']:.2f}; {t2 - t1:.1f} s", flush=True)
+    for name, c in ranks[0]["runs"].items():
+        print(f"resil (c) {name}: {c}", flush=True)
+    for name, c in camp["cells"].items():
+        print(f"resil (d) {name}: losses {c['losses']}, exposed comm "
+              f"{c['exposed_comm_us_per_step']} us a step (model), "
+              f"straggler hits {c['straggler_hits']}, "
+              f"{c['seconds']:.1f} s", flush=True)
+    secs = time.perf_counter() - t0
+    print(f"phase 15: {secs:.1f} s here (a {t1 - t0:.1f}, b {t2 - t1:.1f}, "
+          f"d {t3 - t2:.1f}) + (c) inside phase 7", flush=True)
+    torch.cuda.synchronize(dev)
+    return ({"seconds": secs, "full_width": full, "resnet9": r9,
+             "campaign": camp, "ranks": ranks}, launches)
+
+
 # ---- phase 7: the multi-rank path (runs inside each rank process) ----------
 
 def _flat(tree):
@@ -5253,6 +5611,91 @@ GATE_LAUNCHES = {
                "fields_pack": 144, "fields_unpack": 599, "bits_unpack": 4}}
 
 
+def faults_ranks(rank, n, dev, wg):
+    """15(c) on one rank of phase 7's spawn, this rank's resnet9 gradient
+    row, top-k 0.25 layerwise with the integrity word, the step key the
+    same on every rank: the ring under prob=1 per-hop bit flips with
+    resend is bitwise the clean ring and every hop is detected
+    (n_messages x (n - 1) verdicts, none passing); dropped hops are all
+    detected and resent; duplicated (stale) hops pass every check and
+    this rank's aggregate differs; the allgather wire path under prob=1
+    bit flips with resend is bitwise the clean one, every received message
+    detected; the clean ring equals the clean allgather; every faulted
+    call launches exactly its clean call's kernels -> {"runs",
+    "launches"}."""
+    import dataclasses
+    import torch
+    from repro_torch import kernels
+    from repro_torch import random as R
+    from repro_torch.convert import tree_map
+    from repro_torch.core import build_plan, build_schedule
+    from repro_torch.core.aggregation import (CompressionConfig,
+                                              compressed_allreduce)
+    from repro_torch.core.compressors import TopK
+    from repro_torch.core.granularity import Granularity, stacked_mask
+    from repro_torch.resil import FaultInjector
+    from repro_torch.sim import CorruptionSpec
+    g = tree_map(lambda t: t[rank], wg)
+    sm = stacked_mask(g)
+    base = CompressionConfig(qw=TopK(ratio=0.25), fusion_bytes=0.0,
+                             granularity=Granularity("layerwise"),
+                             integrity=True)
+    key = R.key(151)
+    launches, runs = {}, {}
+
+    def run(strategy, spec=None, resend=True):
+        inj = None if spec is None else FaultInjector(spec, resend=resend)
+        before = kernels.launch_counts()
+        out, _ = compressed_allreduce(
+            g, sm, dataclasses.replace(base, strategy=strategy), None, key,
+            n, wire=True, faults=inj)
+        torch.cuda.synchronize(dev)
+        got = _launched(before)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        flags = (inj.take_flags().reshape(-1) if inj is not None
+                 else torch.zeros((0,), dtype=torch.bool))
+        return out, flags.cpu(), got
+    # resnet9's 11 layerwise buckets ride 11 messages: a ring call packs
+    # each message's index legs in 1 fields_pack and unpacks its own copy
+    # and each of the n - 1 arriving hops in 1 fields_unpack; an allgather
+    # call encodes in 1 and decodes the gathered rows in 1. So a rank's
+    # 15(c) (4 ring calls, 2 allgather calls) counts 46 fields_pack and
+    # 178 fields_unpack at n = 4
+    m = build_schedule(build_plan(g, sm, base.granularity),
+                       0.0).num_messages
+    clean, _, ring_l = run("ring")
+    ag_clean, _, ag_l = run("allgather")
+    check(ring_l == {"fields_pack": m, "fields_unpack": m * n}
+          and ag_l == {"fields_pack": 1, "fields_unpack": 1},
+          f"15(c): clean launches ring {ring_l}, allgather {ag_l}")
+    check(_tree_equal(clean, ag_clean), "15(c): clean ring != allgather")
+    for name, strategy, spec, want_l, ref in (
+            ("ring_bitflip_resend", "ring", CorruptionSpec(prob=1.0, seed=5),
+             ring_l, clean),
+            ("ring_drop_resend", "ring",
+             CorruptionSpec(prob=1.0, mode="drop_hop", seed=6), ring_l,
+             clean),
+            ("ring_dup", "ring",
+             CorruptionSpec(prob=1.0, mode="dup_hop", seed=8), ring_l,
+             clean),
+            ("allgather_bitflip_resend", "allgather",
+             CorruptionSpec(prob=1.0, seed=9), ag_l, ag_clean)):
+        out, flags, got = run(strategy, spec)
+        same = _tree_equal(out, ref)
+        detected = int((~flags).sum())
+        runs[name] = {"verdicts": flags.numel(), "detected": detected,
+                      "bitwise_clean": same, "launches": got}
+        check(got == want_l, f"15(c) {name}: launches {got} != {want_l}")
+        if name == "ring_dup":
+            check(flags.numel() > 0 and detected == 0 and not same,
+                  f"15(c) ring_dup: {runs[name]}")
+        else:
+            check(flags.numel() > 0 and detected == flags.numel() and same,
+                  f"15(c) {name}: {runs[name]}")
+    return {"runs": runs, "launches": launches}
+
+
 def rank_phase(rank, n, dev):
     """Phase 7 on one rank: each gate driven with the launch counters set
     to 0 just before it and read just after, gates (a), (b) and (e) held
@@ -5284,6 +5727,9 @@ def rank_phase(rank, n, dev):
     t0 = time.perf_counter()
     res["obs"] = obs_streams(rank, n, dev, wg)
     res["obs"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["faults"] = faults_ranks(rank, n, dev, wg)
+    res["faults"]["seconds"] = time.perf_counter() - t0
     return res
 
 
@@ -5927,6 +6373,9 @@ def main(argv) -> int:
         launches[k] += obs_launches.get(k, 0)
     for k, v in obs["engine"]["errs"].items():
         errs[k] = max(errs[k], v)
+    resil, resil_launches = resil_phase(dev, [r["faults"] for r in multi])
+    for k in SOURCES:
+        launches[k] += resil_launches.get(k, 0)
     timings += lm["timings"]
     summary = kernel_line(timings, launches, errs)
     from repro_torch.core.compressors import QSGD, TopK
@@ -5954,7 +6403,7 @@ def main(argv) -> int:
                   for src, log in build.BUILD_LOG.items()},
         "multi_rank_seconds": multi_secs, "lm": lm, "serve": serve,
         "engine": engine, "control": control, "tp": tp, "obs": obs,
-        "summary": summary},
+        "resil": resil, "summary": summary},
         indent=1))
     print(f"total {total:.1f} s", flush=True)
     print(f"{card}")

@@ -14,7 +14,9 @@ and the train CLI across ranks; comm scheduling; the serve CLI), `ckpt/`
 CNNs and the LM families on one device), `configs/` (the arch registry),
 `data/synthetic.py`, `optim/` and `experiment.py` (the paper's train_cnn
 experiment, on simulated workers or across ranks, and train_lm, the
-quickstart's Algorithm 1 on the LMs).
+quickstart's Algorithm 1 on the LMs), `sim/` (scenarios and the simulated
+cluster) and `resil/` (wire-fault injection, recovery, the resilient
+training loop), with their campaigns `faults.py` and `scenarios.py`.
 
 Every entry point takes `device=` and defaults to "cuda"; asking for the
 card on a machine without one raises instead of running on the CPU.

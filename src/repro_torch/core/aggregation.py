@@ -34,8 +34,12 @@ With `telemetry_plan` (a control.telemetry measurement plan) both entry
 points return a third element, the step's TelemetryState increment
 measured on the gradients against the aggregate (control/telemetry.py
 `measure`). `compressed_allreduce(recorder=)` (obs.trace.TraceRecorder)
-marks the executed pipeline's spans. Fault injection is a later slice
-and raises NotImplementedError (wire.not_ported).
+marks the executed pipeline's spans. `faults=` (resil.FaultInjector,
+wire=True only) corrupts the bytes each receiver sees (core/wire.py
+_receive_buffer, or each arriving ring hop); the caller drains the
+verdicts with faults.take_flags(), and aggregate_simulated_workers
+appends the step's counters {"messages", "corrupt_detected", "resends"}
+as its last return.
 
 `aggregate_simulated_workers` is the paper-repro harness: worker
 gradients carry a leading worker axis n on one device. The per-worker
@@ -70,7 +74,7 @@ from repro_torch.core.plan import UnitPlan, build_plan
 from repro_torch.core.schedule import CommSchedule, build_schedule
 from repro_torch.core.wire import (execute_schedule_wire,
                                    execute_schedule_wire_with_state,
-                                   not_ported, wire_codec)
+                                   wire_codec)
 from repro_torch.kernels.ref import fma_f32
 from repro_torch.random import fold_in
 
@@ -336,10 +340,11 @@ def _executor(plan: UnitPlan, cfg: CompressionConfig,
     return plan
 
 
-def _not_ported_hooks(faults) -> None:
-    """The reference's hook that a later slice ports raises here."""
-    if faults is not None:
-        raise not_ported("fault injection (faults=)", "item 7 (resil/)")
+def _faults_need_wire(faults, wire: bool) -> None:
+    """The reference's refusal of fault injection off the wire."""
+    if faults is not None and not wire:
+        raise ValueError("fault injection acts on PACKED wire bytes — "
+                         "pass wire=True")
 
 
 def compressed_allreduce(grads, stacked, cfg: CompressionConfig, group,
@@ -370,7 +375,11 @@ def compressed_allreduce(grads, stacked, cfg: CompressionConfig, group,
     obs.trace.TraceRecorder) threads through to the executor: dispatch or
     message spans, or the wire path's stage spans (the streaming
     collectives' hop spans too); the dense strategy records nothing, as in
-    the reference. The reference's faults hook is a later slice."""
+    the reference. `faults` (resil.FaultInjector; wire=True only)
+    corrupts what this rank receives under the step key: each message's
+    bucket regions before the allgather post gathers them (the reference's
+    wire.py:1038-1057), or each arriving ring hop; drain its verdicts
+    with faults.take_flags()."""
     agg, ef = _allreduce(grads, stacked, cfg, group, key, n_workers,
                          ef_state, plan, schedule, wire, recorder,
                          stream_chunk_bytes, faults, alive)
@@ -390,7 +399,7 @@ def _allreduce(grads, stacked, cfg, group, key, n_workers, ef_state, plan,
             f"strategy {cfg.strategy!r} is the streaming collective over "
             f"PACKED wire buffers — pass wire=True (the unpacked payload "
             f"records have no single buffer to ring-permute)")
-    _not_ported_hooks(faults)
+    _faults_need_wire(faults, wire)
     rank, n = dist.get_rank(group), dist.get_world_size(group)
     if n != n_workers:
         raise ValueError(f"n_workers={n_workers} but the group has {n} ranks")
@@ -440,7 +449,7 @@ def _allreduce(grads, stacked, cfg, group, key, n_workers, ef_state, plan,
             kw = dict(wire=codec, group=group, n_workers=n,
                       mode="ring" if cfg.strategy == "ring" else "rs",
                       wire_key=wkey, chunk_bytes=stream_chunk_bytes,
-                      recorder=recorder)
+                      recorder=recorder, faults=faults)
             if cfg.error_feedback:
                 agg, ef, _bufs = sched.execute_streaming_with_state(
                     _master(cfg), grads, ef_state, key, **kw)
@@ -452,11 +461,12 @@ def _allreduce(grads, stacked, cfg, group, key, n_workers, ef_state, plan,
         if cfg.error_feedback:
             agg, ef, _bufs = execute_schedule_wire_with_state(
                 sched, codec, grads, ef_state, key, post, wkey,
-                recorder=recorder)
+                recorder=recorder, faults=faults)
             return agg, ef
         agg, _bufs = execute_schedule_wire(
             sched, codec, grads, key, post, wkey,
-            decode_local=cfg.strategy == "simulated", recorder=recorder)
+            decode_local=cfg.strategy == "simulated", recorder=recorder,
+            faults=faults)
         return agg, ef_state
 
     if cfg.error_feedback:
@@ -497,23 +507,37 @@ def aggregate_simulated_workers(worker_grads, stacked,
     surviving workers, and a dead worker's EF residual stays at its old
     value (its payload never reached the reduce). With `telemetry_plan`
     the result is (grads_hat, new_ef_state, telemetry_inc), measured on
-    the workers' mean gradient against the aggregate. The reference's
-    fault hook is a later slice."""
-    _not_ported_hooks(faults)
-    out, new_ef = _aggregate_workers(worker_grads, stacked, cfg, key,
-                                     ef_state, plan, schedule, wire, alive)
-    if telemetry_plan is None:
-        return out, new_ef
-    from repro_torch.control.telemetry import measure
-    gbar = tree_map(worker_mean, worker_grads)
-    return out, new_ef, measure(telemetry_plan, cfg.qw, gbar, key,
-                                grads_hat=out,
-                                entire_model=telemetry_entire_model)
+    the workers' mean gradient against the aggregate. `faults`
+    (resil.FaultInjector; wire=True only) corrupts each worker's RECEIVED
+    message bytes under its worker key, message index as tag (EF
+    residuals stay the sender's); the result then grows a LAST element,
+    the step's counters {"messages", "corrupt_detected", "resends"} as
+    int32 0-d tensors, summed over workers and messages (the reference's
+    aggregation.py:611-619)."""
+    _faults_need_wire(faults, wire)
+    out, new_ef, flags = _aggregate_workers(worker_grads, stacked, cfg, key,
+                                            ef_state, plan, schedule, wire,
+                                            alive, faults)
+    rets = [out, new_ef]
+    if telemetry_plan is not None:
+        from repro_torch.control.telemetry import measure
+        gbar = tree_map(worker_mean, worker_grads)
+        rets.append(measure(telemetry_plan, cfg.qw, gbar, key, grads_hat=out,
+                            entire_model=telemetry_entire_model))
+    if faults is not None:
+        detected = int((~flags).sum())
+        resends = detected if getattr(faults, "resend", False) else 0
+        rets.append({k: torch.tensor(v, dtype=torch.int32) for k, v in (
+            ("messages", flags.numel()), ("corrupt_detected", detected),
+            ("resends", resends))})
+    return tuple(rets)
 
 
 def _aggregate_workers(worker_grads, stacked, cfg, key, ef_state, plan,
-                       schedule, wire, alive):
-    """aggregate_simulated_workers without the telemetry leg."""
+                       schedule, wire, alive, faults=None):
+    """aggregate_simulated_workers without the telemetry leg -> (grads_hat,
+    new_ef_state, flags): the injector's (n, n_messages) verdicts, or an
+    empty bool tensor."""
     n = tree_leaves(worker_grads)[0].shape[0]
     if plan is None and schedule is not None:
         plan = schedule.plan
@@ -536,7 +560,7 @@ def _aggregate_workers(worker_grads, stacked, cfg, key, ef_state, plan,
             raise ValueError("error_feedback=True requires ef_state")
         if wire:
             compressed, new_ef, _bufs = execute_schedule_wire_with_state(
-                sched, codec, worker_grads, ef_state, wkeys)
+                sched, codec, worker_grads, ef_state, wkeys, faults=faults)
         else:
             def fn_ef(x, m, ukeys):
                 e = x + m
@@ -551,12 +575,14 @@ def _aggregate_workers(worker_grads, stacked, cfg, key, ef_state, plan,
                 nm, om), new_ef, ef_state)
     else:
         if wire:
-            compressed, _bufs = execute_schedule_wire(sched, codec,
-                                                      worker_grads, wkeys)
+            compressed, _bufs = execute_schedule_wire(
+                sched, codec, worker_grads, wkeys, faults=faults)
         else:
             compressed = ex.execute(cfg.qw.sim, worker_grads, wkeys)
         new_ef = ef_state
 
+    flags = (faults.take_flags() if faults is not None
+             else torch.zeros((0,), dtype=torch.bool))
     if alive is None:
         mean = tree_map(worker_mean, compressed)
     else:
@@ -564,5 +590,5 @@ def _aggregate_workers(worker_grads, stacked, cfg, key, ef_state, plan,
     if type(cfg.qm) is Identity:
         # Q_M = identity: the master pass returns its input bit for bit,
         # so skip its dispatches (and the per-unit master-key folds)
-        return mean, new_ef
-    return ex.execute(_master(cfg), mean, key), new_ef
+        return mean, new_ef, flags
+    return ex.execute(_master(cfg), mean, key), new_ef, flags

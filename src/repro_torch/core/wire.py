@@ -68,8 +68,15 @@ both pipelines: compress, pack, decode, collective and ef_update per
 message on the serialized path (the step's grouped encode and decode as
 one interval shared by the messages they cover, obs.trace.mark_group),
 and the stream's per-message stages plus a hop span per ring hop. None
-or a disabled recorder runs the uninstrumented ops. Fault injection is
-a later slice (ROADMAP.md Queue 1, item 7): `faults=` raises not_ported.
+or a disabled recorder runs the uninstrumented ops.
+
+`faults=` (duck-typed, resil.FaultInjector) corrupts the bytes each
+receiver sees (_receive_buffer): every message buffer on the serialized
+path after pack, each arriving hop on the ring; with a checksum layout
+the received bytes are verified, optionally replaced by the sender's
+clean copy (resend) and the verdict noted on the injector. The returned
+buffers and EF residuals are the sender's, always clean. An injector
+that cannot touch the bytes (prob 0) runs exactly the ops of faults=None.
 """
 from __future__ import annotations
 
@@ -135,24 +142,39 @@ def _stat_and_words(stat: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
 # detected. With s1_0 = 1, s2_0 = 0 and per word s1 += w, s2 += s1:
 # sum1 = 1 + sum_i w_i and sum2 = nw + sum_i (nw - i) w_i, mod 65535
 # (the reference's wire.py:147-182). Carried in int64: the products stay
-# below 2**32 and the sums far below 2**63.
+# below 2**32 and a span's sums far below 2**63. The buffer is summed in
+# spans of FLETCHER_SPAN bytes, each span's two sums taken mod 65535 and
+# added up: exact, since both sums are mod 65535 and word i's coefficient
+# nw - i only depends on its absolute position, so a full-width message
+# never widens to int64 all at once.
 
 _FLETCHER_MOD = 65535
+#: bytes of a buffer summed at a time (even, so spans split whole words)
+FLETCHER_SPAN = 1 << 24
 
 
 def fletcher32(buf: torch.Tensor) -> torch.Tensor:
     """Fletcher-32 (init=1) of the last axis of a uint8 tensor -> int64
     tensor of the leading shape holding the uint32 checksum."""
-    b = buf.to(torch.int64)
-    if b.shape[-1] % 2:
-        b = F.pad(b, (0, 1))
-    words = (b[..., 0::2] | (b[..., 1::2] << 8)) % _FLETCHER_MOD
-    nw = words.shape[-1]
-    coef = torch.arange(nw, 0, -1, dtype=torch.int64,
-                        device=buf.device) % _FLETCHER_MOD
-    s1 = (1 + words.sum(dim=-1)) % _FLETCHER_MOD
-    s2 = (nw % _FLETCHER_MOD
-          + ((coef * words) % _FLETCHER_MOD).sum(dim=-1)) % _FLETCHER_MOD
+    nbytes = buf.shape[-1]
+    nw = (nbytes + 1) // 2
+    s1 = torch.zeros(buf.shape[:-1], dtype=torch.int64, device=buf.device)
+    s2 = torch.zeros_like(s1)
+    for lo in range(0, nbytes, FLETCHER_SPAN):
+        b = buf[..., lo:lo + FLETCHER_SPAN].to(torch.int64)
+        if b.shape[-1] % 2:
+            b = F.pad(b, (0, 1))
+        words = (b[..., 0::2] | (b[..., 1::2] << 8)) % _FLETCHER_MOD
+        del b
+        w0 = lo // 2
+        coef = torch.arange(nw - w0, nw - w0 - words.shape[-1], -1,
+                            dtype=torch.int64,
+                            device=buf.device) % _FLETCHER_MOD
+        s1 = (s1 + words.sum(dim=-1)) % _FLETCHER_MOD
+        s2 = (s2 + ((coef * words) % _FLETCHER_MOD).sum(dim=-1)
+              ) % _FLETCHER_MOD
+    s1 = (1 + s1) % _FLETCHER_MOD
+    s2 = (nw % _FLETCHER_MOD + s2) % _FLETCHER_MOD
     return (s2 << 16) | s1
 
 
@@ -776,9 +798,16 @@ class SparseCodec(WireCodec):
         for p, d, idx in zip(payloads_list, dims, idxs):
             val = _u8_rows_to_vals(p[:, :self._vb(d)], self._k(d),
                                    self.wire_dtype)
-            z = torch.zeros((p.shape[0], d), dtype=torch.float32,
+            idx = idx.to(torch.int64)
+            # a field can point past the unit only in corrupted bytes; the
+            # reference's scatter drops such entries, here they land in a
+            # spare column cut off after the scatter
+            spare = int((1 << index_bits(d)) > d)
+            z = torch.zeros((p.shape[0], d + spare), dtype=torch.float32,
                             device=p.device)
-            out.append(z.scatter_(1, idx.to(torch.int64), val))
+            if spare:
+                idx = idx.clamp_max(d)
+            out.append(z.scatter_(1, idx, val)[:, :d])
         return out
 
     def decode_ef_buckets(self, payloads_list, es, dims):
@@ -986,10 +1015,36 @@ def _bucket_region(buf: torch.Tensor, layout: MessageLayout, j: int,
     return buf[:, off:off + n * nb].reshape(-1, nb)
 
 
+def _receive_buffer(buf, layout: MessageLayout, faults, key, tag: int):
+    """The receive leg of one fused message (B, total) under fault
+    injection (the reference's wire.py:951-969): corrupt the bytes past
+    the header with (B, 2) keys, verify the Fletcher-32 word, with resend
+    put back the sender's clean copy where it failed, and note the (B,)
+    verdicts. A pass-through injector returns `buf` itself."""
+    rbuf = faults.corrupt(buf, key, tag=tag, start=layout.header_nbytes)
+    if rbuf is buf:
+        return buf
+    return _verify_received(rbuf, buf, layout, faults, tag)
+
+
+def _verify_received(rbuf, clean, layout: MessageLayout, faults, tag: int):
+    """Verify received message bytes (B, total) or (total,) against their
+    Fletcher-32 word, with resend put back the sender's `clean` copy where
+    it failed, and note the verdicts under `tag`. Without a checksum
+    layout the bytes pass unverified."""
+    if layout.checksum:
+        ok = verify_message(rbuf, layout)
+        if getattr(faults, "resend", False):
+            rbuf = torch.where(ok[..., None], rbuf, clean)
+        faults.note(tag, ok)
+    return rbuf
+
+
 def execute_schedule_wire(schedule, codec: WireCodec, grads, key,
                           post: Optional[Callable] = None,
                           wire_key: Optional[Callable] = None,
-                          decode_local: bool = True, recorder=None):
+                          decode_local: bool = True, recorder=None,
+                          faults=None):
     """Stream a CommSchedule through REAL wire buffers: encode every bucket
     of the schedule (codec.encode_buckets: one pack launch for all of them
     under every codec but the dense one, which launches none), then per
@@ -1008,16 +1063,19 @@ def execute_schedule_wire(schedule, codec: WireCodec, grads, key,
     for every message), pack (each message's buffer), decode (the grouped
     decode) and, with a post, collective; the allgather post.buckets
     marks its gathers and the mean as collective and its decode as
-    decode."""
+    decode. `faults` corrupts each message's RECEIVED bytes after pack
+    (_receive_buffer, the step key `key` per row and the message index
+    as tag): decode and post read the received bucket regions, the
+    returned buffers stay the sender's clean copies."""
     return _execute_wire(schedule, codec, grads, None, key, post, wire_key,
-                         decode_local, recorder)
+                         decode_local, recorder, faults)
 
 
 def execute_schedule_wire_with_state(schedule, codec: WireCodec, grads,
                                      state, key,
                                      post: Optional[Callable] = None,
                                      wire_key: Optional[Callable] = None,
-                                     recorder=None):
+                                     recorder=None, faults=None):
     """Error-feedback twin of execute_schedule_wire: per unit e = x + m is
     encoded, and decode threads through codec.decode_ef_buckets (the
     unpack launches of decode_buckets plus the caller-side residual
@@ -1025,9 +1083,14 @@ def execute_schedule_wire_with_state(schedule, codec: WireCodec, grads,
     d) to the output, or its bucket-list form the whole step, as in
     execute_schedule_wire. Returns (tree, m_tree, buffers). `recorder`
     marks the stages as in execute_schedule_wire, plus ef_update once the
-    residuals are written."""
+    residuals are written. `faults` corrupts the RECEIVED bytes only: the
+    residual is sender-side state, taken from the clean regions
+    (decode_ef_buckets), while xhat and post read the received ones (one
+    more grouped decode_buckets call when the injector touches bytes),
+    so corruption can poison a step's decoded gradient but never the
+    error-feedback discipline (the reference's wire.py:1134-1150)."""
     return _execute_wire(schedule, codec, grads, state, key, post, wire_key,
-                         True, recorder)
+                         True, recorder, faults)
 
 
 def _message_attrs(schedule, codec) -> list:
@@ -1041,7 +1104,7 @@ def _message_attrs(schedule, codec) -> list:
 
 
 def _execute_wire(schedule, codec, grads, state, key, post, wire_key,
-                  decode_local, recorder=None):
+                  decode_local, recorder=None, faults=None):
     rec = _active(recorder)
     plan = schedule.plan
     leaves, batched = plan._inputs(grads, key)
@@ -1073,9 +1136,11 @@ def _execute_wire(schedule, codec, grads, state, key, post, wire_key,
         rec.mark_group(pays, "compress", attrs)
     if state is None:   # only the EF decode reads the encode inputs again
         es = flat = None
-    # every message buffer, then every bucket's region of its buffer; each
-    # payload is let go once it is in its buffer
-    buffers, regions = [], []
+    # every message buffer, then every bucket's region of its buffer (the
+    # received buffer's under faults); each payload is let go once it is
+    # in its buffer
+    fkeys = None if faults is None else key.reshape(-1, 2)
+    buffers, regions, clean, touched = [], [], [], False
     for mi, (msg, layout) in enumerate(zip(schedule.messages,
                                            message_layouts(schedule,
                                                            codec))):
@@ -1086,8 +1151,17 @@ def _execute_wire(schedule, codec, grads, state, key, post, wire_key,
             rec.mark(buf, "pack", **attrs[mi])
         del mats
         buffers.append(buf if batched else buf[0])
-        regions += [_bucket_region(buf, layout, j, plan.buckets[bi].n)
-                    for j, bi in enumerate(msg.bucket_ids)]
+        rbuf = (buf if faults is None
+                else _receive_buffer(buf, layout, faults, fkeys, mi))
+        got = [_bucket_region(rbuf, layout, j, plan.buckets[bi].n)
+               for j, bi in enumerate(msg.bucket_ids)]
+        regions += got
+        if faults is not None and state is not None:
+            touched |= rbuf is not buf
+            clean += got if rbuf is buf else [
+                _bucket_region(buf, layout, j, plan.buckets[bi].n)
+                for j, bi in enumerate(msg.bucket_ids)]
+        del rbuf, got
     # decode every bucket of the step in one call (one unpack launch under
     # every fused codec with a kernel and every per-unit codec),
     # then post in bucket order, so collectives inside post keep their
@@ -1096,15 +1170,20 @@ def _execute_wire(schedule, codec, grads, state, key, post, wire_key,
     if state is not None:
         mout = ([None] * len(leaves), plan._new_flat(leaves) if need else None)
         with _scope(rec, step + "/decode"):
-            dec = codec.decode_ef_buckets(regions, es, dims)
+            # the residual from the sender's clean regions; a receiver
+            # whose bytes were touched decodes its own regions
+            dec = codec.decode_ef_buckets(clean if touched else regions, es,
+                                          dims)
+            if touched:
+                recv = codec.decode_buckets(regions, dims)
         if rec is not None:
             rec.mark_group([x for x, _ in dec], "decode", attrs)
         for b, (_, mn) in zip(bs, dec):
             plan._scatter_runs(*mout, b, mn)
         if rec is not None:
             rec.mark_group([mn for _, mn in dec], "ef_update", attrs)
-        xhats = [x for x, _ in dec]
-        del dec
+        xhats = recv if touched else [x for x, _ in dec]
+        del dec, clean
     elif decode_local:
         with _scope(rec, step + "/decode"):
             xhats = codec.decode_buckets(regions, dims)
@@ -1185,9 +1264,17 @@ def execute_schedule_stream(schedule, codec: WireCodec,
     launch and buffer), decode (the own payload) and ef_update, a hop
     span per ring hop (n_messages x (n - 1) a step) and collective (the
     mean and post); None or a disabled recorder runs the uninstrumented
-    ops."""
-    if faults is not None:
-        raise not_ported("fault injection (faults=)", "item 7 (resil/)")
+    ops.
+
+    `faults` (duck-typed, resil.FaultInjector) corrupts each ARRIVING hop
+    (the reference's wire.py:1445-1462): the hop's chunks concatenated,
+    corrupt_hop under the step `key` with tag (mi << 12) | h past the
+    header (bit flips, truncation, a dropped or a duplicated stale hop),
+    verified on arrival with a checksum layout, optionally resent (the
+    clean arrived copy) and noted; the hop is decoded from the possibly
+    corrupted chunks and forwarded as received. A duplicated hop is a
+    VALID stale message: its checksum passes (catching it needs sequence
+    numbers). An injector with prob 0 runs the ops of faults=None."""
     if mode not in ("ring", "rs"):
         raise ValueError(f"mode must be 'ring' or 'rs', got {mode!r}")
     rank, n = dist.get_rank(group), dist.get_world_size(group)
@@ -1206,6 +1293,7 @@ def execute_schedule_stream(schedule, codec: WireCodec,
         sleaves, _ = plan._inputs(state, key)
         mflat = plan._flat(sleaves) if need else None
     keys = plan._keys(key, dev)
+    hop_faults = faults is not None and faults.touches(hop=True)
     out = ([None] * len(leaves), plan._new_flat(leaves) if need else None)
     mout = ([None] * len(leaves), plan._new_flat(leaves) if need else None)
     layouts = (message_layouts(schedule, codec) if mode == "ring"
@@ -1277,19 +1365,37 @@ def execute_schedule_stream(schedule, codec: WireCodec,
                 rec.mark(mns, "ef_update", **attrs[mi])
         chunks = layout_chunks(layout, chunk_bytes)
         cur = [buf[s:e] for _, s, e in chunks]
+
+        def decode_chunk(c, src):
+            run, start, _ = chunks[c]
+            pays = [cur[c][layout.offsets[j] - start:
+                           layout.offsets[j] - start
+                           + bs[j].n * layout.unit_nbytes[j]]
+                    .reshape(bs[j].n, layout.unit_nbytes[j]) for j in run]
+            codec.decode_accumulate_buckets(pays, [accs[j] for j in run],
+                                            src, [dims[j] for j in run])
+
         for h in range(1, n):
             src = (rank - h) % n
             with _scope(rec, f"repro/msg{mi}/hop{h}"):
-                for c, (run, start, _) in enumerate(chunks):
-                    cur[c] = collectives.ring_shift(cur[c], group)
-                    pays = [cur[c][layout.offsets[j] - start:
-                                   layout.offsets[j] - start
-                                   + bs[j].n * layout.unit_nbytes[j]]
-                            .reshape(bs[j].n, layout.unit_nbytes[j])
-                            for j in run]
-                    codec.decode_accumulate_buckets(
-                        pays, [accs[j] for j in run], src,
-                        [dims[j] for j in run])
+                # the whole hop arrives; under hop faults it is faulted as
+                # one message (the chunks tile it), verified, resent and
+                # noted, `stale` being what this rank held before the hop
+                stale = torch.cat(cur) if hop_faults else None
+                cur = [collectives.ring_shift(c, group) for c in cur]
+                if hop_faults:
+                    arrived = torch.cat(cur)
+                    tag = (mi << 12) | h
+                    rbuf = faults.corrupt_hop(arrived, stale, key, tag=tag,
+                                              start=layout.header_nbytes)
+                    if rbuf is not arrived:
+                        rbuf = _verify_received(rbuf, arrived, layout,
+                                                faults, tag)
+                        cur = [rbuf[s:e] for _, s, e in chunks]
+                    del arrived, rbuf
+                del stale
+                for c in range(len(chunks)):
+                    decode_chunk(c, src)
             if rec is not None:
                 rec.mark([cur[-1], accs[-1]], "hop", label=f"hop{h} m{mi}",
                          **attrs[mi])

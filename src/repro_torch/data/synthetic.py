@@ -9,7 +9,10 @@ projected patch embeddings (`patches_stub`) and frame embeddings
 prototypes + pixel noise (data/synthetic.py:65-86), drawn with
 repro_torch.random's jax draws on the CPU, so the images and labels are
 the reference's (labels bitwise; tests/test_torch_draws.py states the
-images' bound). Same shapes and recipes as the reference; the LM batches
+images' bound). Non-IID worker shards (data/synthetic.py:93-158):
+Dirichlet shard proportions and the skewed per-worker samplers, whose
+labels and tokens are the reference's categorical draws bit for bit
+given the same proportions. Same shapes and recipes as the reference; the LM batches
 and the vision and audio stubs draw from a torch.Generator seeded by the
 key's words, so their numbers differ from JAX's (the tests feed JAX-made
 batches where they compare)."""
@@ -23,7 +26,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels.ref import fma_f32
-from repro_torch.random import fold_in, generator
+from repro_torch.random import _log_f32, categorical, dirichlet, fold_in
+from repro_torch.random import generator
 from repro_torch.random import key as make_key
 from repro_torch.random import normal, randint, split
 
@@ -101,6 +105,79 @@ def _batch_cpu(k0: int, k1: int, batch: int, classes: int, hw: int,
     x = fma_f32(n, torch.full_like(n, float(np.float32(noise))),
                 protos[labels])
     return x, labels
+
+
+# ---- non-IID worker shards (Dirichlet skew) ---------------------------------
+
+def dirichlet_proportions(key: torch.Tensor, n_workers: int, categories: int,
+                          alpha: float, device="cuda") -> torch.Tensor:
+    """(n_workers, categories) f32 row-stochastic shard proportions: each
+    worker's category distribution an independent Dirichlet(alpha) draw
+    (random.dirichlet: bitwise the reference's at 10 categories, within
+    ROADMAP Queue 3 item 20 on wide rows). Small alpha gives near one-hot
+    shards, large alpha near uniform ones."""
+    dev = resolve_device(device)
+    return dirichlet(key, alpha, (n_workers,), categories).to(dev)
+
+
+def _shard_logits(props: torch.Tensor) -> torch.Tensor:
+    """log(props + 1e-9) with XLA's CPU log (the reference's logits)."""
+    return _log_f32(props.cpu().to(torch.float32) + np.float32(1e-9))
+
+
+def noniid_classification_batch(key: torch.Tensor, proportions: torch.Tensor,
+                                per_worker: int, classes: int = 10,
+                                hw: int = 32, channels: int = 3,
+                                noise: float = 0.5, device=None
+                                ) -> Dict[str, torch.Tensor]:
+    """Skewed per-worker classification batches: worker w's labels are
+    Categorical(proportions[w]) draws from split(fold_in(key, w))[0], its
+    noise normal draws from the second key, over classification_batch's
+    prototypes (the same one fma). -> {"images": (n, per, hw, hw, C) f32,
+    "labels": (n, per) int64} on `device` (default: the proportions'),
+    made on the CPU."""
+    dev = proportions.device if device is None else resolve_device(device)
+    n = proportions.shape[0]
+    logits = _shard_logits(proportions)
+    protos = _class_prototypes(classes, hw, channels)
+    wkeys = fold_in(key.cpu()[None], torch.arange(n))
+    images, labels = [], []
+    for w in range(n):
+        kl, kn = split(wkeys[w])
+        lab = categorical(kl, logits[w], (per_worker,))
+        z = normal(kn, (per_worker, hw, hw, channels))
+        images.append(fma_f32(z, torch.full_like(z, float(np.float32(noise))),
+                              protos[lab]))
+        labels.append(lab)
+    return {"images": torch.stack(images).to(dev),
+            "labels": torch.stack(labels).to(dev)}
+
+
+def noniid_markov_lm_batch(key: torch.Tensor, trans: torch.Tensor,
+                           proportions: torch.Tensor, per_worker: int,
+                           seq: int, device=None) -> Dict[str, torch.Tensor]:
+    """Skewed per-worker LM batches: worker w's sequences start from
+    Categorical(proportions[w]) over the vocab, then follow the shared
+    Markov chain, each step a categorical draw on log(trans[tok] + 1e-9)
+    from split(k1, seq) (the reference's scan), all on the CPU.
+    -> {"tokens", "targets"}: (n, per, seq) int64 on `device` (default:
+    the proportions')."""
+    dev = proportions.device if device is None else resolve_device(device)
+    n = proportions.shape[0]
+    logits = _shard_logits(proportions)
+    logt = _shard_logits(trans)
+    wkeys = fold_in(key.cpu()[None], torch.arange(n))
+    out = []
+    for w in range(n):
+        k0, k1 = split(wkeys[w])
+        tok = categorical(k0, logits[w], (per_worker,))
+        seqs = [tok]
+        for k in split(k1, seq):
+            tok = categorical(k, logt[tok])
+            seqs.append(tok)
+        out.append(torch.stack(seqs, dim=1))
+    s = torch.stack(out).to(dev)                      # (n, per, seq + 1)
+    return {"tokens": s[..., :-1], "targets": s[..., 1:]}
 
 
 # ---- language modelling ------------------------------------------------------

@@ -10,9 +10,9 @@ the accuracies: layerwise|entire_model|baseline. Every fig*() takes
 compressed aggregation goes through the wire kernels wherever the codec
 is sim-exact (experiment.train_step).
 
-The reference's fig_scenarios reads the scenario campaign's
-BENCH_scenarios.json, which ROADMAP Queue 1 item 7 (sim/) produces; it
-is not here yet.
+`fig_scenarios(path)` renders the scenario campaign's report
+(repro_torch/scenarios.py; chiprun_out/scenarios.json by default) as the
+reference's CSV rows, one a (config, scenario, ratio) cell.
 
 Run:  python -m repro_torch.figures [--quick] [--device cpu]
 """
@@ -109,6 +109,29 @@ def ef_beyond_paper(steps=None, device="cuda"):
         acc, _ = train_cnn_ef("resnet9", comp, steps=steps, device=device)
         csv_line(f"beyond_ef_topk0.001_resnet9_ef{int(ef)}",
                  (time.time() - t0) / steps * 1e6, f"acc={acc:.3f}")
+
+
+def fig_scenarios(path=None):
+    """Paper-style rendering of the scenario campaign: one CSV row per
+    (config, scenario, ratio) cell of the port's campaign report, the
+    layer-wise / entire-model final losses, each granularity's exposed
+    comm a step and the cell's verdict (the reference's rows); the t_us
+    column carries the layer-wise exposed comm."""
+    import json
+    from repro_torch.scenarios import OUT
+    with open(OUT if path is None else path) as f:
+        report = json.load(f)
+    for config, scenarios_ in sorted(report["configs"].items()):
+        for sname, cells in sorted(scenarios_.items()):
+            for rkey, cell in sorted(cells.items()):
+                lw, em = cell["layerwise"], cell["entire_model"]
+                csv_line(
+                    f"scenario_{config}_{sname}_{rkey}",
+                    lw["exposed_comm_us_per_step"],
+                    f"lw={lw['final_loss']:.4f}"
+                    f"|em={em['final_loss']:.4f}"
+                    f"|em_exposed_us={em['exposed_comm_us_per_step']:.1f}"
+                    f"|verdict={cell['verdict']}")
 
 
 ALL = [fig2_randomk, fig3_terngrad, fig4_qsgd, fig5_adaptive, fig6_threshold,

@@ -204,10 +204,16 @@ def normal(key: torch.Tensor, shape) -> torch.Tensor:
     [nextafter(-1, 0), 1) from the key's bits, then sqrt(2) erf_inv(u).
     Bitwise the reference's jitted CPU draw (tests/test_torch_draws.py)."""
     shape = _shape(shape)
-    lo = _f32(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = bits_to_uniform(_bits(key.cpu(), _numel(shape)))
+    return _normal_from_uniform(u).reshape(shape)
+
+
+def _normal_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """normal's transform of uniforms on [0, 1): onto [nextafter(-1, 0),
+    1), then sqrt(2) erf_inv."""
+    lo = _f32(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = torch.clamp_min(u * 2.0 + lo, lo)          # u * 2 is exact: one fma
-    return (_erf_inv_f32(u) * _f32(np.sqrt(2.0))).reshape(shape)
+    return _erf_inv_f32(u) * _f32(np.sqrt(2.0))
 
 
 def randint(key: torch.Tensor, shape, minval: int, maxval: int
@@ -226,3 +232,146 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int
     off = (((hi % span) * mult) & MASK32) + (lo % span)
     off = (off & MASK32) % span
     return (minval + off).reshape(shape)
+
+
+# ---- gumbel, categorical and dirichlet (the non-IID samplers' draws) --------
+
+_TINY_F32 = float(np.finfo(np.float32).tiny)
+
+
+def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+    """jax.random.gumbel(key, shape) in f32 (jax's default mode="low"):
+    u uniform on [f32 tiny, 1) (the uniform's zero lifted to tiny, every
+    other value unchanged, as XLA rounds u + tiny), then -log(-log(u))
+    with XLA's CPU log. Bitwise the reference's jitted draw
+    (tests/test_torch_scenarios.py)."""
+    shape = _shape(shape)
+    u = bits_to_uniform(_bits(key.cpu(), _numel(shape)))
+    u = torch.where(u == 0.0, _TINY_F32, u)
+    return (-_log_f32(-_log_f32(u))).reshape(shape)
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor, shape=None
+                ) -> torch.Tensor:
+    """jax.random.categorical(key, logits, axis=-1, shape=shape) -> int64:
+    argmax over the last axis of gumbel(key, prefix + logits.shape) +
+    logits (the first maximum on ties, as jnp.argmax). `shape` defaults to
+    logits.shape[:-1]; its leading dims beyond those are the sample
+    prefix. Computed on the CPU."""
+    logits = logits.cpu().to(torch.float32)
+    batch = tuple(logits.shape[:-1])
+    shape = batch if shape is None else _shape(shape)
+    prefix = shape[:len(shape) - len(batch)]
+    g = gumbel(key, prefix + tuple(logits.shape))
+    return torch.argmax(g + logits, dim=-1)
+
+
+_EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+          4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def _exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """exp of f32 x as XLA's CPU backend computes it: Cephes' expf, x
+    clamped to [-87.8, 88.8], n = floor(x log2(e) + 1/2) clamped to
+    [-127, 127], the two-part reduction r = x - n ln 2, the degree-5
+    polynomial, every multiply-add one fma, times 2^n built from its
+    exponent bits (0 at n = -127)."""
+    x = x.clamp(_f32(-87.8), _f32(88.8))
+    n = torch.floor(_fma(x, _f32(1.44269504088896341), 0.5)).clamp(-127.0,
+                                                                   127.0)
+    r = _fma(n, -_f32(0.693359375), x)
+    r = _fma(n, -_f32(-2.12194440e-4), r)
+    z = _fma(r, _f32(_EXP_P[0]), _f32(_EXP_P[1]))
+    for p in _EXP_P[2:]:
+        z = _fma(z, r, _f32(p))
+    z = _fma(z, r * r, r) + 1.0
+    return z * ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def _split_rows(keys: torch.Tensor, num: int) -> torch.Tensor:
+    """split(k, num) for every key of (m, 2) -> (m, num, 2)."""
+    c = torch.arange(2 * num, dtype=torch.int64)
+    o0, o1 = threefry2x32(keys[:, :1], keys[:, 1:], c[None, :num],
+                          c[None, num:])
+    return torch.cat([o0, o1], dim=1).reshape(-1, num, 2)
+
+
+def _scalar_uniform(keys: torch.Tensor) -> torch.Tensor:
+    """uniform(k, ()) for every key of (m, 2) -> (m,) f32."""
+    z = torch.zeros(keys.shape[0], dtype=torch.int64)
+    return bits_to_uniform(threefry2x32(keys[:, 0], keys[:, 1], z, z)[0])
+
+
+def _scalar_normal(keys: torch.Tensor) -> torch.Tensor:
+    """normal(k, ()) for every key of (m, 2) -> (m,) f32."""
+    return _normal_from_uniform(_scalar_uniform(keys))
+
+
+def _loggamma_boosted(keys: torch.Tensor, alpha: torch.Tensor
+                      ) -> torch.Tensor:
+    """jax's _gamma_one(log_space=True) for every (key, alpha) pair at
+    once: Marsaglia-Tsang on the boosted shape (alpha + 1 below 1) with
+    its nested rejection loops of split / normal / uniform draws run in
+    lock step (an entry whose loop has ended keeps its state, as the
+    vmapped while loop selects), then the log boost log1p(-u) / alpha,
+    each multiply-add fused as XLA's CPU code fuses it."""
+    one, third = _f32(1.0), _f32(1.0 / 3.0)
+    boost = alpha >= 1.0
+    a = torch.where(boost, alpha, alpha + 1.0)
+    d = a - third
+    # XLA rewrites third / sqrt(d) into third * rsqrt(d); its CPU rsqrt is
+    # an approximation that is the correctly rounded 1 / sqrt on most
+    # inputs, which the port takes (ROADMAP Queue 3 item 20)
+    c = third * (1.0 / torch.sqrt(d.to(torch.float64))).to(torch.float32)
+    ks = _split_rows(keys, 2)
+    key, sub = ks[:, 0], ks[:, 1]
+    X = torch.zeros_like(alpha)
+    V = torch.ones_like(alpha)
+    U = torch.full_like(alpha, 2.0)
+
+    def cond(X, V, U):
+        return ((U >= _fma(X * X, -_f32(0.0331), one))
+                & (_log_f32(U) >= _fma(d, (one - V) + _log_f32(V), X * 0.5)))
+
+    live = cond(X, V, U)
+    while bool(live.any()):
+        idx = torch.nonzero(live).flatten()
+        k3 = _split_rows(key[idx], 3)
+        key[idx] = k3[:, 0]
+        xk, ci = k3[:, 1], c[idx]
+        x = torch.zeros_like(ci)
+        v = torch.full_like(ci, -1.0)
+        todo = v <= 0.0
+        while bool(todo.any()):
+            j = torch.nonzero(todo).flatten()
+            ks2 = _split_rows(xk[j], 2)
+            xk[j] = ks2[:, 0]
+            x[j] = _scalar_normal(ks2[:, 1])
+            v[j] = _fma(x[j], ci[j], one)
+            todo = v <= 0.0
+        X[idx] = x * x
+        V[idx] = (v * v) * v
+        U[idx] = _scalar_uniform(k3[:, 2])
+        live = live & cond(X, V, U)
+    logs = _log1p_f32(-_scalar_uniform(sub))
+    lb = torch.where(boost | (logs == 0.0), 0.0, logs * (one / alpha))
+    return (_log_f32(d) + _log_f32(V)) + lb
+
+
+def dirichlet(key: torch.Tensor, alpha: float, shape, categories: int
+              ) -> torch.Tensor:
+    """jax.random.dirichlet(key, full((categories,), alpha), shape=shape)
+    in f32 on the CPU: one loggamma draw per entry from split(key, count)
+    (row-major), then a softmax over the last axis. The draws and the
+    rejection loops are jax's; the softmax's exp and sum round within an
+    ulp of XLA's (ROADMAP Queue 3 item 20 states the bound)."""
+    shape = _shape(shape) + (categories,)
+    n = _numel(shape)
+    keys = split(key.cpu(), n)
+    alphas = torch.full((n,), _f32(alpha), dtype=torch.float32)
+    lg = _loggamma_boosted(keys, alphas).reshape(shape)
+    e = _exp_f32(lg - lg.amax(dim=-1, keepdim=True))
+    tot = e[..., 0].clone()
+    for j in range(1, categories):
+        tot = tot + e[..., j]
+    return e / tot[..., None]

@@ -231,7 +231,8 @@ def test_aggregate_simulated_workers_plan_schedule_alive(comp, ef, wire,
 
 
 def test_aggregate_simulated_workers_hooks_name_the_queue():
-    """faults= names its ROADMAP item (7); telemetry_plan= (item 5, ported)
+    """faults= (item 7, ported) needs wire=True, as in the reference, and
+    appends the step's int32 counters; telemetry_plan= (item 5, ported)
     returns the aggregate unchanged and the step's TelemetryState
     increment, with the entire-model leg only when asked."""
     from repro_torch import random as R
@@ -240,9 +241,18 @@ def test_aggregate_simulated_workers_hooks_name_the_queue():
                                   aggregate_simulated_workers, make_compressor)
     g = {"w": torch.arange(8.0).reshape(2, 4)}
     cfg = CompressionConfig(qw=make_compressor("topk", ratio=0.5))
-    with pytest.raises(NotImplementedError, match=r"Queue 1, item 7 \("):
+    from repro_torch.resil import FaultInjector
+    from repro_torch.sim import CorruptionSpec
+    inj = FaultInjector(CorruptionSpec(prob=1.0))
+    with pytest.raises(ValueError, match="pass wire=True"):
         aggregate_simulated_workers(g, {"w": False}, cfg, R.key(0),
-                                    faults=object())
+                                    faults=inj)
+    icfg = CompressionConfig(qw=make_compressor("topk", ratio=0.5),
+                             integrity=True)
+    *_, info = aggregate_simulated_workers(g, {"w": False}, icfg, R.key(0),
+                                           wire=True, faults=inj)
+    assert {k: int(v) for k, v in info.items()} == {
+        "messages": 2, "corrupt_detected": 2, "resends": 0}
     mplan = measurement_plan({"w": g["w"][0]}, {"w": False})
     out, _ = aggregate_simulated_workers(g, {"w": False}, cfg, R.key(0))
     for em in (True, False):

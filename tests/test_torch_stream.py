@@ -403,8 +403,9 @@ def test_chunk_runs():
 
 def test_stream_errors_before_any_collective():
     """The reference's ValueErrors: a streaming strategy without wire=True,
-    an unknown executor mode; the fault hook a later slice ports. The
-    recorder hook is ported: it reaches the group check, and on 2 ranks
+    an unknown executor mode. The recorder and fault hooks are ported:
+    they reach the group check (tests/test_torch_resil.py runs the
+    faulted ring on 4 ranks), and on 2 ranks
     (test_stream_across_ranks's spawn) a traced ring / rs_stream step
     gives the reference's structure — a message span a message, n_messages
     x (n - 1) hop spans with their message's attribution — and the
@@ -428,14 +429,14 @@ def test_stream_errors_before_any_collective():
     with pytest.raises(ValueError, match="mode must be"):
         execute_schedule_stream(sched, codec, None, g, None, R.key(0),
                                 n_workers=2, mode="tree")
-    for kw, queue in (({"faults": object()}, r"item 7 \("),):
-        with pytest.raises(NotImplementedError, match=f"Queue 1, {queue}"):
+    from repro_torch.obs import TraceRecorder
+    from repro_torch.resil import FaultInjector
+    from repro_torch.sim import CorruptionSpec
+    for kw in ({"recorder": TraceRecorder()},
+               {"faults": FaultInjector(CorruptionSpec(prob=1.0))}):
+        with pytest.raises(ValueError, match="Default process group"):
             execute_schedule_stream(sched, codec, None, g, None, R.key(0),
                                     n_workers=2, **kw)
-    from repro_torch.obs import TraceRecorder
-    with pytest.raises(ValueError, match="Default process group"):
-        execute_schedule_stream(sched, codec, None, g, None, R.key(0),
-                                n_workers=2, recorder=TraceRecorder())
     n = 2
     for strategy in ("ring", "rs_stream"):
         sched, _ = _layouts(Case("qsgd", strategy, 0.0, 64.0), n)

@@ -208,11 +208,11 @@ def test_natural_message_buffers_within_tolerance(gran):
 
 
 def test_unported_compressors_name_the_queue():
-    """What the port leaves out names its queue: compressed_allreduce's
-    fault hook; and a streaming strategy without wire=True raises the
-    reference's ValueError (all checked before any collective runs, so no
-    process group). The telemetry and recorder hooks, ported, get as far
-    as the process group; the recorder on the wire path it threads to
+    """A streaming strategy or a fault injector without wire=True raises
+    the reference's ValueError (checked before any collective runs, so no
+    process group). The telemetry, recorder and fault hooks, ported, get
+    as far as the process group; the recorder on the wire path it threads
+    to
     (execute_schedule_wire) gives the reference's structure: a message
     span a schedule message, each with compress, pack and decode stages
     attributed to the codec (tests/test_torch_obs.py holds the args
@@ -231,16 +231,19 @@ def test_unported_compressors_name_the_queue():
         with pytest.raises(ValueError, match="pass wire=True"):
             compressed_allreduce(g, {"w": False}, cfg, None, R.key(0), 2)
     cfg = CompressionConfig(qw=make_compressor("qsgd"), strategy="allgather")
-    for kw, queue in (({"faults": object()}, r"item 7 \("),):
-        with pytest.raises(NotImplementedError, match=f"Queue 1, {queue}"):
-            compressed_allreduce(g, {"w": False}, cfg, None, R.key(0), 2,
-                                 wire=True, **kw)
-    # telemetry_plan= (item 5) and recorder= (item 6) are ported: they
-    # reach the collective, whose group check comes first
-    # (tests/test_torch_control.py and test_torch_obs.py run them)
+    from repro_torch.resil import FaultInjector
+    from repro_torch.sim import CorruptionSpec
+    inj = FaultInjector(CorruptionSpec(prob=1.0))
+    with pytest.raises(ValueError, match="pass wire=True"):
+        compressed_allreduce(g, {"w": False}, cfg, None, R.key(0), 2,
+                             faults=inj)
+    # telemetry_plan= (item 5), recorder= (item 6) and faults= (item 7)
+    # are ported: they reach the collective, whose group check comes first
+    # (tests/test_torch_control.py, test_torch_obs.py and
+    # test_torch_resil.py run them)
     from repro_torch.control import measurement_plan
     for kw in ({"telemetry_plan": measurement_plan(g, {"w": False})},
-               {"recorder": TraceRecorder()}):
+               {"recorder": TraceRecorder()}, {"faults": inj}):
         with pytest.raises(ValueError, match="Default process group"):
             compressed_allreduce(g, {"w": False}, cfg, None, R.key(0), 2,
                                  wire=True, **kw)
