@@ -286,6 +286,23 @@ error:
      bitwise, each faulted call the clean call's launches; (d) one
      campaign cell a reference scenario (repro_torch.scenarios, 3 steps)
      and the identity scenarios bitwise the bare aggregate
+ 16. the dry run (launch/dryrun.py, hlo_cost.py, analysis.py) and the pod
+     axis: (a) phi4-mini full width (2 layers, bf16) on a (1, 1) mesh with
+     the dry run's default compression (top-k(1%) layerwise, simulated)
+     at train_4k's sequence and the largest batch whose traced peak fits
+     phase 9's: the dry run on meta tensors, then the same step on the
+     card under the same counter, FLOPs equal and the traced peak within
+     10% of torch.cuda.max_memory_allocated, the roofline's three terms
+     beside the step's CUDA-event ms; (b) phi4-mini-3.8b and
+     qwen3-moe-235b-a22b at train_4k and decode_32k on 16 x 16 and 2 x 16
+     x 16, 8 rows printed as the reference's dry run prints them, each
+     row's counts equal to the same row with --device cpu in the same
+     process (worker processes at idle priority, started before phase
+     13); inside
+     phase 13's spawn: (c) 13(b)'s three full-width runs on (pod 2, data
+     1, model 2), losses and params bitwise the (data 2, model 2) runs';
+     (d) llama3 smoke on (pod 2, data 2, model 1), a dense and a QSGD(16)
+     allgather run of 2 steps, bitwise the (data 4, model 1) runs
 
 Phase 3 also holds the other compress-only kernels against their plain
 versions on the card at every bucket shape, the entire-model gradient and
@@ -316,9 +333,10 @@ chiprun_out/chip_smoke.json. The last line is {"ok": true, "device":
 {...}}; the line before it the kernel table, whose launches are, for the
 wire kernels, the main-path runs of phase 4 plus the multi-rank phase 7
 summed over its ranks plus phase 9(b) plus phase 11 summed over its
-ranks plus phase 12 plus phase 13 summed over its ranks plus phase 14
-(its (c) summed over phase 7's ranks) plus phase 15 (its (c) summed over
-phase 7's ranks), and for the compress-only kernels the runs of phase 8.
+ranks plus phase 12 plus phase 13 summed over its ranks (16(c) and (d)
+among them) plus phase 14 (its (c) summed over phase 7's ranks) plus
+phase 15 (its (c) summed over phase 7's ranks), and for the compress-only
+kernels the runs of phase 8.
 """
 from __future__ import annotations
 
@@ -3518,6 +3536,14 @@ TP_TOL = {"dense": 1e-4, "moe": 2e-2, "mla": 1e-4, "ssm": 1e-4,
 TP_STEP_LAUNCHES = {"wire": {"qsgd_pack": 1, "qsgd_unpack": 1},
                     "allgather": {"qsgd_pack": 1, "fields_unpack": 1},
                     "topk_wire": {"fields_pack": 1, "fields_unpack": 1}}
+# 16(d): llama3 smoke on (pod 2, data 2, model 1) and (data 4, model 1),
+# global batch POD_BATCH x POD_SEQ tokens, a dense run and a QSGD(16)
+# allgather wire run of POD_STEPS steps on each mesh; an allgather step
+# launches 1 qsgd_pack + 1 fields_unpack a rank (its buckets fit one
+# launch each), so 2 meshes x POD_STEPS steps a rank
+POD_STEPS, POD_BATCH, POD_SEQ = 2, 8, 16
+POD_SMOKE_LAUNCHES = {"qsgd_pack": 2 * POD_STEPS,
+                      "fields_unpack": 2 * POD_STEPS}
 # 13(d): phi4-mini-3.8b whole (32 layers, bf16) served by ranks 0 and 1 as
 # model 2: batch 8, TP_PROMPT uniform prompt tokens, TP_GEN tokens
 TP_PROMPT, TP_GEN = 128, 16
@@ -3647,7 +3673,8 @@ def _tp_meshes(rank):
     """The process groups of phase 13: (data 2, model 2) over all four
     ranks (make_host_mesh), and on ranks 0 and 1 a (1, 2) mesh (their
     model group) and a (2, 1) mesh (their data group), each axis of size
-    1 a group of its one rank. Every rank creates every group."""
+    1 a group of its one rank; and 16(c)-(d)'s meshes over all four ranks
+    (`_pod_meshes`). Every rank creates every group."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import Mesh, make_host_mesh
     full = make_host_mesh(data=2, model=2)
@@ -3730,7 +3757,7 @@ def _tp_batches(vocab, dev, rows, steps, seed=11):
     return out
 
 
-def tp_full_width(rank, mesh, dev):
+def tp_full_width(rank, mesh, dev, label="TP full width"):
     """13(b) on all four ranks: phi4-mini at full width (2 layers, bf16)
     on the (data 2, model 2) mesh, three steps from the same params and
     batch (TP_STEP_LAUNCHES), launches counted exactly a run; rank 0
@@ -3739,7 +3766,9 @@ def tp_full_width(rank, mesh, dev):
     allgather step bitwise the simulated wire step (a digest a leaf); each
     step split into forward / backward (the TP and SP collectives' host
     seconds inside), aggregation and update; loss and peak memory a
-    rank."""
+    rank. 16(c) runs the same on the (pod 2, data 1, model 2) mesh (no
+    capture there: its launches are the same kernels at the same
+    shapes)."""
     import torch
     from repro_torch import kernels
     from repro_torch import random as R
@@ -3774,12 +3803,13 @@ def tp_full_width(rank, mesh, dev):
     out = {"runs": {}, "errs": {}, "params_local": sum(
         p.numel() for p in tree_leaves(params))}
     digests = {}
+    captures = rank == 0 and "pod" not in mesh.axis_names
     for run, comp, wire, coll in runs:
         step = eng.build_train_step(comp=comp, wire=wire, collective=coll)
         kernels.reset_launch_counts()
         collectives.reset_counts()
         cap = {}
-        restore = _capture_ops(names, cap) if rank == 0 else (lambda: None)
+        restore = _capture_ops(names, cap) if captures else (lambda: None)
         try:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             ev[0].record()
@@ -3802,12 +3832,11 @@ def tp_full_width(rank, mesh, dev):
         counts = kernels.launch_counts()
         want = {k: TP_STEP_LAUNCHES[run].get(k, 0) for k in SOURCES}
         check({k: counts[k] for k in SOURCES} == want,
-              f"TP full width {run}: launches {counts} != {want}")
+              f"{label} {run}: launches {counts} != {want}")
         check(math.isfinite(float(m["loss"])),
-              f"TP full width {run}: loss {float(m['loss'])}")
-        if rank == 0:
-            out["errs"].update(check_captured_wire(f"TP full width {run}",
-                                                   cap))
+              f"{label} {run}: loss {float(m['loss'])}")
+        if captures:
+            out["errs"].update(check_captured_wire(f"{label} {run}", cap))
         del cap
         digests[run] = {"params": _digest(tree_leaves(p1))}
         out["runs"][run] = {
@@ -3820,8 +3849,8 @@ def tp_full_width(rank, mesh, dev):
         del p1, s1
         _free_card()
     check(digests["allgather"] == digests["wire"],
-          "TP full width: the allgather step's params != the simulated "
-          "wire step's")
+          f"{label}: the allgather step's params != the simulated wire "
+          f"step's")
     out["digests"] = digests
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     del params, state
@@ -3986,12 +4015,66 @@ def tp_serve(rank, mesh, dev):
     return out
 
 
+def _pod_meshes():
+    """16(c)-(d)'s meshes over the four ranks: (pod 2, data 1, model 2),
+    (pod 2, data 2, model 1) and (data 4, model 1); rank = (p * data + d)
+    * model + m."""
+    from repro_torch.launch.mesh import make_host_mesh
+    return {"pod_tp": make_host_mesh(data=1, model=2, pod=2),
+            "pod_dp": make_host_mesh(data=2, model=1, pod=2),
+            "data4": make_host_mesh(data=4, model=1)}
+
+
+def pod_smoke(rank, meshes, dev):
+    """16(d) on all four ranks: llama3 smoke (f32, momentum SGD) on (pod 2,
+    data 2, model 1), a dense run and a QSGD(16) allgather wire run of
+    POD_STEPS steps each, from one init and batch stream, and the same on
+    (data 4, model 1): the pod runs reduce over the flattened (pod, data)
+    group -> {mesh: {run: (losses, a digest a param leaf)}}, launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_smoke
+    from repro_torch.convert import tree_leaves
+    from repro_torch.core.aggregation import CompressionConfig
+    from repro_torch.core.compressors import QSGD
+    from repro_torch.launch.engine import Engine
+    from repro_torch.optim import OptConfig
+    cfg = get_smoke("llama3-405b")
+    runs = (("dense", None, False, None),
+            ("allgather", CompressionConfig(qw=QSGD(levels=MAIN_LEVELS)),
+             True, "allgather"))
+    out, launches = {}, {}
+    for name in ("pod_dp", "data4"):
+        out[name] = {}
+        for run, comp, wire, coll in runs:
+            eng = Engine(cfg, meshes[name], comp=comp,
+                         opt=OptConfig("momentum", lr=0.05), device=dev)
+            params, state = eng.init_state(0)
+            step = eng.build_train_step(wire=wire, collective=coll)
+            g = torch.Generator(device=dev).manual_seed(21)
+            losses = []
+            kernels.reset_launch_counts()
+            for i in range(POD_STEPS):
+                s = torch.randint(0, cfg.vocab, (POD_BATCH, POD_SEQ + 1),
+                                  generator=g, device=dev)
+                params, state, m = step(params, state,
+                                        {"tokens": s[:, :-1],
+                                         "targets": s[:, 1:]}, i)
+                losses.append(float(m["loss"]))
+            for k, v in kernels.launch_counts().items():
+                launches[k] = launches.get(k, 0) + v
+            out[name][run] = (losses, _digest(tree_leaves(params)))
+    return out, launches
+
+
 def tp_ranks(rank, n, dev):
     """Phase 13's one spawn of TP_RANKS ranks on cuda:0: 13(b) on all four,
-    then on ranks 0 and 1 13(a), 13(c) and 13(d)."""
+    then on ranks 0 and 1 13(a), 13(c) and 13(d); then on all four 16(c)
+    (13(b) on the pod mesh) and 16(d)."""
     import torch
     from repro_torch import kernels
     full, tp, dp = _tp_meshes(rank)
+    pods = _pod_meshes()
     t0 = time.perf_counter()
     out = {"full_width": tp_full_width(rank, full, dev)}
     out["seconds"] = {"full_width": time.perf_counter() - t0}
@@ -3999,6 +4082,19 @@ def tp_ranks(rank, n, dev):
     for r in out["full_width"]["runs"].values():
         for k, v in r["launches"].items():
             out["launches"][k] = out["launches"].get(k, 0) + v
+    t0 = time.perf_counter()
+    pod = {"full_width": tp_full_width(rank, pods["pod_tp"], dev,
+                                       "pod full width"), "launches": {}}
+    for r in pod["full_width"]["runs"].values():
+        for k, v in r["launches"].items():
+            pod["launches"][k] = pod["launches"].get(k, 0) + v
+    pod["seconds"] = {"full_width": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    pod["smoke"], counts = pod_smoke(rank, pods, dev)
+    pod["seconds"]["smoke"] = time.perf_counter() - t0
+    for k, v in counts.items():
+        pod["launches"][k] = pod["launches"].get(k, 0) + v
+    out["pod"] = pod
     if rank >= 2:
         return out
     kernels.reset_launch_counts()
@@ -4090,8 +4186,49 @@ def tp_phase(dev):
     errs = {}
     for k, v in f0["errs"].items():
         errs[k] = max(errs.get(k, 0.0), v)
+    for k, v in pod_checks(ranks).items():
+        launches[k] = launches.get(k, 0) + v
     return ({"seconds": time.perf_counter() - t0, "ranks": ranks},
             launches, errs)
+
+
+def pod_checks(ranks) -> dict:
+    """16(c)-(d) from phase 13's ranks: each rank's pod runs bitwise its
+    twin's (losses and a digest a leaf), exact launches -> the launches
+    summed over the ranks."""
+    launches = {}
+    want = {k: sum(TP_STEP_LAUNCHES[run].get(k, 0) for run in
+                   TP_STEP_LAUNCHES) + POD_SMOKE_LAUNCHES.get(k, 0)
+            for k in SOURCES}
+    for rank, r in enumerate(ranks):
+        pod, fw = r["pod"], r["full_width"]
+        check(pod["full_width"]["digests"] == fw["digests"]
+              and all(pod["full_width"]["runs"][k]["loss"]
+                      == fw["runs"][k]["loss"] for k in fw["runs"]),
+              f"16(c) rank {rank}: (pod 2, data 1, model 2) losses / params "
+              f"!= the (data 2, model 2) run's")
+        for run, got in pod["smoke"]["pod_dp"].items():
+            check(got == pod["smoke"]["data4"][run],
+                  f"16(d) rank {rank} {run}: (pod 2, data 2, model 1) "
+                  f"losses / params != the (data 4, model 1) run's")
+        got = {k: pod["launches"].get(k, 0) for k in SOURCES}
+        check(got == want, f"16(c)-(d) rank {rank}: launches {got} != "
+              f"{want}")
+        for k, v in pod["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    p0 = ranks[0]["pod"]
+    print(f"16(c) phi4-mini full width (2 layers, bf16, SGD) on (pod 2, data "
+          f"1, model 2): each run's loss and params bitwise the (data 2, "
+          f"model 2) run's on every rank (losses "
+          f"{ {k: round(v['loss'], 4) for k, v in p0['full_width']['runs'].items()} }), "
+          f"launches a rank {_nonzero(p0['launches'])} with (d); "
+          f"{p0['seconds']['full_width']:.1f} s", flush=True)
+    print(f"16(d) llama3 smoke (f32) on (pod 2, data 2, model 1): dense and "
+          f"QSGD({MAIN_LEVELS}) allgather, {POD_STEPS} steps, bitwise the "
+          f"(data 4, model 1) runs on every rank (losses "
+          f"{ {k: v[0] for k, v in p0['smoke']['pod_dp'].items()} }); "
+          f"{p0['seconds']['smoke']:.1f} s", flush=True)
+    return launches
 
 
 # ---- phase 14: observability (obs/: recorder, metrics, calibration) ---------
@@ -5016,6 +5153,241 @@ def resil_phase(dev, ranks):
     torch.cuda.synchronize(dev)
     return ({"seconds": secs, "full_width": full, "resnet9": r9,
              "campaign": camp, "ranks": ranks}, launches)
+
+
+# ---- phase 16: the dry run, its cost model and the pod axis -----------------
+
+# 16(a): phi4-mini full width (lm_full_width) at train_4k's sequence, the
+# largest of DRY_BATCHES whose traced peak (the dry run's, on meta
+# tensors) stays within phase 9's largest peak (60.0 GiB, PERF.md §3: the
+# same configuration trained on the card), on a (1, 1) mesh
+DRY_SEQ = 4096
+DRY_BATCHES = (64, 32, 16, 8)
+DRY_PEAK_LIMIT = 60.0 * 2**30
+DRY_PEAK_TOL = 0.10           # the traced peak against the card's
+# 16(b): the production-mesh rows, one worker process a group (the cuda
+# row, then the cpu row of each, in that process)
+DRY_ROW_GROUPS = (
+    (("qwen3-moe-235b-a22b", "train_4k", False),),
+    (("qwen3-moe-235b-a22b", "train_4k", True),),
+    (("phi4-mini-3.8b", "train_4k", False),
+     ("phi4-mini-3.8b", "train_4k", True)),
+    (("phi4-mini-3.8b", "decode_32k", False),
+     ("phi4-mini-3.8b", "decode_32k", True),
+     ("qwen3-moe-235b-a22b", "decode_32k", False),
+     ("qwen3-moe-235b-a22b", "decode_32k", True)))
+# the fields of a row that say which card it is held against, and the
+# wall seconds it took: everything else is a count
+DRY_CAPACITY = ("card", "card_source", "lower_s", "compile_s")
+DRY_CAPACITY_MEM = ("card_total_bytes", "fits_card", "estimate_fits_card")
+
+
+def dry_compression():
+    """The dry run's default compression: top-k(1%) layerwise, simulated."""
+    from repro_torch.launch import dryrun
+    return dryrun.build_compression(dryrun.parser().parse_args([]))
+
+
+def _dry_worker_init():
+    """A 16(b) worker takes only cores nothing else wants (SCHED_IDLE,
+    or nice 19 where the policy is refused), so the host-timed phases
+    13-15 it runs beside keep the cores they had without it."""
+    import torch
+    os.nice(19)
+    try:
+        os.sched_setscheduler(0, os.SCHED_IDLE, os.sched_param(0))
+    except (AttributeError, OSError):
+        pass
+    torch.set_num_threads(1)
+
+
+def dry_rows(rows):
+    """16(b) in a worker process: each (arch, shape, multi_pod) of `rows`
+    through dryrun.run_one with device "cuda", then "cpu" -> [(cuda row,
+    cpu row, the lines the cuda run printed)]."""
+    import contextlib
+    import io
+    from repro_torch.launch import dryrun
+    from repro_torch.optim import OptConfig
+    comp, opt = dry_compression(), OptConfig(name="sgd")
+    out = []
+    for arch, shape, multi in rows:
+        pair = []
+        for device in ("cuda", "cpu"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                row = dryrun.run_one(
+                    arch, shape, multi, comp, opt,
+                    str(ROOT / "chiprun_out" / "dryrun16" / device),
+                    device=device)
+            pair.append((row, buf.getvalue()))
+        out.append((pair[0][0], pair[1][0], pair[0][1]))
+    return out
+
+
+def dry_rows_start():
+    """Start 16(b)'s worker processes (CPU only, idle priority); phase 16
+    collects them."""
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=len(DRY_ROW_GROUPS),
+        mp_context=multiprocessing.get_context("spawn"),
+        initializer=_dry_worker_init)
+    return pool, [pool.submit(dry_rows, g) for g in DRY_ROW_GROUPS]
+
+
+def _dry_counts(row) -> dict:
+    """A dry-run row without its capacity and wall-time fields."""
+    d = {k: v for k, v in row.items() if k not in DRY_CAPACITY}
+    d["memory_per_device"] = {k: v for k, v in row["memory_per_device"]
+                              .items() if k not in DRY_CAPACITY_MEM}
+    return d
+
+
+def dry_lm(dev):
+    """16(a): the dry run of phi4-mini full width on a (1, 1) mesh, then
+    the same train step on the card on a one-rank gloo group under the
+    same counter: FLOPs equal, the dry run's traced peak within
+    DRY_PEAK_TOL of torch.cuda.max_memory_allocated; the roofline's terms
+    beside the step's CUDA-event ms -> record."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import random as R
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.analysis import analyze_step
+    from repro_torch.launch.engine import Engine
+    from repro_torch.launch.hlo_cost import StepCost
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import InputShape
+    from repro_torch.optim import OptConfig, init_opt_state
+    cfg, comp = lm_full_width(), dry_compression()
+    opt = OptConfig("sgd", lr=LM_LR)
+    tried = {}
+    t0 = time.perf_counter()
+    for batch in DRY_BATCHES:
+        shape = InputShape("train", DRY_SEQ, batch, "train")
+        with dryrun.fake_group(1):
+            eng = Engine(cfg, make_mesh((1, 1), ("data", "model")),
+                         comp=comp, opt=opt, device="meta")
+            cost = dryrun.count_step(*dryrun.step_inputs(eng, shape))
+        mem = cost.memory_analysis()
+        tried[batch] = (mem["argument_size_in_bytes"]
+                        + mem["temp_size_in_bytes"])
+        if tried[batch] <= DRY_PEAK_LIMIT:
+            break
+    check(tried[batch] <= DRY_PEAK_LIMIT,
+          f"16(a): no batch of {DRY_BATCHES} fits: traced peaks {tried}")
+    dry_s = time.perf_counter() - t0
+    roof = analyze_step(cost, arch="phi4-mini-3.8b", shape=shape,
+                        mesh_name="1x1", chips=1, cfg=cfg)
+    est = eng.memory_estimate(shape)
+    _free_card()
+    dist.init_process_group("gloo", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        eng = Engine(cfg, make_mesh((1, 1), ("data", "model")), comp=comp,
+                     opt=opt, device=dev)
+        base = torch.cuda.memory_allocated(dev)
+        params = eng.model.init(R.key(0), device=dev)
+        state = init_opt_state(opt, params)
+        g = torch.Generator(device=dev).manual_seed(16)
+        s = torch.randint(0, cfg.vocab, (batch, DRY_SEQ + 1), generator=g,
+                          device=dev, dtype=torch.int32)
+        data = {"tokens": s[:, :-1].contiguous(),
+                "targets": s[:, 1:].contiguous()}
+        del s
+        step = eng.build_train_step()
+        _free_card()
+        torch.cuda.reset_peak_memory_stats(dev)
+        real = StepCost()
+        real.arguments(params, state, data, 0)
+        with real:
+            out = step(params, state, data, 0)
+        real.outputs(out)
+        torch.cuda.synchronize(dev)
+        card_peak = torch.cuda.max_memory_allocated(dev) - base
+        loss = float(out[2]["loss"])
+        del out
+        # the counted step warmed up; one more without the counter, timed
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = step(params, state, data, 0)
+        ev[1].record()
+        ev[1].synchronize()
+        ms = ev[0].elapsed_time(ev[1])
+        del out
+        del params, state, data
+    finally:
+        dist.destroy_process_group()
+        _free_card()
+    traced = tried[batch]
+    check(real.flops == cost.flops, f"16(a): the step's counted FLOPs on "
+          f"the card {real.flops} != the dry run's {cost.flops}")
+    check(abs(traced - card_peak) <= DRY_PEAK_TOL * card_peak,
+          f"16(a): traced peak {traced} B not within {DRY_PEAK_TOL} of "
+          f"max_memory_allocated {card_peak} B")
+    check(math.isfinite(loss), f"16(a): loss {loss}")
+    rm = real.memory_analysis()
+    rec = {"batch": batch, "seq": DRY_SEQ, "tried_peaks": tried,
+           "dry_seconds": dry_s, "roofline": roof.to_dict(),
+           "memory_estimate": {k: float(v) for k, v in est.items()},
+           "traced_peak": traced, "card_peak": card_peak,
+           "card_traced_peak": (rm["argument_size_in_bytes"]
+                                + rm["temp_size_in_bytes"]),
+           "card_flops": real.flops, "card_bytes": real.bytes,
+           "step_ms": ms, "loss": loss}
+    print(f"16(a) phi4-mini full width (2 layers, bf16) train {batch} x "
+          f"{DRY_SEQ} on (1, 1), top-k({SPARSE_RATIO}) layerwise simulated "
+          f"(traced peaks a batch {tried}): counted FLOPs {cost.flops:.6g} "
+          f"on meta == {real.flops:.6g} on the card; traced peak {traced} B "
+          f"(on the card {rec['card_traced_peak']} B) against "
+          f"max_memory_allocated {card_peak} B "
+          f"({(traced - card_peak) / card_peak:+.3%}); memory_estimate "
+          f"{est['total']:.6g} B; HBM model bytes {cost.bytes:.6g} (card "
+          f"{real.bytes:.6g}); roofline t = ({roof.t_compute:.4f}, "
+          f"{roof.t_memory:.4f}, {roof.t_collective:.4f}) s "
+          f"({roof.bottleneck}) beside the step's {ms:.1f} ms (CUDA "
+          f"events); "
+          f"loss {loss:.4f}; dry runs {dry_s:.1f} s", flush=True)
+    return rec
+
+
+def dry_phase(dev, pool, futures):
+    """Phase 16: (a) here, (b) from the workers dry_rows_start started
+    ((c) and (d) ran inside phase 13's spawn) -> record."""
+    import torch
+    t0 = time.perf_counter()
+    rec = {"lm": dry_lm(dev), "rows": []}
+    t1 = time.perf_counter()
+    props = torch.cuda.get_device_properties(0)
+    try:
+        groups = [f.result(timeout=RANK_TIMEOUT) for f in futures]
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    for group in groups:
+        for cuda_row, cpu_row, lines in group:
+            for line in lines.splitlines():
+                print(f"  {line}", flush=True)
+            tag = f"{cuda_row['arch']}__{cuda_row['shape']}__" \
+                  f"{cuda_row['mesh']}"
+            check(cuda_row["status"] == "ok", f"16(b) {tag}: {cuda_row}")
+            check(cuda_row["card"] == props.name
+                  and cuda_row["memory_per_device"]["card_total_bytes"]
+                  == float(props.total_memory),
+                  f"16(b) {tag}: card {cuda_row['card']} is not the "
+                  f"visible card {props.name}")
+            check(_dry_counts(cuda_row) == _dry_counts(cpu_row),
+                  f"16(b) {tag}: the --device cuda row's counts differ "
+                  f"from the --device cpu row's")
+            rec["rows"].append({"cuda": cuda_row, "cpu": cpu_row})
+    print(f"16(b): {len(rec['rows'])} production-mesh rows, each row's "
+          f"counts equal to the same row with --device cpu in its process "
+          f"(only the card fields and wall seconds differ); phase 16 "
+          f"{time.perf_counter() - t0:.1f} s here ((a) {t1 - t0:.1f} s, "
+          f"waiting on (b) {time.perf_counter() - t1:.1f} s)", flush=True)
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
 
 
 # ---- phase 7: the multi-rank path (runs inside each rank process) ----------
@@ -6363,19 +6735,29 @@ def main(argv) -> int:
         launches[k] += control_launches.get(k, 0)
     errs["fields_pack"] = max(errs["fields_pack"], cerr[0])
     errs["fields_unpack"] = max(errs["fields_unpack"], cerr[1])
-    tp, tp_launches, tp_errs = tp_phase(dev)
-    for k in SOURCES:
-        launches[k] += tp_launches.get(k, 0)
-    for k, v in tp_errs.items():
-        errs[k] = max(errs[k], v)
-    obs, obs_launches = obs_phase(dev, [r["obs"] for r in multi])
-    for k in SOURCES:
-        launches[k] += obs_launches.get(k, 0)
-    for k, v in obs["engine"]["errs"].items():
-        errs[k] = max(errs[k], v)
-    resil, resil_launches = resil_phase(dev, [r["faults"] for r in multi])
-    for k in SOURCES:
-        launches[k] += resil_launches.get(k, 0)
+    # 16(b)'s dry runs take the host's idle cores from here on
+    pool, dry_futures = dry_rows_start()
+    try:
+        tp, tp_launches, tp_errs = tp_phase(dev)
+        for k in SOURCES:
+            launches[k] += tp_launches.get(k, 0)
+        for k, v in tp_errs.items():
+            errs[k] = max(errs[k], v)
+        obs, obs_launches = obs_phase(dev, [r["obs"] for r in multi])
+        for k in SOURCES:
+            launches[k] += obs_launches.get(k, 0)
+        for k, v in obs["engine"]["errs"].items():
+            errs[k] = max(errs[k], v)
+        resil, resil_launches = resil_phase(dev,
+                                            [r["faults"] for r in multi])
+        for k in SOURCES:
+            launches[k] += resil_launches.get(k, 0)
+        dry = dry_phase(dev, pool, dry_futures)
+    finally:
+        pool.shutdown(wait=False, cancel_futures=True)
+        for proc in list((getattr(pool, "_processes", None) or {}).values()):
+            if proc.is_alive():
+                proc.terminate()
     timings += lm["timings"]
     summary = kernel_line(timings, launches, errs)
     from repro_torch.core.compressors import QSGD, TopK
@@ -6403,7 +6785,7 @@ def main(argv) -> int:
                   for src, log in build.BUILD_LOG.items()},
         "multi_rank_seconds": multi_secs, "lm": lm, "serve": serve,
         "engine": engine, "control": control, "tp": tp, "obs": obs,
-        "resil": resil, "summary": summary},
+        "resil": resil, "dry": dry, "summary": summary},
         indent=1))
     print(f"total {total:.1f} s", flush=True)
     print(f"{card}")

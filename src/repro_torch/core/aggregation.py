@@ -65,8 +65,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.convert import tree_leaves, tree_map
-from repro_torch.core.collectives import (all_gather, rank_mean, rank_sum,
-                                          reduce_scatter)
+from repro_torch.core.collectives import (all_gather, all_reduce, rank_mean,
+                                          rank_sum, reduce_scatter)
 from repro_torch.core.compressors import (Compressor, Identity, RandomK,
                                           _f32, _k_of)
 from repro_torch.core.granularity import Granularity
@@ -358,8 +358,11 @@ def compressed_allreduce(grads, stacked, cfg: CompressionConfig, group,
                          faults=None, alive=None):
     """Aggregate this rank's gradient tree with bidirectional compression
     across the ranks of `group` (a torch.distributed process group, None
-    for the default one) -> (grads_hat, new_ef_state), identical on every
-    rank. `n_workers` must be the group's size; `key` (2,) is the same on
+    for the default one; the reference's dp axes, ("data",) or on a pod
+    mesh the flattened ("pod", "data") group, whose rank p * data + d is
+    the reference's axis_index over both axes) -> (grads_hat,
+    new_ef_state), identical on every rank. `n_workers` must be the
+    group's size; `key` (2,) is the same on
     every rank. `wire=True` materializes Q_W as real packed message
     buffers (per-bucket messages unless cfg.fusion_bytes or `schedule`
     says otherwise); under allgather their bucket regions cross the
@@ -426,8 +429,8 @@ def _allreduce(grads, stacked, cfg, group, key, n_workers, ef_state, plan,
         # the reference's jitted `psum(g) / denom` is a multiply by
         # f32(1 / denom) under XLA
         recip = torch.tensor(1.0, dtype=torch.float32) / denom
-        return tree_map(lambda g: (rank_sum(all_gather(
-            _wire(g, cfg) * me, group)) * recip).to(g.dtype),
+        return tree_map(lambda g: (all_reduce(
+            _wire(g, cfg) * me, group) * recip).to(g.dtype),
             grads), ef_state
 
     if not tree_leaves(grads):                       # nothing to aggregate

@@ -11,10 +11,14 @@ own slice. Neither gloo's nor NCCL's all_reduce fixes its summation
 order, and gloo has no reduce_scatter.
 
   all_gather      every rank's tensor, stacked in rank order
+  all_reduce      an all_gather, then the rank-order sum (or another
+                  reduction over the rank axis): the reference's psum
   reduce_scatter  this rank's slice of the rank-order sum: n - 1
                   point-to-point sends of one slice each way
   ring_shift      the ppermute i -> i + 1 mod n of the streaming
                   collectives: send to rank + 1, receive from rank - 1
+  gather_metrics  every rank's tensor in rank order, for a step's metric
+                  reductions: not counted below
 
 Tensors travel as uint8 views, so any dtype crosses any backend. gloo
 takes CUDA tensors in all_gather_into_tensor (it stages them through host
@@ -29,9 +33,18 @@ directly and needs one card per rank.
 (a rank's bytes put on the wire), `recv_bytes` (bytes it received),
 `staged_bytes` (host copies of the gloo route) and `seconds` (host wall
 time inside the calls, staging included).
+
+A cost observer (launch/hlo_cost.py StepCost, the dry run's counter) sees
+each collective as the reference HLO op it stands for (`observe`: kind,
+result bytes, group size), an all_reduce as one all-reduce however it
+moves its bytes; the ops a collective dispatches belong to it (`inside`).
+On meta tensors (a dry run over PyTorch's fake process group) the
+point-to-point collectives move nothing: their receive buffers are
+already of the right shape, and nothing is staged through host memory.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, List, Optional
 
@@ -68,6 +81,32 @@ def reset_counts() -> None:
 
 reset_counts()
 
+#: the active cost observer (launch/hlo_cost.py StepCost), or None
+_observer = None
+_depth = 0
+
+
+def inside() -> bool:
+    """True while a collective runs (its ops are the collective's)."""
+    return _depth > 0
+
+
+@contextlib.contextmanager
+def observe(kind: str, result_bytes: int, group):
+    """Mark the collective that runs inside as the reference HLO op `kind`
+    ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+    "collective-permute") with a result of `result_bytes` on each rank of
+    `group`; the outermost mark wins."""
+    global _depth
+    if _observer is not None and _depth == 0:
+        _observer.collective(kind, int(result_bytes),
+                             dist.get_world_size(group))
+    _depth += 1
+    try:
+        yield
+    finally:
+        _depth -= 1
+
 
 def _raw(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().reshape(-1).view(torch.uint8)
@@ -77,18 +116,39 @@ def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's `t` (same shape and dtype on all ranks) stacked in rank
     order -> (n, *t.shape), on t's device."""
     n = dist.get_world_size(group)
-    raw = _raw(t)
-    out = torch.empty((n * raw.numel(),), dtype=torch.uint8,
-                      device=t.device)
-    t0 = time.perf_counter()
-    dist.all_gather_into_tensor(out, raw, group=group)
-    _count("all_gather", t0, raw.numel(), (n - 1) * raw.numel())
-    return out.view(n, -1).view(t.dtype).reshape((n,) + tuple(t.shape))
+    with observe("all-gather", n * t.numel() * t.element_size(), group):
+        raw = _raw(t)
+        out = torch.empty((n * raw.numel(),), dtype=torch.uint8,
+                          device=t.device)
+        t0 = time.perf_counter()
+        dist.all_gather_into_tensor(out, raw, group=group)
+        _count("all_gather", t0, raw.numel(), (n - 1) * raw.numel())
+        return out.view(n, -1).view(t.dtype).reshape((n,) + tuple(t.shape))
+
+
+def gather_metrics(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's `x` in rank order -> (n, *x.shape): a step's metric
+    reduction (the reference's pmean / pmin), one all-reduce to a cost
+    observer, kept out of the wire counters."""
+    n = dist.get_world_size(group)
+    with observe("all-reduce", x.numel() * x.element_size(), group):
+        out = torch.empty((n * x.numel(),), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, x.reshape(-1).contiguous(),
+                                    group=group)
+    return out.view((n,) + tuple(x.shape))
+
+
+def all_reduce(x: torch.Tensor, group=None, reduce=None) -> torch.Tensor:
+    """The reduction over the ranks of every rank's `x`: all_gather, then
+    `reduce` over the leading rank axis (default rank_sum, the rank-order
+    sum). One all-reduce to a cost observer."""
+    with observe("all-reduce", x.numel() * x.element_size(), group):
+        return (reduce or rank_sum)(all_gather(x, group))
 
 
 def _staged(raws: List[torch.Tensor], group) -> bool:
     """True where point-to-point bytes of these tensors go through pinned
-    host buffers (gloo with CUDA tensors)."""
+    host buffers (gloo with CUDA tensors; never a meta tensor)."""
     return raws[0].is_cuda and dist.get_backend(group) == "gloo"
 
 
@@ -97,6 +157,8 @@ def _exchange(sends, recvs, group) -> int:
     for all of them, so no rank blocks on a send its peer has not yet
     matched. Returns the bytes staged through host memory."""
     raws = [t for _, t in sends] + [t for _, t in recvs]
+    if raws and raws[0].is_meta:
+        return 0
     staged = 0
     if _staged(raws, group):
         hsend = [(p, torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -123,13 +185,14 @@ def ring_shift(t: torch.Tensor, group=None) -> torch.Tensor:
     + 1, and the returned tensor (t's shape, dtype and device) is rank -
     1's. Every rank calls it with the same shape."""
     rank, n = dist.get_rank(group), dist.get_world_size(group)
-    raw = _raw(t)
-    out = torch.empty_like(raw)
-    t0 = time.perf_counter()
-    staged = _exchange([((rank + 1) % n, raw)], [((rank - 1) % n, out)],
-                       group)
-    _count("ring_shift", t0, raw.numel(), raw.numel(), staged)
-    return out.view(t.dtype).reshape(t.shape)
+    with observe("collective-permute", t.numel() * t.element_size(), group):
+        raw = _raw(t)
+        out = torch.empty_like(raw)
+        t0 = time.perf_counter()
+        staged = _exchange([((rank + 1) % n, raw)], [((rank - 1) % n, out)],
+                           group)
+        _count("ring_shift", t0, raw.numel(), raw.numel(), staged)
+        return out.view(t.dtype).reshape(t.shape)
 
 
 def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -143,17 +206,18 @@ def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
     if ds * n != x.shape[-1]:
         raise ValueError(f"last dim {x.shape[-1]} does not split over {n} "
                          f"ranks")
-    parts = [x[..., r * ds:(r + 1) * ds].contiguous() for r in range(n)]
-    got = [parts[rank] if r == rank else torch.empty_like(parts[rank])
-           for r in range(n)]
-    sends = [(r, _raw(parts[r])) for r in range(n) if r != rank]
-    recvs = [(r, got[r].view(-1).view(torch.uint8)) for r in range(n)
-             if r != rank]
-    t0 = time.perf_counter()
-    staged = _exchange(sends, recvs, group) if n > 1 else 0
-    nb = sum(t.numel() for _, t in sends)
-    _count("reduce_scatter", t0, nb, nb, staged)
-    return rank_sum(got)
+    with observe("reduce-scatter", x.numel() // n * x.element_size(), group):
+        parts = [x[..., r * ds:(r + 1) * ds].contiguous() for r in range(n)]
+        got = [parts[rank] if r == rank else torch.empty_like(parts[rank])
+               for r in range(n)]
+        sends = [(r, _raw(parts[r])) for r in range(n) if r != rank]
+        recvs = [(r, got[r].view(-1).view(torch.uint8)) for r in range(n)
+                 if r != rank]
+        t0 = time.perf_counter()
+        staged = _exchange(sends, recvs, group) if n > 1 else 0
+        nb = sum(t.numel() for _, t in sends)
+        _count("reduce_scatter", t0, nb, nb, staged)
+        return rank_sum(got)
 
 
 def rank_sum(g) -> torch.Tensor:
@@ -168,5 +232,4 @@ def rank_sum(g) -> torch.Tensor:
 def rank_mean(x: torch.Tensor, group=None) -> torch.Tensor:
     """The mean of `x` over the ranks, summed in rank order, then divided by
     n: bit for bit the worker mean of the simulated-worker harness."""
-    g = all_gather(x, group)
-    return rank_sum(g) / g.shape[0]
+    return all_reduce(x, group) / dist.get_world_size(group)

@@ -178,12 +178,6 @@ def fletcher32(buf: torch.Tensor) -> torch.Tensor:
     return (s2 << 16) | s1
 
 
-def not_ported(what: str, queue: str) -> NotImplementedError:
-    """The error of a reference feature a later slice ports."""
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                               f"Queue 1, {queue})")
-
-
 # ---- value-record legs: f32, or the bf16 wire cast -------------------------
 # The to_f32 / to_bf16 idiom: the wire carries bf16 (a deliberate lossy
 # cast), compute stays f32.

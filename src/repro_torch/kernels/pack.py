@@ -26,8 +26,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.qsgd import (TILE_CODES, _check, _launch_args,
-                                      _on_card, ballot_tiles, launch_grouped,
-                                      unpack_codes_plain, unpack_tiles)
+                                      _on_card, ballot_tiles, kernel_bytes,
+                                      launch_grouped, unpack_codes_plain,
+                                      unpack_tiles)
 from repro_torch.kernels.ref import words_per_unit
 
 MAX_WIDTH = 31
@@ -103,15 +104,17 @@ def _launch_buckets(entry: str, wrapper, ins, outs, buckets) -> None:
     """One launch of `entry` per MAX_BUCKETS non-empty buckets, each
     counted in wrapper.launches."""
     live = [i for i, (n, k, _) in enumerate(buckets) if n * k]
-    lib = build.library("pack")
     dev = ins[0].device
     for g, (table, sizes) in enumerate(_launches(
             tuple(buckets[i] for i in live))):
         idx = live[g * MAX_BUCKETS:(g + 1) * MAX_BUCKETS]
+        if not kernel_bytes(wrapper, [t[i] for t in (ins, outs)
+                                      for i in idx]):
+            continue
         ptrs = (ctypes.c_void_p * (2 * len(idx)))(
             *(t[i].data_ptr() for t in (ins, outs) for i in idx))
-        build.check(getattr(lib, entry)(len(idx), ptrs, sizes, table.blocks,
-                                        *_launch_args(dev)), entry)
+        build.check(getattr(build.library("pack"), entry)(
+            len(idx), ptrs, sizes, table.blocks, *_launch_args(dev)), entry)
         wrapper.launches += 1
 
 

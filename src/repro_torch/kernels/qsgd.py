@@ -4,7 +4,13 @@ CUDA kernels and their plain-torch versions.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
 or the wrapper raises. Nothing falls back. Each wrapper counts its kernel
-launches in `<wrapper>.launches`.
+launches in `<wrapper>.launches`. A meta tensor (a dry run,
+launch/dryrun.py) takes the kernel's shape function: the card path's
+checks and output allocations, no launch, `launches` unchanged. On the
+card and on meta alike, each launch hands a cost observer
+(launch/hlo_cost.py StepCost) the bytes of every buffer it reads or writes
+(`kernel_bytes`: each input read once, each output written once, as
+chip_smoke.py's bounds reckon them).
 
 The wire pack and unpack are grouped: one launch serves up to MAX_BUCKETS
 buckets (`qsgd_pack_buckets`, `qsgd_unpack_buckets`), described by a
@@ -46,16 +52,31 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
 
 
 def _on_card(x: torch.Tensor, *others: torch.Tensor) -> bool:
-    """True for CUDA inputs (launch the kernel), False for CPU inputs (plain
-    version); anything else raises."""
+    """True for CUDA inputs (launch the kernel) and meta inputs (the
+    kernel's shape function), False for CPU inputs (plain version);
+    anything else raises."""
     if x.device.type == "cpu":
         return False
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no kernel for device {x.device}")
     for o in others:
         if o.device != x.device:
             raise ValueError(f"inputs on {o.device} and {x.device}")
     return True
+
+
+#: the active cost observer (launch/hlo_cost.py StepCost), or None
+_observer = None
+
+
+def kernel_bytes(wrapper, tensors) -> bool:
+    """Before one launch of `wrapper`'s kernel over `tensors` (every buffer
+    it reads or writes, each once): hand their bytes to a cost observer.
+    False on meta tensors: a dry run launches nothing."""
+    if _observer is not None:
+        _observer.kernel(wrapper.__name__,
+                         sum(t.numel() * t.element_size() for t in tensors))
+    return not tensors[0].is_meta
 
 
 def _launch_args(device) -> tuple:
@@ -133,6 +154,8 @@ def compress_tiles(d: int, draw: int, per_thread: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _resident_threads(device) -> int:
+    if device.type == "meta":      # a dry run: no card to ask, no launch
+        return 1 << 62
     p = torch.cuda.get_device_properties(device)
     return p.multi_processor_count * p.max_threads_per_multi_processor
 
@@ -218,6 +241,8 @@ def launch_grouped(wrapper, stem: str, entry: str, shapes, tensors,
     for g, (table, sizes) in enumerate(_launches(
             tuple(tuple(shapes[i]) for i in live), width, tiles_of, more)):
         idx = live[g * MAX_BUCKETS:(g + 1) * MAX_BUCKETS]
+        if not kernel_bytes(wrapper, [t[i] for t in tensors for i in idx]):
+            continue
         ptrs = (ctypes.c_void_p * (len(tensors) * len(idx)))(
             *(t[i].data_ptr() for t in tensors for i in idx))
         build.check(getattr(build.library(stem), entry)(

@@ -11,7 +11,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.qsgd import _check, _launch_args, _on_card
+from repro_torch.kernels.qsgd import (_check, _launch_args, _on_card,
+                                      kernel_bytes)
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 VEC_BYTES = 16
@@ -68,6 +69,8 @@ def rmsnorm(x, gamma, eps: float = 1e-5) -> torch.Tensor:
     for t, name in ((x, "x"), (g, "gamma"), (out, "out")):
         check_aligned(t, name)
     variant, threads, vpt = launch_plan(D, x.element_size())
+    if not kernel_bytes(rmsnorm, [x, g, out]):
+        return out
     build.check(build.library("rmsnorm").rmsnorm(
         x.data_ptr(), g.data_ptr(), out.data_ptr(), R, D,
         int(x.dtype == torch.bfloat16), vpt, threads, eps,

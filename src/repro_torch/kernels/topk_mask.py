@@ -16,7 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.qsgd import _check, _launch_args, _on_card
+from repro_torch.kernels.qsgd import (_check, _launch_args, _on_card,
+                                      kernel_bytes)
 
 BLOCK_C = 512
 ITERS = ref.TOPK_ITERS
@@ -138,7 +139,7 @@ def flat_output(x: torch.Tensor, k) -> torch.Tensor:
 
 def _launch(x: torch.Tensor, out: torch.Tensor, k: int) -> torch.Tensor:
     d = x.numel()
-    if d == 0:
+    if d == 0 or not kernel_bytes(topk_mask, [x, out]):
         return out
     build.check(build.library("topk_mask").topk_mask_flat(
         x.data_ptr(), out.data_ptr(), d, k, KERNEL_DTYPES[x.dtype],

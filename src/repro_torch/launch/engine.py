@@ -1,7 +1,8 @@
 """The distributed execution engine (the JAX package's launch/engine.py):
-train, prefill and serve steps on a (data, model) mesh with the paper's
-compressed gradient aggregation wired in, one rank process per device of
-the reference's mesh (rank = d * model + m).
+train, prefill and serve steps on a (data, model) or (pod, data, model)
+mesh with the paper's compressed gradient aggregation wired in, one rank
+process per device of the reference's mesh (rank = d * model + m; (p *
+data + d) * model + m on a pod mesh).
 
 train step (on every rank, with this rank's parameter shards):
   1. forward / backward on this data rank's rows of the global batch
@@ -9,7 +10,7 @@ train step (on every rank, with this rank's parameter shards):
      TP and SP collectives inside; FSDP leaves (cfg.use_fsdp) aggregate
      their gradients in the backward hook with Q_W
   2. the paper's Algorithm 1 on the other gradient leaves: Q_W on this
-     rank -> the collective over the data group -> Q_M
+     rank -> the collective over the dp group -> Q_M
      (compressed_allreduce through the engine's cached UnitPlan of the
      SHARD shapes; wire=True packs real message buffers,
      collective='ring' streams them around the ring)
@@ -17,22 +18,26 @@ train step (on every rank, with this rank's parameter shards):
   4. the optimizer update, its state sharded like the params
 
 The engine's DistConfig is the reference's: tp="model", fsdp="data" when
-cfg.use_fsdp, dp=("data",), sp=True. Data rank d of n takes rows
-[d B / n, (d + 1) B / n) of the global batch, as the reference's data
+cfg.use_fsdp, dp=("data",) or on a pod mesh ("pod", "data"), sp=True.
+The dp group is the data axis' group, or the mesh's flattened (pod, data)
+group in pod-major order; dp rank r of n (r = p * data + d) takes rows
+[r B / n, (r + 1) B / n) of the global batch, as the reference's data
 sharding does, and the step key is fold_in(key(42), step), the
-reference's. The loss is averaged over the data group in rank order (the
-reference's pmean); step_guard's finite flag is reduced by MIN over the
-model group, then the data group, so every rank takes the same branch.
-Torch has no buffer donation: the step returns new trees.
+reference's. FSDP stays on "data" (dp[-1]): its hook reduce-scatters over
+the data group and sums over the pod group. The loss is averaged over the
+dp group in rank order (the reference's pmean); step_guard's finite flag
+is reduced by MIN over the model group, then the dp group, so every rank
+takes the same branch. Torch has no buffer donation: the step returns new
+trees.
 
 With telemetry=True the step also threads a control.TelemetryState: each
 rank measures its own gradients against the aggregate, and the increments
-are averaged over the data group in rank order (the reference's pmean)
+are averaged over the dp group in rank order (the reference's pmean)
 before they accumulate, so every rank holds the same state.
 
 `init_state` gives each rank its shards (`shard_tree`); `global_tree`
 gathers a sharded state back to the reference's global arrays (the
-checkpoint file's content). The pod axis is ROADMAP Queue 1 item 9.
+checkpoint file's content).
 
 `build_train_step(tracer=, metrics=)` instruments the step (the
 reference's engine.py:323-475): the tracer (obs.trace.TraceRecorder)
@@ -54,10 +59,10 @@ from repro_torch.convert import (map_tree, tree_leaves, tree_map, tree_paths,
                                  tree_unflatten)
 from repro_torch.core.aggregation import (CompressionConfig,
                                           compressed_allreduce)
+from repro_torch.core import collectives as C
 from repro_torch.core.plan import build_plan
-from repro_torch.core.wire import not_ported
 from repro_torch.core.collectives import all_gather as _gather_ranks
-from repro_torch.launch.mesh import ITEM_9, Mesh, axis_sizes
+from repro_torch.launch.mesh import POD_DP, Mesh, axis_sizes
 from repro_torch.models.config import InputShape, ModelConfig
 from repro_torch.models.dist import DistConfig
 from repro_torch.models.model import Model
@@ -72,27 +77,14 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def _group_values(x: torch.Tensor, group) -> torch.Tensor:
-    """Every rank's 0-d `x`, in rank order -> (n,). A step's metric
-    reductions, kept out of the collectives' wire counters."""
-    n = dist.get_world_size(group)
-    out = torch.empty((n,), dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, x.reshape(1).contiguous(), group=group)
-    return out
-
-
 def _group_mean_tree(tree, group):
-    """The mean over the data group of every tensor of a tuple of f32
+    """The mean over the dp group of every tensor of a tuple of f32
     tensors, summed in rank order then divided by n (the reference's
     pmean): one all_gather of the concatenated fields."""
     n = dist.get_world_size(group)
     if n == 1:
         return tree
-    flat = torch.cat([t.reshape(-1) for t in tree])
-    got = torch.empty((n * flat.numel(),), dtype=flat.dtype,
-                      device=flat.device)
-    dist.all_gather_into_tensor(got, flat.contiguous(), group=group)
-    got = got.reshape(n, -1)
+    got = C.gather_metrics(torch.cat([t.reshape(-1) for t in tree]), group)
     mean = got[0]
     for i in range(1, n):
         mean = mean + got[i]
@@ -146,19 +138,18 @@ class Engine:
         self.cfg = cfg
         self.mesh = mesh
         self.sizes = axis_sizes(mesh)
-        if "pod" in self.sizes:
-            raise not_ported("a pod mesh axis", ITEM_9)
+        dp = POD_DP if "pod" in self.sizes else ("data",)
         self.dist = DistConfig(tp="model",
                                fsdp="data" if cfg.use_fsdp else None,
-                               dp=("data",), sp=True)
+                               dp=dp, sp=True)
         self.model = Model(cfg, self.dist, self.sizes)
         self.comp = comp
         self.opt = opt or OptConfig()
         self.remat = remat
         self.device = resolve_device(device)
-        self.dp_size = self.sizes["data"]
+        self.dp_size = mesh.axis_size(dp)
         self.tp_size = self.sizes.get("model", 1)
-        self.group = mesh.group("data")
+        self.group = mesh.group(dp)          # the dp group (flattened)
         self.model_group = mesh.group("model")
         self._plans: Dict[Any, tuple] = {}
 
@@ -193,7 +184,7 @@ class Engine:
     def global_tree(self, tree, pspecs):
         """The global arrays of a sharded tree, on every rank (collective:
         every rank calls it): each sharded dim gathered over its axis."""
-        groups = {"data": self.group, "model": self.model_group}
+        groups = {"data": self.mesh.group("data"), "model": self.model_group}
 
         def gather(t, axis):
             return _gather_ranks(t, groups[axis])
@@ -237,11 +228,13 @@ class Engine:
         return out
 
     def _dpp(self, shape: InputShape):
-        """The batch dim's axis: "data", or None (every rank takes the
-        whole batch) when the global batch does not divide the ranks."""
+        """The batch dim's axis: "data" (("pod", "data") on a pod mesh), or
+        None (every rank takes the whole batch) when the global batch does
+        not divide the dp ranks."""
         if shape.global_batch % self.dp_size != 0:
             return None
-        return "data"
+        dp = tuple(self.dist.dp)
+        return dp if len(dp) > 1 else dp[0]
 
     def batch_pspecs(self, shape: InputShape) -> Dict[str, tuple]:
         """Each entry's partition, one mesh axis or None per dim (the
@@ -251,8 +244,10 @@ class Engine:
                 for k, v in self.batch_shapes(shape).items()}
 
     def _rank(self) -> int:
-        """This rank's index along the data axis."""
-        return self.mesh.axis_index("data") if self.dp_size > 1 else 0
+        """This rank's index along the dp axes (p * data + d on a pod
+        mesh)."""
+        return self.mesh.axis_index(tuple(self.dist.dp)) \
+            if self.dp_size > 1 else 0
 
     def local_batch(self, batch: Dict[str, torch.Tensor],
                     sharded: bool = True) -> Dict[str, torch.Tensor]:
@@ -309,7 +304,7 @@ class Engine:
     def _aggregate_grads(self, grads, key: torch.Tensor,
                          comp: Optional[CompressionConfig] = None,
                          schedule=None, wire: bool = False, recorder=None):
-        """Algorithm 1 over the data group on the leaves outside the FSDP
+        """Algorithm 1 over the dp group on the leaves outside the FSDP
         hook, through the engine's cached plan; `schedule` (a CommSchedule
         of that plan) or comp.fusion_bytes streams it through the
         backward-ordered message schedule (bit-identical numerics);
@@ -365,7 +360,7 @@ class Engine:
         control.TelemetryState: (params, opt, batch, step, telem) ->
         (params, opt, metrics, telem'), where telem' accumulates this
         step's measurement (this rank's gradients against the aggregate,
-        under the step key) averaged over the data group: absolute second
+        under the step key) averaged over the dp group: absolute second
         moments are per-rank averages, and the ratio statistics every
         policy reads are exact. `telemetry_entire_model=False` drops the
         flat counterfactual compression pass (only GranularitySwitchPolicy
@@ -465,7 +460,7 @@ class Engine:
 
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         """This data rank's rows -> the global batch's rows, on every rank
-        of the data group (a decode loop's next tokens)."""
+        of the dp group (a decode loop's next tokens)."""
         if self.dp_size == 1:
             return x
         g = _gather_ranks(x.contiguous(), self.group)
@@ -605,7 +600,7 @@ class TrainStep:
         return lsum * inv, tree_unflatten(paths, grads)
 
     def aggregate(self, grads, step):
-        """The gradient tree aggregated over the data group."""
+        """The gradient tree aggregated over the dp group."""
         self.engine.bind()
         return self.engine._aggregate_grads(grads, self.key(step), self.comp,
                                             schedule=self.schedule,
@@ -625,12 +620,12 @@ class TrainStep:
                 ok = ok & torch.isfinite(leaf).all()
             ok = ok.to(torch.int32)
             if eng.tp_size > 1:
-                ok = _group_values(ok, eng.model_group).min()
-            finite = bool(_group_values(ok, eng.group).min() > 0)
+                ok = C.gather_metrics(ok, eng.model_group).min()
+            finite = bool(C.gather_metrics(ok, eng.group).min() > 0)
         if finite:
             params, opt_state = apply_updates(eng.opt, params, agg,
                                               opt_state, lr)
-        losses = _group_values(loss.to(torch.float32), eng.group)
+        losses = C.gather_metrics(loss.to(torch.float32), eng.group)
         mean = losses[0]
         for i in range(1, losses.shape[0]):
             mean = mean + losses[i]

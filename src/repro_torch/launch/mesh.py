@@ -24,16 +24,22 @@ function) and return picklable host data (numbers, numpy arrays).
 
 A `Mesh` is the reference's mesh as a small object: its axis names, its
 shape, and this rank's process group and index along each axis, over the
-group run_ranks opened. `make_host_mesh(data, model)` / `make_mesh(shape,
-axes)` build one with jax.make_mesh's row-major layout, the last axis the
-fastest: on a (data, model) mesh rank = d * model + m, so the model group
-of rank r is the ranks d * model + 0 .. model - 1 and its data group the
-ranks m, model + m, 2 model + m, .... Every rank creates every group
-(torch.distributed.new_group is collective) and keeps its own; the mesh
-binds its axes for the model code (models.dist.bind_axes). A mesh built
-where no process group is open describes shapes only (an Engine's plans,
-batch shapes, memory estimate); its collectives need the group. The pod
-axis is the production mesh's (ROADMAP Queue 1 item 9).
+group run_ranks opened. `make_host_mesh(data, model, pod=)` /
+`make_mesh(shape, axes)` build one with jax.make_mesh's row-major layout,
+the last axis the fastest: on a (data, model) mesh rank = d * model + m,
+so the model group of rank r is the ranks d * model + 0 .. model - 1 and
+its data group the ranks m, model + m, 2 model + m, .... A (pod, data,
+model) mesh (rank = (p * data + d) * model + m) also gets the flattened
+("pod", "data") group: the ranks of one model index in pod-major order,
+XLA's device order, in which the reference's psum over ("pod", "data")
+sums; this rank's index there is p * data + d. Every rank creates every
+group (torch.distributed.new_group is collective) and keeps its own; the
+mesh binds its axes for the model code (models.dist.bind_axes). A mesh
+built where no process group is open describes shapes only (an Engine's
+plans, batch shapes, memory estimate); its collectives need the group.
+`make_production_mesh(multi_pod=)` is the reference's 16 x 16 (x 2 pods)
+mesh: shapes only, or over a process group of 256 (512) ranks (the dry
+run opens one on PyTorch's fake backend, launch/dryrun.py).
 """
 from __future__ import annotations
 
@@ -50,10 +56,9 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from repro_torch.core.wire import not_ported
-
 BACKENDS = ("gloo", "nccl")
-ITEM_9 = "item 9 (the pod axis and the production mesh)"
+#: the data-parallel axes of a pod mesh, reduced over as one group
+POD_DP = ("pod", "data")
 
 
 def _rank_device(backend: str, device: str, rank: int) -> torch.device:
@@ -165,24 +170,49 @@ class Mesh:
     def size(self) -> int:
         return math.prod(self.shape)
 
-    def group(self, axis: str):
+    def group(self, axis):
+        """The process group of an axis, or of a tuple of axes (the
+        flattened ("pod", "data") group; one axis of a tuple that names a
+        single one)."""
+        if isinstance(axis, tuple) and len(axis) == 1:
+            axis = axis[0]
         return self.groups.get(axis)
 
-    def axis_index(self, axis: str) -> int:
-        """This rank's index along `axis`: the recorded one, else its rank
-        in the axis' group (the default group's for a whole-world axis)."""
+    def axis_size(self, axis) -> int:
+        """The ranks along an axis or a tuple of axes (their product)."""
+        sizes = dict(zip(self.axis_names, self.shape))
+        names = axis if isinstance(axis, tuple) else (axis,)
+        return math.prod(sizes.get(a, 1) for a in names)
+
+    def axis_index(self, axis) -> int:
+        """This rank's index along an axis (or a tuple of axes, pod-major):
+        the recorded one, else its rank in the axis' group (the default
+        group's for a whole-world axis)."""
+        if isinstance(axis, tuple) and len(axis) == 1:
+            axis = axis[0]
         if axis in self.index:
             return self.index[axis]
-        n = dict(zip(self.axis_names, self.shape)).get(axis, 1)
+        if isinstance(axis, tuple):
+            sizes = dict(zip(self.axis_names, self.shape))
+            i = 0
+            for a in axis:
+                i = i * sizes.get(a, 1) + self.axis_index(a)
+            return i
+        n = self.axis_size(axis)
         if n == 1 or not (dist.is_available() and dist.is_initialized()):
             return 0
         return dist.get_rank(self.groups.get(axis))
 
     def bind(self) -> None:
-        """Bind this mesh's axes for the model code (models.dist)."""
+        """Bind this mesh's axes for the model code (models.dist), and on a
+        pod mesh the flattened ("pod", "data") axis."""
         from repro_torch.models.dist import Axis, bind_axes
-        bind_axes({a: Axis(self.groups.get(a), n, self.axis_index(a))
-                   for a, n in zip(self.axis_names, self.shape)})
+        axes = {a: Axis(self.groups.get(a), n, self.axis_index(a))
+                for a, n in zip(self.axis_names, self.shape)}
+        if "pod" in self.axis_names:
+            axes[POD_DP] = Axis(self.group(POD_DP), self.axis_size(POD_DP),
+                                self.axis_index(POD_DP))
+        bind_axes(axes)
 
 
 def _axis_groups(shape: Tuple[int, ...], rank: int):
@@ -215,11 +245,30 @@ def _axis_groups(shape: Tuple[int, ...], rank: int):
     return groups, index
 
 
+def _flat_group(shape: Tuple[int, ...], rank: int):
+    """On a (pod, data, model) mesh, this rank's group of the flattened
+    (pod, data) axis: for each model index m the ranks (p * data + d) *
+    model + m in pod-major order, the default group where model is 1.
+    Every rank creates every group, in the same order."""
+    pod, data, model = shape
+    if model == 1:
+        return None
+    mine = None
+    for m in range(model):
+        ranks = [(p * data + d) * model + m for p in range(pod)
+                 for d in range(data)]
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            mine = g
+    return mine
+
+
 def make_mesh(shape, axes) -> Mesh:
-    """A mesh of the given shape over axes from ("data", "model"), row-major
-    over the ranks of the open process group (rank = d * model + m), with
-    one process group per axis, bound for the model code. Without a
-    process group it describes shapes only."""
+    """A mesh of the given shape over axes from ("pod", "data", "model"),
+    row-major over the ranks of the open process group (rank = d * model +
+    m; (p * data + d) * model + m with a pod axis), with one process group
+    per axis (and the flattened ("pod", "data") one), bound for the model
+    code. Without a process group it describes shapes only."""
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} and axes {axes} differ in "
@@ -229,16 +278,21 @@ def make_mesh(shape, axes) -> Mesh:
     if unknown:
         raise ValueError(f"mesh axes {sorted(unknown)}: the engine knows "
                          f"pod, data and model")
-    if "pod" in sizes:
-        raise not_ported("a pod axis (multi-pod meshes)", ITEM_9)
+    if "pod" in sizes and axes != ("pod", "data", "model"):
+        raise ValueError(f"a pod mesh's axes are ('pod', 'data', 'model'), "
+                         f"got {axes}")
     if not (dist.is_available() and dist.is_initialized()):
         return Mesh(axes, shape, {a: None for a in axes})
     if dist.get_world_size() != math.prod(shape):
         raise ValueError(f"mesh {sizes} needs {math.prod(shape)} ranks, the "
                          f"process group has {dist.get_world_size()}")
     groups, index = _axis_groups(shape, dist.get_rank())
-    mesh = Mesh(axes, shape, {a: groups[i] for i, a in enumerate(axes)},
-                {a: index[i] for i, a in enumerate(axes)})
+    groups = {a: groups[i] for i, a in enumerate(axes)}
+    index = {a: index[i] for i, a in enumerate(axes)}
+    if "pod" in sizes:
+        groups[POD_DP] = _flat_group(shape, dist.get_rank())
+        index[POD_DP] = index["pod"] * sizes["data"] + index["data"]
+    mesh = Mesh(axes, shape, groups, index)
     mesh.bind()
     return mesh
 
@@ -247,16 +301,19 @@ def make_host_mesh(data: int = 1, model: int = 1,
                    pod: Optional[int] = None) -> Mesh:
     """The reference's small test mesh: (data, model) over the ranks
     run_ranks started (the reference's host CPU devices), rank =
-    d * model + m."""
+    d * model + m; with `pod`, (pod, data, model)."""
     if pod:
         return make_mesh((pod, data, model), ("pod", "data", "model"))
     return make_mesh((data, model), ("data", "model"))
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The reference's 16 x 16 (x 2 pods) TPU mesh, for its dry run."""
-    raise not_ported("the production TPU mesh (the dry run's)",
-                     "item 9 (launch/dryrun.py)")
+    """The reference's production mesh: 16 x 16 = 256 ranks a pod, 2 x 16
+    x 16 = 512 across two pods. Shapes only without a process group; over
+    one of 256 (512) ranks, its groups (the dry run's fake group)."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_mesh((16, 16), ("data", "model"))
 
 
 def axis_sizes(mesh: Mesh) -> dict:

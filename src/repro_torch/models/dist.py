@@ -76,27 +76,29 @@ class Axis:
 _AXES: Dict[str, Axis] = {}
 
 
-def bind_axes(axes: Dict[str, Axis]) -> None:
-    """Bind mesh axis names to this rank's process groups (replaces every
-    earlier binding)."""
+def bind_axes(axes: Dict[object, Axis]) -> None:
+    """Bind mesh axis names (and tuples of names: a flattened group such
+    as the pod mesh's ("pod", "data")) to this rank's process groups
+    (replaces every earlier binding)."""
     _AXES.clear()
     _AXES.update(axes)
 
 
 def _axis(axis) -> Optional[Axis]:
     """The bound Axis of a name or a tuple of names, or None when it spans
-    one rank. Of a tuple, at most one axis may span more than one rank
-    (the reference's multi-axis psum over ("pod", "data") is the pod
-    mesh, ROADMAP Queue 1 item 9)."""
+    one rank. A tuple whose axes span more than one rank each resolves to
+    its flattened group, bound under the tuple of those names (the
+    reference's psum over ("pod", "data"), in pod-major rank order)."""
     if axis is None:
         return None
-    names = axis if isinstance(axis, (tuple, list)) else (axis,)
-    real = [_AXES[a] for a in names if a in _AXES and _AXES[a].size > 1]
+    names = tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+    real = tuple(a for a in names if a in _AXES and _AXES[a].size > 1)
     if len(real) > 1:
-        raise NotImplementedError(
-            f"a reduction over several mesh axes {tuple(names)} is not "
-            f"ported yet (ROADMAP.md Queue 1, item 9 (the pod axis))")
-    return real[0] if real else None
+        if real not in _AXES:
+            raise ValueError(f"a reduction over mesh axes {real} needs their "
+                             f"flattened group; the bound mesh has none")
+        return _AXES[real]
+    return _AXES[real[0]] if real else None
 
 
 def axis_size(axis) -> int:
@@ -113,7 +115,7 @@ def axis_index(axis) -> int:
 # ---- the collectives, forward only -------------------------------------------
 
 def _psum(x: torch.Tensor, a: Axis) -> torch.Tensor:
-    return C.rank_sum(C.all_gather(x, a.group))
+    return C.all_reduce(x, a.group)
 
 
 def _gather(x: torch.Tensor, a: Axis, dim: int) -> torch.Tensor:
@@ -138,7 +140,7 @@ def pmax(x, axis):
     a = _axis(axis)
     if a is None:
         return x
-    return C.all_gather(x, a.group).amax(dim=0)
+    return C.all_reduce(x, a.group, lambda g: g.amax(dim=0))
 
 
 # ---- autograd Functions ------------------------------------------------------
@@ -342,7 +344,10 @@ def _hook_compress(g: torch.Tensor, key_bits: torch.Tensor, cfg,
     from repro_torch.random import fold_in
     if cfg is None or cfg.strategy in ("dense",):
         return g
-    key = bits_to_key(key_bits.cpu())
+    # a dry run's key bits are meta tensors (no values to read): any key
+    # gives the same shapes
+    key = (bits_to_key(key_bits.cpu()) if not key_bits.is_meta
+           else torch.zeros((2,), dtype=torch.int64))
     for ax in dist.dp:
         key = fold_in(key, axis_index(ax))
     flat = g.reshape(1, -1).to(torch.float32)

@@ -342,13 +342,16 @@ def test_compress_wrappers_route_cpu_tensors_to_plain_versions():
 
 
 def test_compress_wrappers_reject_a_device_without_a_kernel():
+    """Any device but the card (a kernel), the CPU (the plain version) and
+    meta (the dry run's shape function) raises; this CPU build makes
+    tensors on no other device, so the wrappers see XPU stand-ins."""
+    import types
     from repro_torch.kernels.qsgd import qsgd_compress_rows
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.kernels.terngrad import terngrad_compress_rows
     from repro_torch.kernels.topk_mask import topk_mask
-    x = torch.zeros((2, 512), device="meta")
-    s = torch.zeros((2,), device="meta")
-    k = torch.zeros((2,), dtype=torch.int32, device="meta")
+    x = s = k = types.SimpleNamespace(device=torch.device("xpu"),
+                                      shape=(2, 512), dim=lambda: 2)
     calls = [lambda: qsgd_compress_rows(x, k, k, s, 512, 16),
              lambda: terngrad_compress_rows(x, k, k, s, 512),
              lambda: topk_mask(x, 5), lambda: rmsnorm(x, s)]

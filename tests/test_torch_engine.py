@@ -862,8 +862,13 @@ def test_comm_plans_are_one_object_for_the_step_and_its_callers():
 
 
 def test_unported_paths_raise_with_their_queue_item(monkeypatch):
-    """What the port leaves out names its ROADMAP item: a pod axis and the
-    production mesh (9). The recorder and metrics (item 6) are ported:
+    """Nothing of the engine is left out now. The pod axis and the
+    production mesh (item 9) build: a (pod, data, model) host mesh, the
+    16 x 16 and 2 x 16 x 16 production meshes (shapes only without a
+    process group) and an Engine on a pod mesh with the reference's dp
+    axes ("pod", "data") and FSDP on "data" (they run in
+    tests/test_torch_pod.py and the dry run's tests/test_torch_dryrun.py).
+    The recorder and metrics (item 6) are ported:
     build_train_step(tracer=, metrics=) builds a step that carries the
     tracer, with the reference's build counter and static gauges from
     the engine's plan (engine.py:450-475), engine_controller threads both
@@ -880,19 +885,25 @@ def test_unported_paths_raise_with_their_queue_item(monkeypatch):
     from repro_torch.launch import mesh as M
     from repro_torch.launch import train
     from repro_torch.launch.engine import Engine
-    item = lambda s: pytest.raises(NotImplementedError,
-                                   match=rf"Queue 1, item {s} \(")
+    from repro_torch.models import InputShape
     assert M.axis_sizes(M.make_host_mesh(data=1, model=2)) == {
         "data": 1, "model": 2}
-    with item("9"):
-        M.make_host_mesh(data=2, pod=2)
+    pod = M.make_host_mesh(data=2, pod=2)
+    assert M.axis_sizes(pod) == {"pod": 2, "data": 2, "model": 1}
+    pe = Engine(dataclasses.replace(get_smoke("llama3-405b"), use_fsdp=True),
+                pod, device="cpu")
+    assert pe.dist.dp == ("pod", "data") and pe.dist.fsdp == "data"
+    assert pe.dp_size == 4 and pe.memory_estimate(
+        InputShape("train", 16, 8, "train"))["total"] > 0
     fs = Engine(dataclasses.replace(get_smoke("llama3-405b"), use_fsdp=True),
                 M.make_host_mesh(data=2, model=2), device="cpu")
     assert fs.dist.fsdp == "data" and fs.dist.tp == "model" and fs.dist.sp
     mask = fs.model.fsdp_mask()
     assert mask["blocks"]["wq"] and not mask["final_norm_g"]
-    with item("9"):
-        M.make_production_mesh()
+    assert M.axis_sizes(M.make_production_mesh()) == {"data": 16,
+                                                      "model": 16}
+    assert M.axis_sizes(M.make_production_mesh(multi_pod=True)) == {
+        "pod": 2, "data": 16, "model": 16}
     eng = Engine(get_smoke("llama3-405b"), M.make_host_mesh(data=2),
                  device="cpu")
     step = eng.build_train_step(telemetry=True)

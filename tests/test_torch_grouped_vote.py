@@ -409,9 +409,14 @@ def test_grouped_vote_route_cpu_and_keep_empty_buckets():
 
 
 def test_grouped_vote_refuses_a_device_without_a_kernel():
+    """Any device but the card, the CPU and meta (the dry run's shape
+    function) raises: XPU stand-ins, as this CPU build makes tensors on no
+    other device."""
+    import types
     from repro_torch.kernels.pack import bits_pack_buckets
     from repro_torch.kernels.sign import majority_buckets
-    w = torch.zeros((2, 4), dtype=torch.int32, device="meta")
+    w = types.SimpleNamespace(device=torch.device("xpu"), shape=(2, 4),
+                              dim=lambda: 2)
     for call in (lambda: bits_pack_buckets([w, w]),
                  lambda: majority_buckets([w, w])):
         with pytest.raises(ValueError, match="no kernel"):

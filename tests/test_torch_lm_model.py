@@ -462,7 +462,10 @@ def test_params_from_jax_bf16_bitwise():
 def test_unported_paths_name_their_queue_item(tmp_path):
     """The sharded configs construct (tensor, FSDP and sequence
     parallelism run in tests/test_torch_tp.py and test_torch_fsdp.py, the
-    serve CLI across ranks in test_torch_tp.py); an fsdp axis outside the
+    serve CLI across ranks in test_torch_tp.py), the pod mesh's dp axes
+    ("pod", "data") too; a reduction over both resolves to their
+    flattened group where a mesh bound one (tests/test_torch_pod.py runs
+    it) and is a ValueError where none is bound; an fsdp axis outside the
     dp axes is the reference's ValueError; serve's trace and metrics
     outputs (item 6, ported) write the reference's structure: one prefill
     span and gen - 1 decode spans, gen - 1 serve/decode_us samples
@@ -472,8 +475,17 @@ def test_unported_paths_name_their_queue_item(tmp_path):
     from repro_torch.obs import read_jsonl, validate_chrome_trace
     from repro_torch.models import DistConfig
     for kw in ({"tp": "model"}, {"fsdp": "data", "dp": ("data",)},
-               {"sp": True}):
+               {"sp": True}, {"fsdp": "data", "dp": ("pod", "data")}):
         assert all(getattr(DistConfig(**kw), k) == v for k, v in kw.items())
+    from repro_torch.models import dist as D
+    pod = {"pod": D.Axis(None, 2, 1), "data": D.Axis(None, 2, 0)}
+    D.bind_axes({**pod, ("pod", "data"): D.Axis(None, 4, 2)})
+    assert (D.axis_size(("pod", "data")), D.axis_index(("pod", "data")),
+            D.axis_index("data")) == (4, 2, 0)
+    D.bind_axes(pod)
+    with pytest.raises(ValueError, match="flattened group"):
+        D.axis_size(("pod", "data"))
+    D.bind_axes({})
     with pytest.raises(ValueError, match="last dp axis"):
         DistConfig(fsdp="data")
     base = ["--arch", "phi4-mini-3.8b", "--smoke", "--device", "cpu",

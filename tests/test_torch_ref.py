@@ -135,22 +135,30 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
 
 
 def test_wrapper_rejects_a_device_without_a_kernel():
+    """A wrapper launches on CUDA, takes the plain version on the CPU and
+    its shape function on meta (a dry run; tests/test_torch_dryrun.py
+    holds its shapes); any other device raises before anything runs. This
+    CPU build makes tensors on no other device, so stand-ins carrying an
+    XPU device are what the wrappers see."""
+    import types
     from repro_torch.kernels.pack import (bits_pack, bits_unpack,
                                           fields_pack, fields_unpack)
     from repro_torch.kernels.qsgd import qsgd_pack
     from repro_torch.kernels.sign import majority, sign_pack, sign_unpack
-    x = torch.zeros((1, 4), device="meta")
-    k = torch.zeros((1,), dtype=torch.int32, device="meta")
-    w = torch.zeros((1, 4), dtype=torch.int32, device="meta")
-    calls = [lambda: qsgd_pack(x, k, k, torch.ones((1,), device="meta"),
-                               16, 6),
+    x = k = w = types.SimpleNamespace(device=torch.device("xpu"),
+                                      shape=(1, 4), dim=lambda: 2)
+    calls = [lambda: qsgd_pack(x, k, k, x, 16, 6),
              lambda: sign_pack(x), lambda: sign_unpack(w, 4),
              lambda: fields_pack(w, 9), lambda: fields_unpack(w, 4, 9),
              lambda: bits_pack(w), lambda: bits_unpack(w, 4),
              lambda: majority(w)]
     for call in calls:
-        with pytest.raises(ValueError, match="no kernel"):
+        with pytest.raises(ValueError, match="no kernel for device xpu"):
             call()
+    launched = bits_pack.launches
+    words = bits_pack(torch.zeros((1, 4), dtype=torch.int32, device="meta"))
+    assert words.is_meta and words.shape == (1, 1)
+    assert bits_pack.launches == launched
 
 
 # ---- PRNG against jax.random -------------------------------------------------

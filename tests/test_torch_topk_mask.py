@@ -15,6 +15,7 @@ multiply by the 0/1 mask into a select: a dropped entry is +0.0, also
 where x is -0.0 or negative.
 """
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -200,8 +201,11 @@ def test_topk_mask_flat_checks_inputs_and_counts_no_cpu_launch():
     for k in (2**31, -2**31 - 1, 5.0, None):
         with pytest.raises(ValueError, match="int32"):
             K.flat_output(x, k)
+    # meta takes the shape function (the dry run); a device with no kernel
+    # raises (an XPU stand-in: this CPU build has no other device)
     with pytest.raises(ValueError, match="no kernel"):
-        K.topk_mask_flat(torch.ones(4, device="meta"), 1)
+        K.topk_mask_flat(types.SimpleNamespace(device=torch.device("xpu")),
+                         1)
     kernels.reset_launch_counts()
     for dtype in (torch.float32, torch.bfloat16):
         y = K.topk_mask_flat(torch.arange(600.0).to(dtype), 2)
